@@ -1,0 +1,103 @@
+"""Paged-KV block allocator (reference inference/v2/ragged/blocked_allocator.py).
+
+Free-list allocator over a fixed pool of KV blocks; the reference implements
+this as a linked list in a torch tensor — host-side Python is equally fast
+at this scale and keeps the device program pure.
+
+Blocks carry a reference count so the prefix cache (``manager.py``) can
+share one immutable KV block between many sequences: ``allocate`` hands out
+blocks at refcount 1, ``share`` adds a reference, ``release`` drops one and
+returns the block to the free list only when the count reaches zero.
+``free`` is the historical name for ``release`` and keeps the old
+double-free ``ValueError``; the allocated-set (the refcount dict) makes
+that check O(1) per block instead of a rebuild of the whole free list.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, List, Sequence
+
+
+class BlockedAllocator:
+    def __init__(self, num_blocks: int, bytes_per_block: int = 0):
+        if num_blocks < 1:
+            raise ValueError(f"need at least one block, got {num_blocks}")
+        self._num_blocks = num_blocks
+        self._free: List[int] = list(range(num_blocks))
+        self._refs: Dict[int, int] = {}      # allocated block -> refcount
+        # HBM bytes one block costs across layers (K+V slabs + scale
+        # entries under kv_quant — inference/v2/kv_quant.py); 0 = unknown.
+        # Lets occupancy() speak bytes, the unit admission budgets and
+        # dashboards actually care about.
+        self.bytes_per_block = int(bytes_per_block)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def total_blocks(self) -> int:
+        return self._num_blocks
+
+    def occupancy(self) -> Dict[str, int]:
+        """One consistent snapshot of pool occupancy — the single home
+        for the counts admission control, the prefix cache, serving
+        metrics (``kv_blocks_in_use``/``kv_bytes_in_use`` gauges) and the
+        bench phases previously derived ad hoc."""
+        in_use = self._num_blocks - len(self._free)
+        bpb = self.bytes_per_block
+        return {"total_blocks": self._num_blocks,
+                "free_blocks": len(self._free),
+                "in_use_blocks": in_use,
+                "bytes_per_block": bpb,
+                "bytes_in_use": in_use * bpb,
+                "bytes_total": self._num_blocks * bpb}
+
+    def ref_count(self, block: int) -> int:
+        """Current refcount (0 for free/unknown blocks)."""
+        return self._refs.get(block, 0)
+
+    def is_shared(self, block: int) -> bool:
+        """More than one holder (prefix cache and/or other sequences) —
+        the owner must not mutate the block's KV in place."""
+        return self._refs.get(block, 0) > 1
+
+    def allocate(self, num_blocks: int) -> List[int]:
+        if num_blocks > len(self._free):
+            raise ValueError(
+                f"cannot allocate {num_blocks} blocks ({len(self._free)} free)")
+        out, self._free = self._free[:num_blocks], self._free[num_blocks:]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def share(self, blocks: Sequence[int]) -> None:
+        """Add one reference to each (already-allocated) block."""
+        for b in blocks:
+            if b not in self._refs:
+                raise ValueError(f"cannot share unallocated block {b}")
+        for b in blocks:
+            self._refs[b] += 1
+
+    def release(self, blocks: Sequence[int]) -> List[int]:
+        """Drop one reference per block; blocks reaching refcount 0 go back
+        to the free list. Returns the blocks actually freed. Validates the
+        whole call before mutating, so an invalid/double release leaves the
+        allocator untouched."""
+        counts = Counter(blocks)
+        for b, n in counts.items():
+            if b < 0 or b >= self._num_blocks or n > self._refs.get(b, 0):
+                raise ValueError(f"invalid or double free of block {b}")
+        freed: List[int] = []
+        for b in blocks:
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                del self._refs[b]
+                freed.append(b)
+        self._free.extend(freed)
+        return freed
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Historical single-owner API: identical to :meth:`release`."""
+        self.release(blocks)

@@ -1,0 +1,91 @@
+"""Ragged batch descriptor: host-side assembly of the padded device batch.
+
+Counterpart of reference ``inference/v2/ragged/ragged_wrapper.py``
+(``RaggedBatchWrapper`` :267 — token concatenation + inflight descriptors
+uploaded via the pinned fast_host_buffer). A copy of the JAX package's
+numpy module: the wrapper pads to (max_seqs, max_chunk) and carries per-seq
+metadata arrays; masks in the forward do the ragged part, and the
+power-of-two buckets keep the number of distinct batch shapes small. One
+wrapper instance is reused across steps (buffers re-filled, no allocation
+per step).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+
+class RaggedBatchWrapper:
+    def __init__(self, max_seqs: int, max_chunk: int, max_blocks_per_seq: int):
+        self.max_seqs = max_seqs
+        self.max_chunk = max_chunk
+        self.max_blocks_per_seq = max_blocks_per_seq
+        self.clear()
+
+    def clear(self):
+        ms, mc, mb = self.max_seqs, self.max_chunk, self.max_blocks_per_seq
+        self.tokens = np.zeros((ms, mc), np.int32)
+        self.start_pos = np.zeros((ms,), np.int32)     # tokens already cached
+        self.n_tokens = np.zeros((ms,), np.int32)      # new tokens this step
+        self.block_tables = np.full((ms, mb), -1, np.int32)
+        self.uids: List[int] = []
+
+    @property
+    def current_sequences(self) -> int:
+        return len(self.uids)
+
+    @property
+    def current_tokens(self) -> int:
+        return int(self.n_tokens.sum())
+
+    def insert_sequence(self, uid: int, tokens: Sequence[int], start_pos: int,
+                        kv_blocks: Sequence[int]) -> int:
+        """Add one sequence's chunk; returns its row index."""
+        i = len(self.uids)
+        if i >= self.max_seqs:
+            raise ValueError("ragged batch full (max_seqs)")
+        n = len(tokens)
+        if n > self.max_chunk:
+            raise ValueError(f"chunk {n} > max_chunk {self.max_chunk}")
+        if len(kv_blocks) > self.max_blocks_per_seq:
+            raise ValueError("sequence exceeds max_blocks_per_seq")
+        self.tokens[i, :n] = np.asarray(tokens, np.int32)
+        self.start_pos[i] = start_pos
+        self.n_tokens[i] = n
+        self.block_tables[i, :len(kv_blocks)] = np.asarray(kv_blocks, np.int32)
+        self.uids.append(uid)
+        return i
+
+    @staticmethod
+    def _bucket(n: int, cap: int) -> int:
+        """Smallest power of two >= n, capped. Bounds the number of compiled
+        program variants to O(log² cap) while letting a decode step run a
+        [S, 1] batch instead of the full [max_seqs, max_chunk] pad."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, cap)
+
+    def finalize(self, bucketed: bool = True) -> Dict[str, np.ndarray]:
+        """Device-ready arrays (the reference's pinned-buffer upload).
+
+        With ``bucketed`` (default), the batch is trimmed to
+        (bucket(num_seqs), bucket(max chunk width)) — rows beyond the real
+        sequences carry n_tokens=0 / table=-1 and are fully masked."""
+        if not bucketed:
+            return {
+                "tokens": self.tokens,
+                "start_pos": self.start_pos,
+                "n_tokens": self.n_tokens,
+                "block_tables": self.block_tables,
+            }
+        S = self._bucket(max(len(self.uids), 1), self.max_seqs)
+        C = self._bucket(max(int(self.n_tokens.max()), 1), self.max_chunk)
+        return {
+            "tokens": self.tokens[:S, :C],
+            "start_pos": self.start_pos[:S],
+            "n_tokens": self.n_tokens[:S],
+            "block_tables": self.block_tables[:S],
+        }

@@ -1,0 +1,443 @@
+"""Causal transformer LM on PyTorch (GPT-2 / Llama / Mistral families).
+
+Counterpart of ``deepspeed_tpu/models/transformer.py``. The config and the
+param tree are the JAX package's, leaf for leaf: every ``params["layers"]``
+leaf is stacked ``[L, ...]`` and linear weights are ``[in, out]`` used as
+``x @ w``, so one set of weights converts one to one
+(``models/weights.py``). The primitives are plain functions on tensors;
+``CausalLM`` holds the config and the pieces the paged serving forward
+(``inference/v2/paged_model.py``) is built from. ``lax.scan`` over layers
+becomes a Python loop that hands each layer its static window.
+
+``CausalLM.apply`` (training and v1 prefill) waits for the flash-attention
+slice: on the card it must run through a ported ``_fwd_kernel``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import not_ported, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None   # GQA; None => MHA
+    max_seq_len: int = 1024
+    # one global window (int) or a per-layer tuple (None/0 = full attention)
+    sliding_window: Optional[Any] = None
+    norm: str = "layernorm"              # "layernorm" | "rmsnorm"
+    activation: str = "gelu"             # "gelu" | "gelu_exact" | "silu" | "relu"
+    position: str = "learned"            # "learned" | "rope" | "alibi"
+    rope_theta: float = 10000.0
+    rope_pct: float = 1.0                # partial rotary (GPT-NeoX rotary_pct)
+    rope_interleaved: bool = False       # GPT-J rotate_every_two pair layout
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-5
+    use_bias: bool = False
+    qkv_bias: bool = False
+    o_bias: Optional[bool] = None
+    attn_scale: Optional[float] = None   # softmax scale; None → 1/√head_dim
+    mlp_bias: Optional[bool] = None
+    lm_head_bias: bool = False
+    parallel_residual: bool = False
+    shared_layernorm: bool = False
+    embedding_layernorm: bool = False
+    dropout: float = 0.0
+    dtype: Any = torch.float32           # compute dtype
+    remat: bool = False
+    remat_policy: Optional[str] = None
+    use_flash_attention: bool = True
+    flash_block_q: int = 1024
+    flash_block_kv: int = 1024
+    attention_impl: str = "flash"
+    sparse_pattern: str = "fixed"
+    sparse_block: int = 64
+    sparse_num_local_blocks: int = 4
+    sparse_num_global_blocks: int = 1
+    sparse_num_random_blocks: int = 1
+    sparse_num_sliding_window_blocks: int = 3
+    pipeline_microbatches: int = 0
+    moe_num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_min_capacity: int = 4
+    moe_aux_loss_coef: float = 0.01
+    moe_dropless: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def resolved_o_bias(self) -> bool:
+        return self.use_bias if self.o_bias is None else self.o_bias
+
+    @property
+    def rot_dim(self) -> int:
+        """Rotary dims per head (even; < head_dim for partial rotary)."""
+        return int(self.head_dim * self.rope_pct) // 2 * 2
+
+    def layer_windows(self) -> Tuple[int, ...]:
+        """Per-layer sliding windows, length num_layers; 0 = full."""
+        sw = self.sliding_window
+        if sw is None or isinstance(sw, int):
+            return (int(sw or 0),) * self.num_layers
+        if len(sw) != self.num_layers:
+            raise ValueError(
+                f"sliding_window tuple has {len(sw)} entries for "
+                f"{self.num_layers} layers")
+        return tuple(int(w or 0) for w in sw)
+
+    def window_segments(self) -> Tuple[Tuple[int, int, int], ...]:
+        """Contiguous (start, length, window) runs of equal window."""
+        ws = self.layer_windows()
+        segs = []
+        start = 0
+        for i in range(1, len(ws) + 1):
+            if i == len(ws) or ws[i] != ws[start]:
+                segs.append((start, i - start, ws[start]))
+                start = i
+        return tuple(segs)
+
+    def num_params(self) -> int:
+        h, m, v, L = (self.hidden_size, self.intermediate_size,
+                      self.vocab_size, self.num_layers)
+        kvh = self.kv_heads * self.head_dim
+        attn = h * h + 2 * h * kvh + h * h
+        mlp = (3 if self.activation == "silu" else 2) * h * m
+        if self.moe_num_experts > 0:
+            mlp = mlp * self.moe_num_experts + h * self.moe_num_experts
+        norms = (2 if self.norm == "rmsnorm" else 4) * h
+        emb = v * h + (self.max_seq_len * h if self.position == "learned" else 0)
+        head = 0 if self.tie_embeddings else v * h
+        return L * (attn + mlp + norms) + emb + head + h
+
+
+# Registered configurations (sizes follow the public model cards).
+GPT2_125M = TransformerConfig()
+LLAMA2_7B = TransformerConfig(vocab_size=32000, hidden_size=4096,
+                              intermediate_size=11008, num_layers=32,
+                              num_heads=32, num_kv_heads=32, max_seq_len=4096,
+                              norm="rmsnorm", activation="silu",
+                              position="rope", tie_embeddings=False,
+                              norm_eps=1e-5, dtype=torch.bfloat16)
+LLAMA2_70B = TransformerConfig(vocab_size=32000, hidden_size=8192,
+                               intermediate_size=28672, num_layers=80,
+                               num_heads=64, num_kv_heads=8, max_seq_len=4096,
+                               norm="rmsnorm", activation="silu",
+                               position="rope", tie_embeddings=False,
+                               dtype=torch.bfloat16)
+MISTRAL_7B = TransformerConfig(vocab_size=32000, hidden_size=4096,
+                               intermediate_size=14336, num_layers=32,
+                               num_heads=32, num_kv_heads=8, max_seq_len=8192,
+                               norm="rmsnorm", activation="silu",
+                               position="rope", tie_embeddings=False,
+                               rope_theta=10000.0, sliding_window=4096,
+                               dtype=torch.bfloat16)
+QWEN2_7B = TransformerConfig(vocab_size=152064, hidden_size=3584,
+                             intermediate_size=18944, num_layers=28,
+                             num_heads=28, num_kv_heads=4, max_seq_len=32768,
+                             norm="rmsnorm", activation="silu",
+                             position="rope", rope_theta=1e6,
+                             tie_embeddings=False, qkv_bias=True,
+                             norm_eps=1e-6, dtype=torch.bfloat16)
+OPT_1B3 = TransformerConfig(vocab_size=50272, hidden_size=2048,
+                            intermediate_size=8192, num_layers=24,
+                            num_heads=32, max_seq_len=2048,
+                            norm="layernorm", activation="relu",
+                            position="learned", tie_embeddings=True,
+                            use_bias=True, dtype=torch.bfloat16)
+GPTJ_6B = TransformerConfig(vocab_size=50400, hidden_size=4096,
+                            intermediate_size=16384, num_layers=28,
+                            num_heads=16, max_seq_len=2048,
+                            norm="layernorm", activation="gelu",
+                            position="rope", rope_pct=0.25,
+                            rope_interleaved=True, parallel_residual=True,
+                            shared_layernorm=True, tie_embeddings=False,
+                            mlp_bias=True, lm_head_bias=True,
+                            dtype=torch.bfloat16)
+PHI_2 = TransformerConfig(vocab_size=51200, hidden_size=2560,
+                          intermediate_size=10240, num_layers=32,
+                          num_heads=32, max_seq_len=2048,
+                          norm="layernorm", activation="gelu",
+                          position="rope", rope_pct=0.4,
+                          parallel_residual=True, shared_layernorm=True,
+                          tie_embeddings=False, use_bias=True,
+                          mlp_bias=True, lm_head_bias=True,
+                          dtype=torch.bfloat16)
+PYTHIA_1B4 = TransformerConfig(vocab_size=50304, hidden_size=2048,
+                               intermediate_size=8192, num_layers=24,
+                               num_heads=16, max_seq_len=2048,
+                               norm="layernorm", activation="gelu_exact",
+                               position="rope", rope_pct=0.25,
+                               parallel_residual=True, tie_embeddings=False,
+                               use_bias=True, dtype=torch.bfloat16)
+BLOOM_560M = TransformerConfig(vocab_size=250880, hidden_size=1024,
+                               intermediate_size=4096, num_layers=24,
+                               num_heads=16, max_seq_len=2048,
+                               norm="layernorm", activation="gelu",
+                               position="alibi", embedding_layernorm=True,
+                               tie_embeddings=True, use_bias=True,
+                               dtype=torch.bfloat16)
+FALCON_7B = TransformerConfig(vocab_size=65024, hidden_size=4544,
+                              intermediate_size=18176, num_layers=32,
+                              num_heads=71, num_kv_heads=1, max_seq_len=2048,
+                              norm="layernorm", activation="gelu_exact",
+                              position="rope", parallel_residual=True,
+                              tie_embeddings=True, dtype=torch.bfloat16)
+TINY_TEST = TransformerConfig(vocab_size=256, hidden_size=64,
+                              intermediate_size=128, num_layers=2,
+                              num_heads=4, num_kv_heads=2, max_seq_len=128,
+                              norm="rmsnorm", activation="silu",
+                              position="rope", tie_embeddings=True)
+
+
+# ------------------------------------------------------------------ primitives
+
+def _linear(x, w, b, dt):
+    """x @ w (+ b) in compute dtype; b may be None. Dense weights only."""
+    if isinstance(w, dict):
+        raise not_ported("quantized weights ({'qw', 'qs'} nodes)",
+                         "queue 1 item 7 / queue 2 item 2")
+    y = x @ w.to(dt)
+    return y if b is None else y + b.to(dt)
+
+
+def _norm(x, w, b, kind: str, eps: float):
+    dt = x.dtype
+    x32 = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps) * w.float()
+    else:
+        mu = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+    return y.to(dt)
+
+
+def rope_table(max_len: int, head_dim: int, theta: float,
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [max_len, head_dim/2] in fp32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x, cos, sin, interleaved: bool = False):
+    """x: [B, T, H, D]; cos/sin: [T, R/2] or [B, T, R/2] (per-sequence
+    positions), R ≤ D (partial rotary leaves the trailing D−R dims as they
+    are). ``interleaved``: GPT-J's rotate_every_two pairs (0,1),(2,3),…
+    instead of the rotate_half (i, i+R/2) split."""
+    rot = cos.shape[-1] * 2
+    xr, x_pass = x[..., :rot], x[..., rot:]
+    if interleaved:
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    else:
+        x1, x2 = xr[..., :rot // 2], xr[..., rot // 2:]
+    if cos.dim() == 3:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    else:
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    if interleaved:
+        out = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    else:
+        out = torch.cat([r1, r2], dim=-1)
+    if x_pass.shape[-1]:
+        out = torch.cat([out.to(x_pass.dtype), x_pass], dim=-1)
+    return out.to(x.dtype)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes (Press et al.)."""
+    m = 2 ** math.floor(math.log2(num_heads))
+    base = [2.0 ** (-8.0 * (i + 1) / m) for i in range(m)]
+    if m < num_heads:
+        base += [2.0 ** (-4.0 * (2 * i + 1) / m)
+                 for i in range(num_heads - m)]
+    return torch.tensor(base, dtype=torch.float32, device=device)
+
+
+_ACTIVATIONS: Dict[str, Callable] = {
+    "relu": F.relu,
+    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+# ------------------------------------------------------------------- the model
+
+class CausalLM:
+    """Causal LM over a plain dict of stacked tensors.
+
+    Params layout (the JAX package's)::
+
+        {"embed": {"wte": [V,H], ("wpe": [P,H]), ("ln_w", "ln_b")},
+         "layers": {...stacked leaves, leading dim = num_layers...},
+         "final_norm": {"w": [H], ("b": [H])},
+         ("lm_head": {"w": [H,V], ("b": [V])})}
+    """
+
+    def __init__(self, cfg: TransformerConfig):
+        self.cfg = cfg
+
+    # -- init ---------------------------------------------------------------
+    def init(self, generator: Optional[torch.Generator] = None, device=None,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """Random weights with the layout of the JAX ``init`` (normal, std
+        0.02; the output projections 0.02/√(2L); norms at 1, biases at 0).
+        ``dtype`` is the storage type (default fp32, as the JAX package
+        keeps params); ``_linear`` casts to ``cfg.dtype`` either way, so
+        storing a bf16 model in bf16 halves its bytes. Each layer is drawn
+        on its own, so no fp32 copy of a whole stacked leaf is ever made.
+        ``generator`` must live on ``device``."""
+        cfg = self.cfg
+        if cfg.moe_num_experts > 0:
+            raise not_ported("MoE layers", "queue 1 item 14")
+        device = resolve_device(device)
+        dtype = dtype or torch.float32
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+        hd, nh, kvh, L = cfg.head_dim, cfg.num_heads, cfg.kv_heads, cfg.num_layers
+        std = 0.02
+
+        def normal(shape, scale=std):
+            out = torch.empty(shape, dtype=dtype, device=device)
+            rows = shape[0]
+            step = max(1, (1 << 26) // max(1, math.prod(shape[1:])))
+            for i in range(0, rows, step):
+                n = min(step, rows - i)
+                out[i:i + n] = (scale * torch.randn(
+                    (n,) + tuple(shape[1:]), generator=generator,
+                    device=device, dtype=torch.float32)).to(dtype)
+            return out
+
+        def layer_stack(shape, scale=std):
+            out = torch.empty((L,) + shape, dtype=dtype, device=device)
+            for i in range(L):
+                out[i] = normal(shape, scale)
+            return out
+
+        def const(shape, value):
+            return torch.full(shape, value, dtype=dtype, device=device)
+
+        layers = {
+            "attn_norm_w": const((L, h), 1.0),
+            "wq": layer_stack((h, nh * hd)),
+            "wk": layer_stack((h, kvh * hd)),
+            "wv": layer_stack((h, kvh * hd)),
+            "wo": layer_stack((nh * hd, h), scale=std / math.sqrt(2 * L)),
+        }
+        if not cfg.shared_layernorm:
+            layers["mlp_norm_w"] = const((L, h), 1.0)
+        layers["w_in"] = layer_stack((h, m))
+        layers["w_out"] = layer_stack((m, h), scale=std / math.sqrt(2 * L))
+        if cfg.activation == "silu":
+            layers["w_gate"] = layer_stack((h, m))
+        mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
+        if cfg.norm == "layernorm":
+            layers["attn_norm_b"] = const((L, h), 0.0)
+            if not cfg.shared_layernorm:
+                layers["mlp_norm_b"] = const((L, h), 0.0)
+        if cfg.use_bias or cfg.qkv_bias:
+            layers["wq_b"] = const((L, nh * hd), 0.0)
+            layers["wk_b"] = const((L, kvh * hd), 0.0)
+            layers["wv_b"] = const((L, kvh * hd), 0.0)
+        if cfg.resolved_o_bias:
+            layers["wo_b"] = const((L, h), 0.0)
+        if mlp_bias:
+            layers["w_in_b"] = const((L, m), 0.0)
+            layers["w_out_b"] = const((L, h), 0.0)
+            if cfg.activation == "silu":
+                layers["w_gate_b"] = const((L, m), 0.0)
+
+        params = {"embed": {"wte": normal((v, h))}, "layers": layers,
+                  "final_norm": {"w": const((h,), 1.0)}}
+        if cfg.position == "learned":
+            params["embed"]["wpe"] = normal((cfg.max_seq_len, h))
+        if cfg.embedding_layernorm:
+            params["embed"]["ln_w"] = const((h,), 1.0)
+            if cfg.norm == "layernorm":
+                params["embed"]["ln_b"] = const((h,), 0.0)
+        if cfg.norm == "layernorm":
+            params["final_norm"]["b"] = const((h,), 0.0)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": normal((h, v))}
+            if cfg.lm_head_bias:
+                params["lm_head"]["b"] = const((v,), 0.0)
+        return params
+
+    # -- forward ------------------------------------------------------------
+    def apply(self, params, tokens, **kwargs):
+        raise not_ported("CausalLM.apply (dense training/prefill forward; "
+                         "on the card it runs through a ported _fwd_kernel)",
+                         "queue 1 item 2 / queue 2 item 3, flash-attention "
+                         "slice")
+
+    def _mlp_body(self, h2, lp):
+        """Dense FFN on normed input (SwiGLU for silu; gelu is the tanh
+        approximation, gelu_exact the erf form)."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        if cfg.activation == "silu":
+            y = F.silu(_linear(h2, lp["w_gate"], lp.get("w_gate_b"), dt)) \
+                * _linear(h2, lp["w_in"], lp.get("w_in_b"), dt)
+        else:
+            act = _ACTIVATIONS.get(cfg.activation, _ACTIVATIONS["gelu"])
+            y = act(_linear(h2, lp["w_in"], lp.get("w_in_b"), dt))
+        return _linear(y, lp["w_out"], lp.get("w_out_b"), dt)
+
+    def _scan_layers(self, body_for_window: Callable, carry,
+                     layer_params: Dict[str, torch.Tensor]):
+        """The counterpart of ``lax.scan`` over the stacked layer dim: a loop
+        that hands layer ``i`` its params ``{k: v[i]}``, its index, and the
+        body built for its static window. Returns the final carry."""
+        for i, win in enumerate(self.cfg.layer_windows()):
+            lp = {k: v[i] for k, v in layer_params.items()}
+            carry = body_for_window(win)(carry, lp, i)
+        return carry
+
+    def _unembed(self, params, x):
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return x @ params["embed"]["wte"].t().to(cfg.dtype)
+        w = params["lm_head"]["w"]
+        if isinstance(w, dict):
+            raise not_ported("quantized lm_head", "queue 1 item 7")
+        y = x @ w.to(cfg.dtype)
+        if "b" in params.get("lm_head", {}):
+            y = y + params["lm_head"]["b"].to(cfg.dtype)
+        return y
+
+    def _attn_mlp_merge(self, x, attn_out, lp, h1=None):
+        """Residual wiring: sequential (mlp reads post-attention), parallel
+        (both branches read x), or shared-layernorm parallel (GPT-J: the
+        mlp reads the same normed h1 the attention read)."""
+        cfg = self.cfg
+        if cfg.shared_layernorm:
+            return x + attn_out + self._mlp_body(h1, lp)
+        mlp_in = x if cfg.parallel_residual else x + attn_out
+        h2 = _norm(mlp_in, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg.norm,
+                   cfg.norm_eps)
+        return x + attn_out + self._mlp_body(h2, lp)
+

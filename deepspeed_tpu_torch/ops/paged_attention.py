@@ -1,0 +1,212 @@
+"""Paged (block-table) attention — the FastGen serving hot op, on PyTorch.
+
+Counterpart of ``deepspeed_tpu/ops/paged_attention.py``:
+
+- ``paged_attention_torch`` is the plain PyTorch version, the counterpart of
+  ``paged_attention_xla`` (:236): gather the block table into a dense
+  context and mask it. Same masks (causal over the pool, context length,
+  ALiBi ``slope·kv_pos``, window) and the same dtypes (scores in fp32, p
+  cast back to q's dtype before the product with V).
+- ``_clamp_tables`` (:140) states which table blocks the kernel skips.
+- ``paged_attention`` dispatches on the tensor's device: a CPU tensor runs
+  the plain version; a CUDA tensor launches the hand-written kernel
+  ``csrc/paged_attention.cu`` (the counterpart of the Pallas
+  ``_paged_kernel``) or raises. There is no fallback between them.
+  ``force_reference`` (keyword, or the module hook ``FORCE_REFERENCE``)
+  pins the plain version on the card, for comparisons only.
+
+``launches`` counts the kernel's launches (a plain integer; set it to 0
+before a run and read it after).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+# Test-only hook: run the plain version on CUDA tensors too (a comparison
+# run pins it; serving never sets it).
+FORCE_REFERENCE = False
+launches = 0
+
+
+# ----------------------------------------------------------- plain version
+
+def _clamp_tables(block_tables, ctx_len, block_size, start_pos=None,
+                  window=0):
+    """Replace dead/unallocated table entries with the sequence's nearest
+    live block id — the statement of which blocks the kernel skips. Dead
+    entries are those past the context length and, with a sliding window,
+    those wholly before ``start_pos − window + 1``. Negative entries map to
+    block 0, as the JAX version's ``jnp.maximum(tbl, 0)``."""
+    N, MB = block_tables.shape
+    live_blocks = torch.clamp(-(-ctx_len // block_size), min=1)     # [N]
+    cols = torch.arange(MB, device=block_tables.device)[None, :]
+    last_live = torch.clamp(live_blocks - 1, 0, MB - 1)[:, None]
+    idx = torch.minimum(cols, last_live)
+    if window and start_pos is not None:
+        first_live = torch.clamp(
+            torch.div(start_pos - window + 1, block_size,
+                      rounding_mode="floor"), 0, MB - 1)[:, None]
+        idx = torch.maximum(idx, first_live)
+    tbl = torch.gather(block_tables, 1, idx.long())
+    return torch.clamp(tbl, min=0).to(torch.int32)
+
+
+def paged_attention_torch(q, k_pool, v_pool, block_tables, start_pos,
+                          n_tokens, alibi_slopes=None, window: int = 0,
+                          sm_scale=None):
+    """Dense-gather formulation: gather the table into [N, KH, MB·bs, D]
+    and mask (``paged_attention_xla``). Rows with ``ci >= n_tokens`` are
+    unspecified."""
+    N, C, H, D = q.shape
+    NB, KH, bs, _ = k_pool.shape
+    G = H // KH
+    MB = block_tables.shape[1]
+    sm_scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
+    dev = q.device
+
+    ctx_positions = torch.arange(MB * bs, device=dev)
+    tbl = torch.clamp(block_tables.long(), min=0)
+    # pool [NB, KH, bs, D] -> [N, MB, KH, bs, D] -> [N, KH, MB*bs, D]
+    k_ctx = k_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
+    v_ctx = v_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
+
+    qg = q.reshape(N, C, KH, G, D)
+    s = torch.einsum("nckgd,nksd->nkgcs", qg, k_ctx).float() * sm_scale
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=dev).reshape(KH, G)
+        s = s + (slopes[None, :, :, None, None]
+                 * ctx_positions[None, None, None, None, :].float())
+    start_pos = start_pos.long()
+    ctx_len = (start_pos + n_tokens.long())[:, None]
+    qpos = start_pos[:, None] + torch.arange(C, device=dev)[None, :]  # [N, C]
+    causal = (qpos[:, None, None, :, None]
+              >= ctx_positions[None, None, None, None, :])
+    valid = (ctx_positions[None, :] < ctx_len)[:, None, None, None, :]
+    keep = causal & valid
+    if window:
+        keep = keep & (qpos[:, None, None, :, None]
+                       - ctx_positions[None, None, None, None, :] < window)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("nkgcs,nksd->nckgd", p, v_ctx)
+    return o.reshape(N, C, H, D)
+
+
+# ------------------------------------------------------------------ kernel
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bind():
+    from . import _build
+
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
+                         n_tokens, alibi_slopes=None, window: int = 0,
+                         sm_scale=None):
+    """Launch ``csrc/paged_attention.cu`` on CUDA tensors; raises on
+    anything it does not take (no fallback)."""
+    global launches
+    N, C, H, D = q.shape
+    NB, KH, bs, Dk = k_pool.shape
+    MB = block_tables.shape[1]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_attention_cuda needs CUDA tensors, got {dev}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("start_pos", start_pos),
+                    ("n_tokens", n_tokens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("q and the KV pools must share one dtype (the "
+                        "int8/fp8 pool branch is not ported yet)")
+    if v_pool.shape != k_pool.shape or Dk != D:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    if D % 8 or D > 256 or KH <= 0 or H % KH:
+        raise ValueError(f"kernel shape contract: D % 8 == 0, D <= 256 and "
+                         f"H % KH == 0; got D={D}, H={H}, KH={KH}")
+    if (block_tables.dtype != torch.int32 or start_pos.dtype != torch.int32
+            or n_tokens.dtype != torch.int32):
+        raise TypeError("block_tables, start_pos and n_tokens must be int32")
+    if block_tables.shape[0] != N or start_pos.shape != (N,) \
+            or n_tokens.shape != (N,):
+        raise ValueError("block_tables [N, MB], start_pos and n_tokens [N]")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("the KV pools must be contiguous (a copy of a pool "
+                         "per call would dominate the step)")
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    if N == 0 or C == 0:
+        return out
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    start_pos = start_pos.contiguous()
+    n_tokens = n_tokens.contiguous()
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=dev).contiguous()
+        if slopes.shape != (H,):
+            raise ValueError(f"alibi_slopes must be [H={H}]")
+    sm_scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
+    lib, fn = _bind()
+    from ._build import check
+
+    # query rows per warp: 1 for a small group (decode: every warp of the
+    # block gets a row), else 8 (a 32-row tile of the G·C rows)
+    rows_per_warp = 1 if (H // KH) * C <= 16 else 8
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             block_tables.data_ptr(), start_pos.data_ptr(),
+             n_tokens.data_ptr(),
+             slopes.data_ptr() if slopes is not None else None,
+             out.data_ptr(), N, C, H, D, NB, KH, bs, MB, int(window or 0),
+             sm_scale, _DTYPE_CODE[q.dtype], rows_per_warp,
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, err, "paged_attention_fwd")
+    launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ public
+
+def paged_attention(q, k_pool, v_pool, block_tables, start_pos, n_tokens,
+                    alibi_slopes=None, window: int = 0, sm_scale=None,
+                    force_reference: bool = False):
+    """Block-table paged attention.
+
+    q [N, C, H, D]; k/v pool [NB, KH, bs, D]; block_tables [N, MB] int32
+    (entries < 0 = unallocated); start_pos/n_tokens [N] int32. The pool
+    must already hold this chunk's K/V (write-then-attend). ``alibi_slopes``
+    [H]: ALiBi slopes; ``window`` > 0: sliding window. Rows beyond
+    n_tokens are unspecified. A CPU tensor runs ``paged_attention_torch``;
+    a CUDA tensor runs the kernel or raises.
+    """
+    kw = dict(alibi_slopes=alibi_slopes, window=window, sm_scale=sm_scale)
+    dev = q.device.type
+    if dev == "cpu" or (dev == "cuda" and (force_reference or FORCE_REFERENCE)):
+        return paged_attention_torch(q, k_pool, v_pool, block_tables,
+                                     start_pos, n_tokens, **kw)
+    if dev == "cuda":
+        return paged_attention_cuda(q, k_pool, v_pool, block_tables,
+                                    start_pos, n_tokens, **kw)
+    raise ValueError(f"paged_attention runs on cpu or cuda, not {dev}")
