@@ -7,8 +7,11 @@ a sequence's KV blocks. The Dynamic SplitFuse loop on top lives in
 ``scheduler.py``.
 
 The config keeps every field of the JAX ``RaggedInferenceEngineConfig``.
-A feature this slice has not ported yet raises ``NotImplementedError``
-naming its ROADMAP item when it is turned on; none is ignored.
+A feature the port has not ported yet raises ``NotImplementedError``
+naming its ROADMAP item when it is turned on; none is ignored. Weight
+quantization (``weight_quant_*``: the params are quantized once at build,
+on the engine's device) and KV quantization (``kv_quant_*``: int8/fp8
+pools with scale planes) are ported.
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ import torch
 
 from ... import not_ported, resolve_device
 from ...models.transformer import CausalLM
+from .kv_quant import validate_kv_quant
 from .paged_model import PagedCausalLM
 from .ragged import DSStateManager, RaggedBatchWrapper
 from .scheduling_utils import SchedulingError, SchedulingResult
+from .weight_quant import param_stats, quantize_weights
 
 
 class RaggedInferenceEngineConfig:
@@ -81,9 +86,6 @@ class RaggedInferenceEngineConfig:
         """Raise for every feature that is on but not ported yet."""
         unported = [
             (self.enable_prefix_cache, "enable_prefix_cache", "queue 1 item 9"),
-            (self.kv_quant_enabled, "kv_quant_enabled", "queue 1 item 8"),
-            (self.weight_quant_enabled, "weight_quant_enabled",
-             "queue 1 item 7"),
             (self.kv_tier_enabled, "kv_tier_enabled", "queue 1 item 9"),
             (self.admission_reservation, "admission_reservation",
              "queue 1 item 9"),
@@ -122,17 +124,36 @@ class InferenceEngineV2:
             params = model.init(
                 torch.Generator(device=self.device).manual_seed(0),
                 device=self.device)
-        self.params = _to_device(params, self.device)
+        params = _to_device(params, self.device)
+        # weight serving: quantize the tree once, on the engine's device
+        # (on the card each stacked leaf is one quantize-kernel launch)
+        self._weight_quant_stats = None
+        if self.config.weight_quant_enabled:
+            params, self._weight_quant_stats = quantize_weights(
+                model.cfg, params, dtype=self.config.weight_quant_dtype,
+                block=self.config.weight_quant_block,
+                skip=self.config.weight_quant_skip)
+        self.params = params
 
         cfg = model.cfg
         max_blocks_per_seq = -(-cfg.max_seq_len // self.config.kv_block_size)
-        self.state_manager = DSStateManager(
-            cfg, self.config.max_tracked_sequences, self.config.kv_blocks,
-            self.config.kv_block_size, device=self.device)
+        self.state_manager = self._build_state_manager()
         self.paged = PagedCausalLM(model, self.config.kv_block_size)
         self.batch = RaggedBatchWrapper(self.config.max_ragged_sequence_count,
                                         self.config.max_chunk_tokens,
                                         max_blocks_per_seq)
+
+    def _build_state_manager(self) -> DSStateManager:
+        """Fresh sequence registry and KV pools from the current config —
+        the constructor's path and ``configure_kv_quant``'s rebuild."""
+        if self.config.kv_quant_enabled:
+            validate_kv_quant(self.config.kv_quant_dtype,
+                              self.config.kv_quant_scale_granularity)
+        return DSStateManager(
+            self.model.cfg, self.config.max_tracked_sequences,
+            self.config.kv_blocks, self.config.kv_block_size,
+            device=self.device, kv_quant=self.config.kv_quant_enabled,
+            kv_quant_dtype=self.config.kv_quant_dtype)
 
     # ----------------------------------------------------------- admission
     def can_schedule(self, uids: Sequence[int],
@@ -211,6 +232,71 @@ class InferenceEngineV2:
     def occupancy(self) -> Dict[str, int]:
         """KV-pool occupancy snapshot (blocks + bytes)."""
         return self.state_manager.occupancy()
+
+    def configure_kv_quant(self, enabled: bool, dtype: str = "int8",
+                           scale_granularity: str = "block") -> None:
+        """Turn KV quantization on or off on a built engine. It
+        re-allocates the pools (the representation changes), so it is
+        legal only while no sequence is tracked."""
+        if (bool(enabled) == self.state_manager.kv_quant
+                and dtype == self.config.kv_quant_dtype
+                and scale_granularity == self.config.kv_quant_scale_granularity):
+            return
+        if self.state_manager.tracked_sequences:
+            raise RuntimeError(
+                "cannot reconfigure kv_quant with "
+                f"{len(self.state_manager.tracked_sequences)} sequences "
+                "tracked — their KV blocks hold the old representation")
+        if enabled:
+            # validate before touching the config
+            validate_kv_quant(dtype, scale_granularity)
+        self.config.kv_quant_enabled = bool(enabled)
+        self.config.kv_quant_dtype = dtype
+        self.config.kv_quant_scale_granularity = scale_granularity
+        self.state_manager = self._build_state_manager()
+
+    def configure_weight_quant(self, enabled: bool, dtype: str = "int8",
+                               block: int = 128,
+                               skip: Optional[Sequence[str]] = None) -> None:
+        """Quantize this engine's weights in place, before traffic (no
+        tracked sequences). Quantization is lossy, so disabling or
+        re-coding an already-quantized engine raises; re-applying the same
+        representation is a no-op."""
+        skip_list = list(skip) if skip is not None else []
+        already = self.config.weight_quant_enabled
+        if already and enabled and dtype == self.config.weight_quant_dtype:
+            return
+        if already:
+            raise RuntimeError(
+                "weights are already quantized "
+                f"({self.config.weight_quant_dtype}) — quantization is "
+                "lossy and cannot be reconfigured in place; rebuild the "
+                "engine")
+        if not enabled:
+            return
+        if self.state_manager.tracked_sequences:
+            raise RuntimeError(
+                "cannot quantize weights with "
+                f"{len(self.state_manager.tracked_sequences)} sequences "
+                "tracked — mid-stream logits would shift")
+        self.params, self._weight_quant_stats = quantize_weights(
+            self.model.cfg, self.params, dtype=dtype, block=int(block),
+            skip=skip_list)
+        self.config.weight_quant_enabled = True
+        self.config.weight_quant_dtype = dtype
+        self.config.weight_quant_block = int(block)
+        self.config.weight_quant_skip = skip_list
+
+    def param_stats(self) -> Dict[str, object]:
+        """Resident param bytes, total and quantized share (shape and
+        dtype metadata only)."""
+        if self._weight_quant_stats is None:
+            on = self.config.weight_quant_enabled
+            self._weight_quant_stats = param_stats(
+                self.params,
+                dtype=self.config.weight_quant_dtype if on else "",
+                block=self.config.weight_quant_block if on else 0)
+        return dict(self._weight_quant_stats)
 
     @property
     def free_blocks(self) -> int:

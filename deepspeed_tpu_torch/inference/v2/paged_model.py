@@ -14,10 +14,17 @@ prefill/decode ragged batch:
 - returns logits only at each sequence's last valid token, or, with
   ``verify_width`` W, at each row's last W positions right-aligned.
 
+With ``k_scale``/``v_scale`` planes in the cache the pools are int8 or
+float8_e4m3fn: each layer's K/V write is the read-modify-write of
+``kv_quant.quantized_block_write`` over the blocks the step touches (one
+plan per forward, as the JAX ``_forward`` :186-231), and the attention
+dequantizes with the layer's scale planes. Linear weights may be dense or
+``{"qw", "qs"}`` nodes (``weight_quant.py``); ``_linear`` dispatches.
+
 Unlike the JAX forward, which returns new pools (XLA aliases them, so
 nothing is copied on the TPU), this one writes ``kv_cache["k"][layer]``
-and ``kv_cache["v"][layer]`` in place: a copy of a multi-GB pool per layer
-would dominate the step. It runs with ``tp == 1`` and dense weights.
+and ``kv_cache["v"][layer]`` (and the scale planes) in place: a copy of a
+multi-GB pool per layer would dominate the step. It runs with ``tp == 1``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ...models.transformer import (CausalLM, _linear, _norm, alibi_slopes,
                                    apply_rope, rope_table)
 from ...ops.paged_attention import paged_attention
+from .kv_quant import quantized_block_write, touched_block_plan
 
 
 class PagedCausalLM:
@@ -51,7 +59,8 @@ class PagedCausalLM:
     def forward(self, params, kv_cache, tokens, start_pos, n_tokens,
                 block_tables, verify_width: int = 0):
         """tokens [N, C]; start_pos/n_tokens [N] int32; block_tables
-        [N, MB] int32; kv_cache {k, v}: [L, NB, KH, bs, D], updated in
+        [N, MB] int32; kv_cache {k, v}: [L, NB, KH, bs, D] — plus
+        {k_scale, v_scale} [L, NB, KH] for int8/fp8 pools — updated in
         place.
 
         Returns last_logits [N, V] — or, with ``verify_width`` W > 0,
@@ -88,16 +97,24 @@ class PagedCausalLM:
         else:
             x = x + params["embed"]["wpe"][pos_read].to(dt)
 
-        # KV write coordinates (pool block, slot) of the valid tokens only:
-        # index_put_ has no drop mode, so invalid rows are selected out
-        # instead of being sent to an out-of-range sentinel block
-        valid = (torch.arange(C, device=dev)[None, :]
-                 < n_tokens.long()[:, None])                      # [N, C]
-        blk_ids = torch.gather(block_tables.long(), 1,
-                               (positions // bs).clamp(0, MB - 1))
-        write = (valid & (blk_ids >= 0)).reshape(-1)
-        write_blk = blk_ids.reshape(-1)[write]
-        write_off = (positions % bs).reshape(-1)[write]
+        quant = "k_scale" in kv_cache
+        if quant:
+            # quantized pools: the touched-block plan is the same for every
+            # layer, so it is computed once here
+            kv_plan = touched_block_plan(block_tables, start_pos, n_tokens, C,
+                                         bs, kv_cache["k"].shape[1])
+        else:
+            # KV write coordinates (pool block, slot) of the valid tokens
+            # only: index_put_ has no drop mode, so invalid rows are
+            # selected out instead of being sent to an out-of-range
+            # sentinel block
+            valid = (torch.arange(C, device=dev)[None, :]
+                     < n_tokens.long()[:, None])                  # [N, C]
+            blk_ids = torch.gather(block_tables.long(), 1,
+                                   (positions // bs).clamp(0, MB - 1))
+            write = (valid & (blk_ids >= 0)).reshape(-1)
+            write_blk = blk_ids.reshape(-1)[write]
+            write_off = (positions % bs).reshape(-1)[write]
 
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
 
@@ -117,14 +134,27 @@ class PagedCausalLM:
                 v = _linear(h1, lp["wv"], lp.get("wv_b"),
                             dt).reshape(N, C, kvh, hd)
                 kc, vc = kv_cache["k"][layer], kv_cache["v"][layer]
-                # paged KV write: token t lands at kc[block(t), :, slot(t), :]
-                kc[write_blk, :, write_off, :] = \
-                    k.reshape(-1, kvh, hd)[write].to(kc.dtype)
-                vc[write_blk, :, write_off, :] = \
-                    v.reshape(-1, kvh, hd)[write].to(vc.dtype)
+                ks = vs = None
+                if quant:
+                    # read-modify-write of the touched blocks at the
+                    # monotone per-block scale
+                    ks = kv_cache["k_scale"][layer]
+                    vs = kv_cache["v_scale"][layer]
+                    quantized_block_write(kc, ks, k.reshape(-1, kvh, hd),
+                                          kv_plan)
+                    quantized_block_write(vc, vs, v.reshape(-1, kvh, hd),
+                                          kv_plan)
+                else:
+                    # paged KV write: token t lands at
+                    # kc[block(t), :, slot(t), :]
+                    kc[write_blk, :, write_off, :] = \
+                        k.reshape(-1, kvh, hd)[write].to(kc.dtype)
+                    vc[write_blk, :, write_off, :] = \
+                        v.reshape(-1, kvh, hd)[write].to(vc.dtype)
                 attn = paged_attention(q, kc, vc, block_tables, start_pos,
                                        n_tokens, alibi_slopes=slopes,
-                                       window=window, sm_scale=cfg.attn_scale)
+                                       window=window, sm_scale=cfg.attn_scale,
+                                       k_scale=ks, v_scale=vs)
                 attn_out = _linear(attn.reshape(N, C, nh * hd), lp["wo"],
                                    lp.get("wo_b"), dt)
                 return model._attn_mlp_merge(x, attn_out, lp, h1)

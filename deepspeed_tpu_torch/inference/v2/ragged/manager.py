@@ -6,7 +6,9 @@ ownership), on-demand block allocation, and the device-side paged pools
 ``[L, NB, KH, bs, D]`` (the per-(block, kv-head) slab is the trailing
 ``[bs, D]``, the layout ``ops/csrc/paged_attention.cu`` reads). The pools
 are torch tensors on the engine's device and ``PagedCausalLM`` writes them
-in place.
+in place. With ``kv_quant`` the pools are int8 or float8_e4m3fn
+(``kv_quant_dtype``) with f32 scale planes ``k_scale``/``v_scale``
+``[L, NB, KH]`` beside them (``kv_quant.py``).
 
 Not ported yet: the prefix cache, the KV tier, KV export/import, trim, and
 the reservation ledger (ROADMAP queue 1 item 9). With the prefix cache off
@@ -21,18 +23,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .... import resolve_device
+from ..kv_quant import kv_bytes_per_block, pool_dtype
 from .blocked_allocator import BlockedAllocator
-
-
-def kv_bytes_per_block(model_cfg, block_size: int,
-                       dtype: Optional[torch.dtype] = None) -> int:
-    """Device bytes one KV pool block costs across all layers: K and V slabs
-    ``[L, KH, bs, D]`` at the pool dtype (the unquantized half of the JAX
-    ``kv_quant.kv_bytes_per_block``)."""
-    slab = (model_cfg.num_layers * model_cfg.kv_heads * block_size
-            * model_cfg.head_dim)
-    itemsize = torch.empty((), dtype=dtype or model_cfg.dtype).element_size()
-    return 2 * slab * itemsize
 
 
 @dataclass
@@ -51,22 +43,34 @@ class DSStateManager:
 
     def __init__(self, model_cfg, max_tracked_sequences: int = 256,
                  num_blocks: int = 256, block_size: int = 16,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 kv_quant: bool = False, kv_quant_dtype: str = "int8"):
         self.cfg = model_cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_tracked_sequences = max_tracked_sequences
         self.device = resolve_device(device)
+        self.kv_quant = bool(kv_quant)
+        self.kv_quant_dtype = str(kv_quant_dtype)
         dt = dtype or model_cfg.dtype
         self.allocator = BlockedAllocator(
             num_blocks, bytes_per_block=kv_bytes_per_block(
-                model_cfg, block_size, dt))
+                model_cfg, block_size, self.kv_quant, dt))
         self._seqs: Dict[int, DSSequenceDescriptor] = {}
         shape = (model_cfg.num_layers, num_blocks, model_cfg.kv_heads,
                  block_size, model_cfg.head_dim)
-        # two distinct buffers: they are written in place
-        self.kv_cache = {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                         "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        pool_dt = pool_dtype(self.kv_quant_dtype) if self.kv_quant else dt
+
+        # distinct buffers: they are written in place
+        def zeros(shp, adt):
+            return torch.zeros(shp, dtype=adt, device=self.device)
+
+        self.kv_cache = {"k": zeros(shape, pool_dt), "v": zeros(shape, pool_dt)}
+        if self.kv_quant:
+            # a freed block's stale scale is ignored (not reset) by the
+            # fresh-block rule of kv_quant.quantized_block_write
+            self.kv_cache["k_scale"] = zeros(shape[:3], torch.float32)
+            self.kv_cache["v_scale"] = zeros(shape[:3], torch.float32)
 
     # -- sequence registry -------------------------------------------------
     def get_or_create_sequence(self, uid: int) -> DSSequenceDescriptor:

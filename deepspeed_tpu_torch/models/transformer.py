@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import not_ported, resolve_device
+from ..ops.quantizer import quantized_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,11 +211,14 @@ TINY_TEST = TransformerConfig(vocab_size=256, hidden_size=64,
 # ------------------------------------------------------------------ primitives
 
 def _linear(x, w, b, dt):
-    """x @ w (+ b) in compute dtype; b may be None. Dense weights only."""
+    """x @ w (+ b) in compute dtype; b may be None. ``w`` may be a
+    blockwise-quantized ``{"qw", "qs"}`` node (``weight_quant.py``): the
+    product then runs from the quantized weight through
+    ``ops/quantizer.quantized_matmul`` (the kernel on the card)."""
     if isinstance(w, dict):
-        raise not_ported("quantized weights ({'qw', 'qs'} nodes)",
-                         "queue 1 item 7 / queue 2 item 2")
-    y = x @ w.to(dt)
+        y = quantized_matmul(x, w["qw"], w["qs"], out_dtype=dt)
+    else:
+        y = x @ w.to(dt)
     return y if b is None else y + b.to(dt)
 
 
@@ -410,10 +414,15 @@ class CausalLM:
     def _scan_layers(self, body_for_window: Callable, carry,
                      layer_params: Dict[str, torch.Tensor]):
         """The counterpart of ``lax.scan`` over the stacked layer dim: a loop
-        that hands layer ``i`` its params ``{k: v[i]}``, its index, and the
-        body built for its static window. Returns the final carry."""
+        that hands layer ``i`` its params ``{k: v[i]}`` (both members of a
+        quantized ``{"qw", "qs"}`` node sliced), its index, and the body
+        built for its static window. Returns the final carry."""
+        def at(v, i):
+            return {k: t[i] for k, t in v.items()} if isinstance(v, dict) \
+                else v[i]
+
         for i, win in enumerate(self.cfg.layer_windows()):
-            lp = {k: v[i] for k, v in layer_params.items()}
+            lp = {k: at(v, i) for k, v in layer_params.items()}
             carry = body_for_window(win)(carry, lp, i)
         return carry
 
@@ -422,9 +431,10 @@ class CausalLM:
         if cfg.tie_embeddings:
             return x @ params["embed"]["wte"].t().to(cfg.dtype)
         w = params["lm_head"]["w"]
-        if isinstance(w, dict):
-            raise not_ported("quantized lm_head", "queue 1 item 7")
-        y = x @ w.to(cfg.dtype)
+        if isinstance(w, dict):         # quantized lm_head: as _linear
+            y = quantized_matmul(x, w["qw"], w["qs"], out_dtype=cfg.dtype)
+        else:
+            y = x @ w.to(cfg.dtype)
         if "b" in params.get("lm_head", {}):
             y = y + params["lm_head"]["b"].to(cfg.dtype)
         return y

@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces: deepspeed_tpu/ops/paged_attention.py::_paged_kernel (:63), the
-// Pallas kernel that _paged_pallas (:160) drives, for bf16 and fp32 pools.
-// The int8/fp8 pool branch (quant=True) is not here yet.
+// Pallas kernel that _paged_pallas (:160) drives: bf16 and fp32 pools, and
+// the int8/fp8 pool branch (quant=True, :73-103).
 //
 // What it computes. q [N, C, H, D]; pools [NB, KH, bs, D]; block_tables
 // [N, MB] int32 (entries < 0 are unallocated); start_pos, n_tokens [N] int32.
@@ -13,7 +13,11 @@
 // ALiBi the logit gains slope[h] * kv. Head h reads KV head h / G. Softmax is
 // online and in fp32; the output has q's dtype. A row that attends nothing
 // (a padded row with n_tokens = 0) writes zeros, as the Pallas kernel's
-// acc / max(l, 1e-30) does.
+// acc / max(l, 1e-30) does. Quantized pools (int8 or float8_e4m3fn) carry
+// one f32 scale per (block, KV head), k_scale/v_scale [NB, KH]: each staged
+// K/V element is converted to fp32 and multiplied by its block's scale, as
+// the Pallas kernel dequantizes each block in VMEM right after its DMA; the
+// rest of the kernel is the same for every pool type.
 //
 // What bounds it on an H100. Decode (C = 1) reads every live K/V byte once
 // for G query rows per KV head: about 2G flops per byte, far below the ~295
@@ -46,6 +50,7 @@
 //   with a shuffle while each lane owns D/32 output columns.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -76,6 +81,20 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8_e4m3* b = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
@@ -93,12 +112,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// T: q and out. P: the pools (T, or int8_t / __nv_fp8_e4m3 with scales).
 // DCH: output columns per lane, ceil(D / 32) rounded up to 1, 2, 4 or 8.
 // RW: query rows per warp; a block holds kWarps * RW rows of one group.
-template <typename T, int DCH, int RW>
+template <typename T, typename P, int DCH, int RW>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                       const P* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,
                        const int* __restrict__ start_pos,
                        const int* __restrict__ n_tokens,
@@ -186,6 +208,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         const size_t off = (((size_t)blk * KH + kh) * bs + (pos - b * bs)) * D + d;
         load8(k_pool + off, kv);
         load8(v_pool + off, vv);
+        if (k_scale != nullptr) {  // quantized pool: dequantize the slot
+          const float ks = k_scale[(size_t)blk * KH + kh];
+          const float vs = v_scale[(size_t)blk * KH + kh];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            kv[j] *= ks;
+            vv[j] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) kv[j] = vv[j] = 0.f;
@@ -269,37 +300,40 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int DCH, int RW>
+template <typename T, typename P, int DCH, int RW>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
                    const int* tables, const int* start_pos, const int* n_tokens,
                    const float* slopes, void* out, int N, int C, int H, int D,
                    int NB, int KH, int bs, int MB, int window, float sm_scale,
                    cudaStream_t stream) {
   constexpr int ROWS = kWarps * RW;
   const size_t smem = sizeof(float) * ((size_t)ROWS * D + 2 * (size_t)kTile * (D + 1));
-  auto kernel = paged_attention_kernel<T, DCH, RW>;
+  auto kernel = paged_attention_kernel<T, P, DCH, RW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int GC = (H / KH) * C;
   const dim3 grid(N, KH, (GC + ROWS - 1) / ROWS);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, start_pos, n_tokens, slopes,
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables, start_pos,
+      n_tokens, slopes,
       static_cast<T*>(out), C, H, D, NB, KH, bs, MB, window, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int RW>
+template <typename T, typename P, int RW>
 cudaError_t launch_d(int dch, const void* q, const void* k_pool,
-                     const void* v_pool, const int* tables, const int* start_pos,
+                     const void* v_pool, const float* k_scale,
+                     const float* v_scale, const int* tables, const int* start_pos,
                      const int* n_tokens, const float* slopes, void* out, int N,
                      int C, int H, int D, int NB, int KH, int bs, int MB,
                      int window, float sm_scale, cudaStream_t stream) {
 #define DS_LAUNCH(DC)                                                        \
-  return launch<T, DC, RW>(q, k_pool, v_pool, tables, start_pos, n_tokens,  \
-                           slopes, out, N, C, H, D, NB, KH, bs, MB, window, \
-                           sm_scale, stream)
+  return launch<T, P, DC, RW>(q, k_pool, v_pool, k_scale, v_scale, tables,  \
+                              start_pos, n_tokens, slopes, out, N, C, H, D,  \
+                              NB, KH, bs, MB, window, sm_scale, stream)
   if (dch <= 1) DS_LAUNCH(1);
   if (dch <= 2) DS_LAUNCH(2);
   if (dch <= 4) DS_LAUNCH(4);
@@ -307,50 +341,64 @@ cudaError_t launch_d(int dch, const void* q, const void* k_pool,
 #undef DS_LAUNCH
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_t(int rows_per_warp, int dch, const void* q,
-                     const void* k_pool, const void* v_pool, const int* tables,
+                     const void* k_pool, const void* v_pool,
+                     const float* k_scale, const float* v_scale, const int* tables,
                      const int* start_pos, const int* n_tokens,
                      const float* slopes, void* out, int N, int C, int H, int D,
                      int NB, int KH, int bs, int MB, int window,
                      float sm_scale, cudaStream_t stream) {
   if (rows_per_warp == 1)
-    return launch_d<T, 1>(dch, q, k_pool, v_pool, tables, start_pos, n_tokens,
-                          slopes, out, N, C, H, D, NB, KH, bs, MB, window,
-                          sm_scale, stream);
-  return launch_d<T, 8>(dch, q, k_pool, v_pool, tables, start_pos, n_tokens,
-                        slopes, out, N, C, H, D, NB, KH, bs, MB, window,
-                        sm_scale, stream);
+    return launch_d<T, P, 1>(dch, q, k_pool, v_pool, k_scale, v_scale, tables,
+                             start_pos, n_tokens, slopes, out, N, C, H, D, NB,
+                             KH, bs, MB, window, sm_scale, stream);
+  return launch_d<T, P, 8>(dch, q, k_pool, v_pool, k_scale, v_scale, tables,
+                           start_pos, n_tokens, slopes, out, N, C, H, D, NB, KH,
+                           bs, MB, window, sm_scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, both pools and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q and out share it).
+// pool_dtype: 0 = q's dtype; 2 = int8, 3 = float8_e4m3fn, each with the
+// scale planes k_scale/v_scale [NB, KH] float32 (null for dtype 0).
 // rows_per_warp: 1 or 8 (the wrapper picks 1 for small G*C, i.e. decode).
 // slopes: [H] float32 ALiBi slopes, or null. Returns a cudaError_t.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
-                                   const void* v_pool, const void* tables,
+                                   const void* v_pool, const void* k_scale,
+                                   const void* v_scale, const void* tables,
                                    const void* start_pos, const void* n_tokens,
                                    const void* slopes, void* out, int N, int C,
                                    int H, int D, int NB, int KH, int bs,
                                    int MB, int window, float sm_scale,
-                                   int dtype, int rows_per_warp,
+                                   int dtype, int pool_dtype, int rows_per_warp,
                                    void* stream) {
+  const bool quant = pool_dtype == 2 || pool_dtype == 3;
   if (N <= 0 || C <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || D <= 0 ||
       D % 8 != 0 || D > 256 || NB <= 0 || bs <= 0 || MB <= 0 ||
-      (rows_per_warp != 1 && rows_per_warp != 8) || (dtype != 0 && dtype != 1))
+      (rows_per_warp != 1 && rows_per_warp != 8) || (dtype != 0 && dtype != 1) ||
+      (pool_dtype != 0 && !quant) ||
+      (quant != (k_scale != nullptr && v_scale != nullptr)))
     return cudaErrorInvalidValue;
   const int dch = (D + 31) / 32;
   const int* tb = static_cast<const int*>(tables);
   const int* sp = static_cast<const int*>(start_pos);
   const int* nt = static_cast<const int*>(n_tokens);
   const float* sl = static_cast<const float*>(slopes);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_t<float>(rows_per_warp, dch, q, k_pool, v_pool, tb, sp, nt,
-                           sl, out, N, C, H, D, NB, KH, bs, MB, window,
-                           sm_scale, st);
-  return launch_t<__nv_bfloat16>(rows_per_warp, dch, q, k_pool, v_pool, tb, sp,
-                                 nt, sl, out, N, C, H, D, NB, KH, bs, MB,
-                                 window, sm_scale, st);
+#define DS_PAGED(T, P)                                                           \
+  return launch_t<T, P>(rows_per_warp, dch, q, k_pool, v_pool, ks, vs, tb, sp, nt, \
+                        sl, out, N, C, H, D, NB, KH, bs, MB, window, sm_scale, st)
+  if (dtype == 0) {
+    if (pool_dtype == 2) DS_PAGED(float, int8_t);
+    if (pool_dtype == 3) DS_PAGED(float, __nv_fp8_e4m3);
+    DS_PAGED(float, float);
+  }
+  if (pool_dtype == 2) DS_PAGED(__nv_bfloat16, int8_t);
+  if (pool_dtype == 3) DS_PAGED(__nv_bfloat16, __nv_fp8_e4m3);
+  DS_PAGED(__nv_bfloat16, __nv_bfloat16);
+#undef DS_PAGED
 }

@@ -6,12 +6,16 @@ Counterpart of ``deepspeed_tpu/ops/paged_attention.py``:
   ``paged_attention_xla`` (:236): gather the block table into a dense
   context and mask it. Same masks (causal over the pool, context length,
   ALiBi ``slope·kv_pos``, window) and the same dtypes (scores in fp32, p
-  cast back to q's dtype before the product with V).
+  cast back to q's dtype before the product with V). Quantized pools
+  (int8 or float8_e4m3fn) come with ``k_scale``/``v_scale`` [NB, KH] f32;
+  the gathered context is dequantized in fp32 and cast back to q's dtype,
+  as the XLA reference does (:255-259).
 - ``_clamp_tables`` (:140) states which table blocks the kernel skips.
 - ``paged_attention`` dispatches on the tensor's device: a CPU tensor runs
   the plain version; a CUDA tensor launches the hand-written kernel
   ``csrc/paged_attention.cu`` (the counterpart of the Pallas
-  ``_paged_kernel``) or raises. There is no fallback between them.
+  ``_paged_kernel``, both its bf16/fp32 and its int8/fp8 branch) or raises.
+  There is no fallback between them.
   ``force_reference`` (keyword, or the module hook ``FORCE_REFERENCE``)
   pins the plain version on the card, for comparisons only.
 
@@ -59,10 +63,11 @@ def _clamp_tables(block_tables, ctx_len, block_size, start_pos=None,
 
 def paged_attention_torch(q, k_pool, v_pool, block_tables, start_pos,
                           n_tokens, alibi_slopes=None, window: int = 0,
-                          sm_scale=None):
+                          sm_scale=None, k_scale=None, v_scale=None):
     """Dense-gather formulation: gather the table into [N, KH, MB·bs, D]
     and mask (``paged_attention_xla``). Rows with ``ci >= n_tokens`` are
-    unspecified."""
+    unspecified. ``k_scale``/``v_scale`` [NB, KH]: per-(block, KV head)
+    scales of quantized pools, gathered through the same table."""
     N, C, H, D = q.shape
     NB, KH, bs, _ = k_pool.shape
     G = H // KH
@@ -73,8 +78,14 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, start_pos,
     ctx_positions = torch.arange(MB * bs, device=dev)
     tbl = torch.clamp(block_tables.long(), min=0)
     # pool [NB, KH, bs, D] -> [N, MB, KH, bs, D] -> [N, KH, MB*bs, D]
-    k_ctx = k_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
-    v_ctx = v_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
+    k_ctx, v_ctx = k_pool[tbl], v_pool[tbl]
+    if k_scale is not None:
+        k_ctx = (k_ctx.float()
+                 * k_scale[tbl][:, :, :, None, None]).to(q.dtype)
+        v_ctx = (v_ctx.float()
+                 * v_scale[tbl][:, :, :, None, None]).to(q.dtype)
+    k_ctx = k_ctx.permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
+    v_ctx = v_ctx.permute(0, 2, 1, 3, 4).reshape(N, KH, MB * bs, D)
 
     qg = q.reshape(N, C, KH, G, D)
     s = torch.einsum("nckgd,nksd->nkgcs", qg, k_ctx).float() * sm_scale
@@ -102,6 +113,7 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, start_pos,
 # ------------------------------------------------------------------ kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def _bind():
@@ -110,18 +122,19 @@ def _bind():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
                          n_tokens, alibi_slopes=None, window: int = 0,
-                         sm_scale=None):
+                         sm_scale=None, k_scale=None, v_scale=None):
     """Launch ``csrc/paged_attention.cu`` on CUDA tensors; raises on
-    anything it does not take (no fallback)."""
+    anything it does not take (no fallback). int8/float8_e4m3fn pools need
+    their ``k_scale``/``v_scale`` [NB, KH] float32 planes."""
     global launches
     N, C, H, D = q.shape
     NB, KH, bs, Dk = k_pool.shape
@@ -137,9 +150,21 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("q and the KV pools must share one dtype (the "
-                        "int8/fp8 pool branch is not ported yet)")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"k_pool is {k_pool.dtype}, v_pool {v_pool.dtype}")
+    quant = k_pool.dtype in _POOL_CODE
+    if not quant and k_pool.dtype != q.dtype:
+        raise TypeError(f"KV pools must be q's dtype ({q.dtype}), int8 or "
+                        f"float8_e4m3fn; got {k_pool.dtype}")
+    if quant != (k_scale is not None and v_scale is not None):
+        raise ValueError("int8/fp8 pools take k_scale and v_scale, and only "
+                         "they do")
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (t.device != dev or t.dtype != torch.float32
+                    or t.shape != (NB, KH) or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"[{NB}, {KH}] tensor on {dev}")
     if v_pool.shape != k_pool.shape or Dk != D:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
@@ -176,11 +201,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
     # block gets a row), else 8 (a 32-row tile of the G·C rows)
     rows_per_warp = 1 if (H // KH) * C <= 16 else 8
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
              block_tables.data_ptr(), start_pos.data_ptr(),
              n_tokens.data_ptr(),
              slopes.data_ptr() if slopes is not None else None,
              out.data_ptr(), N, C, H, D, NB, KH, bs, MB, int(window or 0),
-             sm_scale, _DTYPE_CODE[q.dtype], rows_per_warp,
+             sm_scale, _DTYPE_CODE[q.dtype],
+             _POOL_CODE[k_pool.dtype] if quant else 0, rows_per_warp,
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "paged_attention_fwd")
     launches += 1
@@ -191,17 +219,20 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
 
 def paged_attention(q, k_pool, v_pool, block_tables, start_pos, n_tokens,
                     alibi_slopes=None, window: int = 0, sm_scale=None,
+                    k_scale=None, v_scale=None,
                     force_reference: bool = False):
     """Block-table paged attention.
 
     q [N, C, H, D]; k/v pool [NB, KH, bs, D]; block_tables [N, MB] int32
     (entries < 0 = unallocated); start_pos/n_tokens [N] int32. The pool
     must already hold this chunk's K/V (write-then-attend). ``alibi_slopes``
-    [H]: ALiBi slopes; ``window`` > 0: sliding window. Rows beyond
+    [H]: ALiBi slopes; ``window`` > 0: sliding window; ``k_scale``/
+    ``v_scale`` [NB, KH] f32: the scales of int8/fp8 pools. Rows beyond
     n_tokens are unspecified. A CPU tensor runs ``paged_attention_torch``;
     a CUDA tensor runs the kernel or raises.
     """
-    kw = dict(alibi_slopes=alibi_slopes, window=window, sm_scale=sm_scale)
+    kw = dict(alibi_slopes=alibi_slopes, window=window, sm_scale=sm_scale,
+              k_scale=k_scale, v_scale=v_scale)
     dev = q.device.type
     if dev == "cpu" or (dev == "cuda" and (force_reference or FORCE_REFERENCE)):
         return paged_attention_torch(q, k_pool, v_pool, block_tables,

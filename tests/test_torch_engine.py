@@ -93,13 +93,20 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")]
 assert not bad, bad
 assert not torch.cuda.is_available()
-from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                              RaggedInferenceEngineConfig)
+from deepspeed_tpu_torch.inference.v2 import kv_quant, weight_quant
 from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
 from deepspeed_tpu_torch.models.transformer import CausalLM, TINY_TEST
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+from deepspeed_tpu_torch.ops import quantizer
+quant = RaggedInferenceEngineConfig(kv_quant_enabled=True,
+                                    weight_quant_enabled=True)
 calls = [lambda: InferenceEngineV2(CausalLM(TINY_TEST)),
+         lambda: InferenceEngineV2(CausalLM(TINY_TEST), config=quant),
          lambda: CausalLM(TINY_TEST).init(),
          lambda: DSStateManager(TINY_TEST, num_blocks=4),
+         lambda: DSStateManager(TINY_TEST, num_blocks=4, kv_quant=True),
          lambda: params_from_numpy({"w": np.ones(2)})]
 for call in calls:
     try:
@@ -121,8 +128,7 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field", [
-    "enable_prefix_cache", "kv_quant_enabled", "weight_quant_enabled",
-    "kv_tier_enabled", "admission_reservation",
+    "enable_prefix_cache", "kv_tier_enabled", "admission_reservation",
     "admission_preemption_enabled"])
 def test_unported_engine_options_raise(field):
     cfg = RaggedInferenceEngineConfig(**{field: True})

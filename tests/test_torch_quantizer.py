@@ -1,0 +1,213 @@
+"""Port parity: ``deepspeed_tpu_torch.ops.quantizer`` against the JAX
+package's ``ops/quantizer.py`` on the CPU, plus the wrappers' dispatch
+rules.
+
+Inputs come from numpy with a fixed seed and go to both packages.
+
+- Quantization must be bit-identical to ``_quantize_xla`` (codes compared
+  as bytes, scales exactly equal): the plain version repeats its arithmetic
+  operation for operation (IEEE division and reciprocal, round half to
+  even, the fp8 cast's round to nearest even).
+- Against the Pallas ``_quant_kernel`` in interpret mode the codes are
+  equal and the scales agree to rtol 1e-6, the tolerance the JAX package
+  holds its own kernel to (``tests/test_quantizer.py``).
+- Dequantization is one fp32 product per element on both sides: exact.
+- The quantized matmul is an fp32 product summed in another order by
+  another BLAS: atol = rtol = 1e-5, as the JAX package holds its Pallas
+  and XLA branches to each other.
+"""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import quantizer as jq
+from deepspeed_tpu_torch.ops import quantizer as tq
+
+
+def _x(seed, shape, zero_group=None, block=128, scale=None):
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.05, 20.0) if scale is None else scale
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    if zero_group is not None:
+        r, g = zero_group
+        x[r, g * block:(g + 1) * block] = 0.0
+    return x
+
+
+def _bytes(q):
+    if isinstance(q, torch.Tensor):
+        return q.view(torch.uint8).numpy() if q.dtype != torch.int8 \
+            else q.numpy().view(np.uint8)
+    return np.asarray(q).view(np.uint8)
+
+
+QUANT_CASES = [
+    # shape, block, bits, dtype
+    pytest.param((16, 256), 128, 8, "int8", id="int8"),
+    pytest.param((6, 200), 128, 8, "int8", id="int8-ragged-tail"),
+    pytest.param((7, 300), 64, 4, "int8", id="int4-ragged-tail"),
+    pytest.param((3, 5, 96), 32, 8, "int8", id="int8-3d"),
+    pytest.param((9, 256), 128, 8, "fp8_e4m3", id="fp8"),
+    pytest.param((5, 130), 128, 8, "fp8_e4m3", id="fp8-ragged-tail"),
+]
+
+
+@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,block,bits,dtype", QUANT_CASES)
+def test_quantize_bit_identical_to_xla(shape, block, bits, dtype, in_dtype):
+    x = _x(sum(shape) + bits, shape)
+    x.reshape(-1, shape[-1])[1, :block] = 0.0          # an all-zero group
+    xj = jnp.asarray(x).astype(in_dtype)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
+    if in_dtype == "bfloat16":
+        xt = xt.to(torch.bfloat16)
+    qj, sj = jq._quantize_xla(xj, bits, block, dtype)
+    qt, st = tq.quantize_blockwise(xt, bits=bits, block=block, dtype=dtype)
+    assert qt.dtype == tq._Q_DTYPES[dtype] and st.dtype == torch.float32
+    assert tuple(qt.shape) == shape
+    np.testing.assert_array_equal(_bytes(qt), _bytes(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    zero = st.reshape(-1, st.shape[-1])[1, 0]
+    assert float(zero) == 0.0
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_matches_pallas_interpret(monkeypatch, bits):
+    x = _x(bits, (16, 256), zero_group=(3, 1))
+    qt, st = tq.quantize_blockwise(torch.from_numpy(x), bits=bits, block=128)
+    monkeypatch.setattr(jq, "_FORCE_INTERPRET", True)
+    qp, sp = jq.quantize_blockwise(jnp.asarray(x), bits=bits, block=128)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qp))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sp), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,block,shape", [
+    ("int8", 128, (8, 256)), ("int8", 128, (4, 200)),
+    ("fp8_e4m3", 64, (5, 192))])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_dequantize_matches_xla_exactly(dtype, block, shape, out):
+    x = _x(block, shape)
+    qj, sj = jq._quantize_xla(jnp.asarray(x), 8, block, dtype)
+    qt, st = tq.quantize_blockwise(torch.from_numpy(x), block=block,
+                                   dtype=dtype)
+    ref = jq._dequantize_xla(qj, sj, block, jnp.dtype(out))
+    got = tq.dequantize_blockwise(qt, st, block=block,
+                                  dtype=getattr(torch, out))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("M,K,N,block", [
+    (8, 64, 256, 128), (3, 40, 200, 128), (1, 96, 64, 32)])
+def test_quantized_matmul_matches_xla(dtype, M, K, N, block):
+    w = _x(K + N, (K, N), scale=1.0)
+    x = _x(M, (M, K), scale=1.0)
+    qj, sj = jq.quantize_blockwise(jnp.asarray(w), block=block, dtype=dtype)
+    qt, st = tq.quantize_blockwise(torch.from_numpy(w), block=block,
+                                   dtype=dtype)
+    ref = jq.quantized_matmul(jnp.asarray(x), qj, sj, block=block)
+    got = tq.quantized_matmul(torch.from_numpy(x), qt, st, block=block)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_quantized_matmul_matches_pallas_interpret(monkeypatch):
+    w = _x(1, (64, 256), scale=1.0)
+    x = _x(2, (8, 64), scale=1.0)
+    qt, st = tq.quantize_blockwise(torch.from_numpy(w), block=128)
+    monkeypatch.setattr(jq, "_FORCE_INTERPRET", True)
+    qj, sj = jq.quantize_blockwise(jnp.asarray(w), block=128)
+    ref = jq._qmm_pallas(jnp.asarray(x), qj, sj, 128, jnp.float32)
+    got = tq.quantized_matmul(torch.from_numpy(x), qt, st)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_quantized_matmul_out_dtype_and_leading_dims():
+    w = _x(3, (32, 64))
+    x = _x(4, (2, 3, 32))
+    qt, st = tq.quantize_blockwise(torch.from_numpy(w), block=32)
+    got = tq.quantized_matmul(torch.from_numpy(x).bfloat16(), qt, st,
+                              out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 3, 64)
+    dense = torch.from_numpy(x).bfloat16().float() @ tq.dequantize_blockwise(
+        qt, st)
+    torch.testing.assert_close(got, dense.bfloat16(), atol=0, rtol=0)
+
+
+def test_int4_pack_round_trip_matches_jax():
+    rng = np.random.default_rng(0)
+    q = rng.integers(-7, 8, (5, 64)).astype(np.int8)
+    packed = tq.pack_int4(torch.from_numpy(q))
+    assert packed.dtype == torch.uint8 and tuple(packed.shape) == (5, 32)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jq.pack_int4(jnp.asarray(q))))
+    np.testing.assert_array_equal(tq.unpack_int4(packed).numpy(), q)
+
+
+def test_helpers_match_jax():
+    for n, want in [(256, 128), (200, 128), (96, 128), (7, 4)]:
+        assert tq.choose_block(n, want) == jq.choose_block(n, want)
+    assert (tq.qmax(8), tq.qmax(4)) == (127, 7)
+    assert tq.FP8_MAX == jq.FP8_MAX
+    assert tq._infer_block(256, 2, None) == 128
+    assert tq._infer_block(200, 2, 128) == 128
+    with pytest.raises(ValueError, match="pass the block"):
+        tq._infer_block(200, 3, None)
+    with pytest.raises(ValueError, match="pass the block"):
+        jq._infer_block(200, 3, None)
+
+
+def test_cpu_tensors_run_plain_versions_without_nvcc(monkeypatch):
+    """A CPU tensor takes the plain version because it lies on the CPU — the
+    kernel build is never reached (this machine has no nvcc)."""
+    from deepspeed_tpu_torch.ops import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("the kernel build must not run for CPU tensors")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(tq.launches)
+    x = torch.from_numpy(_x(5, (4, 64)))
+    q, s = tq.quantize_blockwise(torch.from_numpy(_x(6, (64, 128))))
+    tq.quantized_matmul(x, q, s)
+    tq.dequantize_blockwise(q, s)
+    assert tq.launches == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No silent fallback: the kernels' own entry points raise on CPU
+    tensors instead of running the plain versions."""
+    x = torch.from_numpy(_x(6, (4, 128)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.quantize_cuda(x, 8, 128)
+    q, s = tq.quantize_blockwise(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.quantized_matmul_cuda(x[:, :4].contiguous(), q[:4].contiguous(),
+                                 s[:4].contiguous(), 128, torch.float32)
+
+
+def test_dequantize_on_cuda_is_not_ported(monkeypatch):
+    """``_dequant_kernel`` is not ported: a tensor that would take the
+    kernel path raises NotImplementedError naming its ROADMAP item."""
+    q, s = tq.quantize_blockwise(torch.from_numpy(_x(7, (2, 128))))
+    monkeypatch.setattr(tq, "_use_reference", lambda t: False)
+    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+        tq.dequantize_blockwise(q, s)
+
+
+def test_import_needs_no_nvcc():
+    code = ("import sys; import deepspeed_tpu_torch.ops.quantizer; "
+            "assert 'deepspeed_tpu_torch.ops._build' not in sys.modules")
+    env = {"PATH": "/nonexistent", "NVCC": "/nonexistent/nvcc",
+           "PYTHONPATH": ":".join(sys.path)}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
