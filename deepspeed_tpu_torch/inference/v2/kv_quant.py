@@ -91,13 +91,13 @@ def touched_block_plan(block_tables, start_pos, n_tokens, chunk: int,
                        num_blocks: int) -> Dict[str, torch.Tensor]:
     """The pool blocks this step's KV writes touch, as the JAX plan (:125):
     at most ``TB = (C-1)//bs + 2`` per row, the same for every layer, so the
-    forward computes it once. ``scatter_ids`` is kept as the JAX package
-    defines it (``NB`` where untouched); ``touched`` [N, TB] marks the rows
-    the in-place write stores. The masks are turned into index lists here,
-    once per forward (each costs the host one wait for the card), so that
-    the per-layer writes never wait: ``sel_rows``/``sel_ids`` are the
-    touched (row·TB + t) and their block ids, ``tok``/``tok_n``/
-    ``tok_t``/``tok_slot`` the valid tokens and their coordinates."""
+    forward computes it once. ``touched`` [N, TB] marks the rows the
+    in-place write stores (the JAX plan's ``scatter_ids < NB``). The masks
+    are turned into index lists here, once per forward (each costs the host
+    one wait for the card), so that the per-layer writes never wait:
+    ``sel_rows``/``sel_ids`` are the touched (row·TB + t) and their block
+    ids, ``tok``/``tok_n``/``tok_t``/``tok_slot`` the valid tokens and their
+    coordinates."""
     N, MB = block_tables.shape
     bs = block_size
     dev = block_tables.device
@@ -112,7 +112,6 @@ def touched_block_plan(block_tables, start_pos, n_tokens, chunk: int,
     touched = (tidx * bs < ctx_len[:, None]) & (tidx < MB) & (ids >= 0)
     gather_ids = torch.where(touched, ids.clamp(0, num_blocks - 1),
                              torch.zeros_like(ids))
-    scatter_ids = torch.where(touched, ids, torch.full_like(ids, num_blocks))
     slot_pos = (tidx[:, :, None] * bs
                 + torch.arange(bs, device=dev)[None, None, :])
     live_slots = (slot_pos < ctx_len[:, None, None]) & touched[:, :, None]
@@ -125,8 +124,7 @@ def touched_block_plan(block_tables, start_pos, n_tokens, chunk: int,
     has_prior = (tidx * bs < start_pos[:, None]) & touched
     sel_rows = touched.reshape(-1).nonzero()[:, 0]
     tok = (t_flat < TB).nonzero()[:, 0]
-    return {"gather_ids": gather_ids, "scatter_ids": scatter_ids,
-            "touched": touched, "live_slots": live_slots,
+    return {"gather_ids": gather_ids, "touched": touched, "live_slots": live_slots,
             "has_prior": has_prior, "n_flat": n_flat, "t_flat": t_flat,
             "slot_flat": slot_flat, "sel_rows": sel_rows,
             "sel_ids": ids.reshape(-1)[sel_rows], "tok": tok,

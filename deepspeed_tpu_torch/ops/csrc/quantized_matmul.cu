@@ -577,20 +577,20 @@ cudaError_t launch_cfg(bool small, const void* x, const void* q, const float* s,
 
 // x [M, K] (x_dtype 0 = float32, 1 = bfloat16), q [K, N] one byte each
 // (q_dtype 0 = int8, 1 = float8_e4m3fn), s [K, ceil(N / block)] float32,
-// out [M, N] (out_dtype 0 = float32, 1 = bfloat16); all contiguous. M <= 16
-// takes the weight-streaming path with up to `splits` K splits, whose fp32
+// out [M, N] (out_dtype 0 = float32, 1 = bfloat16); all contiguous. The
+// caller chooses the path: splits = 0 takes the tiled path; splits >= 1 the
+// weight-streaming path (M <= 16) with up to `splits` K splits, whose fp32
 // partials go to ws [splits, M, N] (unused with one split). Returns a
 // cudaError_t.
 extern "C" int quantized_matmul(const void* x, const void* q, const void* s,
                                 void* out, void* ws, int M, int N, int K,
                                 int block, int splits, int x_dtype, int q_dtype,
                                 int out_dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || splits <= 0 ||
-      (x_dtype != 0 && x_dtype != 1) || (q_dtype != 0 && q_dtype != 1) ||
-      (out_dtype != 0 && out_dtype != 1))
+  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || splits < 0 ||
+      (splits > 0 && M > 16) || (x_dtype != 0 && x_dtype != 1) ||
+      (q_dtype != 0 && q_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
     return cudaErrorInvalidValue;
-  const bool small = M <= 16;
-  if (!small) splits = 1;
+  const bool small = splits > 0;
   const float* sf = static_cast<const float*>(s);
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -191,8 +191,10 @@ def quantize_cuda(x, bits: int, block: int, dtype: str = "int8"):
     return q, s
 
 
-# decode-sized M (at most this many rows) streams the weight with a split
-# over K; larger M takes the 128 x 128 tile
+# decode-sized M (at most this many rows, the kernel's largest
+# weight-streaming row tile) streams the weight with a split over K; larger M
+# takes the tiled path. The choice is made here alone: the kernel reads
+# splits = 0 as the tiled path.
 _QMM_SMALL_M = 16
 
 
@@ -226,13 +228,12 @@ def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
     if K == 0:
         return out.zero_()
     x2 = x.reshape(M, K).contiguous()
-    small = M <= _QMM_SMALL_M
     # split K so that the grid puts about six blocks (of 512 columns) on
     # each SM at decode, at least 64 rows of K and at most 64 splits; each
     # split writes an fp32 partial and a second kernel sums them into
     # ``out``
-    splits = 1
-    if small:
+    splits = 0
+    if M <= _QMM_SMALL_M:
         col_blocks = -(-N // 512)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = max(1, min(-(-6 * sms // col_blocks), K // 64, 64))

@@ -48,7 +48,7 @@ STEPS = [
     (np.asarray([6, 10, 6, 0], np.int32), np.asarray([1, 1, 1, 0], np.int32),
      1),
 ]
-PLAN_KEYS = ("gather_ids", "scatter_ids", "live_slots", "has_prior",
+PLAN_KEYS = ("gather_ids", "live_slots", "has_prior",
              "n_flat", "t_flat", "slot_flat")
 
 
@@ -67,8 +67,9 @@ def test_touched_block_plan_matches_jax(step):
     for k in PLAN_KEYS:
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]),
                                       err_msg=k)
-    np.testing.assert_array_equal(tp["touched"].numpy(),
-                                  np.asarray(jp["scatter_ids"]) < NB)
+    scatter = np.asarray(jp["scatter_ids"])
+    np.testing.assert_array_equal(tp["touched"].numpy(), scatter < NB)
+    np.testing.assert_array_equal(tp["sel_ids"].numpy(), scatter[scatter < NB])
 
 
 def _bytes(a):
