@@ -38,8 +38,9 @@ The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler trace of two puts of the bf16 and of the
-int8 main path (the breakdowns in PERF.md section 5). ``--quick`` stops
-after the kernel phase.
+int8 main path and of one training step (the breakdowns in PERF.md section
+5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
+later phase after it (a short call after an edit; no result lines).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import time
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import _build
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import quantizer as qz
 
@@ -355,12 +358,150 @@ def phase_kernel_qmm():
     return max_err
 
 
+# Flash attention (forward, dq, dkv) against the plain versions,
+# |k - ref| <= atol + rtol * |ref|. fp32: kernel and plain version both
+# work in fp32 and differ in summation order over up to D products a logit
+# and a few thousand terms a row. bf16: both round the output to bf16 (2^-8
+# relative each); the plain forward also rounds the logits and p to bf16
+# before the products, which the kernel keeps in fp32, so o and lse may
+# differ by a few roundings of 2^-8 at |o| <= 1 and |s| of a few units.
+FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+FLASH_CASES = [
+    # name, B, T, S, H, KH, D, causal, window, sm_scale
+    ("MHA 4/4 D=64 causal", 1, 256, 256, 4, 4, 64, True, 0, None),
+    ("GQA 8/2 D=128 causal", 1, 384, 384, 8, 2, 128, True, 0, None),
+    ("MQA 8/1 D=128 causal B=2", 2, 200, 200, 8, 1, 128, True, 0, None),
+    ("GQA 8/2 D=80 causal", 1, 300, 300, 8, 2, 80, True, 0, None),
+    ("GQA 8/2 D=128 causal T<S", 1, 100, 333, 8, 2, 128, True, 0, None),
+    ("MHA 4/4 D=64 non-causal T!=S", 2, 150, 260, 4, 4, 64, False, 0, None),
+    ("GQA 8/2 D=128 window 1", 1, 256, 256, 8, 2, 128, True, 1, None),
+    ("GQA 8/2 D=128 window 64", 1, 512, 512, 8, 2, 128, True, 64, None),
+    ("GQA 8/2 D=64 window 64 T<S", 1, 130, 400, 8, 2, 64, True, 64, None),
+    ("MQA 8/1 D=64 window > S", 1, 256, 256, 8, 1, 64, True, 1000, None),
+    ("GQA 8/2 D=128 T=S=2047", 1, 2047, 2047, 8, 2, 128, True, 0, None),
+    ("GQA 8/2 D=128 T=S=2047 window 512", 1, 2047, 2047, 8, 2, 128, True,
+     512, None),
+    ("MHA 4/4 D=64 T=S=129", 1, 129, 129, 4, 4, 64, True, 0, None),
+    ("GQA 8/2 D=128 T=S=129 sm_scale=1", 2, 129, 129, 8, 2, 128, True, 0,
+     1.0),
+    ("MHA 4/4 D=256 causal", 1, 200, 200, 4, 4, 256, True, 0, None),
+]
+
+
+def close(name, what, got, ref, dtype):
+    atol, rtol = FLASH_TOL[dtype]
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"[kernel] flash {name}: non-finite {what}")
+    d = (g - r).abs()
+    err = d.max().item()
+    if (d > atol + rtol * r.abs()).any():
+        raise AssertionError(f"[kernel] flash {name}: {what} max |diff| "
+                             f"{err:.3g} over atol {atol} + rtol {rtol}·|ref|")
+    return err
+
+
+def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
+                gen):
+    """Forward, delta, dq and dkv kernels against the plain versions on the
+    same inputs (the backward ones fed the forward kernel's o and lse)."""
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(dtype)
+    q, k, v, do = mk(B, T, H, D), mk(B, S, KH, D), mk(B, S, KH, D), \
+        mk(B, T, H, D)
+    if sm_scale is not None:
+        # keep |s| at a few units, where the tolerances above hold: the
+        # plain bf16 forward rounds each logit to bf16, 2^-8 of its size
+        q = (q.float() / (sm_scale * math.sqrt(D))).to(dtype)
+    args = (causal, window, sm_scale)
+    o, lse = fa.flash_fwd_cuda(q, k, v, *args)
+    ro, rlse = fa._attention_torch(q, k, v, *args)
+    delta = fa.flash_delta_cuda(o, do)
+    dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, *args)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, *args)
+    rdq = fa._dq_torch(q, k, v, o, do, lse, *args)
+    rdk, rdv = fa._dkv_torch(q, k, v, o, do, lse, *args)
+    torch.cuda.synchronize()
+    errs = {"fwd": max(close(name, "o", o, ro, dtype),
+                       close(name, "lse", lse, rlse, dtype)),
+            "dq": close(name, "dq", dq, rdq, dtype),
+            "dkv": max(close(name, "dk", dk, rdk, dtype),
+                       close(name, "dv", dv, rdv, dtype))}
+    rd = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    close(name, "delta", delta, rd, torch.float32)
+    log(f"[kernel] flash {name} {str(dtype).split('.')[-1]}: ok, max "
+        f"|kernel - plain| fwd {errs['fwd']:.3g}, dq {errs['dq']:.3g}, dkv "
+        f"{errs['dkv']:.3g}")
+    return errs
+
+
+def check_flash_autograd(name, B, T, S, H, KH, D, causal, window, sm_scale,
+                         gen):
+    """The Function's gradients on the card (forward, delta, dq and dkv
+    kernels wired through autograd) against autograd through the plain
+    forward, fp32."""
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda")
+    q, k, v, do = mk(B, T, H, D), mk(B, S, KH, D), mk(B, S, KH, D), \
+        mk(B, T, H, D)
+    grads = {}
+    for mode in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if mode == "kernel":
+            out = fa.flash_attention(*leaves, causal=causal, window=window,
+                                     sm_scale=sm_scale)
+        else:
+            out, _ = fa._attention_torch(*leaves, causal, window, sm_scale)
+        out.backward(do)
+        grads[mode] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    errs = [close(name, f"autograd d{n}", g, r, torch.float32)
+            for n, g, r in zip("qkv", grads["kernel"], grads["plain"])]
+    log(f"[kernel] flash {name}: Function gradients equal autograd through "
+        f"the plain forward, max |diff| dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
+        f"dv {errs[2]:.3g} (fp32)")
+
+
+def phase_kernel_flash():
+    gen = torch.Generator("cuda").manual_seed(13)
+    max_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    n0 = dict(fa.launches)
+    for case in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = check_flash(*case, dtype, gen)
+            if dtype == torch.bfloat16:
+                for key, e in errs.items():
+                    max_err[key] = max(max_err[key], e)
+    for case in (FLASH_CASES[1], FLASH_CASES[4], FLASH_CASES[5],
+                 FLASH_CASES[7], FLASH_CASES[12]):
+        check_flash_autograd(*case, gen)
+    # what the kernels do not take raises on a CUDA tensor
+    q = torch.zeros((1, 8, 2, 12), device="cuda")
+    for bad, exc in (((q, q, q, True), ValueError),            # D % 8
+                     ((q.half(), q.half(), q.half(), True), (TypeError,
+                                                             ValueError)),
+                     ((q[..., :8], q[..., :8], q[..., :8], False, 512, 512,
+                       4), ValueError)):          # window without causal
+        try:
+            fa.flash_attention(*bad)
+        except exc:
+            continue
+        raise AssertionError(f"[kernel] flash: no error for {bad[3:]} on "
+                             f"{bad[0].dtype} D={bad[0].shape[-1]}")
+    log(f"[kernel] flash: launches in this phase "
+        f"{ {k: fa.launches[k] - n0[k] for k in n0} }")
+    return max_err
+
+
 def phase_kernel():
     paged = phase_kernel_paged()
+    flash = phase_kernel_flash()
     return {"paged_attention": paged["bf16"],
             "paged_attention_quant": paged["quant"],
             "quantize": phase_kernel_quantize(),
-            "quantized_matmul": phase_kernel_qmm()}
+            "quantized_matmul": phase_kernel_qmm(),
+            "flash_fwd": flash["fwd"], "flash_dq": flash["dq"],
+            "flash_dkv": flash["dkv"]}
 
 
 # ---------------------------------------------------------------- timing
@@ -525,6 +666,132 @@ def quantize_timing_case(label, rows, n, flush, block=128):
     return row
 
 
+def flash_pairs(T, S, causal, window):
+    """Attended (row, column) pairs of one head."""
+    offs = S - T
+    total = 0
+    for r in range(T):
+        hi = min(S - 1, r + offs) if causal else S - 1
+        lo = max(0, r + offs - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bounds(B, T, S, H, KH, D, causal, window, item):
+    """Least times the card could take for forward, dq (with its delta
+    pre-pass) and dkv: the larger of the bytes each must move (inputs read
+    once, outputs written once) over HBM bandwidth and its flops (2 per
+    multiply-add: 2, 3 and 4 products of D over each attended pair) over
+    the bf16 tensor-core peak (the timed tensors are bf16)."""
+    pairs = flash_pairs(T, S, causal, window) * B * H
+    qb, kvb = B * T * H * D * item, B * S * KH * D * item
+    stat = B * H * T * 4
+    work = {
+        "fwd": (2 * qb + 2 * kvb + stat, 4 * D * pairs),
+        # q, k, v, o, do, lse read; delta written and read; dq written
+        "dq": (4 * qb + 2 * kvb + 3 * stat, 6 * D * pairs),
+        # q, k, v, do, lse, delta read; dk, dv written
+        "dkv": (2 * qb + 4 * kvb + 2 * stat, 8 * D * pairs),
+    }
+    out = {}
+    for key, (nbytes, flops) in work.items():
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        f_ms = flops / PEAK_BF16_FLOPS * 1e3
+        out[key] = (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
+    return out
+
+
+def sdpa_library(q, k, v, causal, window):
+    """The same attention as one PyTorch library call (timed only; never
+    used by the port): heads first, GQA heads repeated (made untimed),
+    ``is_causal`` where there is no window and a boolean band mask where
+    there is. Returns (forward call, backward call through autograd)."""
+    H, KH = q.shape[2], k.shape[2]
+    T, S = q.shape[1], k.shape[1]
+    qh = q.permute(0, 2, 1, 3).contiguous().requires_grad_()
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KH, dim=1) \
+        .contiguous().requires_grad_()
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KH, dim=1) \
+        .contiguous().requires_grad_()
+    kw = {}
+    if window and window < S:
+        keep = fa._keep_mask(T, S, causal, window, q.device)
+        kw["attn_mask"] = keep
+    elif causal:
+        if T != S:
+            kw["attn_mask"] = fa._keep_mask(T, S, True, 0, q.device)
+        else:
+            kw["is_causal"] = True
+    F = torch.nn.functional
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    out = fwd()
+    do = torch.randn_like(out)
+
+    def bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
+
+    return fwd, bwd
+
+
+def flash_timing_case(label, B, T, H, KH, D, window, flush, plain_T=None):
+    """Forward, dq (delta pre-pass included) and dkv at one shape, bf16,
+    causal, T = S. The plain versions are timed at ``plain_T`` rows where
+    the dense [T, S] logits of the full shape do not fit."""
+    gen = torch.Generator("cuda").manual_seed(T + H)
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(B, T, H, D), mk(B, T, KH, D), mk(B, T, KH, D), \
+        mk(B, T, H, D)
+    args = (True, window, None)
+    o, lse = fa.flash_fwd_cuda(q, k, v, *args)
+    delta = fa.flash_delta_cuda(o, do)
+    ms = {
+        "fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, *args), flush,
+                       iters=5, warmup=1),
+        "dq": time_ms(lambda: fa.flash_dq_cuda(
+            q, k, v, do, lse, fa.flash_delta_cuda(o, do), *args), flush,
+            iters=5, warmup=1),
+        "dkv": time_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
+                                                 *args), flush, iters=5,
+                       warmup=1),
+    }
+    pT = plain_T or T
+    pq, pk, pv, pdo, po, plse = (t[:, :pT].contiguous() if t.dim() == 4
+                                 else t[:, :, :pT].contiguous()
+                                 for t in (q, k, v, do, o, lse))
+    if pT != T:     # the shorter problem's own o and lse
+        po, plse = fa._attention_torch(pq, pk, pv, *args)
+    plain = {
+        "fwd": time_ms(lambda: fa._attention_torch(pq, pk, pv, *args), flush,
+                       iters=3, warmup=1),
+        "dq": time_ms(lambda: fa._dq_torch(pq, pk, pv, po, pdo, plse, *args),
+                      flush, iters=3, warmup=1),
+        "dkv": time_ms(lambda: fa._dkv_torch(pq, pk, pv, po, pdo, plse,
+                                             *args), flush, iters=3,
+                       warmup=1),
+    }
+    del pq, pk, pv, pdo, po, plse
+    lib_fwd, lib_bwd = sdpa_library(q, k, v, True, window)
+    lib = {"fwd": time_ms(lib_fwd, flush, iters=5, warmup=1)}
+    lib["dq"] = lib["dkv"] = time_ms(lib_bwd, flush, iters=5, warmup=1)
+    del lib_fwd, lib_bwd
+    bounds = flash_bounds(B, T, T, H, KH, D, True, window, 2)
+    rows = {}
+    for key in ("fwd", "dq", "dkv"):
+        note = label + (f"; plain version at T={pT}" if pT != T else "")
+        if key != "fwd":
+            note += "; library = autograd through SDPA (dq, dk, dv at once)"
+        rows[f"flash_{key}"] = {
+            "case": note, "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": lib[key]}
+        log(f"[timing] flash_{key} {json.dumps(rows[f'flash_{key}'])}")
+    return rows
+
+
 def phase_timing():
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     main_ctx = [n + MAIN_NEW_TOKENS - 1 for n in MAIN_PROMPT_LENS]
@@ -551,7 +818,16 @@ def phase_timing():
     rows["quantize"] = quantize_timing_case(
         "engine build: stacked w_in [32*4096, 14336] bf16 -> int8",
         32 * 4096, 14336, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(flash_timing_case(
+        "training shape B=1 T=S=8192 H=32 KH=8 D=128 window 4096 bf16", 1,
+        TRAIN_SEQ - 1, 32, 8, 128, 4096, flush, plain_T=2048))
+    flash_timing_case("B=4 T=S=2048 H=32 KH=8 D=128 window 4096 (no bite) "
+                      "bf16", 4, 2048, 32, 8, 128, 4096, flush)
     del flush
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -893,6 +1169,265 @@ def phase_quant(profile_puts=False):
     return int8, fp8
 
 
+# ----------------------------------------------------------- training path
+
+TRAIN_LAYERS = 8        # of MISTRAL_7B's 32: 16 bytes a parameter of state
+TRAIN_SEQ = 8193        # T = 8192 after the shift: the preset's max_seq_len
+TRAIN_STEPS = 4
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                              "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 1e-5,
+                                                 "warmup_max_lr": 1e-4,
+                                                 "warmup_num_steps": 2}},
+    "gradient_clipping": 1.0,
+    "steps_per_print": 1,
+    "seed": 0,
+}
+
+
+def reset_flash_launches():
+    for key in fa.launches:
+        fa.launches[key] = 0
+
+
+def tiny_train_parity():
+    """A small fp32 TINY_TEST engine gives on the card (through the four
+    flash kernels) the loss trajectory it gives on the CPU (through the
+    plain versions) to 1e-5: the same fp32 program, summed in other
+    orders."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import TINY_TEST, CausalLM
+
+    start = CausalLM(TINY_TEST).init(torch.Generator().manual_seed(5),
+                                     device="cpu")
+    data = {"input_ids": np.random.default_rng(5).integers(
+        0, TINY_TEST.vocab_size, (8, 65)).astype(np.int32)}
+    cfg = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2,
+               steps_per_print=100)
+    del cfg["bf16"]
+    losses = {}
+    reset_flash_launches()
+    for dev in ("cpu", "cuda"):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=CausalLM(TINY_TEST), config=dict(cfg), training_data=data,
+            model_parameters=start, device=dev)
+        losses[dev] = [float(engine.train_batch()) for _ in range(6)]
+    want = 6 * 2 * TINY_TEST.num_layers
+    if any(fa.launches[k] != want for k in fa.launches):
+        raise AssertionError(f"[train] tiny fp32: launches {fa.launches}, "
+                             f"want {want} each")
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    if err > 1e-5 or not losses["cuda"][-1] < losses["cuda"][0]:
+        raise AssertionError(f"[train] tiny fp32: card {losses['cuda']} vs "
+                             f"CPU {losses['cpu']}")
+    log(f"[train] tiny fp32 TINY_TEST engine: 6 steps on the card equal the "
+        f"CPU's, max |loss diff| {err:.3g} (1e-5 allowed); losses "
+        f"{losses['cuda'][0]:.5f} -> {losses['cuda'][-1]:.5f}")
+
+
+def micro_step_check(engine, vocab):
+    """One micro step's loss and a few gradient leaves with the kernels
+    against the same step with the plain attention pinned, at full width
+    and T = 2048 (where the plain version's dense logits fit). The two
+    differ in bf16 roundings only (the plain forward rounds the logits and
+    p to bf16, the kernels keep them in fp32), which 8 layers of backward
+    carry into every gradient, so the yardstick is a third run whose plain
+    attention works in fp32 arithmetic on the same bf16 q, k, v (test-only,
+    swapped in here): the loss with the kernels must agree with the plain
+    one to 2e-3, and each gradient leaf must lie no further from the fp32
+    attention's than the plain bf16 version's does, and within 10% of its
+    largest entry of the plain version's."""
+    params = engine.state.params
+    leaves = {"layers.wq[0]": params["layers"]["wq"],
+              "layers.wk[0]": params["layers"]["wk"],
+              "layers.w_in[0]": params["layers"]["w_in"],
+              "embed.wte": params["embed"]["wte"]}
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, vocab, (1, 2049)), device="cuda")
+    plain = (fa._attention_torch, fa._dq_torch, fa._dkv_torch)
+
+    def in_fp32(fn):
+        def run(*args):
+            dt = args[0].dtype
+            up = [a.float() if torch.is_tensor(a) and a.dtype == dt else a
+                  for a in args]
+            out = fn(*up)
+            if torch.is_tensor(out):
+                return out.to(dt)
+            return tuple(o.to(dt) if o.dim() == 4 else o for o in out)
+        return run
+
+    res = {}
+    for mode in ("kernel", "plain", "plain_fp32"):
+        fa.FORCE_REFERENCE = mode != "kernel"
+        if mode == "plain_fp32":
+            fa._attention_torch, fa._dq_torch, fa._dkv_torch = map(in_fp32,
+                                                                   plain)
+        try:
+            loss = engine.module.loss(params, {"input_ids": tokens})
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        finally:
+            fa.FORCE_REFERENCE = False
+            fa._attention_torch, fa._dq_torch, fa._dkv_torch = plain
+        res[mode] = (float(loss.detach()),
+                     [g[0].clone() if n.endswith("[0]") else g
+                      for n, g in zip(leaves, grads)])
+        del loss, grads
+    dl = abs(res["kernel"][0] - res["plain"][0])
+    if dl > 2e-3:
+        raise AssertionError(f"[train] micro step: loss {res['kernel'][0]} "
+                             f"vs plain {res['plain'][0]}")
+    parts = []
+    for name, gk, gp, g32 in zip(leaves, *(res[m][1] for m in res)):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"[train] micro step: non-finite d{name}")
+        top = g32.abs().max()
+        d_kp, d_k32, d_p32 = (((a - b).abs().max() / top).item()
+                              for a, b in ((gk, gp), (gk, g32), (gp, g32)))
+        parts.append(f"{name} {d_kp:.3g} / {d_k32:.3g} / {d_p32:.3g}")
+        if d_k32 > d_p32 or d_kp > 0.1:
+            raise AssertionError(
+                f"[train] micro step: d{name} with the kernels is "
+                f"{d_k32:.3g} of its largest entry from the fp32 "
+                f"attention's (the plain version's: {d_p32:.3g}) and "
+                f"{d_kp:.3g} from the plain version's")
+    log(f"[train] one micro step at T=2048, kernels vs plain attention: "
+        f"loss {res['kernel'][0]:.5f} vs {res['plain'][0]:.5f} (|diff| "
+        f"{dl:.3g}, 2e-3 allowed; fp32 attention "
+        f"{res['plain_fp32'][0]:.5f}); max |dgrad| / max |grad| as kernel "
+        f"to plain / kernel to fp32 attention / plain to fp32 attention: "
+        f"{'; '.join(parts)}")
+
+
+def profile_train_step(engine):
+    """torch.profiler over one train_batch: the share of the step's device
+    time in each flash kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.train_batch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    log(f"[profile train] one train_batch: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
+    for key in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                "flash_delta_kernel"):
+        ms = sum(e.self_device_time_total for e in evs if key in e.key) / 1e3
+        n = sum(e.count for e in evs if key in e.key)
+        log(f"[profile train]   {key}: {ms:.1f} ms x{n} "
+            f"({100 * ms / busy:.1f}% of device time)")
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    for e in evs[:8]:
+        log(f"[profile train]   {e.self_device_time_total / 1e3:9.2f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
+def run_training(label, layers, seq, steps, remat=False, checks=False,
+                 profile_step=False):
+    """Build MISTRAL_7B at full width and ``layers`` layers through
+    ``initialize`` and take ``steps`` optimizer steps of 2 micro steps on 2
+    random sequences of ``seq`` tokens (the same 2 each step). Returns the
+    launch counts of the steps and what was measured."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=layers, remat=remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = {"input_ids": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, seq)).astype(np.int32)}
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg), config=dict(TRAIN_CONFIG), training_data=data)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in
+                   tree_tensors(engine.state.params))
+    log(f"[{label}] MISTRAL_7B widths, {layers} of 32 layers: "
+        f"{n_params / 1e9:.3f} B parameters, fp32 master + 2 moments + "
+        f"accumulator {16 * n_params / 1e9:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.2f} s; remat {remat}")
+    reset_flash_launches()
+    losses, norms, secs = [], [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine.train_batch()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+        log(f"[{label}] step {step + 1}: loss {losses[-1]:.4f}, grad norm "
+            f"{norms[-1]:.4f}, next lr {engine.get_lr()[0]:.3g}, "
+            f"{secs[-1]:.2f} s = {2 * (seq - 1) / secs[-1]:.1f} tokens/s")
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"[{label}] non-finite loss or grad norm: "
+                             f"{losses} {norms}")
+    if engine.global_steps != steps or engine.skipped_steps != 0 \
+            or int(engine.state.global_step) != steps:
+        raise AssertionError(f"[{label}] {engine.global_steps} steps, "
+                             f"{engine.skipped_steps} skipped")
+    per = steps * 2 * layers
+    want = {"fwd": per * (2 if remat else 1), "delta": per, "dq": per,
+            "dkv": per}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    log(f"[{label}] {steps} optimizer steps x 2 micro steps: launches "
+        f"{json.dumps(launches)} (asserted); peak memory {peak:.2f} GB")
+    if checks:
+        # random weights at std 0.02: the final norm gives x unit RMS, so a
+        # logit is a sum of hidden_size products with variance hidden_size *
+        # 0.02^2, and the expected loss of independent logits of variance v
+        # is ln(vocab) + v / 2 (10.373 + 0.819 at these widths)
+        first = math.log(cfg.vocab_size) + cfg.hidden_size * 0.02 ** 2 / 2
+        if abs(losses[0] - first) > 0.05:
+            raise AssertionError(f"[{label}] first loss {losses[0]} is not "
+                                 f"within 0.05 of ln(vocab) + hidden * "
+                                 f"0.02^2 / 2 = {first:.3f}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"[{label}] the loss did not fall: {losses}")
+        micro_step_check(engine, cfg.vocab_size)
+    if profile_step:
+        profile_train_step(engine)
+    res = {"launches": launches, "losses": losses, "peak_gb": peak,
+           "tokens_per_s": [2 * (seq - 1) / s for s in secs],
+           "step_s": secs}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tree_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    else:
+        yield tree
+
+
+def phase_train(profile_step=False):
+    tiny_train_parity()
+    res = run_training("train", TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS,
+                       checks=True, profile_step=profile_step)
+    run_training("train remat", 2, 2049, 1, remat=True)
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -903,6 +1438,12 @@ KERNEL_SOURCES = {
     "quantize": ("quantize.cu", "deepspeed_tpu/ops/quantizer.py:130"),
     "quantized_matmul": ("quantized_matmul.cu",
                          "deepspeed_tpu/ops/quantizer.py:257"),
+    "flash_fwd": ("flash_attention.cu",
+                  "deepspeed_tpu/ops/flash_attention.py:92"),
+    "flash_dq": ("flash_attention.cu",
+                 "deepspeed_tpu/ops/flash_attention.py:148"),
+    "flash_dkv": ("flash_attention.cu",
+                  "deepspeed_tpu/ops/flash_attention.py:190"),
 }
 
 
@@ -912,6 +1453,9 @@ def main(argv=None):
                     help="also trace two puts of the bf16 and int8 paths")
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
+    ap.add_argument("--only", choices=["timing", "main", "quant", "train"],
+                    help="after device, build and kernel run this phase "
+                         "alone (no result lines)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     secs = {}
@@ -929,9 +1473,19 @@ def main(argv=None):
     if args.quick:
         log(f"[done] --quick: {json.dumps(secs)}")
         return
+    if args.only:
+        phase = {"timing": phase_timing, "main": phase_main,
+                 "quant": phase_quant, "train": phase_train}[args.only]
+        kw = {} if args.only == "timing" else {
+            "profile_step" if args.only == "train" else "profile_puts":
+            args.profile}
+        timed(args.only, phase, **kw)
+        log(f"[done] --only {args.only}: {json.dumps(secs)}")
+        return
     times = timed("timing", phase_timing)
     main_res = timed("main", phase_main, profile_puts=args.profile)
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
+    train = timed("train", phase_train, profile_step=args.profile)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
         f"{main_res['prefill_tps']:.1f} | {int8['prefill_tps']:.1f} | "
@@ -943,7 +1497,13 @@ def main(argv=None):
     launches = {"paged_attention": main_res["launches"]["paged_attention"],
                 "paged_attention_quant": int8["launches"]["paged_attention"],
                 "quantize": int8["quantize_launches"],
-                "quantized_matmul": int8["launches"]["quantized_matmul"]}
+                "quantized_matmul": int8["launches"]["quantized_matmul"],
+                "flash_fwd": train["launches"]["fwd"],
+                "flash_dq": train["launches"]["dq"],
+                "flash_dkv": train["launches"]["dkv"]}
+    log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
+        f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
+        f"peak memory {train['peak_gb']:.2f} GB")
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         t = times[name]

@@ -8,6 +8,12 @@ the TPU is a kernel written by hand for Hopper (``ops/csrc/*.cu``), built with
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no explicit device they raise instead of dropping to the CPU.
+
+``initialize`` creates the training engine::
+
+    engine, optimizer, loader, scheduler = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg), config={...}, training_data=data)
+    loss = engine.train_batch()
 """
 
 from __future__ import annotations
@@ -43,4 +49,57 @@ def not_ported(feature: str, roadmap_item: str) -> NotImplementedError:
         f"(ROADMAP.md {roadmap_item})")
 
 
-__all__ = ["resolve_device", "not_ported", "__version__"]
+def initialize(args=None,
+               model=None,
+               optimizer=None,
+               model_parameters=None,
+               training_data=None,
+               lr_scheduler=None,
+               distributed_port=29500,
+               mesh=None,
+               dist_init_required=None,
+               collate_fn=None,
+               config=None,
+               config_params=None,
+               rng=None,
+               device: DeviceLike = None):
+    """Create the training engine; the counterpart of
+    ``deepspeed_tpu.initialize``.
+
+    ``model`` is a ``models.transformer.CausalLM`` or any object with
+    ``init(generator, device=...) -> params`` and ``loss(params, batch, rng)
+    -> scalar``. ``model_parameters`` hands over a starting param tree
+    (nested dicts of numpy arrays or tensors, copied into fp32 master
+    weights); with none the engine calls ``model.init`` with a
+    ``torch.Generator`` seeded from ``config.seed`` (or ``rng``, an int).
+    Returns ``(engine, optimizer, dataloader, lr_scheduler)``; the engine
+    owns all four. Runs on ``cuda`` unless ``device="cpu"`` is passed.
+    """
+    from .runtime.config import OffloadDeviceEnum, load_config
+    from .runtime.engine import DeepSpeedTpuEngine
+
+    config = config if config is not None else config_params
+    cfg_obj = load_config(config)
+    op = cfg_obj.zero_optimization.offload_param
+    if op is not None and op.device != OffloadDeviceEnum.none:
+        raise not_ported("offload_param (ZeRO-Infinity parameter streaming)",
+                         "queue 1 item 15")
+    if cfg_obj.hybrid_engine.enabled:
+        raise not_ported("hybrid_engine", "queue 1 item 17")
+    engine = DeepSpeedTpuEngine(args=args,
+                                model=model,
+                                optimizer=optimizer,
+                                model_parameters=model_parameters,
+                                training_data=training_data,
+                                lr_scheduler=lr_scheduler,
+                                mesh=mesh,
+                                collate_fn=collate_fn,
+                                config=cfg_obj if config is not None
+                                else None,
+                                rng=rng,
+                                device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
+
+
+__all__ = ["initialize", "resolve_device", "not_ported", "__version__"]

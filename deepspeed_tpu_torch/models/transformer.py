@@ -9,8 +9,9 @@ leaf is stacked ``[L, ...]`` and linear weights are ``[in, out]`` used as
 (``inference/v2/paged_model.py``) is built from. ``lax.scan`` over layers
 becomes a Python loop that hands each layer its static window.
 
-``CausalLM.apply`` (training and v1 prefill) waits for the flash-attention
-slice: on the card it must run through a ported ``_fwd_kernel``.
+``CausalLM.apply`` and ``CausalLM.loss`` (training and v1 prefill) run
+attention through ``ops/flash_attention.py``: on CUDA tensors the
+hand-written forward kernel, and under autograd its two backward kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import not_ported, resolve_device
+from ..ops.flash_attention import flash_attention
 from ..ops.quantizer import quantized_matmul
 
 
@@ -281,6 +283,83 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(base, dtype=torch.float32, device=device)
 
 
+def attention_reference(q, k, v, causal: bool = True, mask=None, bias=None,
+                        window: int = 0, scale=None):
+    """Plain attention: q [B,T,H,D], k/v [B,S,KH,D].
+
+    GQA is an einsum over the [KH, group] head factorization (no KV
+    repeat). ``bias``: optional additive [H, S] logit bias (ALiBi: terms
+    constant along a row cancel in the softmax, so slopes·key_position is
+    enough). ``mask``: anything that broadcasts to [B, H, T, S]. ``window``
+    > 0: sliding window (query p attends keys in (p − window, p]).
+    """
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    group = H // KH
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    qg = q.reshape(B, T, KH, group, D)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k).float() * scale
+    if bias is not None:
+        logits = logits + bias.reshape(KH, group, 1, S)[None]
+    if window and not causal:
+        raise ValueError("sliding window requires causal attention")
+    if causal:
+        qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+        kpos = torch.arange(S, device=q.device)[None, :]
+        cmask = qpos >= kpos
+        if window:
+            cmask = cmask & (qpos - kpos < window)
+        logits = torch.where(cmask, logits, torch.full_like(logits, -1e30))
+    if mask is not None:
+        m = torch.broadcast_to(torch.as_tensor(mask, device=q.device),
+                               (B, H, T, S)).reshape(B, KH, group, T, S)
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return o.reshape(B, T, H, D)
+
+
+def _local_attention(q, k, v, cfg: "TransformerConfig", causal=True,
+                     window=0):
+    """Dense attention on one device. With ``use_flash_attention`` on and
+    ``attention_impl`` other than "reference" it is ``flash_attention``:
+    the kernels on a CUDA tensor, where an error is an error (the JAX
+    package's ``try``/``except`` around its kernel is not carried over)."""
+    if cfg.attention_impl == "sparse":
+        raise not_ported("attention_impl='sparse' (ops/sparse_attention.py)",
+                         "queue 1 item 17")
+    if cfg.attention_impl == "ring":
+        raise not_ported("attention_impl='ring' (sequence/ring_attention.py)",
+                         "queue 1 item 14")
+    if cfg.use_flash_attention and cfg.attention_impl != "reference" \
+            and q.shape[1] == k.shape[1]:
+        return flash_attention(q, k, v, causal=causal,
+                               block_q=cfg.flash_block_q,
+                               block_kv=cfg.flash_block_kv, window=window,
+                               sm_scale=cfg.attn_scale)
+    return attention_reference(q, k, v, causal=causal, window=window,
+                               scale=cfg.attn_scale)
+
+
+def _attention(q, k, v, cfg: "TransformerConfig", causal=True, window=0):
+    """Dispatch by configuration, as the JAX ``_attention`` (:458) on one
+    device: ALiBi models take the plain attention with the slopes·position
+    bias (no kernel takes a bias there either, and the window is not passed,
+    as at :480); everything else is ``_local_attention``. The sequence-mesh
+    paths (Ulysses, ring) come with the distributed slice."""
+    if cfg.position == "alibi":
+        if cfg.attention_impl == "sparse":
+            raise NotImplementedError(
+                "attention_impl='sparse' does not support ALiBi models yet "
+                "(the block-sparse op takes no logit bias)")
+        S = k.shape[1]
+        bias = alibi_slopes(cfg.num_heads, device=q.device)[:, None] \
+            * torch.arange(S, device=q.device)[None, :]
+        return attention_reference(q, k, v, causal=causal, bias=bias,
+                                   scale=cfg.attn_scale)
+    return _local_attention(q, k, v, cfg, causal, window=window)
+
+
 _ACTIVATIONS: Dict[str, Callable] = {
     "relu": F.relu,
     "gelu_exact": lambda x: F.gelu(x, approximate="none"),
@@ -391,12 +470,112 @@ class CausalLM:
                 params["lm_head"]["b"] = const((v,), 0.0)
         return params
 
+    # -- one transformer block ---------------------------------------------
+    def _qkv(self, h1, lp, cos, sin, B, T):
+        cfg = self.cfg
+        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        dt = cfg.dtype
+        q = _linear(h1, lp["wq"], lp.get("wq_b"), dt).reshape(B, T, nh, hd)
+        k = _linear(h1, lp["wk"], lp.get("wk_b"), dt).reshape(B, T, kvh, hd)
+        v = _linear(h1, lp["wv"], lp.get("wv_b"), dt).reshape(B, T, kvh, hd)
+        if cfg.position == "rope":
+            q = apply_rope(q, cos, sin, cfg.rope_interleaved)
+            k = apply_rope(k, cos, sin, cfg.rope_interleaved)
+        return q, k, v
+
+    def _block(self, x, lp, cos, sin, window=0):
+        cfg = self.cfg
+        B, T, _ = x.shape
+        h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm,
+                   cfg.norm_eps)
+        q, k, v = self._qkv(h1, lp, cos, sin, B, T)
+        attn = _attention(q, k, v, cfg, causal=True, window=window)
+        attn = _linear(attn.reshape(B, T, -1), lp["wo"], lp.get("wo_b"),
+                       cfg.dtype)
+        return self._attn_mlp_merge(x, attn, lp, h1)
+
     # -- forward ------------------------------------------------------------
-    def apply(self, params, tokens, **kwargs):
-        raise not_ported("CausalLM.apply (dense training/prefill forward; "
-                         "on the card it runs through a ported _fwd_kernel)",
-                         "queue 1 item 2 / queue 2 item 3, flash-attention "
-                         "slice")
+    def apply(self, params, tokens, rng=None, deterministic: bool = True,
+              positions=None, return_aux: bool = False):
+        """tokens [B, T] integers → logits [B, T, V] (in compute dtype).
+        With ``return_aux``, returns (logits, moe_aux_loss); the aux loss is
+        0 for the dense models the port runs. ``cfg.remat`` recomputes each
+        block in the backward (``torch.utils.checkpoint``; the
+        ``remat_policy`` names of ``jax.checkpoint`` have no counterpart and
+        every policy recomputes the whole block). Differentiable in the
+        param tree's leaves."""
+        cfg = self.cfg
+        if cfg.moe_num_experts > 0:
+            raise not_ported("MoE layers", "queue 1 item 14")
+        if cfg.dropout > 0 and not deterministic:
+            raise not_ported("dropout in CausalLM.apply (the masks would "
+                             "have to equal jax.random's)",
+                             "queue 1 item 17")
+        if cfg.pipeline_microbatches:
+            raise not_ported("pipeline parallelism", "queue 1 item 14")
+        B, T = tokens.shape
+        dev = tokens.device
+        tokens = tokens.long()
+        x = params["embed"]["wte"][tokens].to(cfg.dtype)
+        if cfg.embedding_layernorm:
+            x = _norm(x, params["embed"]["ln_w"], params["embed"].get("ln_b"),
+                      cfg.norm, cfg.norm_eps)
+        cos = sin = None
+        if cfg.position == "rope":
+            cos_full, sin_full = rope_table(cfg.max_seq_len, cfg.rot_dim,
+                                            cfg.rope_theta, device=dev)
+            if positions is not None:
+                positions = positions.long()
+                cos, sin = cos_full[positions], sin_full[positions]
+            else:
+                cos, sin = cos_full[:T], sin_full[:T]
+        elif cfg.position == "learned":
+            pos = positions.long() if positions is not None \
+                else torch.arange(T, device=dev)
+            x = x + params["embed"]["wpe"][pos].to(cfg.dtype)
+
+        def block_for(window):
+            def block(x, lp, layer):
+                if cfg.remat and torch.is_grad_enabled():
+                    from torch.utils.checkpoint import checkpoint
+
+                    return checkpoint(self._block, x, lp, cos, sin, window,
+                                      use_reentrant=False)
+                return self._block(x, lp, cos, sin, window)
+            return block
+
+        x = self._scan_layers(block_for, x, params["layers"])
+        x = _norm(x, params["final_norm"]["w"], params["final_norm"].get("b"),
+                  cfg.norm, cfg.norm_eps)
+        logits = self._unembed(params, x)
+        if return_aux:
+            return logits, torch.zeros((), dtype=torch.float32, device=dev)
+        return logits
+
+    # -- loss ---------------------------------------------------------------
+    def loss(self, params, batch, rng=None):
+        """batch: {"input_ids": [B,T]} (labels = shifted inputs) or
+        {"input_ids", "labels"(, "loss_mask")}. Returns the mean token NLL
+        (fp32 scalar)."""
+        tokens = batch["input_ids"]
+        labels = batch.get("labels")
+        if labels is None:
+            labels = tokens[:, 1:]
+            tokens = tokens[:, :-1]
+        mask = batch.get("loss_mask")
+        logits, _ = self.apply(params, tokens, rng=rng,
+                               deterministic=rng is None, return_aux=True)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+        return torch.mean(nll)
+
+    def num_params(self) -> int:
+        return self.cfg.num_params()
 
     def _mlp_body(self, h2, lp):
         """Dense FFN on normed input (SwiGLU for silu; gelu is the tanh
@@ -416,13 +595,21 @@ class CausalLM:
         """The counterpart of ``lax.scan`` over the stacked layer dim: a loop
         that hands layer ``i`` its params ``{k: v[i]}`` (both members of a
         quantized ``{"qw", "qs"}`` node sliced), its index, and the body
-        built for its static window. Returns the final carry."""
+        built for its static window. Returns the final carry. Each stacked
+        leaf is unbound once (views, no copies), so that under autograd its
+        gradient is assembled by one ``stack`` instead of one full-size
+        scatter per layer."""
+        def unbound(v):
+            return {k: t.unbind(0) for k, t in v.items()} \
+                if isinstance(v, dict) else v.unbind(0)
+
         def at(v, i):
             return {k: t[i] for k, t in v.items()} if isinstance(v, dict) \
                 else v[i]
 
+        layers = {k: unbound(v) for k, v in layer_params.items()}
         for i, win in enumerate(self.cfg.layer_windows()):
-            lp = {k: at(v, i) for k, v in layer_params.items()}
+            lp = {k: at(v, i) for k, v in layers.items()}
             carry = body_for_window(win)(carry, lp, i)
         return carry
 

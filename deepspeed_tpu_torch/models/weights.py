@@ -7,6 +7,12 @@ leaves, same ``[in, out]`` linear weights. PyTorch cannot reproduce
 ``jax.random``, so this is how both packages come to compute the same thing.
 A quantized tree (``{"qw", "qs"}`` nodes of ``weight_quant.py``) crosses bit
 for bit: fp8 payloads keep their bytes and no member of a node is cast.
+
+``params_to_numpy`` is the way back (trained params, for comparisons), and
+``train_state_to_numpy``/``train_state_from_numpy`` carry an engine's
+optimizer state and loss-scale state across as numpy, both directions: the
+JAX ``OptimizerState`` (``step``, ``moments``) and ``ScaleState`` (``scale``,
+``good_steps``, ``hysteresis``) have the same fields in both packages.
 """
 
 from __future__ import annotations
@@ -20,6 +26,11 @@ from .. import resolve_device
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    if torch.is_tensor(a):              # a caller's tensor: always a copy
+        t = a.detach()
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device, copy=True)
     a = np.asarray(a)
     # ml_dtypes types, which torch.from_numpy refuses
     if a.dtype.name == "bfloat16":
@@ -46,3 +57,62 @@ def params_from_numpy(tree: Any, device=None,
             dtype = None
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:       # numpy has no bfloat16: widen
+        t = t.float()
+    elif t.dtype == torch.float8_e4m3fn:    # the bytes, as uint8
+        t = t.view(torch.uint8)
+    return t.numpy().copy()
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Nested dicts of tensors → the same nesting of numpy arrays on the
+    host (bf16 leaves widened to fp32, fp8 leaves as their bytes)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return _to_numpy(tree)
+
+
+def train_state_to_numpy(opt_state, scale_state) -> dict:
+    """An ``OptimizerState`` and a ``ScaleState`` (of either package, once
+    its arrays are numpy-convertible) as one dict of numpy arrays."""
+    def conv(x):
+        return _to_numpy(x) if torch.is_tensor(x) else np.asarray(x)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return conv(tree)
+
+    return {"opt_state": {"step": conv(opt_state.step),
+                          "moments": walk(opt_state.moments)},
+            "scale_state": {"scale": conv(scale_state.scale),
+                            "good_steps": conv(scale_state.good_steps),
+                            "hysteresis": conv(scale_state.hysteresis)}}
+
+
+def train_state_from_numpy(state: dict, device=None):
+    """The inverse of :func:`train_state_to_numpy` for the port: returns
+    ``(OptimizerState, ScaleState)`` of tensors on ``device`` (fp32 moments,
+    int32 counters, as the engine keeps them)."""
+    from ..ops.optimizers import OptimizerState
+    from ..runtime.engine import ScaleState
+
+    device = resolve_device(device)
+
+    def scalar(x, dtype):
+        return torch.tensor(np.asarray(x).reshape(()).item(), dtype=dtype,
+                            device=device)
+
+    os_, ss = state["opt_state"], state["scale_state"]
+    opt_state = OptimizerState(
+        step=scalar(os_["step"], torch.int32),
+        moments=params_from_numpy(os_["moments"], device, torch.float32))
+    scale_state = ScaleState(
+        scale=scalar(ss["scale"], torch.float32),
+        good_steps=scalar(ss["good_steps"], torch.int32),
+        hysteresis=scalar(ss["hysteresis"], torch.int32))
+    return opt_state, scale_state

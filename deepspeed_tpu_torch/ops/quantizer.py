@@ -277,7 +277,9 @@ def dequantize_blockwise(q, scales, block: Optional[int] = None,
     if _use_reference(q):
         return _dequantize_torch(q, scales, block, dtype)
     raise not_ported("dequantize_blockwise on CUDA tensors (the "
-                     "_dequant_kernel port)", "queue 2 item 7")
+                     "_dequant_kernel port, which comes with the v1 "
+                     "inference slice: init_inference)",
+                     "queue 2 item 7 / queue 1 item 16")
 
 
 def quantized_matmul(x, q, scales, block: Optional[int] = None,

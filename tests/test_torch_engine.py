@@ -19,6 +19,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JEngine
 from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JConfig
@@ -141,5 +142,9 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu",
                           mesh=object())
+    # CausalLM.apply is ported; the model paths that still wait raise
+    moe = ttf.CausalLM(ttf.TransformerConfig(moe_num_experts=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.CausalLM(ttf.TINY_TEST).apply({}, None)
+        moe.apply({}, torch.zeros((1, 2), dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.init(device="cpu")
