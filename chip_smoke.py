@@ -16,9 +16,13 @@ Phases, each of which raises on failure (nothing is caught):
              for bit (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails,
              rows not a multiple of 8, an all-zero group); the quantized
              matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 37 and 2048
-             at the serving widths, ragged last groups).
-4. timing  — each kernel at the serving path's shapes beside its bound, its
-             plain version and, where there is one, one PyTorch library call.
+             at the serving widths, ragged last groups); the flash
+             attention forward, dq and dkv kernels (bf16 on the tensor-core
+             and on the CUDA-core kernels, fp32; MHA, GQA, MQA; D = 64, 80,
+             128, 256; causal with T = S and T < S, non-causal, windows,
+             tails, sm_scale) and the autograd Function built on them.
+4. timing  — each kernel at its path's shapes beside its bound, its plain
+             version and, where there is one, one PyTorch library call.
 5. main    — the serving path at full MISTRAL_7B width (32 layers, bf16,
              random weights from a seeded torch.Generator): greedy
              generation of 32 tokens for 8 requests through
@@ -33,6 +37,17 @@ Phases, each of which raises on failure (nothing is caught):
              launches) and dropped; 225 quantized-matmul and 32 paged
              launches per put; the steps held against the plain versions;
              then fp8 weights and fp8 KV on three of the prompts.
+7. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
+             (fp32 master weights, two moments and an accumulator cost 16
+             bytes a parameter), bf16, AdamW with WarmupLR, clipping,
+             micro batch 1 x 2 accumulation steps, sequences of 8193 tokens:
+             4 optimizer steps through initialize() and train_batch().
+             Checks finite losses and grad norms, the first loss against
+             its expectation, that the loss falls, the step counters, the
+             launch counts (64 each of forward, delta, dq, dkv), one micro
+             step against the plain attention, a remat run (forward
+             launches double), and that a small fp32 engine gives the same
+             losses on the card as on the CPU.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -410,9 +425,11 @@ def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
     q, k, v, do = mk(B, T, H, D), mk(B, S, KH, D), mk(B, S, KH, D), \
         mk(B, T, H, D)
     if sm_scale is not None:
-        # keep |s| at a few units, where the tolerances above hold: the
-        # plain bf16 forward rounds each logit to bf16, 2^-8 of its size
+        # keep the logits and the gradients at a few units, where the
+        # tolerances above hold: the plain bf16 forward rounds each logit
+        # to bf16 and the tensor-core backward each ds, 2^-8 of their size
         q = (q.float() / (sm_scale * math.sqrt(D))).to(dtype)
+        do = (do.float() / (sm_scale * math.sqrt(D))).to(dtype)
     args = (causal, window, sm_scale)
     o, lse = fa.flash_fwd_cuda(q, k, v, *args)
     ro, rlse = fa._attention_torch(q, k, v, *args)
@@ -472,6 +489,15 @@ def phase_kernel_flash():
             if dtype == torch.bfloat16:
                 for key, e in errs.items():
                     max_err[key] = max(max_err[key], e)
+        if case[6] in (64, 128):
+            # bf16 at these widths took the tensor-core kernels: hold the
+            # CUDA-core ones (which every other call takes) to the same
+            fa.FORCE_CUDA_CORES = True
+            try:
+                check_flash(case[0] + " (CUDA cores)", *case[1:],
+                            torch.bfloat16, gen)
+            finally:
+                fa.FORCE_CUDA_CORES = False
     for case in (FLASH_CASES[1], FLASH_CASES[4], FLASH_CASES[5],
                  FLASH_CASES[7], FLASH_CASES[12]):
         check_flash_autograd(*case, gen)
@@ -748,16 +774,25 @@ def flash_timing_case(label, B, T, H, KH, D, window, flush, plain_T=None):
     args = (True, window, None)
     o, lse = fa.flash_fwd_cuda(q, k, v, *args)
     delta = fa.flash_delta_cuda(o, do)
-    ms = {
-        "fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, *args), flush,
-                       iters=5, warmup=1),
-        "dq": time_ms(lambda: fa.flash_dq_cuda(
-            q, k, v, do, lse, fa.flash_delta_cuda(o, do), *args), flush,
-            iters=5, warmup=1),
-        "dkv": time_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
-                                                 *args), flush, iters=5,
-                       warmup=1),
-    }
+
+    def kernel_times():
+        return {
+            "fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, *args), flush,
+                           iters=5, warmup=1),
+            "dq": time_ms(lambda: fa.flash_dq_cuda(
+                q, k, v, do, lse, fa.flash_delta_cuda(o, do), *args), flush,
+                iters=5, warmup=1),
+            "dkv": time_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
+                                                     *args), flush, iters=5,
+                           warmup=1),
+        }
+
+    ms = kernel_times()             # the tensor-core kernels (bf16, D=128)
+    fa.FORCE_CUDA_CORES = True
+    try:
+        cores_ms = kernel_times()   # the CUDA-core kernels, same inputs
+    finally:
+        fa.FORCE_CUDA_CORES = False
     pT = plain_T or T
     pq, pk, pv, pdo, po, plse = (t[:, :pT].contiguous() if t.dim() == 4
                                  else t[:, :, :pT].contiguous()
@@ -785,9 +820,9 @@ def flash_timing_case(label, B, T, H, KH, D, window, flush, plain_T=None):
         if key != "fwd":
             note += "; library = autograd through SDPA (dq, dk, dv at once)"
         rows[f"flash_{key}"] = {
-            "case": note, "ms": ms[key], "plain_ms": plain[key],
-            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-            "library_ms": lib[key]}
+            "case": note, "ms": ms[key], "cuda_cores_ms": cores_ms[key],
+            "plain_ms": plain[key], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": lib[key]}
         log(f"[timing] flash_{key} {json.dumps(rows[f'flash_{key}'])}")
     return rows
 
@@ -1322,8 +1357,7 @@ def profile_train_step(engine):
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     log(f"[profile train] one train_batch: wall {wall:.1f} ms, device busy "
         f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
-    for key in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                "flash_delta_kernel"):
+    for key in ("flash_fwd", "flash_dq", "flash_dkv", "flash_delta"):
         ms = sum(e.self_device_time_total for e in evs if key in e.key) / 1e3
         n = sum(e.count for e in evs if key in e.key)
         log(f"[profile train]   {key}: {ms:.1f} ms x{n} "

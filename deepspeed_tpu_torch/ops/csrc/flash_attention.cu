@@ -34,14 +34,18 @@
 //
 // What bounds it on an H100: operations. Per attended pair the forward does
 // 4 D flops, dq 6 D and dkv 8 D against a few bytes of q, k, v per pair
-// after tiling. This first version does the products in fp32 on the CUDA
-// cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so that one
-// code path serves bf16 and fp32 inputs at fp32 accuracy: 256 threads as a
-// 16 x 16 grid, each with a (BM/16) x (BN/16) register tile of the logits,
-// operands staged in shared memory as fp32 and read 16 bytes at a time with
-// the tile's rows and columns strided by 16 so that those reads are free of
-// bank conflicts. Tensor cores (mma.sync, then wgmma with TMA) are the next
-// step for the bf16 path.
+// after tiling. Two sets of kernels share the structure above:
+// - bf16 with D = 64 or 128 (the training widths) runs every product on the
+//   tensor cores with mma.sync (see "tensor-core path" below); wgmma with
+//   TMA-fed tiles is the next step.
+// - fp32, and bf16 at any other D, does the products in fp32 on the CUDA
+//   cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so that
+//   fp32 inputs keep fp32 accuracy: 256 threads as a 16 x 16 grid, each with
+//   a (BM/16) x (BN/16) register tile of the logits, operands staged in
+//   shared memory as fp32 and read 16 bytes at a time with the tile's rows
+//   and columns strided by 16 so that those reads are free of bank
+//   conflicts. This path folds sm_scale into q in the forward and scales
+//   the logits after the product in the backward, as the Pallas kernels do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -517,6 +521,422 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, CI, NJ>(dvg, kv_stride, k0, S, D, ty, tx, dv_acc, one);
 }
 
+// ------------------------------------------------------- tensor-core path
+// bf16 with D = 64 or 128 (the widths of the models the port trains): the
+// same three kernels with every product on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 accumulation). 128 threads; each of the 4
+// warps owns 16 rows of the block's 64-row tile and keeps its logits and
+// its output rows in mma accumulator fragments, so the online softmax is
+// done in registers with two shuffles a row. Tiles are staged in shared
+// memory as bf16 with a row pitch of D + 8, which makes the 4-byte
+// fragment loads and the 16-byte ldmatrix rows free of bank conflicts.
+// The logits' accumulators are repacked in registers as the A operand of
+// the second product (p and ds rounded to bf16 there, as in the plain
+// forward); an operand that is needed with its reduction dimension along
+// rows (v in p v, k in ds k, do and q in the dkv sums) is read with
+// ldmatrix.trans. sm_scale multiplies the fp32 logits after the product.
+
+constexpr int kTcThreads = 128;
+constexpr int kTcTile = 64;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory, each transposed: lane 8 i + r
+// gives the address of row r (16 bytes) of matrix i; the lane receives
+// (M_i[2 tig][gid], M_i[2 tig + 1][gid]) in r[i].
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Stage 64 rows [row0, row0 + 64) of one (batch, head) as bf16, row pitch
+// HD + 8; rows at or past n_rows are zero.
+template <int HD>
+__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
+                                             long long row_stride, int row0, int n_rows) {
+  constexpr int STR = HD + 8, CH = HD / 8;
+  for (int idx = threadIdx.x; idx < kTcTile * CH; idx += kTcThreads) {
+    const int r = idx / CH, d = (idx % CH) * 8;
+    const int row = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < n_rows) v = *reinterpret_cast<const uint4*>(g + (long long)row * row_stride + d);
+    *reinterpret_cast<uint4*>(s + r * STR + d) = v;
+  }
+}
+
+// A fragment: rows m0 + gid and m0 + gid + 8, columns k0 .. k0 + 15 of a
+// row-major tile with pitch STR.
+template <int STR>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* X, int m0,
+                                       int k0, int gid, int tig) {
+  const __nv_bfloat16* p = X + (m0 + gid) * STR + k0 + tig * 2;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * STR);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * STR + 8);
+}
+
+// acc[nt] += A(rows m0.. of X) . Y^T for the 8 column tiles nt of a 64-row
+// tile Y: both tiles row-major over the reduction dimension (HD).
+template <int HD>
+__device__ __forceinline__ void tc_dot_nt(float (&acc)[8][4], const __nv_bfloat16* X,
+                                          const __nv_bfloat16* Y, int m0, int gid, int tig) {
+  constexpr int STR = HD + 8;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t a[4];
+    load_a<STR>(a, X, m0, ks * 16, gid, tig);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const __nv_bfloat16* p = Y + (nt * 8 + gid) * STR + ks * 16 + tig * 2;
+      mma_bf16(acc[nt], a, *reinterpret_cast<const uint32_t*>(p),
+               *reinterpret_cast<const uint32_t*>(p + 8));
+    }
+  }
+}
+
+// out[dt] += P . Y for the 16 x 64 tile P held in accumulator layout (p[nt])
+// and the 64-row tile Y [64][HD] (reduction along Y's rows).
+template <int HD>
+__device__ __forceinline__ void tc_dot_acc(float (&out)[HD / 8][4], const float (&p)[8][4],
+                                           const __nv_bfloat16* Y, int lane) {
+  constexpr int STR = HD + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a[0] = pack2(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack2(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack2(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    const __nv_bfloat16* row =
+        Y + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * STR + (lane / 16) * 8;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; dt += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, row + dt * 8);
+      mma_bf16(out[dt], a, b[0], b[1]);
+      mma_bf16(out[dt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows row_a (elements 0, 1) and row_b (elements 2, 3) of accumulator tiles
+// to a [*, n_rows, heads, HD] tensor, times mul_a / mul_b.
+template <int HD>
+__device__ __forceinline__ void tc_store(__nv_bfloat16* out, long long row_stride, int row_a,
+                                         int row_b, int n_rows, int tig,
+                                         const float (&acc)[HD / 8][4], float mul_a,
+                                         float mul_b) {
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int d = dt * 8 + tig * 2;
+    if (row_a < n_rows)
+      *reinterpret_cast<uint32_t*>(out + (long long)row_a * row_stride + d) =
+          pack2(acc[dt][0] * mul_a, acc[dt][1] * mul_a);
+    if (row_b < n_rows)
+      *reinterpret_cast<uint32_t*>(out + (long long)row_b * row_stride + d) =
+          pack2(acc[dt][2] * mul_b, acc[dt][3] * mul_b);
+  }
+}
+
+// Does every (row, column) pair of the 64 x 64 tile at (r0, c0) attend?
+__device__ __forceinline__ bool tile_is_dense(int r0, int c0, int n_rows, int offs, int S,
+                                              int causal, int window) {
+  if (c0 + kTcTile > S || r0 + kTcTile > n_rows) return false;
+  if (causal && c0 + kTcTile - 1 > r0 + offs) return false;
+  if (window > 0 && r0 + kTcTile - 1 + offs - c0 >= window) return false;
+  return true;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int Tq, int S, int H, int KH, int causal,
+                    int window, float scale) {
+  constexpr int STR = HD + 8, DT = HD / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Ks = Qs + kTcTile * STR;
+  __nv_bfloat16* Vs = Ks + kTcTile * STR;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int gid = lane / 4, tig = lane % 4;
+  const int q0 = blockIdx.x * kTcTile, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
+  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
+
+  tc_load_tile<HD>(Qs, q + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
+
+  const int rows[2] = {q0 + m0 + gid, q0 + m0 + gid + 8};
+  const int q_last = min(q0 + kTcTile, Tq) - 1;
+  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
+  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float oacc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
+
+  for (int j0 = (col_lo / kTcTile) * kTcTile; j0 < col_hi; j0 += kTcTile) {
+    __syncthreads();  // the last tile's reads of Ks and Vs are done
+    tc_load_tile<HD>(Ks, kg, kv_stride, j0, S);
+    tc_load_tile<HD>(Vs, vg, kv_stride, j0, S);
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
+
+    const bool dense = tile_is_dense(q0, j0, Tq, offs, S, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j0 + nt * 8 + tig * 2 + (e & 1);
+        const bool keep = dense || attends(rows[e >> 1], col, offs, S, causal, window);
+        s[nt][e] = keep ? s[nt][e] * scale : kNegInf;
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = m_r[hf];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hf], s[nt][2 * hf + 1]));
+      mx = quad_max(mx);
+      const float alpha = expf(m_r[hf] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          const float p = s[nt][e] > kMasked ? expf(s[nt][e] - mx) : 0.f;
+          s[nt][e] = p;
+          rs += p;
+        }
+      rs = quad_sum(rs);
+      l_r[hf] = l_r[hf] * alpha + rs;
+      m_r[hf] = mx;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        oacc[dt][2 * hf] *= alpha;
+        oacc[dt][2 * hf + 1] *= alpha;
+      }
+    }
+    tc_dot_acc<HD>(oacc, s, Vs, lane);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float li = fmaxf(l_r[hf], 1e-30f);
+    inv[hf] = 1.f / li;
+    if (tig == 0 && rows[hf] < Tq)
+      lse[((long long)b * H + h) * Tq + rows[hf]] = m_r[hf] + logf(li);
+  }
+  tc_store<HD>(o + ((long long)b * Tq * H + h) * HD, q_stride, rows[0], rows[1], Tq, tig,
+               oacc, inv[0], inv[1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KH, int causal,
+                   int window, float scale) {
+  constexpr int STR = HD + 8, DT = HD / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* dOs = Qs + kTcTile * STR;
+  __nv_bfloat16* Ks = dOs + kTcTile * STR;
+  __nv_bfloat16* Vs = Ks + kTcTile * STR;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int gid = lane / 4, tig = lane % 4;
+  const int q0 = blockIdx.x * kTcTile, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
+  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
+
+  tc_load_tile<HD>(Qs, q + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
+  tc_load_tile<HD>(dOs, dO + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
+
+  const int rows[2] = {q0 + m0 + gid, q0 + m0 + gid + 8};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const long long at = ((long long)b * H + h) * Tq + rows[hf];
+    lse_r[hf] = rows[hf] < Tq ? lse[at] : 0.f;
+    delta_r[hf] = rows[hf] < Tq ? delta[at] : 0.f;
+  }
+  const int q_last = min(q0 + kTcTile, Tq) - 1;
+  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
+  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int j0 = (col_lo / kTcTile) * kTcTile; j0 < col_hi; j0 += kTcTile) {
+    __syncthreads();  // the last tile's reads of Ks and Vs are done
+    tc_load_tile<HD>(Ks, kg, kv_stride, j0, S);
+    tc_load_tile<HD>(Vs, vg, kv_stride, j0, S);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
+    tc_dot_nt<HD>(dp, dOs, Vs, m0, gid, tig);
+
+    const bool dense = tile_is_dense(q0, j0, Tq, offs, S, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const int col = j0 + nt * 8 + tig * 2 + (e & 1);
+        const bool keep = dense || (rows[hf] < Tq &&
+                                    attends(rows[hf], col, offs, S, causal, window));
+        const float p = keep ? expf(s[nt][e] * scale - lse_r[hf]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - delta_r[hf]) * scale;
+      }
+    tc_dot_acc<HD>(acc, s, Ks, lane);
+  }
+  tc_store<HD>(dq + ((long long)b * Tq * H + h) * HD, q_stride, rows[0], rows[1], Tq, tig,
+               acc, 1.f, 1.f);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
+                    int S, int H, int KH, int causal, int window, float scale) {
+  constexpr int STR = HD + 8, DT = HD / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Vs = Ks + kTcTile * STR;
+  __nv_bfloat16* Qs = Vs + kTcTile * STR;
+  __nv_bfloat16* dOs = Qs + kTcTile * STR;
+  float* lse_s = reinterpret_cast<float*>(dOs + kTcTile * STR);
+  float* delta_s = lse_s + kTcTile;
+  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
+  const int gid = lane / 4, tig = lane % 4;
+  const int k0 = blockIdx.x * kTcTile, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KH;
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+
+  tc_load_tile<HD>(Ks, k + ((long long)b * S * KH + kh) * HD, kv_stride, k0, S);
+  tc_load_tile<HD>(Vs, v + ((long long)b * S * KH + kh) * HD, kv_stride, k0, S);
+
+  const int cols[2] = {k0 + m0 + gid, k0 + m0 + gid + 8};  // this thread's KV rows
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+
+  const int k_last = min(k0 + kTcTile, S) - 1;
+  const int row_lo = causal ? max(0, k0 - offs) : 0;
+  const int row_hi = window > 0 ? min(Tq, k_last + window - offs) : Tq;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const __nv_bfloat16* qg = q + ((long long)b * Tq * H + h) * HD;
+    const __nv_bfloat16* dog = dO + ((long long)b * Tq * H + h) * HD;
+    const float* lse_g = lse + ((long long)b * H + h) * Tq;
+    const float* delta_g = delta + ((long long)b * H + h) * Tq;
+    for (int i0 = (row_lo / kTcTile) * kTcTile; i0 < row_hi; i0 += kTcTile) {
+      __syncthreads();  // the last tile's reads of Qs, dOs and the statistics are done
+      tc_load_tile<HD>(Qs, qg, q_stride, i0, Tq);
+      tc_load_tile<HD>(dOs, dog, q_stride, i0, Tq);
+      if (threadIdx.x < kTcTile) {
+        const int row = i0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < Tq ? lse_g[row] : 0.f;
+        delta_s[threadIdx.x] = row < Tq ? delta_g[row] : 0.f;
+      }
+      __syncthreads();
+
+      // transposed logits: this warp's 16 KV rows by the tile's 64 query rows
+      float pt[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[nt][e] = 0.f;
+      tc_dot_nt<HD>(pt, Ks, Qs, m0, gid, tig);
+      const bool dense = tile_is_dense(i0, k0, Tq, offs, S, causal, window);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = nt * 8 + tig * 2 + (e & 1);
+          const int row = i0 + rl;
+          const bool keep = dense || (row < Tq && attends(row, cols[e >> 1], offs, S,
+                                                          causal, window));
+          pt[nt][e] = keep ? expf(pt[nt][e] * scale - lse_s[rl]) : 0.f;
+        }
+      tc_dot_acc<HD>(dv_acc, pt, dOs, lane);
+
+      float dst[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[nt][e] = 0.f;
+      tc_dot_nt<HD>(dst, Vs, dOs, m0, gid, tig);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = nt * 8 + tig * 2 + (e & 1);
+          dst[nt][e] = pt[nt][e] * (dst[nt][e] - delta_s[rl]) * scale;
+        }
+      tc_dot_acc<HD>(dk_acc, dst, Qs, lane);
+    }
+  }
+  tc_store<HD>(dk + ((long long)b * S * KH + kh) * HD, kv_stride, cols[0], cols[1], S, tig,
+               dk_acc, 1.f, 1.f);
+  tc_store<HD>(dv + ((long long)b * S * KH + kh) * HD, kv_stride, cols[0], cols[1], S, tig,
+               dv_acc, 1.f, 1.f);
+}
+
 // ----------------------------------------------------------------- launchers
 
 struct Shape {
@@ -587,6 +1007,62 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+                          const Shape& s, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = (size_t)3 * kTcTile * (HD + 8) * sizeof(bf16);
+  auto kernel = flash_fwd_tc_kernel<HD>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.Tq + kTcTile - 1) / kTcTile, s.H, s.B);
+  kernel<<<grid, kTcThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dO,
+                         const float* lse, const float* delta, void* dq, const Shape& s,
+                         cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = (size_t)4 * kTcTile * (HD + 8) * sizeof(bf16);
+  auto kernel = flash_dq_tc_kernel<HD>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.Tq + kTcTile - 1) / kTcTile, s.H, s.B);
+  kernel<<<grid, kTcThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dq), s.Tq, s.S, s.H,
+      s.KH, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
+                          const float* lse, const float* delta, void* dk, void* dv,
+                          const Shape& s, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem =
+      (size_t)4 * kTcTile * (HD + 8) * sizeof(bf16) + 2 * kTcTile * sizeof(float);
+  auto kernel = flash_dkv_tc_kernel<HD>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.S + kTcTile - 1) / kTcTile, s.KH, s.B);
+  kernel<<<grid, kTcThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernels take bf16 with D = 64 or 128; `cuda_cores` != 0
+// keeps such a call on the CUDA-core kernels (comparisons only).
+bool takes_tc(const Shape& s, int dtype, int cuda_cores) {
+  return dtype == 1 && !cuda_cores && (s.D == 64 || s.D == 128);
+}
+
 // dtype 0 = float32, 1 = bfloat16; NJ = ceil(D / 64)
 #define DS_DISPATCH(CALL)                                              \
   do {                                                                 \
@@ -611,11 +1087,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int T, int S, int H, int KH, int D,
                                    int causal, int window, float scale, int dtype,
-                                   void* stream) {
+                                   int cuda_cores, void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (takes_tc(s, dtype, cuda_cores))
+    return (int)(D == 64 ? launch_fwd_tc<64>(q, k, v, o, lse_f, s, st)
+                         : launch_fwd_tc<128>(q, k, v, o, lse_f, s, st));
 #define FWD(TT, NJ) launch_fwd<TT, NJ>(q, k, v, o, lse_f, s, st)
   DS_DISPATCH(FWD);
 #undef FWD
@@ -644,12 +1123,15 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   const void* dO, const void* lse, const void* delta,
                                   void* dq, int B, int T, int S, int H, int KH, int D,
                                   int causal, int window, float scale, int dtype,
-                                  void* stream) {
+                                  int cuda_cores, void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
+  if (takes_tc(s, dtype, cuda_cores))
+    return (int)(D == 64 ? launch_dq_tc<64>(q, k, v, dO, lse_f, delta_f, dq, s, st)
+                         : launch_dq_tc<128>(q, k, v, dO, lse_f, delta_f, dq, s, st));
 #define DQ(TT, NJ) launch_dq<TT, NJ>(q, k, v, dO, lse_f, delta_f, dq, s, st)
   DS_DISPATCH(DQ);
 #undef DQ
@@ -659,12 +1141,16 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
                                    const void* dO, const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int T, int S, int H, int KH,
                                    int D, int causal, int window, float scale, int dtype,
-                                   void* stream) {
+                                   int cuda_cores, void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
+  if (takes_tc(s, dtype, cuda_cores))
+    return (int)(D == 64
+                     ? launch_dkv_tc<64>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
+                     : launch_dkv_tc<128>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st));
 #define DKV(TT, NJ) launch_dkv<TT, NJ>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
   DS_DISPATCH(DKV);
 #undef DKV
