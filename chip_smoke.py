@@ -1362,8 +1362,12 @@ def profile_train_step(engine):
         n = sum(e.count for e in evs if key in e.key)
         log(f"[profile train]   {key}: {ms:.1f} ms x{n} "
             f"({100 * ms / busy:.1f}% of device time)")
+    gemm = sum(e.self_device_time_total for e in evs
+               if "nvjet" in e.key or "gemm" in e.key.lower()) / 1e3
+    log(f"[profile train]   library GEMMs (projections, MLP, lm_head): "
+        f"{gemm:.1f} ms ({100 * gemm / busy:.1f}% of device time)")
     evs.sort(key=lambda e: -e.self_device_time_total)
-    for e in evs[:8]:
+    for e in evs[:12]:
         log(f"[profile train]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
 

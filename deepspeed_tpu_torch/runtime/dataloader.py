@@ -11,7 +11,7 @@ a disjoint strided shard of that order.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, Optional
+from typing import Callable, Optional
 
 import numpy as np
 

@@ -156,14 +156,12 @@ class DeepSpeedTpuEngine:
         self.global_steps = 0         # host mirror: optimizer boundaries
         self._pending_loss = None
         self._last_metrics: Optional[Dict[str, torch.Tensor]] = None
-        self._last_lr = float(self.schedule(0))
         self.timers = SynchronizedWallClockTimer(sync_fn=self._sync)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size(),
             steps_per_output=self.config.steps_per_print,
             monitor_memory=self.config.memory_breakdown)
         self.tput_timer.flops_per_sample = 0.0   # the flops profiler's job
-        self.monitor = None
         self._profile_steps = bool(self.config.wall_clock_breakdown)
 
         log_dist(
@@ -256,10 +254,6 @@ class DeepSpeedTpuEngine:
                     "instead of adding into it")
         return loss.detach()
 
-    def _unscaled(self, acc, denom, coeff):
-        g = acc / denom
-        return g if coeff is None else g * coeff
-
     def _grad_norm(self, denom):
         """Global norm of the unscaled accumulated gradients (before
         clipping), and whether it is non-finite."""
@@ -312,8 +306,11 @@ class DeepSpeedTpuEngine:
             acc = _at(state.grad_acc, path)
             moments = {mk: {"p": _at(tree, path)}
                        for mk, tree in opt_state.moments.items()}
+            grad = acc / denom
+            if coeff is not None:
+                grad = grad * coeff
             new_p, new_os = self.opt.step(
-                {"p": p}, {"p": self._unscaled(acc, denom, coeff)},
+                {"p": p}, {"p": grad},
                 OptimizerState(step=opt_state.step, moments=moments), lr)
             # an overflow skips the step: keep the old values
             p.copy_(torch.where(overflow, p, new_p["p"]))

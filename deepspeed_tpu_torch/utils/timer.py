@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
-from typing import Any
 
 from .logging import log_dist
 
