@@ -380,7 +380,9 @@ def phase_kernel_qmm():
 # relative each); the plain forward also rounds the logits and p to bf16
 # before the products, which the kernel keeps in fp32, so o and lse may
 # differ by a few roundings of 2^-8 at |o| <= 1 and |s| of a few units.
-FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+# fp16 (CUDA-core kernels): the same roundings at 2^-11.
+FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4),
+             torch.float16: (5e-3, 5e-3)}
 FLASH_CASES = [
     # name, B, T, S, H, KH, D, causal, window, sm_scale
     ("MHA 4/4 D=64 causal", 1, 256, 256, 4, 4, 64, True, 0, None),
@@ -489,6 +491,8 @@ def phase_kernel_flash():
             if dtype == torch.bfloat16:
                 for key, e in errs.items():
                     max_err[key] = max(max_err[key], e)
+        if case in FLASH_CASES[1::3]:
+            check_flash(*case, torch.float16, gen)
         if case[6] in (64, 128):
             # bf16 at these widths took the tensor-core kernels: hold the
             # CUDA-core ones (which every other call takes) to the same
@@ -1233,7 +1237,9 @@ def tiny_train_parity():
     """A small fp32 TINY_TEST engine gives on the card (through the four
     flash kernels) the loss trajectory it gives on the CPU (through the
     plain versions) to 1e-5: the same fp32 program, summed in other
-    orders."""
+    orders. Then the same model under fp16 with a dynamic loss scale, on the
+    card only: overflows are skipped and the scale comes down until steps
+    are taken."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import TINY_TEST, CausalLM
 
@@ -1262,6 +1268,27 @@ def tiny_train_parity():
     log(f"[train] tiny fp32 TINY_TEST engine: 6 steps on the card equal the "
         f"CPU's, max |loss diff| {err:.3g} (1e-5 allowed); losses "
         f"{losses['cuda'][0]:.5f} -> {losses['cuda'][-1]:.5f}")
+    # fp16 with the dynamic loss scale on the card (float16 q, k, v through
+    # the CUDA-core kernels): the first steps overflow and are skipped, the
+    # scale halves, later steps are taken
+    half = dict(cfg, fp16={"enabled": True, "initial_scale_power": 30,
+                           "loss_scale_window": 2, "hysteresis": 1})
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(TINY_TEST), config=half, training_data=data,
+        model_parameters=start)
+    trace = []
+    for _ in range(14):
+        loss = float(engine.train_batch())
+        trace.append((engine.loss_scale, engine.skipped_steps))
+    taken = int(engine.state.global_step)
+    if not (np.isfinite(loss) and engine.skipped_steps >= 1 and taken >= 1
+            and engine.skipped_steps + taken == 14):
+        raise AssertionError(f"[train] tiny fp16: loss {loss}, (scale, "
+                             f"skipped) {trace}, {taken} steps taken")
+    log(f"[train] tiny fp16 engine on the card: {engine.skipped_steps} of 14 "
+        f"steps skipped on overflow, loss scale 2^30 -> "
+        f"2^{int(math.log2(engine.loss_scale))}, {taken} steps taken, last "
+        f"loss {loss:.5f}")
 
 
 def micro_step_check(engine, vocab):

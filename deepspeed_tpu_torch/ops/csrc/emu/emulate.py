@@ -2,16 +2,17 @@
 """Run the flash-attention CUDA kernels on the CPU, emulated, against their
 plain PyTorch versions.
 
-    python3 scripts/cuda_emu/emulate.py            # needs g++; no GPU, no nvcc
+    python3 deepspeed_tpu_torch/ops/csrc/emu/emulate.py    # needs g++; no GPU, no nvcc
 
-For a machine that can edit ``deepspeed_tpu_torch/ops/csrc/flash_attention.cu``
-but cannot compile or run it: the source is rewritten (kernel launches become
+For a machine that can edit ``../flash_attention.cu`` but cannot compile or
+run it: the source is rewritten (kernel launches become
 calls of ``emu_launch``, the two inline-asm helpers become their emulations,
 the dynamic shared-memory declaration becomes a pointer), compiled with g++
 against the stand-in headers of this directory, loaded through the same
 ctypes signatures as ``ops/flash_attention.py`` uses, and every kernel is
 held against ``_attention_torch``/``_dq_torch``/``_dkv_torch`` on small
-shapes: fp32 and bf16 on the CUDA-core kernels, bf16 on the tensor-core ones.
+shapes: fp32, fp16 and bf16 on the CUDA-core kernels, bf16 on the
+tensor-core ones.
 It checks a kernel's indexing, masks and fragment layouts, nothing about
 speed, shared-memory limits or what nvcc accepts: the card's check is
 ``chip_smoke.py``.
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
-REPO = HERE.parents[1]
-sys.path.insert(0, str(REPO))
+CSRC = HERE.parent
+sys.path.insert(0, str(HERE.parents[3]))
 
 from deepspeed_tpu_torch.ops import _build  # noqa: E402
 from deepspeed_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -77,12 +78,11 @@ def rewrite(src: str) -> str:
 
 
 def build(tmp: Path) -> ctypes.CDLL:
-    csrc = REPO / "deepspeed_tpu_torch" / "ops" / "csrc"
     cpp = tmp / "flash_attention_emu.cpp"
-    cpp.write_text(rewrite((csrc / "flash_attention.cu").read_text()))
+    cpp.write_text(rewrite((CSRC / "flash_attention.cu").read_text()))
     lib = tmp / "libflash_attention_emu.so"
     subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", f"-I{HERE}", f"-I{csrc}", "-o",
+                    "-Wno-unknown-pragmas", f"-I{HERE}", f"-I{CSRC}", "-o",
                     str(lib), str(cpp)], check=True)
     cdll = ctypes.CDLL(str(lib))
     cdll.ds_cuda_error_string.argtypes = [ctypes.c_int]
@@ -136,13 +136,14 @@ def main():
         _build.load = lambda name: lib
         torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(
             cuda_stream=0)
-        f32, bf16 = torch.float32, torch.bfloat16
+        f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
         for case in ((1, 70, 70, 2, 1, 16, f32, True, 0, None, 1e-5),
                      (2, 70, 100, 4, 2, 16, f32, True, 0, None, 1e-5),
                      (1, 129, 129, 2, 2, 24, f32, True, 17, None, 1e-5),
                      (1, 65, 90, 2, 2, 16, f32, False, 0, None, 1e-5),
                      (1, 50, 70, 1, 1, 200, f32, True, 30, None, 1e-5),
                      (1, 100, 100, 2, 1, 80, bf16, True, 0, None, 3e-2),
+                     (1, 70, 90, 2, 1, 64, f16, True, 20, None, 5e-3),
                      (1, 70, 70, 2, 1, 64, bf16, True, 0, None, 3e-2),
                      (2, 70, 150, 4, 2, 64, bf16, True, 0, None, 3e-2),
                      (1, 129, 129, 2, 2, 128, bf16, True, 17, None, 3e-2),

@@ -6,7 +6,7 @@
 // behind flash_attention (:442) and its custom_vjp.
 //
 // What they compute. q [B, T, H, D], k and v [B, S, KH, D] (H % KH == 0: query
-// head h reads KV head h / (H / KH)), bf16 or fp32, all arithmetic in fp32.
+// head h reads KV head h / (H / KH)), bf16, fp16 or fp32, arithmetic in fp32.
 // With offs = S - T, row r attends column c iff c < S, and (causal)
 // c <= r + offs, and (window > 0) r + offs - c < window.
 //   forward: s = (q * scale) k^T on the attended pairs, o = softmax(s) v,
@@ -38,9 +38,9 @@
 // - bf16 with D = 64 or 128 (the training widths) runs every product on the
 //   tensor cores with mma.sync (see "tensor-core path" below); wgmma with
 //   TMA-fed tiles is the next step.
-// - fp32, and bf16 at any other D, does the products in fp32 on the CUDA
-//   cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so that
-//   fp32 inputs keep fp32 accuracy: 256 threads as a 16 x 16 grid, each with
+// - fp32, fp16, and bf16 at any other D, does the products in fp32 on the
+//   CUDA cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so
+//   that fp32 inputs keep fp32 accuracy: 256 threads as a 16 x 16 grid, each with
 //   a (BM/16) x (BN/16) register tile of the logits, operands staged in
 //   shared memory as fp32 and read 16 bytes at a time with the tile's rows
 //   and columns strided by 16 so that those reads are free of bank
@@ -48,6 +48,7 @@
 //   the logits after the product in the backward, as the Pallas kernels do.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,6 +79,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
@@ -92,7 +104,17 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+__device__ __forceinline__ void store4(__half* p, float a, float b, float c, float d) {
+  const __half2 lo = __floats2half2_rn(a, b);
+  const __half2 hi = __floats2half2_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // max / sum over the 16 threads that share a tile row (tx = lane % 16)
@@ -948,7 +970,7 @@ bool bad_shape(const Shape& s, int dtype) {
   return s.B <= 0 || s.Tq <= 0 || s.S <= 0 || s.H <= 0 || s.KH <= 0 || s.H % s.KH ||
          s.D <= 0 || s.D % 8 || s.D > 256 || s.window < 0 || (s.window > 0 && !s.causal) ||
          (s.causal && s.Tq > s.S) || s.H > 65535 || s.B > 65535 ||
-         (dtype != 0 && dtype != 1);
+         dtype < 0 || dtype > 2;
 }
 
 template <typename K>
@@ -1063,27 +1085,27 @@ bool takes_tc(const Shape& s, int dtype, int cuda_cores) {
   return dtype == 1 && !cuda_cores && (s.D == 64 || s.D == 128);
 }
 
-// dtype 0 = float32, 1 = bfloat16; NJ = ceil(D / 64)
-#define DS_DISPATCH(CALL)                                              \
-  do {                                                                 \
-    const int nj = (s.D + 63) / 64;                                    \
-    if (dtype == 0) {                                                  \
-      if (nj == 1) return (int)CALL(float, 1);                         \
-      if (nj == 2) return (int)CALL(float, 2);                         \
-      if (nj == 3) return (int)CALL(float, 3);                         \
-      return (int)CALL(float, 4);                                      \
-    }                                                                  \
-    if (nj == 1) return (int)CALL(__nv_bfloat16, 1);                   \
-    if (nj == 2) return (int)CALL(__nv_bfloat16, 2);                   \
-    if (nj == 3) return (int)CALL(__nv_bfloat16, 3);                   \
-    return (int)CALL(__nv_bfloat16, 4);                                \
+// dtype 0 = float32, 1 = bfloat16, 2 = float16; NJ = ceil(D / 64)
+#define DS_DISPATCH_T(CALL, TT)                \
+  do {                                         \
+    const int nj = (s.D + 63) / 64;            \
+    if (nj == 1) return (int)CALL(TT, 1);      \
+    if (nj == 2) return (int)CALL(TT, 2);      \
+    if (nj == 3) return (int)CALL(TT, 3);      \
+    return (int)CALL(TT, 4);                   \
+  } while (0)
+#define DS_DISPATCH(CALL)                                   \
+  do {                                                      \
+    if (dtype == 0) DS_DISPATCH_T(CALL, float);             \
+    if (dtype == 1) DS_DISPATCH_T(CALL, __nv_bfloat16);     \
+    DS_DISPATCH_T(CALL, __half);                            \
   } while (0)
 
 }  // namespace
 
 // All tensors contiguous: q, o, do, dq [B, T, H, D]; k, v, dk, dv [B, S, KH,
-// D] (dtype 0 = float32, 1 = bfloat16); lse, delta [B, H, T] float32. Each
-// returns a cudaError_t.
+// D] (dtype 0 = float32, 1 = bfloat16, 2 = float16); lse, delta [B, H, T]
+// float32. Each returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int T, int S, int H, int KH, int D,
                                    int causal, int window, float scale, int dtype,
@@ -1102,7 +1124,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 extern "C" int flash_attention_delta(const void* o, const void* dO, void* delta, int B,
                                      int T, int H, int D, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || D <= 0 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || T <= 0 || H <= 0 || D <= 0 || dtype < 0 || dtype > 2)
     return cudaErrorInvalidValue;
   const long long rows = (long long)B * T * H;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
@@ -1112,10 +1134,13 @@ extern "C" int flash_attention_delta(const void* o, const void* dO, void* delta,
   if (dtype == 0)
     flash_delta_kernel<float><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<const float*>(o), static_cast<const float*>(dO), out, rows, T, H, D);
-  else
+  else if (dtype == 1)
     flash_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO), out,
         rows, T, H, D);
+  else
+    flash_delta_kernel<__half><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const __half*>(o), static_cast<const __half*>(dO), out, rows, T, H, D);
   return (int)cudaGetLastError();
 }
 

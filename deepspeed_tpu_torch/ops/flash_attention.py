@@ -24,7 +24,8 @@ Counterpart of ``deepspeed_tpu/ops/flash_attention.py``:
 Two sets of kernels: bf16 with D = 64 or 128 runs every product on the tensor
 cores (``mma.sync``, fp32 accumulation, p and ds rounded to bf16 for the
 second product as the plain forward rounds p; ``sm_scale`` multiplies the
-fp32 logits); fp32, and bf16 at any other D, runs in fp32 on the CUDA cores
+fp32 logits); fp32, fp16 (the engine's ``fp16.enabled``), and bf16 at any
+other D, run in fp32 on the CUDA cores
 (there the forward folds ``sm_scale`` into q before the product and the
 backward scales the logits after it, as the Pallas kernels do; in fp32 the
 two differ by rounding only). ``FORCE_CUDA_CORES`` keeps the first kind on
@@ -134,7 +135,7 @@ def _dkv_torch(q, k, v, o, do, lse, causal: bool, window: int = 0,
 
 # ------------------------------------------------------------------ kernels
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP = ctypes.c_void_p
 _SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                     _VP]
@@ -179,8 +180,8 @@ def _kernel_inputs(q, k, v, causal, window, *more):
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels need CUDA tensors, got {dev}")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"the flash kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     B, T, H, D = q.shape
     S = k.shape[1]
     if D % 8 or D > 256:
@@ -237,7 +238,7 @@ def flash_delta_cuda(o, do):
     if o.device.type != "cuda" or o.dtype not in _DTYPE_CODE \
             or do.dtype != o.dtype or do.shape != o.shape or o.dim() != 4:
         raise ValueError("flash_delta_cuda takes two CUDA tensors [B, T, H, "
-                         "D] of one type, float32 or bfloat16")
+                         "D] of one type: float32, bfloat16 or float16")
     o, do = o.contiguous(), do.contiguous()
     B, T, H, D = o.shape
     delta = torch.empty((B, H, T), dtype=torch.float32, device=o.device)
