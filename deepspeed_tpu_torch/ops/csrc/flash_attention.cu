@@ -1079,10 +1079,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-// The tensor-core kernels take bf16 with D = 64 or 128; `cuda_cores` != 0
-// keeps such a call on the CUDA-core kernels (comparisons only).
-bool takes_tc(const Shape& s, int dtype, int cuda_cores) {
-  return dtype == 1 && !cuda_cores && (s.D == 64 || s.D == 128);
+// The tensor-core kernels take bf16 with D = 64 or 128.
+bool takes_tc(const Shape& s, int dtype) {
+  return dtype == 1 && (s.D == 64 || s.D == 128);
 }
 
 // dtype 0 = float32, 1 = bfloat16, 2 = float16; NJ = ceil(D / 64)
@@ -1109,12 +1108,12 @@ bool takes_tc(const Shape& s, int dtype, int cuda_cores) {
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int T, int S, int H, int KH, int D,
                                    int causal, int window, float scale, int dtype,
-                                   int cuda_cores, void* stream) {
+                                   void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  if (takes_tc(s, dtype, cuda_cores))
+  if (takes_tc(s, dtype))
     return (int)(D == 64 ? launch_fwd_tc<64>(q, k, v, o, lse_f, s, st)
                          : launch_fwd_tc<128>(q, k, v, o, lse_f, s, st));
 #define FWD(TT, NJ) launch_fwd<TT, NJ>(q, k, v, o, lse_f, s, st)
@@ -1148,13 +1147,13 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   const void* dO, const void* lse, const void* delta,
                                   void* dq, int B, int T, int S, int H, int KH, int D,
                                   int causal, int window, float scale, int dtype,
-                                  int cuda_cores, void* stream) {
+                                  void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  if (takes_tc(s, dtype, cuda_cores))
+  if (takes_tc(s, dtype))
     return (int)(D == 64 ? launch_dq_tc<64>(q, k, v, dO, lse_f, delta_f, dq, s, st)
                          : launch_dq_tc<128>(q, k, v, dO, lse_f, delta_f, dq, s, st));
 #define DQ(TT, NJ) launch_dq<TT, NJ>(q, k, v, dO, lse_f, delta_f, dq, s, st)
@@ -1166,13 +1165,13 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
                                    const void* dO, const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int T, int S, int H, int KH,
                                    int D, int causal, int window, float scale, int dtype,
-                                   int cuda_cores, void* stream) {
+                                   void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  if (takes_tc(s, dtype, cuda_cores))
+  if (takes_tc(s, dtype))
     return (int)(D == 64
                      ? launch_dkv_tc<64>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
                      : launch_dkv_tc<128>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st));

@@ -28,8 +28,7 @@ fp32 logits); fp32, fp16 (the engine's ``fp16.enabled``), and bf16 at any
 other D, run in fp32 on the CUDA cores
 (there the forward folds ``sm_scale`` into q before the product and the
 backward scales the logits after it, as the Pallas kernels do; in fp32 the
-two differ by rounding only). ``FORCE_CUDA_CORES`` keeps the first kind on
-the CUDA-core kernels, for comparisons only. The kernels index [B, T, H, D]
+two differ by rounding only). The kernels index [B, T, H, D]
 directly (no head-major copies), take any T and S and any D with D % 8 == 0
 up to 256. ``block_q``/``block_kv`` stay in the signature for the JAX
 callers' sake and are ignored: the CUDA kernels pick their own tiles.
@@ -50,10 +49,6 @@ NEG_INF = -1e30
 # Test-only hook: run the plain versions on CUDA tensors too (a comparison
 # run pins it; training never sets it).
 FORCE_REFERENCE = False
-# Test-only hook: keep bf16 calls with D = 64 or 128 on the CUDA-core
-# kernels instead of the tensor-core ones (which every other call uses
-# anyway), so that a comparison run can hold both against the plain version.
-FORCE_CUDA_CORES = False
 launches = {"fwd": 0, "delta": 0, "dq": 0, "dkv": 0}
 
 
@@ -137,8 +132,7 @@ def _dkv_torch(q, k, v, o, do, lse, causal: bool, window: int = 0,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP = ctypes.c_void_p
-_SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                    _VP]
+_SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _VP]
 _ARGTYPES = {
     "flash_attention_fwd": [_VP] * 5 + _SHAPE_ARGS,
     "flash_attention_delta": [_VP] * 3 + [ctypes.c_int] * 5 + [_VP],
@@ -211,7 +205,6 @@ def _shape_args(q, k, causal, window, sm_scale):
     B, T, H, D = q.shape
     return (B, T, k.shape[1], H, k.shape[2], D, int(bool(causal)),
             int(window or 0), _scale(D, sm_scale), _DTYPE_CODE[q.dtype],
-            int(FORCE_CUDA_CORES),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
