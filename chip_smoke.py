@@ -12,9 +12,14 @@ Phases, each of which raises on failure (nothing is caught):
              the paged attention (bf16 and fp32, and int8 and fp8 pools:
              decode and prefill chunks, G = 1 and 4, D = 64 and 128,
              negative table entries, padded rows, ALiBi, a window smaller
-             than the context) on valid rows; the blockwise quantizer bit
-             for bit (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails,
-             rows not a multiple of 8, an all-zero group); the quantized
+             than the context, and v1 decode's bs = 128 with contiguous
+             tables) on valid rows; the blockwise quantizer bit for bit
+             (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails, rows not
+             a multiple of 8, an all-zero group); the dequantize kernel bit
+             for bit (torch.equal; int8 and unpacked int4 codes at the v1
+             widths, gathered embedding rows, a norm row, ragged tails,
+             bf16, fp16 and fp32 out) and that it raises on what it does not
+             take (fp8 or packed codes, mismatched scales); the quantized
              matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 37 and 2048
              at the serving widths, ragged last groups); the flash
              attention forward, delta, dq and dkv kernels (bf16, fp32 and
@@ -38,7 +43,19 @@ Phases, each of which raises on failure (nothing is caught):
              launches) and dropped; 225 quantized-matmul and 32 paged
              launches per put; the steps held against the plain versions;
              then fp8 weights and fp8 KV on three of the prompts.
-7. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
+7. v1      — v1 inference at full MISTRAL_7B width (32 layers, bf16
+             compute, random bf16 weights from a seeded generator) through
+             init_inference and generate: the main path's 8 prompts as one
+             ragged batch, 32 greedy new tokens, with bf16 weights, then
+             int8 and int4 weight-only quantization (quantized at the build,
+             11 quantize launches, and the dense tree dropped). Checks the
+             output's shape and placement, finite logits, the launch counts
+             ((1 + 32) x 290 dequantize, 32 flash forward, 32 x 32 paged at
+             bs = 128), an EOS run, one prefill and one decode step against
+             the plain versions, and that small fp32 v1 engines (quant off,
+             8 and 4; tied and untied) give the same greedy streams on the
+             card as on the CPU. Traces one decode step of each way.
+8. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
              micro batch 1 x 2 accumulation steps, sequences of 8193 tokens:
@@ -241,10 +258,31 @@ def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw):
     return err
 
 
+def v1_decode_case(seed, ctx_lens, bs=128, H=32, KH=8, D=128):
+    """What v1 decode gives the paged kernel: one query a sequence (C = 1)
+    at position ctx - 1, a pool of ``bs``-slot blocks in which sequence b
+    owns the contiguous range [b·NB, (b+1)·NB) (``init_paged_cache``), NB
+    covering the longest context."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    N, nb = len(ctx_lens), -(-max(ctx_lens) // bs)
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+    tbl = torch.arange(N * nb, dtype=torch.int32, device="cuda").reshape(N, nb)
+    ctx = torch.tensor(ctx_lens, dtype=torch.int32, device="cuda")
+    return (mk(N, 1, H, D), mk(N * nb, KH, bs, D), mk(N * nb, KH, bs, D), tbl,
+            ctx - 1, torch.ones_like(ctx))
+
+
 def phase_kernel_paged():
-    """The paged kernel, bf16/fp32 pools and int8/fp8 pools. Returns the
-    max error over the bf16 cases (the serving dtype) of each branch."""
+    """The paged kernel, bf16/fp32 pools and int8/fp8 pools, and the v1
+    decode shape (bs = 128, contiguous tables). Returns the max error over
+    the bf16 cases (the serving dtype) of each branch."""
     max_err = {"bf16": 0.0, "quant": 0.0}
+    v1_ctx = [n + MAIN_NEW_TOKENS for n in MAIN_PROMPT_LENS]
+    err = check_paged("v1 decode bs=128 C=1 contiguous tables G=4 window",
+                      *v1_decode_case(5, v1_ctx), torch.bfloat16,
+                      dict(window=4096))
+    max_err["bf16"] = max(max_err["bf16"], err)
     for (name, ctxs, C, H, KH, D, bs, dtype, n_pad, alibi,
          window) in KERNEL_CASES:
         slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)],
@@ -315,6 +353,100 @@ def phase_kernel_quantize():
             x.reshape(-1, shape[-1])[r, g * block:(g + 1) * block] = 0.0
         max_err = max(max_err, check_quantize(name, x.to(xdt), bits, dtype,
                                               block))
+    return max_err
+
+
+# The dequantize kernel against _dequantize_torch, bit for bit (torch.equal):
+# both compute one fp32 product an element and round it once to the output
+# type. int8 codes from the quantize kernel (bits 4: unpacked codes in
+# [-7, 7], what QuantTensor hands the kernel after unpack_int4).
+DEQUANT_CASES = [
+    # name, shape, bits, block, output dtypes, rows gathered as an index of
+    # this shape (None: all)
+    ("wq/wo [4096, 4096] int8", (4096, 4096), 8, 128, (torch.bfloat16,),
+     None),
+    ("wk/wv [4096, 1024] int8", (4096, 1024), 8, 128, (torch.bfloat16,),
+     None),
+    ("w_in [4096, 14336] int8", (4096, 14336), 8, 128,
+     (torch.bfloat16, torch.float16, torch.float32), None),
+    ("w_out [14336, 4096] int8", (14336, 4096), 8, 128, (torch.bfloat16,),
+     None),
+    ("lm_head [4096, 32000] int8", (4096, 32000), 8, 128,
+     (torch.bfloat16, torch.float32), None),
+    ("wq/wo [4096, 4096] int4 codes", (4096, 4096), 4, 128,
+     (torch.bfloat16,), None),
+    ("wk/wv [4096, 1024] int4 codes", (4096, 1024), 4, 128,
+     (torch.bfloat16,), None),
+    ("w_in [4096, 14336] int4 codes", (4096, 14336), 4, 128,
+     (torch.bfloat16,), None),
+    ("wte [32000, 4096] prefill gather [8, 4600]", (32000, 4096), 8, 128,
+     (torch.bfloat16,), (8, 4600)),
+    ("wte [32000, 4096] prefill gather [8, 4600] int4", (32000, 4096), 4,
+     128, (torch.bfloat16,), (8, 4600)),
+    ("wte [32000, 4096] 8-row gather", (32000, 4096), 8, 128,
+     (torch.bfloat16, torch.float32), (8,)),
+    ("wte [32000, 4096] 3-row gather int4", (32000, 4096), 4, 128,
+     (torch.bfloat16, torch.float16), (3,)),
+    ("norm row [4096]", (4096,), 8, 128, (torch.float32, torch.bfloat16),
+     None),
+    ("ragged last group, 37 rows", (37, 1000), 8, 128,
+     (torch.bfloat16, torch.float16, torch.float32), None),
+    ("3d [3, 5, 300] block 64 int4", (3, 5, 300), 4, 64,
+     (torch.float32, torch.float16), None),
+]
+
+
+def phase_kernel_dequantize():
+    gen = torch.Generator("cuda").manual_seed(13)
+    n_cases, max_err = 0, 0.0
+    for name, shape, bits, block, outs, rows in DEQUANT_CASES:
+        w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        q, s = qz.quantize_blockwise(w, bits=bits, block=block)
+        del w
+        if rows is not None:
+            idx = torch.randint(0, shape[0], rows, generator=gen,
+                                device="cuda")
+            q, s = q[idx], s[idx]
+        for dt in outs:
+            out = qz.dequantize_cuda(q, s, block, dt)
+            ref = qz._dequantize_torch(q, s, block, dt)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs().max().item()
+            if out.dtype != dt or not torch.equal(out, ref):
+                raise AssertionError(
+                    f"[kernel] dequantize {name} -> {dt}: not bit-identical "
+                    f"({int((out != ref).sum())} of {out.numel()} differ, "
+                    f"max |diff| {diff:.3g})")
+            max_err = max(max_err, diff)
+            n_cases += 1
+        log(f"[kernel] dequantize {name} (q {tuple(q.shape)}, scales "
+            f"{tuple(s.shape)}) -> {[str(d).split('.')[-1] for d in outs]}: "
+            "ok, bit-identical")
+    # what the kernel does not take raises on a CUDA tensor
+    q, s = qz.quantize_blockwise(torch.randn((8, 256), device="cuda"))
+    f8, _ = qz.quantize_blockwise(torch.randn((8, 256), device="cuda"),
+                                  dtype="fp8_e4m3")
+    refused = [
+        ("fp8 codes", lambda: qz.dequantize_blockwise(f8, s), TypeError),
+        ("packed int4 (uint8)",
+         lambda: qz.dequantize_blockwise(qz.pack_int4(q.clamp(-7, 7)), s,
+                                         block=128), TypeError),
+        ("mismatched scales", lambda: qz.dequantize_blockwise(
+            q, s[:, :1], block=128), ValueError),
+        ("fp64 scales", lambda: qz.dequantize_blockwise(q, s.double()),
+         TypeError),
+        ("float8 output", lambda: qz.dequantize_blockwise(
+            q, s, dtype=torch.float8_e4m3fn), TypeError),
+    ]
+    for what, call, err in refused:
+        try:
+            call()
+        except err:
+            continue
+        raise AssertionError(f"[kernel] dequantize took {what} on CUDA "
+                             "tensors without raising")
+    log(f"[kernel] dequantize: {n_cases} cases bit-identical (max |diff| "
+        f"{max_err}); raises on {[w for w, _, _ in refused]}")
     return max_err
 
 
@@ -418,6 +550,13 @@ FLASH_CASES = [
 # the first ones dead for the late rows.
 FLASH_TRAIN_CASE = ("training shape B=1 T=S=8192 H=32 KH=8 D=128 window 4096",
                     1, 8192, 8192, 32, 8, 128, True, 4096, None)
+# What every layer of the v1 phase's prefill gives the forward kernel, in
+# bf16: the 8 prompts right-padded to the longest (4600, a 56-row last tile
+# of 64); the window bites from row 4096 on. Forward only: v1 runs no
+# backward.
+FLASH_V1_CASE = ("v1 prefill shape B=8 T=S=4600 H=32 KH=8 D=128 window 4096",
+                 8, 4600, 4600, 32, 8, 128, True, 4096, None)
+assert FLASH_V1_CASE[1:3] == (len(MAIN_PROMPT_LENS), max(MAIN_PROMPT_LENS))
 
 
 def close(name, what, got, ref, dtype):
@@ -451,20 +590,24 @@ def kv_head_part(t, kh, KH):
     return t.narrow(dim, kh * g, g)
 
 
-def flash_against_plain(name, q, k, v, do, causal, window, sm_scale):
+def flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
+                        backward=True):
     """Launch the forward, delta, dq and dkv kernels once on these inputs and
     hold o, lse, delta, dq, dk and dv to the plain versions (the backward
     ones fed the forward kernel's o and lse), one KV head's group of query
     heads at a time so that the plain versions' dense fp32 [G, T, S]
-    intermediates fit at any shape the card trains on. Returns {kernel:
-    (max |diff|, worst share of the limit)}."""
+    intermediates fit at any shape the card trains on. ``backward`` False:
+    the forward alone. Returns {kernel: (max |diff|, worst share of the
+    limit)}."""
     dtype, KH = q.dtype, k.shape[2]
     args = (causal, window, sm_scale)
     o, lse = fa.flash_fwd_cuda(q, k, v, *args)
-    delta = fa.flash_delta_cuda(o, do)
-    dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, *args)
-    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, *args)
-    worst = {"fwd": (0.0, 0.0), "dq": (0.0, 0.0), "dkv": (0.0, 0.0)}
+    worst = {"fwd": (0.0, 0.0)}
+    if backward:
+        delta = fa.flash_delta_cuda(o, do)
+        dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, *args)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, *args)
+        worst.update(dq=(0.0, 0.0), dkv=(0.0, 0.0))
 
     def hold(key, what, got, ref):
         worst[key] = tuple(map(max, worst[key],
@@ -477,6 +620,8 @@ def flash_against_plain(name, q, k, v, do, causal, window, sm_scale):
         hold("fwd", "o", part(o), ro)
         hold("fwd", "lse", part(lse), rlse)
         del ro, rlse
+        if not backward:
+            continue
         hold("dq", "delta", part(delta), (dof * of).sum(-1).permute(0, 2, 1))
         rdq = fa._dq_torch(qf, kf, vf, of, dof, part(lse), *args)
         hold("dq", "dq", part(dq), rdq)
@@ -489,7 +634,7 @@ def flash_against_plain(name, q, k, v, do, causal, window, sm_scale):
 
 
 def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
-                gen):
+                gen, backward=True):
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(dtype)
     q, k, v, do = mk(B, T, H, D), mk(B, S, KH, D), mk(B, S, KH, D), \
@@ -498,7 +643,8 @@ def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
         # keep the logits at a few units, as 1 / sqrt(D) would
         q = (q.float() / (sm_scale * math.sqrt(D))).to(dtype)
         do = (do.float() / (sm_scale * math.sqrt(D))).to(dtype)
-    worst = flash_against_plain(name, q, k, v, do, causal, window, sm_scale)
+    worst = flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
+                                backward)
     log(f"[kernel] flash {name} {str(dtype).split('.')[-1]}: ok, max "
         f"|kernel - plain| (share of the limit) " + ", ".join(
             f"{key} {e:.3g} ({sh:.2f})" for key, (e, sh) in worst.items()))
@@ -534,7 +680,8 @@ def check_flash_autograd(name, B, T, S, H, KH, D, causal, window, sm_scale,
 
 def phase_kernel_flash():
     """Every case against the plain versions; the errors reported for the
-    three kernels are those at the training shape."""
+    three kernels are those at the shapes of the main paths: the training
+    shape, and the v1 prefill's for the forward."""
     gen = torch.Generator("cuda").manual_seed(13)
     n0 = dict(fa.launches)
     for case in FLASH_CASES:
@@ -544,6 +691,8 @@ def phase_kernel_flash():
             check_flash(*case, torch.float16, gen)
     worst = check_flash(*FLASH_TRAIN_CASE, torch.bfloat16, gen)
     max_err = {key: e for key, (e, _) in worst.items()}
+    v1 = check_flash(*FLASH_V1_CASE, torch.bfloat16, gen, backward=False)
+    max_err["fwd"] = max(max_err["fwd"], v1["fwd"][0])
     for case in (FLASH_CASES[1], FLASH_CASES[4], FLASH_CASES[5],
                  FLASH_CASES[7], FLASH_CASES[12]):
         check_flash_autograd(*case, gen)
@@ -572,6 +721,7 @@ def phase_kernel():
             "paged_attention_quant": paged["quant"],
             "quantize": phase_kernel_quantize(),
             "quantized_matmul": phase_kernel_qmm(),
+            "dequantize": phase_kernel_dequantize(),
             "flash_fwd": flash["fwd"], "flash_dq": flash["dq"],
             "flash_dkv": flash["dkv"]}
 
@@ -738,6 +888,33 @@ def quantize_timing_case(label, rows, n, flush, block=128):
     return row
 
 
+def dequant_bytes(elements, groups, out_item):
+    """Bytes a dequantization must move: each int8 code read once, each
+    f32 scale read once, each output written once."""
+    return elements * (1 + out_item) + groups * 4
+
+
+def dequantize_timing_case(label, rows, n, flush, block=128,
+                           dtype=torch.bfloat16):
+    gen = torch.Generator("cuda").manual_seed(rows + n)
+    q, s = qz.quantize_blockwise(
+        torch.randn((rows, n), generator=gen, device="cuda") * 0.02,
+        block=block)
+    ms = time_ms(lambda: qz.dequantize_cuda(q, s, block, dtype), flush)
+    plain_ms = time_ms(lambda: qz._dequantize_torch(q, s, block, dtype),
+                       flush, iters=5, warmup=1)
+    nbytes = dequant_bytes(q.numel(), s.numel(), dtype.itemsize)
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # one fp32 product an element on the CUDA cores
+    f_ms = q.numel() / PEAK_FP32_FLOPS * 1e3
+    row = {"case": label, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(b_ms, f_ms),
+           "bound_by": "bytes" if b_ms >= f_ms else "operations",
+           "library_ms": None, "bytes": nbytes}
+    log(f"[timing] dequantize {json.dumps(row)}")
+    return row
+
+
 def flash_pairs(T, S, causal, window):
     """Attended (row, column) pairs of one head."""
     offs = S - T
@@ -895,6 +1072,12 @@ def phase_timing():
     rows["quantize"] = quantize_timing_case(
         "engine build: stacked w_in [32*4096, 14336] bf16 -> int8",
         32 * 4096, 14336, flush)
+    rows["dequantize"] = dequantize_timing_case(
+        "v1 w_in [4096, 14336] int8 -> bf16", 4096, 14336, flush)
+    dequantize_timing_case("v1 lm_head [4096, 32000] int8 -> bf16", 4096,
+                           32000, flush)
+    dequantize_timing_case("v1 norm row [4096] int8 -> fp32", 1, 4096,
+                           flush, dtype=torch.float32)
     gc.collect()
     torch.cuda.empty_cache()
     name, B, T, _, H, KH, D, _, window, _ = FLASH_TRAIN_CASE
@@ -1003,18 +1186,18 @@ def step_logits(engine, chunks, step, mode):
             engine.flush(u)
 
 
-def compare_steps(engine, vocab, label):
+def compare_steps(get_logits, label):
     """One prefill and one decode step through the kernels against the
-    plain versions. The runs differ only in rounding, which 32 layers
-    amplify; the check is that the kernels' logits are no further from the
-    fp32-arithmetic attention's than the plain bf16 version's are (the plain version rounds p — and dequantized K/V — to
-    bf16 before the products; the kernel keeps them in fp32)."""
-    rng = np.random.default_rng(99)
-    chunks = [rng.integers(0, vocab, 257).tolist(),
-              rng.integers(0, vocab, 201).tolist()]
+    plain versions; ``get_logits(step, mode)`` gives the logits of ``step``
+    ("prefill" or "decode") in ``mode`` ("kernel", "plain" or "plain_fp32").
+    The runs differ only in rounding, which 32 layers amplify; the check is
+    that the kernels' logits are no further from the fp32-arithmetic
+    attention's than the plain bf16 version's are (the plain version rounds
+    p — and dequantized K/V — to bf16 before the products; the kernel keeps
+    them in fp32)."""
     res = {}
     for step in ("prefill", "decode"):
-        k, p, p32 = (step_logits(engine, chunks, step, m)
+        k, p, p32 = (get_logits(step, m)
                      for m in ("kernel", "plain", "plain_fp32"))
         if not torch.isfinite(k).all():
             raise AssertionError(f"[{label}] {step}: non-finite logits")
@@ -1036,12 +1219,32 @@ def compare_steps(engine, vocab, label):
     return res
 
 
+def device_summary(prof, wall_ms, label, name, top):
+    """Log a trace's wall time, the device's busy share (kernel time over
+    wall time) and the kernels that took the most device time. Returns the
+    busy milliseconds and the device-side events, most time first."""
+    from torch.autograd import DeviceType
+
+    # device-side events only: a CPU op's self device time repeats the time
+    # of the kernels it launched
+    evs = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    log(f"[{label}] {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall_ms:.1f}%)")
+    for e in evs[:top]:
+        log(f"[{label}]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+    return busy, evs
+
+
 def profile_steps(engine, prompts, label, top=8):
     """torch.profiler over two puts of the main path: the long prompt's last
     256-token chunk (its context at 4344-4599) and one decode step of all 8
     requests. Prints each put's wall time, the device's busy share (kernel
     time over wall time), and the kernels that took the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     uids = [30_000 + i for i in range(len(prompts))]
@@ -1060,18 +1263,7 @@ def profile_steps(engine, prompts, label, top=8):
             engine.put(us, chunks)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        # device-side events only: a CPU op's self device time repeats the
-        # time of the kernels it launched
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in evs) / 1e3
-        evs.sort(key=lambda e: -e.self_device_time_total)
-        log(f"[profile {label}] {name}: wall {wall:.2f} ms, device busy "
-            f"{busy:.2f} ms ({100 * busy / wall:.1f}%)")
-        for e in evs[:top]:
-            log(f"[profile {label}]   {e.self_device_time_total / 1e3:8.3f} ms"
-                f" x{e.count:<5d} {e.key[:90]}")
+        device_summary(prof, wall, f"profile {label}", name, top)
     for u in uids:
         engine.flush(u)
 
@@ -1216,7 +1408,11 @@ def run_mistral(label, seed, prompt_lens, new_tokens, quant=None,
         raise AssertionError(f"[{label}] {launches['quantized_matmul']} "
                              f"quantized-matmul launches for {puts} puts, "
                              f"want {qmm_per_put} per put")
-    res["steps"] = compare_steps(engine, cfg.vocab_size, label)
+    rng = np.random.default_rng(99)
+    chunks = [rng.integers(0, cfg.vocab_size, 257).tolist(),
+              rng.integers(0, cfg.vocab_size, 201).tolist()]
+    res["steps"] = compare_steps(
+        functools.partial(step_logits, engine, chunks), label)
     if profile_puts:
         profile_steps(engine, prompts, label)
     del engine
@@ -1246,6 +1442,332 @@ def phase_quant(profile_puts=False):
     return int8, fp8
 
 
+# ------------------------------------------------------------ v1 inference
+
+V1_NEW_TOKENS = 32
+V1_WAYS = (("v1 bf16", None), ("v1 int8", 8), ("v1 int4", 4))
+# dequantize launches of one forward at MISTRAL_7B: per layer wq, wk, wv,
+# wo, w_gate, w_in, w_out and the attention and MLP norm stacks (which the
+# quantizer's size rule takes at full width), then lm_head and the gathered
+# embedding rows
+V1_DEQUANT_PER_FORWARD = 9 * 32 + 2
+V1_QUANT_LEAVES = 11        # the QuantTensor leaves: the build's quantize launches
+
+
+def reset_launches():
+    pa.launches = 0
+    for key in fa.launches:
+        fa.launches[key] = 0
+    for key in qz.launches:
+        qz.launches[key] = 0
+
+
+def v1_launches():
+    return {"dequantize": qz.launches["dequantize"],
+            "flash_fwd": fa.launches["fwd"], "paged_attention": pa.launches,
+            "quantize": qz.launches["quantize"]}
+
+
+def v1_small_parity():
+    """Small fp32 v1 engines (TINY_TEST, weights x4 so the streams are not
+    one repeated token; quant off, int8 and int4; tied and untied) give the
+    same greedy streams through the kernels on the card as through the plain
+    versions on the CPU."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import TINY_TEST, CausalLM
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, TINY_TEST.vocab_size, n).tolist()
+               for n in (5, 40, 17, 33, 100)]
+    for tied in (True, False):
+        cfg = dataclasses.replace(TINY_TEST, tie_embeddings=tied)
+        params = CausalLM(cfg).init(torch.Generator("cpu").manual_seed(4),
+                                    device="cpu")
+        params = {g: {k: v * 4 if v.dim() >= 2 else v for k, v in sub.items()}
+                  for g, sub in params.items()}
+        for bits in (None, 8, 4):
+            config = {"dtype": "fp32"}
+            if bits:
+                config["quant"] = {"enabled": True, "bits": bits}
+            reset_launches()
+            out = {dev: deepspeed_tpu_torch.init_inference(
+                       CausalLM(cfg), config=dict(config), params=params,
+                       device=dev).generate(prompts, max_new_tokens=12).cpu()
+                   for dev in ("cpu", "cuda")}
+            n = v1_launches()
+            # TINY_TEST's [L, H] norm stacks stay below the size rule: 7
+            # matrices a layer, the embedding rows and the unembedding
+            want = 13 * (7 * cfg.num_layers + 2) if bits else 0
+            if n["dequantize"] != want or n["paged_attention"] \
+                    != 12 * cfg.num_layers or n["flash_fwd"] != cfg.num_layers:
+                raise AssertionError(f"[v1] small fp32: launches {n}, want "
+                                     f"{want} dequantize")
+            label = f"{'tied' if tied else 'untied'} {bits or 'fp32'}"
+            if not torch.equal(out["cpu"], out["cuda"]):
+                bad = (out["cpu"] != out["cuda"]).nonzero()[0].tolist()
+                raise AssertionError(f"[v1] small fp32 {label}: greedy streams "
+                                     f"differ first at (row, column) {bad}")
+            log(f"[v1] small fp32 {label}: greedy streams on the card equal "
+                f"the CPU plain path's ({len(prompts)} prompts x 12 tokens; "
+                f"launches {json.dumps(n)})")
+
+
+def v1_step_logits(engine, toks, plen, nxt, step, mode):
+    """Logits of one prefill (the real positions) or of the decode step
+    after it, with the kernels (``mode`` "kernel"), with every op pinned to
+    its plain version ("plain"), or with the plain versions and attention in
+    fp32 arithmetic on the same bf16 inputs ("plain_fp32", swapped in here;
+    test-only)."""
+    plain_flash, plain_paged = fa._attention_torch, pa.paged_attention_torch
+
+    def flash_fp32(q, k, v, *a, **kw):
+        o, lse = plain_flash(q.float(), k.float(), v.float(), *a, **kw)
+        return o.to(q.dtype), lse
+
+    def paged_fp32(q, kp, vp, *a, **kw):
+        return plain_paged(q.float(), kp.float(), vp.float(), *a,
+                           **kw).to(q.dtype)
+
+    fa.FORCE_REFERENCE = pa.FORCE_REFERENCE = qz.FORCE_REFERENCE = \
+        mode != "kernel"
+    if mode == "plain_fp32":
+        fa._attention_torch, pa.paged_attention_torch = flash_fp32, paged_fp32
+    m = engine.module
+    try:
+        with torch.no_grad():
+            B, T = toks.shape
+            cache, tables = m.init_paged_cache(B, T + 1, engine.DECODE_BLOCK)
+            logits, cache = m.prefill_paged(engine.params, toks, plen, cache,
+                                            tables)
+            if step == "prefill":
+                return torch.cat([logits[b, :int(plen[b])]
+                                  for b in range(B)]).float()
+            dec, _ = m.decode_step_paged(engine.params, cache, tables, nxt,
+                                         plen)
+        return dec.float()
+    finally:
+        fa.FORCE_REFERENCE = pa.FORCE_REFERENCE = qz.FORCE_REFERENCE = False
+        fa._attention_torch, pa.paged_attention_torch = plain_flash, plain_paged
+
+
+class V1Timer:
+    """Wraps a CausalLM's ``prefill_paged`` and ``decode_step_paged`` (as
+    instance attributes; ``close`` removes them) to time each call between
+    two synchronizations, to keep a device-side flag of finite logits, and
+    to trace one decode step with torch.profiler (``profile_step``)."""
+
+    def __init__(self, module, profile_step=None):
+        self.module, self.profile_step = module, profile_step
+        self.prefill_s, self.decode_s, self.traced_s = [], [], []
+        self.finite = torch.ones((), dtype=torch.bool, device="cuda")
+        self.trace = None
+        real_pre, real_dec = module.prefill_paged, module.decode_step_paged
+
+        def timed(real, secs, step=None):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = real(*a, **kw)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                self.finite &= torch.isfinite(logits).all()
+                return logits, cache
+            return call
+
+        pre = timed(real_pre, self.prefill_s)
+        dec = timed(real_dec, self.decode_s)
+        traced = timed(real_dec, self.traced_s)
+
+        def decode(*a, **kw):
+            # the traced step's time is kept apart from the decode times
+            if len(self.decode_s) != self.profile_step or self.trace:
+                return dec(*a, **kw)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = traced(*a, **kw)
+            self.trace = prof
+            return out
+
+        module.prefill_paged, module.decode_step_paged = pre, decode
+
+    def close(self):
+        del self.module.prefill_paged, self.module.decode_step_paged
+
+
+def trace_summary(prof, wall_s, label, top=6):
+    """Device busy share of a traced decode step, the kernels that took the
+    most device time, and the dequantize kernel's device time in it."""
+    wall = wall_s * 1e3
+    busy, evs = device_summary(prof, wall, label, "traced decode step", top)
+    deq = [e for e in evs if "dequantize_kernel" in e.key]
+    deq_ms = sum(e.self_device_time_total for e in deq) / 1e3
+    deq_n = sum(e.count for e in deq)
+    log(f"[{label}] traced decode step: dequantize_kernel {deq_ms:.3f} ms "
+        f"x{deq_n}")
+    return {"busy_ms": busy, "wall_ms": wall, "dequant_ms": deq_ms,
+            "dequant_launches": deq_n}
+
+
+def v1_dequant_bound(engine, batch):
+    """Least time for the dequantization of one decode forward: each
+    QuantTensor leaf a forward dequantizes (the embedding: ``batch`` rows)
+    moves its int8 codes, its scales and its output once (outputs in the
+    compute dtype, norm weights in fp32), at HBM bandwidth."""
+    from deepspeed_tpu_torch.inference.quantization import QuantTensor
+
+    p, dt = engine.params, engine.module.cfg.dtype
+    nbytes = 0
+    for name, leaf in p["layers"].items():
+        if isinstance(leaf, QuantTensor):
+            item = 4 if name.endswith("norm_w") else dt.itemsize
+            n = math.prod(leaf.shape)
+            nbytes += dequant_bytes(n, leaf.scales.numel(), item)
+    head = p["lm_head"]["w"]
+    nbytes += dequant_bytes(math.prod(head.shape), head.scales.numel(),
+                            dt.itemsize)
+    wte = p["embed"]["wte"]
+    nbytes += dequant_bytes(batch * wte.shape[1],
+                            batch * wte.scales.shape[1], wte.out_dtype.itemsize)
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def run_v1(label, bits, prompts, eos_run=False):
+    """MISTRAL_7B at full width through init_inference -> generate: bf16
+    random weights from a seeded generator (quantized at the engine build
+    and dropped when ``bits``), the prompts as a ragged list, 32 greedy new
+    tokens. Checks the output and the launch counts, holds one prefill and
+    one decode step against the plain versions, and measures."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import tree_nbytes
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = MISTRAL_7B
+    model = CausalLM(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda",
+                        dtype=torch.bfloat16)
+    config = {"dtype": "bf16"}
+    if bits:
+        config["quant"] = {"enabled": True, "bits": bits}
+    reset_launches()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(model, config=config,
+                                                params=params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_quantize = qz.launches["quantize"]
+    del params                  # the engine holds the tree it serves from
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = tree_nbytes(engine.params)
+    if n_quantize != (V1_QUANT_LEAVES if bits else 0):
+        raise AssertionError(f"[{label}] {n_quantize} quantize launches at "
+                             "the build")
+    log(f"[{label}] engine built in {build_s:.2f} s ({n_quantize} quantize "
+        f"launches); weights {weights / 1e9:.3f} GB (tree_nbytes)")
+    engine.generate([prompts[0][:16]], max_new_tokens=2)     # warm-up
+
+    B, T, new = len(prompts), max(len(p) for p in prompts), V1_NEW_TOKENS
+    timer = V1Timer(engine.module, profile_step=new // 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = engine.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+    finally:
+        timer.close()
+    wall = time.perf_counter() - t0
+    launches = v1_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(out.shape) != (B, T + new) or not bool(timer.finite):
+        raise AssertionError(f"[{label}] output {tuple(out.shape)}, finite "
+                             f"logits {bool(timer.finite)}")
+    host = out.cpu().numpy()
+    for b, p in enumerate(prompts):
+        if not ((host[b, :len(p)] == p).all()
+                and (host[b, len(p) + new:] == 0).all()
+                and ((0 <= host[b]) & (host[b] < cfg.vocab_size)).all()):
+            raise AssertionError(f"[{label}] row {b}: prompt, new tokens or "
+                                 "padding out of place")
+    want = {"dequantize": (1 + new) * V1_DEQUANT_PER_FORWARD if bits else 0,
+            "flash_fwd": cfg.num_layers,
+            "paged_attention": new * cfg.num_layers, "quantize": 0}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    pre_tokens = sum(len(p) for p in prompts)
+    pre_s, dec_s = sum(timer.prefill_s), sum(timer.decode_s)
+    res = {"launches": launches, "weights_gb": weights / 1e9, "peak_gb": peak,
+           "prefill_tps": pre_tokens / pre_s,
+           "decode_tps": B * len(timer.decode_s) / dec_s,
+           "prefill_s": pre_s,
+           "decode_step_ms": 1e3 * dec_s / len(timer.decode_s),
+           "build_s": build_s}
+    log(f"[{label}] generate: {B} prompts {[len(p) for p in prompts]} "
+        f"(padded to {T}) x {new} new tokens in {wall:.2f} s; launches "
+        f"{json.dumps(launches)} (asserted)")
+    log(f"[{label}] prefill {pre_tokens} prompt tokens ({B * T} with padding) "
+        f"in {pre_s:.3f} s = {res['prefill_tps']:.1f} tokens/s; decode "
+        f"{len(timer.decode_s)} untraced steps of {B} in {dec_s:.3f} s "
+        f"({res['decode_step_ms']:.2f} ms a step) = "
+        f"{res['decode_tps']:.1f} tokens/s; weights "
+        f"{weights / 1e9:.3f} GB, peak memory {peak:.2f} GB")
+    res["trace"] = trace_summary(timer.trace, timer.traced_s[0], label)
+    if bits:
+        nbytes, b_ms = v1_dequant_bound(engine, B)
+        res["dequant_bound_ms"] = b_ms
+        log(f"[{label}] dequantization of one decode forward: "
+            f"{res['trace']['dequant_ms']:.3f} ms of dequantize_kernel "
+            f"({res['trace']['dequant_launches']} launches) against "
+            f"{nbytes / 1e9:.3f} GB moved, bound {b_ms:.3f} ms at 3.35 TB/s")
+    if eos_run:
+        # the token the first row emits at its fourth step as EOS: that row
+        # stops there and pads, the others run on, the same up to their EOS
+        eos = int(host[0, len(prompts[0]) + 3])
+        again = engine.generate(prompts, max_new_tokens=new,
+                                eos_token_id=eos).cpu().numpy()
+        for b, p in enumerate(prompts):
+            gen_b, again_b = host[b, len(p):len(p) + new], \
+                again[b, len(p):len(p) + new]
+            hit = np.nonzero(gen_b == eos)[0]
+            stop = int(hit[0]) + 1 if len(hit) else new
+            if not ((again_b[:stop] == gen_b[:stop]).all()
+                    and (again_b[stop:] == 0).all()):
+                raise AssertionError(f"[{label}] EOS run, row {b}: "
+                                     f"{again_b.tolist()} vs {gen_b.tolist()}")
+        log(f"[{label}] EOS run (eos_token_id={eos}): each row equals the "
+            "plain run up to its first EOS and is pad after it")
+    # one prefill of two prompts (256 and 200 tokens, right-padded) and the
+    # decode step after it
+    rng = np.random.default_rng(98)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           dtype=torch.int32, device="cuda")
+    plen = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 2),
+                          dtype=torch.int32, device="cuda")
+    res["steps"] = compare_steps(
+        functools.partial(v1_step_logits, engine, toks, plen, nxt), label)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_v1():
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    v1_small_parity()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, MISTRAL_7B.vocab_size, n).tolist()
+               for n in MAIN_PROMPT_LENS]
+    return {label: run_v1(label, bits, prompts, eos_run=bits is None)
+            for label, bits in V1_WAYS}
+
+
 # ----------------------------------------------------------- training path
 
 TRAIN_LAYERS = 8        # of MISTRAL_7B's 32: 16 bytes a parameter of state
@@ -1267,11 +1789,6 @@ TRAIN_CONFIG = {
 }
 
 
-def reset_flash_launches():
-    for key in fa.launches:
-        fa.launches[key] = 0
-
-
 def tiny_train_parity():
     """A small fp32 TINY_TEST engine gives on the card (through the four
     flash kernels) the loss trajectory it gives on the CPU (through the
@@ -1290,7 +1807,7 @@ def tiny_train_parity():
                steps_per_print=100)
     del cfg["bf16"]
     losses = {}
-    reset_flash_launches()
+    reset_launches()
     for dev in ("cpu", "cuda"):
         engine, *_ = deepspeed_tpu_torch.initialize(
             model=CausalLM(TINY_TEST), config=dict(cfg), training_data=data,
@@ -1416,7 +1933,6 @@ def micro_step_check(engine, vocab):
 def profile_train_step(engine):
     """torch.profiler over one train_batch: the share of the step's device
     time in each flash kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1426,12 +1942,8 @@ def profile_train_step(engine):
         engine.train_batch()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    log(f"[profile train] one train_batch: wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
+    busy, evs = device_summary(prof, wall, "profile train",
+                               "one train_batch", 12)
     for key in ("flash_fwd", "flash_dq", "flash_dkv", "flash_delta"):
         ms = sum(e.self_device_time_total for e in evs if key in e.key) / 1e3
         n = sum(e.count for e in evs if key in e.key)
@@ -1441,10 +1953,6 @@ def profile_train_step(engine):
                if "nvjet" in e.key or "gemm" in e.key.lower()) / 1e3
     log(f"[profile train]   library GEMMs (projections, MLP, lm_head): "
         f"{gemm:.1f} ms ({100 * gemm / busy:.1f}% of device time)")
-    evs.sort(key=lambda e: -e.self_device_time_total)
-    for e in evs[:12]:
-        log(f"[profile train]   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"x{e.count:<5d} {e.key[:90]}")
 
 
 def run_training(label, layers, seq, steps, remat=False, checks=False,
@@ -1472,7 +1980,7 @@ def run_training(label, layers, seq, steps, remat=False, checks=False,
         f"{n_params / 1e9:.3f} B parameters, fp32 master + 2 moments + "
         f"accumulator {16 * n_params / 1e9:.1f} GB, built in "
         f"{time.perf_counter() - t0:.2f} s; remat {remat}")
-    reset_flash_launches()
+    reset_launches()
     losses, norms, secs = [], [], []
     for step in range(steps):
         torch.cuda.synchronize()
@@ -1551,6 +2059,7 @@ KERNEL_SOURCES = {
     "quantize": ("quantize.cu", "deepspeed_tpu/ops/quantizer.py:130"),
     "quantized_matmul": ("quantized_matmul.cu",
                          "deepspeed_tpu/ops/quantizer.py:257"),
+    "dequantize": ("dequantize.cu", "deepspeed_tpu/ops/quantizer.py:142"),
     "flash_fwd": ("flash_attention.cu",
                   "deepspeed_tpu/ops/flash_attention.py:92"),
     "flash_dq": ("flash_attention.cu",
@@ -1566,7 +2075,8 @@ def main(argv=None):
                     help="also trace two puts of the bf16 and int8 paths")
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
-    ap.add_argument("--only", choices=["timing", "main", "quant", "train"],
+    ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
+                                       "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     args = ap.parse_args(argv)
@@ -1588,8 +2098,9 @@ def main(argv=None):
         return
     if args.only:
         phase = {"timing": phase_timing, "main": phase_main,
-                 "quant": phase_quant, "train": phase_train}[args.only]
-        kw = {} if args.only == "timing" else {
+                 "quant": phase_quant, "v1": phase_v1,
+                 "train": phase_train}[args.only]
+        kw = {} if args.only in ("timing", "v1") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -1598,6 +2109,7 @@ def main(argv=None):
     times = timed("timing", phase_timing)
     main_res = timed("main", phase_main, profile_puts=args.profile)
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
+    v1 = timed("v1", phase_v1)
     train = timed("train", phase_train, profile_step=args.profile)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
@@ -1611,9 +2123,18 @@ def main(argv=None):
                 "paged_attention_quant": int8["launches"]["paged_attention"],
                 "quantize": int8["quantize_launches"],
                 "quantized_matmul": int8["launches"]["quantized_matmul"],
+                "dequantize": v1["v1 int8"]["launches"]["dequantize"],
                 "flash_fwd": train["launches"]["fwd"],
                 "flash_dq": train["launches"]["dq"],
                 "flash_dkv": train["launches"]["dkv"]}
+    log("[v1] MISTRAL_7B, 8 ragged prompts x 32 new tokens, bf16 | int8 | "
+        "int4 weights: prefill tokens/s "
+        + " | ".join(f"{r['prefill_tps']:.1f}" for r in v1.values())
+        + "; decode tokens/s "
+        + " | ".join(f"{r['decode_tps']:.1f}" for r in v1.values())
+        + "; weights GB "
+        + " | ".join(f"{r['weights_gb']:.3f}" for r in v1.values())
+        + "; peak GB " + " | ".join(f"{r['peak_gb']:.2f}" for r in v1.values()))
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

@@ -14,6 +14,14 @@ no CUDA and no explicit device they raise instead of dropping to the CPU.
     engine, optimizer, loader, scheduler = deepspeed_tpu_torch.initialize(
         model=CausalLM(cfg), config={...}, training_data=data)
     loss = engine.train_batch()
+
+``init_inference`` creates the v1 inference engine::
+
+    engine = deepspeed_tpu_torch.init_inference(
+        "mistral-7b", config={"dtype": "bf16", "quant": {"enabled": True,
+                                                          "bits": 8}},
+        params=params)
+    out = engine.generate([[1, 2, 3], [4, 5]], max_new_tokens=32)
 """
 
 from __future__ import annotations
@@ -102,4 +110,15 @@ def initialize(args=None,
             engine.lr_scheduler)
 
 
-__all__ = ["initialize", "resolve_device", "not_ported", "__version__"]
+def init_inference(model=None, config=None, **kwargs):
+    """Create the v1 inference engine; the counterpart of
+    ``deepspeed_tpu.init_inference``. ``kwargs`` are config keys, and
+    ``params=``, ``mesh=`` and ``device=`` (``cuda`` unless ``"cpu"`` is
+    passed) as ``inference.InferenceEngine`` takes them."""
+    from .inference.engine import InferenceEngine
+
+    return InferenceEngine(model, config=config, **kwargs)
+
+
+__all__ = ["initialize", "init_inference", "resolve_device", "not_ported",
+           "__version__"]

@@ -12,6 +12,19 @@ becomes a Python loop that hands each layer its static window.
 ``CausalLM.apply`` and ``CausalLM.loss`` (training and v1 prefill) run
 attention through ``ops/flash_attention.py``: on CUDA tensors the
 hand-written forward kernel, and under autograd its two backward kernels.
+
+The v1 inference paths (``init_cache``/``prefill``/``decode_step`` over a
+contiguous cache, ``init_paged_cache``/``prefill_paged``/
+``decode_step_paged`` over a pool-layout cache; ``inference/engine.py``
+runs the paged pair) write each layer's K/V into the cache in place and
+return it. Prefill attends through ``_attention`` (the flash forward kernel
+on the card), paged decode through ``ops/paged_attention.py``.
+
+A param leaf may be a ``inference/quantization.QuantTensor`` (ZeRO-Inference
+weight-only quantization). The model reaches one in three ways only:
+``_weight(w, dtype)`` dequantizes a whole leaf (linear weights and biases,
+norm weights, the unembedding), ``w[idx]`` gathers embedding rows and
+dequantizes only them, and ``_scan_layers`` slices one QuantTensor a layer.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import torch.nn.functional as F
 
 from .. import not_ported, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_attention
 from ..ops.quantizer import quantized_matmul
 
 
@@ -212,16 +226,28 @@ TINY_TEST = TransformerConfig(vocab_size=256, hidden_size=64,
 
 # ------------------------------------------------------------------ primitives
 
+def _weight(w, dtype=None) -> torch.Tensor:
+    """A param leaf as a tensor in ``dtype`` (``None``: its own dtype) — the
+    JAX package's ``w.astype(dtype)``. A tensor is cast; a ``QuantTensor``
+    (v1 weight-only quantization) is dequantized, which on the card is one
+    launch of the dequantize kernel."""
+    if torch.is_tensor(w):
+        return w if dtype is None else w.to(dtype)
+    return w.dequantize(dtype)
+
+
 def _linear(x, w, b, dt):
     """x @ w (+ b) in compute dtype; b may be None. ``w`` may be a
     blockwise-quantized ``{"qw", "qs"}`` node (``weight_quant.py``): the
     product then runs from the quantized weight through
-    ``ops/quantizer.quantized_matmul`` (the kernel on the card)."""
+    ``ops/quantizer.quantized_matmul`` (the kernel on the card). A v1
+    ``QuantTensor`` weight or bias is dequantized to ``dt`` first and then
+    multiplied (or added), as in the JAX package."""
     if isinstance(w, dict):
         y = quantized_matmul(x, w["qw"], w["qs"], out_dtype=dt)
     else:
-        y = x @ w.to(dt)
-    return y if b is None else y + b.to(dt)
+        y = x @ _weight(w, dt)
+    return y if b is None else y + _weight(b, dt)
 
 
 def _norm(x, w, b, kind: str, eps: float):
@@ -229,11 +255,12 @@ def _norm(x, w, b, kind: str, eps: float):
     x32 = x.float()
     if kind == "rmsnorm":
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + eps) * w.float()
+        y = x32 * torch.rsqrt(var + eps) * _weight(w, torch.float32)
     else:
         mu = torch.mean(x32, dim=-1, keepdim=True)
         var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
-        y = (x32 - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+        y = ((x32 - mu) * torch.rsqrt(var + eps) * _weight(w, torch.float32)
+             + _weight(b, torch.float32))
     return y.to(dt)
 
 
@@ -484,6 +511,10 @@ class CausalLM:
         return q, k, v
 
     def _block(self, x, lp, cos, sin, window=0):
+        return self._block_kv(x, lp, cos, sin, window)[0]
+
+    def _block_kv(self, x, lp, cos, sin, window=0):
+        """Forward block that also returns this layer's K/V (for prefill)."""
         cfg = self.cfg
         B, T, _ = x.shape
         h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm,
@@ -492,7 +523,7 @@ class CausalLM:
         attn = _attention(q, k, v, cfg, causal=True, window=window)
         attn = _linear(attn.reshape(B, T, -1), lp["wo"], lp.get("wo_b"),
                        cfg.dtype)
-        return self._attn_mlp_merge(x, attn, lp, h1)
+        return self._attn_mlp_merge(x, attn, lp, h1), k, v
 
     # -- forward ------------------------------------------------------------
     def apply(self, params, tokens, rng=None, deterministic: bool = True,
@@ -515,11 +546,7 @@ class CausalLM:
             raise not_ported("pipeline parallelism", "queue 1 item 14")
         B, T = tokens.shape
         dev = tokens.device
-        tokens = tokens.long()
-        x = params["embed"]["wte"][tokens].to(cfg.dtype)
-        if cfg.embedding_layernorm:
-            x = _norm(x, params["embed"]["ln_w"], params["embed"].get("ln_b"),
-                      cfg.norm, cfg.norm_eps)
+        x = self._embed(params, tokens)
         cos = sin = None
         if cfg.position == "rope":
             cos_full, sin_full = rope_table(cfg.max_seq_len, cfg.rot_dim,
@@ -594,11 +621,12 @@ class CausalLM:
                      layer_params: Dict[str, torch.Tensor]):
         """The counterpart of ``lax.scan`` over the stacked layer dim: a loop
         that hands layer ``i`` its params ``{k: v[i]}`` (both members of a
-        quantized ``{"qw", "qs"}`` node sliced), its index, and the body
-        built for its static window. Returns the final carry. Each stacked
-        leaf is unbound once (views, no copies), so that under autograd its
-        gradient is assembled by one ``stack`` instead of one full-size
-        scatter per layer."""
+        quantized ``{"qw", "qs"}`` node sliced; a ``QuantTensor`` sliced
+        into one QuantTensor a layer, with the same block, bits, packing and
+        ``out_dtype``), its index, and the body built for its static window.
+        Returns the final carry. Each stacked leaf is unbound once (views,
+        no copies), so that under autograd its gradient is assembled by one
+        ``stack`` instead of one full-size scatter per layer."""
         def unbound(v):
             return {k: t.unbind(0) for k, t in v.items()} \
                 if isinstance(v, dict) else v.unbind(0)
@@ -616,14 +644,16 @@ class CausalLM:
     def _unembed(self, params, x):
         cfg = self.cfg
         if cfg.tie_embeddings:
-            return x @ params["embed"]["wte"].t().to(cfg.dtype)
+            # a QuantTensor table dequantizes to its own dtype, then casts
+            # (JAX: ``wte.T.astype(dtype)``)
+            return x @ _weight(params["embed"]["wte"]).t().to(cfg.dtype)
         w = params["lm_head"]["w"]
         if isinstance(w, dict):         # quantized lm_head: as _linear
             y = quantized_matmul(x, w["qw"], w["qs"], out_dtype=cfg.dtype)
         else:
-            y = x @ w.to(cfg.dtype)
+            y = x @ _weight(w, cfg.dtype)
         if "b" in params.get("lm_head", {}):
-            y = y + params["lm_head"]["b"].to(cfg.dtype)
+            y = y + _weight(params["lm_head"]["b"], cfg.dtype)
         return y
 
     def _attn_mlp_merge(self, x, attn_out, lp, h1=None):
@@ -638,3 +668,210 @@ class CausalLM:
                    cfg.norm_eps)
         return x + attn_out + self._mlp_body(h2, lp)
 
+    # -- KV-cache inference (v1): the cache is written in place ---------------
+    def _pos_tables(self, T, positions, device):
+        """RoPE cos/sin for positions ``0..T-1`` (``positions`` None) or for
+        ``positions``; None for models without RoPE."""
+        cfg = self.cfg
+        if cfg.position != "rope":
+            return None, None
+        cos_full, sin_full = rope_table(cfg.max_seq_len, cfg.rot_dim,
+                                        cfg.rope_theta, device=device)
+        if positions is not None:
+            positions = positions.long()
+            return cos_full[positions], sin_full[positions]
+        return cos_full[:T], sin_full[:T]
+
+    def _embed(self, params, tokens):
+        """Token embeddings in the compute dtype, with the embedding
+        LayerNorm where the model has one. A QuantTensor table dequantizes
+        only the gathered rows (to its own dtype, then cast)."""
+        cfg = self.cfg
+        x = params["embed"]["wte"][tokens.long()].to(cfg.dtype)
+        if cfg.embedding_layernorm:
+            x = _norm(x, params["embed"]["ln_w"], params["embed"].get("ln_b"),
+                      cfg.norm, cfg.norm_eps)
+        return x
+
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """Contiguous KV cache ``{"k", "v"}``, each [L, B, max_len, KH, D] in
+        the compute dtype."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads,
+                 cfg.head_dim)
+        device = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    def _prefill_impl(self, params, tokens, cache, write_kv):
+        """Shared prompt processing: embed, the layer loop (each layer hands
+        its K/V to ``write_kv(layer, k, v)``, which writes them into
+        ``cache`` in place), final norm, logits. The contiguous and paged
+        caches differ only in the write."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        x = self._embed(params, tokens)
+        cos, sin = self._pos_tables(T, None, dev)
+        if cfg.position == "learned":
+            x = x + params["embed"]["wpe"][torch.arange(T, device=dev)].to(
+                cfg.dtype)
+
+        def body_for(win):
+            def body(x, lp, layer):
+                x, k, v = self._block_kv(x, lp, cos, sin, window=win)
+                write_kv(layer, k, v)
+                return x
+            return body
+
+        x = self._scan_layers(body_for, x, params["layers"])
+        x = _norm(x, params["final_norm"]["w"], params["final_norm"].get("b"),
+                  cfg.norm, cfg.norm_eps)
+        return self._unembed(params, x), cache
+
+    def prefill(self, params, tokens, cache):
+        """Process a full prompt [B, T], filling ``cache[:, :, :T]``.
+        Returns (logits [B, T, V], cache)."""
+        def write(layer, k, v):
+            T = k.shape[1]
+            cache["k"][layer, :, :T] = k
+            cache["v"][layer, :, :T] = v
+
+        return self._prefill_impl(params, tokens, cache, write)
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One decode step: tokens [B] at position ``pos`` (an int). Returns
+        (logits [B, V], cache)."""
+        cfg = self.cfg
+        S = cache["k"].shape[2]
+        dev = tokens.device
+        pos = int(pos)
+        x = self._embed(params, tokens)[:, None, :]                 # [B,1,H]
+        at = torch.tensor([pos], device=dev)
+        cos, sin = self._pos_tables(1, at, dev)
+        if cfg.position == "learned":
+            x = x + params["embed"]["wpe"][at].to(cfg.dtype)
+
+        def body_for(win):
+            def body(x, lp, layer):
+                return self._block_decode(x, lp, cache["k"][layer],
+                                          cache["v"][layer], cos, sin, pos, S,
+                                          window=win)
+            return body
+
+        x = self._scan_layers(body_for, x, params["layers"])
+        x = _norm(x, params["final_norm"]["w"], params["final_norm"].get("b"),
+                  cfg.norm, cfg.norm_eps)
+        return self._unembed(params, x)[:, 0], cache
+
+    def _block_decode(self, x, lp, kc, vc, cos, sin, pos, S, window=0):
+        """Decode block: one token attends over the contiguous cache ``kc``,
+        ``vc`` [B, S, KH, D] of its layer, after writing its own K/V at
+        ``pos`` (clamped into the cache, as ``dynamic_update_slice``
+        does)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm,
+                   cfg.norm_eps)
+        q, k, v = self._qkv(h1, lp, cos, sin, B, 1)
+        at = min(max(pos, 0), S - 1)
+        kc[:, at] = k[:, 0]
+        vc[:, at] = v[:, 0]
+        kpos = torch.arange(S, device=x.device)
+        keep = kpos <= pos
+        if window:
+            keep = keep & (pos - kpos < window)
+        bias = None
+        if cfg.position == "alibi":
+            bias = alibi_slopes(cfg.num_heads, device=x.device)[:, None] \
+                * kpos[None, :]
+        attn = attention_reference(q, kc, vc, causal=False,
+                                   mask=keep[None, None, None, :], bias=bias,
+                                   scale=cfg.attn_scale)
+        attn = _linear(attn.reshape(B, 1, -1), lp["wo"], lp.get("wo_b"),
+                       cfg.dtype)
+        return self._attn_mlp_merge(x, attn, lp, h1)
+
+    # -- paged KV-cache inference (v1 decode through the paged kernel) --------
+    def init_paged_cache(self, batch_size: int, max_len: int,
+                         block_size: int = 128, device=None):
+        """Pool-layout KV cache ``{"k", "v"}``, each [L, B·NB, KH, bs, D],
+        with sequence b owning the contiguous block range [b·NB, (b+1)·NB).
+        Returns (cache, tables [B, NB] int32)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        nb = -(-max_len // block_size)
+        shape = (cfg.num_layers, batch_size * nb, cfg.kv_heads, block_size,
+                 cfg.head_dim)
+        tables = torch.arange(batch_size * nb, dtype=torch.int32,
+                              device=device).reshape(batch_size, nb)
+        return ({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)},
+                tables)
+
+    def prefill_paged(self, params, tokens, prompt_len, cache, tables):
+        """Ragged prefill: ``tokens`` [B, T] right-padded, ``prompt_len``
+        [B]. Causal attention over the padded batch: pad positions write
+        K/V that decode overwrites before any query attends them (the paged
+        kernel's per-sequence context keeps them dead). Returns (logits
+        [B, T, V], cache)."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        bs = cache["k"].shape[3]
+        pos = torch.arange(T, device=tokens.device)
+        blk = tables.long()[:, pos // bs]                            # [B, T]
+        write_blk = blk.reshape(-1)
+        write_off = (pos % bs).repeat(B)
+
+        def write(layer, k, v):
+            cache["k"][layer][write_blk, :, write_off, :] = k.reshape(
+                B * T, cfg.kv_heads, cfg.head_dim)
+            cache["v"][layer][write_blk, :, write_off, :] = v.reshape(
+                B * T, cfg.kv_heads, cfg.head_dim)
+
+        return self._prefill_impl(params, tokens, cache, write)
+
+    def decode_step_paged(self, params, cache, tables, tokens, pos):
+        """One ragged decode step: ``tokens`` [B] at per-sequence positions
+        ``pos`` [B]. Attention runs through ``ops/paged_attention`` (the
+        hand-written kernel on the card), over each sequence's live context
+        only. Returns (logits [B, V], cache)."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        bs = cache["k"].shape[3]
+        dev = tokens.device
+        x = self._embed(params, tokens)[:, None, :]
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+        cos, sin = self._pos_tables(1, pos, dev)
+        if cfg.position == "rope":
+            cos, sin = cos[:, None, :], sin[:, None, :]    # per-seq [B,1,R/2]
+        if cfg.position == "learned":
+            x = x + params["embed"]["wpe"][pos.long()][:, None, :].to(
+                cfg.dtype)
+        slopes = (alibi_slopes(cfg.num_heads, device=dev)
+                  if cfg.position == "alibi" else None)
+        write_blk = torch.gather(tables.long(), 1,
+                                 (pos.long() // bs)[:, None])[:, 0]    # [B]
+        write_off = pos.long() % bs
+        n_tok = torch.ones((B,), dtype=torch.int32, device=dev)
+
+        def body_for(win):
+            def body(x, lp, layer):
+                kc, vc = cache["k"][layer], cache["v"][layer]
+                h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"),
+                           cfg.norm, cfg.norm_eps)
+                q, k, v = self._qkv(h1, lp, cos, sin, B, 1)
+                kc[write_blk, :, write_off, :] = k[:, 0]
+                vc[write_blk, :, write_off, :] = v[:, 0]
+                attn = paged_attention(q, kc, vc, tables, pos, n_tok,
+                                       alibi_slopes=slopes, window=win,
+                                       sm_scale=cfg.attn_scale)
+                attn = _linear(attn.reshape(B, 1, -1), lp["wo"],
+                               lp.get("wo_b"), cfg.dtype)
+                return self._attn_mlp_merge(x, attn, lp, h1)
+            return body
+
+        x = self._scan_layers(body_for, x, params["layers"])
+        x = _norm(x, params["final_norm"]["w"], params["final_norm"].get("b"),
+                  cfg.norm, cfg.norm_eps)
+        return self._unembed(params, x)[:, 0], cache

@@ -6,7 +6,15 @@ port's tensors leaf for leaf: same nesting, same stacked ``[L, ...]`` layer
 leaves, same ``[in, out]`` linear weights. PyTorch cannot reproduce
 ``jax.random``, so this is how both packages come to compute the same thing.
 A quantized tree (``{"qw", "qs"}`` nodes of ``weight_quant.py``) crosses bit
-for bit: fp8 payloads keep their bytes and no member of a node is cast.
+for bit: fp8 payloads keep their bytes and no member of a node is cast. So
+does a v1 weight-only quantized tree: a ``QuantTensor`` node of either
+package (the JAX one after ``jax.tree.map(np.asarray, tree)``, whose
+children are then numpy) becomes the port's ``QuantTensor`` with the same
+codes, scales, block, bits, packing and ``out_dtype``; ``params_to_numpy``
+gives the port's ``QuantTensor`` back with numpy children and ``out_dtype``
+as its name (``"float32"``, ``"bfloat16"``), from which the JAX one is
+``QuantTensor(jnp.asarray(t.q), jnp.asarray(t.scales), t.block, t.bits,
+t.packed, jnp.dtype(t.out_dtype))``.
 
 ``params_to_numpy`` is the way back (trained params, for comparisons), and
 ``train_state_to_numpy``/``train_state_from_numpy`` carry an engine's
@@ -45,13 +53,39 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
+_QUANT_FIELDS = ("q", "scales", "block", "bits", "packed", "out_dtype")
+
+
+def _is_quant(node) -> bool:
+    """A QuantTensor of either package (duck-typed: the JAX class is not
+    imported here)."""
+    return not isinstance(node, dict) and all(hasattr(node, f)
+                                              for f in _QUANT_FIELDS)
+
+
+def _dtype_name(dt) -> str:
+    """The name of a torch, numpy or JAX dtype (or a dtype's name)."""
+    if isinstance(dt, torch.dtype):
+        return str(dt).split(".")[-1]
+    if isinstance(dt, type):                # a scalar type, as jnp.float32
+        dt = np.dtype(dt)
+    return getattr(dt, "name", None) or str(dt)
+
+
 def params_from_numpy(tree: Any, device=None,
                       dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts of arrays → the same nesting of tensors on ``device``
     (CUDA unless ``device="cpu"``). ``dtype`` casts floating leaves;
-    integer leaves and both members of a quantized ``{"qw", "qs"}`` node
-    keep their type."""
+    integer leaves, both members of a quantized ``{"qw", "qs"}`` node and
+    a ``QuantTensor`` node (and its ``out_dtype``) keep their type."""
+    from ..inference.quantization import QuantTensor
+
     device = resolve_device(device)
+    if _is_quant(tree):
+        return QuantTensor(_leaf(tree.q, device, None),
+                           _leaf(tree.scales, device, None), tree.block,
+                           tree.bits, tree.packed,
+                           getattr(torch, _dtype_name(tree.out_dtype)))
     if isinstance(tree, dict):
         if set(tree) == {"qw", "qs"}:
             dtype = None
@@ -70,7 +104,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_to_numpy(tree: Any) -> Any:
     """Nested dicts of tensors → the same nesting of numpy arrays on the
-    host (bf16 leaves widened to fp32, fp8 leaves as their bytes)."""
+    host (bf16 leaves widened to fp32, fp8 leaves as their bytes; a
+    ``QuantTensor`` as a QuantTensor of numpy codes and scales with its
+    ``out_dtype`` by name)."""
+    from ..inference.quantization import QuantTensor
+
+    if _is_quant(tree):
+        return QuantTensor(_to_numpy(tree.q), _to_numpy(tree.scales),
+                           tree.block, tree.bits, tree.packed,
+                           _dtype_name(tree.out_dtype))
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return _to_numpy(tree)

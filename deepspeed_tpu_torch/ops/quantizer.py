@@ -17,8 +17,11 @@ with block size ``B``, ``q[..., N]`` (int8, or ``float8_e4m3fn`` with
 - ``quantized_matmul`` launches ``csrc/quantized_matmul.cu`` (replaces
   ``_qmm_kernel`` :257) on a CUDA tensor; its plain version is the XLA
   branch (dequantize in fp32, then an fp32 product).
-- ``dequantize_blockwise`` has no kernel yet (``_dequant_kernel`` :142 is
-  off the serving path): on a CUDA tensor it raises.
+- ``dequantize_blockwise`` launches ``csrc/dequantize.cu`` (replaces
+  ``_dequant_kernel`` :142) on a CUDA tensor: int8 codes, any shape, a
+  ragged last group, bf16, fp16 or fp32 out, bit-identical to the plain
+  version. Other codes (fp8, packed int4) raise there: a caller unpacks
+  int4 first (``unpack_int4``), as the JAX package does.
 
 Dispatch follows the port's rule: a CPU tensor runs the plain version; a
 CUDA tensor launches the kernel or raises, with no fallback between them.
@@ -33,15 +36,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import not_ported
-
 #: max finite magnitude of float8_e4m3fn; group scale = amax / FP8_MAX
 FP8_MAX = 448.0
 
 # Test-only hook: run the plain versions on CUDA tensors too (a comparison
 # run pins it; serving never sets it).
 FORCE_REFERENCE = False
-launches = {"quantize": 0, "quantized_matmul": 0}
+launches = {"quantize": 0, "quantized_matmul": 0, "dequantize": 0}
 
 _Q_DTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
@@ -135,6 +136,7 @@ def _quantized_matmul_torch(x, q, scales, block: int, out_dtype):
 # ------------------------------------------------------------------ kernels
 
 _X_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _Q_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
@@ -189,6 +191,46 @@ def quantize_cuda(x, bits: int, block: int, dtype: str = "int8"):
     check(lib, err, "quantize")
     launches["quantize"] += 1
     return q, s
+
+
+def dequantize_cuda(q, scales, block: int, dtype=torch.float32):
+    """Launch ``csrc/dequantize.cu`` on CUDA tensors: int8 q[..., N] and
+    float32 scales[..., ceil(N/B)] -> q * scale in ``dtype``."""
+    dev = _check_cuda(q=q, scales=scales)
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequantize kernel takes int8 codes (unpack int4 "
+                        f"first), got {q.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {scales.dtype}")
+    if dtype not in _OUT_CODE:
+        raise TypeError(f"dequantize kernel writes float32, bfloat16 or "
+                        f"float16, not {dtype}")
+    if q.dim() == 0 or block <= 0:
+        raise ValueError(f"q must have a last dim and block > 0; got shape "
+                         f"{tuple(q.shape)}, block {block}")
+    n = q.shape[-1]
+    lead = tuple(q.shape[:-1])
+    if tuple(scales.shape) != lead + (-(-n // block),):
+        raise ValueError(f"scales {tuple(scales.shape)} do not match q "
+                         f"{tuple(q.shape)} at block {block} (want "
+                         f"{lead + (-(-n // block),)})")
+    out = torch.empty(q.shape, dtype=dtype, device=dev)
+    rows = q.numel() // n if n else 0
+    if rows == 0:
+        return out
+    q2 = q.contiguous()
+    if q2.data_ptr() % 16:              # the kernel loads q 16 bytes at a time
+        q2 = q2.clone()
+    s2 = scales.contiguous()
+    lib, fn = _bind("dequantize", [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    from ._build import check
+
+    err = fn(q2.data_ptr(), s2.data_ptr(), out.data_ptr(), rows, n, block,
+             _OUT_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, err, "dequantize")
+    launches["dequantize"] += 1
+    return out
 
 
 # decode-sized M (at most this many rows, the kernel's largest
@@ -273,13 +315,12 @@ def quantize_blockwise(x, bits: int = 8, block: Optional[int] = None,
 
 def dequantize_blockwise(q, scales, block: Optional[int] = None,
                          dtype=torch.float32):
+    """``q[..., N] * scales[..., ceil(N/B)]`` (each scale over B adjacent
+    columns) in ``dtype``: one fp32 product and one rounding an element."""
     block = _infer_block(q.shape[-1], scales.shape[-1], block)
     if _use_reference(q):
         return _dequantize_torch(q, scales, block, dtype)
-    raise not_ported("dequantize_blockwise on CUDA tensors (the "
-                     "_dequant_kernel port, which comes with the v1 "
-                     "inference slice: init_inference)",
-                     "queue 2 item 7 / queue 1 item 16")
+    return dequantize_cuda(q, scales, block, dtype)
 
 
 def quantized_matmul(x, q, scales, block: Optional[int] = None,
@@ -302,10 +343,12 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_int4(p: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_int4` → int8 [..., N*2]."""
-    lo = p.to(torch.int32) & 0xF
-    hi = (p.to(torch.int32) >> 4) & 0xF
-    lo = torch.where(lo > 7, lo - 16, lo)
-    hi = torch.where(hi > 7, hi - 16, hi)
+    """Inverse of :func:`pack_int4` → int8 [..., N*2]. Each nibble is
+    sign-extended by an arithmetic right shift of an int8 view (the low one
+    shifted up first), so every pass moves one byte an element; v1 decode
+    unpacks every int4 weight each forward."""
+    p = p.to(torch.uint8)
+    lo = (p << 4).view(torch.int8) >> 4
+    hi = p.view(torch.int8) >> 4
     out = torch.stack([lo, hi], dim=-1)
-    return out.reshape(*p.shape[:-1], p.shape[-1] * 2).to(torch.int8)
+    return out.reshape(*p.shape[:-1], p.shape[-1] * 2)

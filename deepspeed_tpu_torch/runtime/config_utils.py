@@ -7,7 +7,10 @@ the config system relies on: construction from keyword arguments, nested
 dicts turned into their typed sub-blocks, ``None`` replaced by the field's
 default, unknown keys kept as plain attributes (pydantic ``extra="allow"``),
 values checked against the annotated type, ``to_dict`` round-tripping, and
-``model_fields_set`` naming the keys the caller gave.
+``model_fields_set`` naming the keys the caller gave. A field may carry an
+alias (``field(..., metadata={"alias": "tp"})``): the block is populated by
+the field's name or by its alias, as pydantic's ``Field(alias=...)`` with
+``populate_by_name`` does, and ``to_dict`` writes the name.
 """
 
 from __future__ import annotations
@@ -104,6 +107,9 @@ class DSConfigModel:
         names = set()
         for f in dataclasses.fields(self):
             names.add(f.name)
+            alias = f.metadata.get("alias")
+            if alias is not None and alias in data:
+                data[f.name] = data.pop(alias)
             if f.name in data and not (data[f.name] is None and not strict):
                 value = _coerce(hints[f.name], data[f.name],
                                 f"{type(self).__name__}.{f.name}")

@@ -11,7 +11,10 @@ Inputs come from numpy with a fixed seed and go to both packages.
 - Against the Pallas ``_quant_kernel`` in interpret mode the codes are
   equal and the scales agree to rtol 1e-6, the tolerance the JAX package
   holds its own kernel to (``tests/test_quantizer.py``).
-- Dequantization is one fp32 product per element on both sides: exact.
+- Dequantization is one fp32 product per element on both sides: exact,
+  against ``_dequantize_xla`` and against the Pallas ``_dequant_kernel`` in
+  interpret mode, for int8 and unpacked int4 codes, ragged last groups and
+  float32, bfloat16 and float16 outputs.
 - The quantized matmul is an fp32 product summed in another order by
   another BLAS: atol = rtol = 1e-5, as the JAX package holds its Pallas
   and XLA branches to each other.
@@ -100,6 +103,60 @@ def test_dequantize_matches_xla_exactly(dtype, block, shape, out):
                                   dtype=getattr(torch, out))
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(ref.astype(jnp.float32)))
+
+
+def _out_bits(t):
+    """The output's bits, as integers of its width (exact comparison of
+    float16/bfloat16/float32 values, NaN-safe)."""
+    if isinstance(t, torch.Tensor):
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.float16: torch.int16}[t.dtype]
+        return t.view(view).numpy()
+    a = np.asarray(t)
+    return a.view({4: np.int32, 2: np.int16}[a.dtype.itemsize])
+
+
+DEQUANT_CASES = [
+    # shape, block, bits
+    pytest.param((16, 256), 128, 8, id="int8"),
+    pytest.param((8, 384), 128, 4, id="int4-unpacked"),
+    pytest.param((6, 200), 128, 8, id="int8-ragged-tail"),
+    pytest.param((3, 300), 64, 4, id="int4-ragged-tail-3-rows"),
+    pytest.param((2, 5, 96), 32, 8, id="int8-3d"),
+    pytest.param((256,), 128, 8, id="int8-one-row"),
+]
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape,block,bits", DEQUANT_CASES)
+def test_dequantize_bit_identical_to_xla(shape, block, bits, out):
+    x = _x(sum(shape) + bits, shape)
+    qj, sj = jq._quantize_xla(jnp.asarray(x), bits, block)
+    qt = torch.from_numpy(np.array(qj))
+    st = torch.from_numpy(np.array(sj))
+    ref = jq._dequantize_xla(qj, sj, block, jnp.dtype(out))
+    got = tq.dequantize_blockwise(qt, st, block=block,
+                                  dtype=getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_out_bits(got), _out_bits(ref))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequantize_bit_identical_to_pallas_interpret(monkeypatch, bits,
+                                                      out):
+    """The Pallas ``_dequant_kernel`` takes rows % 8 == 0 and n % 128 ==
+    0; on such a shape it runs (interpret mode) and equals the port bit for
+    bit."""
+    x = _x(bits + 3, (16, 384))
+    qj, sj = jq._quantize_xla(jnp.asarray(x), bits, 128)
+    monkeypatch.setattr(jq, "_FORCE_INTERPRET", True)
+    assert jq._pallas_2d_ok(16, 384, 128)
+    ref = jq.dequantize_blockwise(qj, sj, block=128, dtype=jnp.dtype(out))
+    got = tq.dequantize_blockwise(torch.from_numpy(np.array(qj)),
+                                  torch.from_numpy(np.array(sj)), block=128,
+                                  dtype=getattr(torch, out))
+    np.testing.assert_array_equal(_out_bits(got), _out_bits(ref))
 
 
 @pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
@@ -193,14 +250,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tq.quantized_matmul_cuda(x[:, :4].contiguous(), q[:4].contiguous(),
                                  s[:4].contiguous(), 128, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.dequantize_cuda(q, s, 128, torch.float32)
 
 
-def test_dequantize_on_cuda_is_not_ported(monkeypatch):
-    """``_dequant_kernel`` is not ported: a tensor that would take the
-    kernel path raises NotImplementedError naming its ROADMAP item."""
+def test_dequantize_cuda_route_never_takes_plain_version(monkeypatch):
+    """A tensor that takes the kernel path goes to the kernel's wrapper
+    (``dequantize_cuda``), never to the plain version, and the wrapper raises
+    on what is not a CUDA tensor."""
     q, s = tq.quantize_blockwise(torch.from_numpy(_x(7, (2, 128))))
     monkeypatch.setattr(tq, "_use_reference", lambda t: False)
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+    monkeypatch.setattr(tq, "_dequantize_torch", None)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         tq.dequantize_blockwise(q, s)
 
 
