@@ -12,16 +12,21 @@ Phases, each of which raises on failure (nothing is caught):
              the paged attention (bf16 and fp32, and int8 and fp8 pools:
              decode and prefill chunks, G = 1 and 4, D = 64 and 128,
              negative table entries, padded rows, ALiBi, a window smaller
-             than the context, and v1 decode's bs = 128 with contiguous
-             tables) on valid rows; the blockwise quantizer bit for bit
+             than the context, a SplitFuse put of one 256-token chunk and
+             seven one-token rows, and v1 decode's bs = 128 with
+             contiguous tables) on valid rows, with every row past
+             n_tokens zero and every route of the wrapper (decode, CUDA-core
+             and tensor-core prefill) taken; the blockwise quantizer bit for bit
              (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails, rows not
              a multiple of 8, an all-zero group); the dequantize kernel bit
              for bit (torch.equal; int8 and unpacked int4 codes at the v1
              widths, gathered embedding rows, a norm row, ragged tails,
              bf16, fp16 and fp32 out) and that it raises on what it does not
              take (fp8 or packed codes, mismatched scales); the quantized
-             matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 37 and 2048
-             at the serving widths, ragged last groups); the flash
+             matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 37, 2000 and
+             2048 at the serving widths, bf16 and fp32 out, ragged last
+             groups, shapes that keep the mma.sync route; every route of
+             the wrapper taken, the __global__ function logged); the flash
              attention forward, delta, dq and dkv kernels (bf16, fp32 and
              fp16; MHA, GQA, MQA; D = 64, 80, 128, 256; causal with T = S
              and T < S, non-causal, windows, tails, sm_scale; and the train
@@ -74,6 +79,9 @@ power limit, and ``{"ok": true, "device": {...}}``.
 int8 main path and of one training step (the breakdowns in PERF.md section
 5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
 later phase after it (a short call after an edit; no result lines).
+``--compare`` times the kernels at the main path's shapes through their
+entry points alone: a copy of this script in an unpacked parent commit
+times the parent's kernels on the same inputs (no result lines).
 """
 
 from __future__ import annotations
@@ -165,11 +173,13 @@ def phase_build():
 
 # ------------------------------------------------------- kernel vs plain
 
-def make_case(seed, ctx_lens, C, H, KH, D, bs, dtype, n_pad=0, spare=8):
+def make_case(seed, ctx_lens, C, H, KH, D, bs, dtype, n_pad=0, spare=8,
+              chunks=None):
     """Random pools and disjoint shuffled block tables. Sequence i's context
-    is ctx_lens[i]; its last min(C, ctx) positions are this chunk. n_pad
-    padded rows follow (n_tokens = 0, tables all -1), as ragged_wrapper
-    emits them. Table entries past each context are -1."""
+    is ctx_lens[i]; its last min(C, ctx) positions (min(chunks[i], ctx) with
+    per-sequence chunk lengths) are this chunk. n_pad padded rows follow
+    (n_tokens = 0, tables all -1), as ragged_wrapper emits them. Table
+    entries past each context are -1."""
     rng = np.random.default_rng(seed)
     N = len(ctx_lens) + n_pad
     MB = max(-(-c // bs) for c in ctx_lens) + 1
@@ -181,7 +191,7 @@ def make_case(seed, ctx_lens, C, H, KH, D, bs, dtype, n_pad=0, spare=8):
         nblk = -(-ctx // bs)
         tables[i, :nblk] = perm[pos:pos + nblk]
         pos += nblk
-        n = min(C, ctx)
+        n = min(C if chunks is None else chunks[i], ctx)
         start[i], ntok[i] = ctx - n, n
     t = lambda a, dt: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
     q = t(rng.standard_normal((N, C, H, D), np.float32), dtype)
@@ -203,8 +213,14 @@ def quantize_pool(pool, kv_dtype):
     return y.clamp(-qmax, qmax).to(kv_dtype).contiguous(), scale.contiguous()
 
 
+# A SplitFuse put as the ragged wrapper buckets it: one prompt's 256-token
+# chunk at positions 3840-4095 and seven sequences that bring one decode
+# token each, at contexts of the main path's prompts.
+MIXED_CTX = [4096] + [n + 16 for n in MAIN_PROMPT_LENS[:7]]
+MIXED_CHUNKS = [256] + [1] * 7
+
 KERNEL_CASES = [
-    # name, ctx_lens, C, H, KH, D, bs, dtype, n_pad, alibi, window
+    # name, ctx_lens, C, H, KH, D, bs, dtype, n_pad, alibi, window[, chunks]
     ("decode G=4 D=128", [1, 17, 300, 2000], 1, 32, 8, 128, 16,
      torch.bfloat16, 2, False, 0),
     ("decode G=1 D=64", [5, 33, 64, 700], 1, 8, 8, 64, 16,
@@ -221,14 +237,25 @@ KERNEL_CASES = [
      torch.bfloat16, 1, False, 4096),
     ("prefill C=256 G=4 window<chunk", [300, 1500], 256, 32, 8, 128, 16,
      torch.bfloat16, 0, False, 100),
+    ("mixed put C=256 G=4 D=128 window", MIXED_CTX, 256, 32, 8, 128, 16,
+     torch.bfloat16, 0, False, 4096, MIXED_CHUNKS),
+    ("prefill C=64 G=4 D=64 alibi window", [64, 90, 700], 64, 16, 4, 64, 16,
+     torch.bfloat16, 1, True, 300),
     ("fp32 C=5 G=2 bs=12 D=256", [5, 30, 97], 5, 8, 4, 256, 12,
      torch.float32, 1, False, 0),
     ("fp32 decode G=4 alibi window", [3, 77, 400], 1, 16, 4, 64, 8,
      torch.float32, 1, True, 50),
+    ("fp32 prefill C=40 G=4 D=128 window", [40, 300, 1000], 40, 32, 8, 128,
+     16, torch.float32, 1, False, 256),
 ]
 
 
-def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw):
+def paged_route_name(q, kp):
+    N, C, H, D = q.shape
+    return pa.PAGED_ROUTES[pa.paged_route(C, H, kp.shape[1], D, q.dtype)]
+
+
+def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes=None):
     out = pa.paged_attention(q, kp, vp, tbl, sp, nt, **kw)
     ref = pa.paged_attention(q, kp, vp, tbl, sp, nt, force_reference=True,
                              **kw)
@@ -239,11 +266,12 @@ def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw):
     err = 0.0
     for i in range(q.shape[0]):
         v = int(nt[i])
+        # rows past n_tokens (all of a padded sequence's) attend nothing:
+        # the kernel writes zeros there (acc / max(l, 1e-30))
+        if v < q.shape[1] and out[i, v:].abs().max().item() != 0.0:
+            raise AssertionError(f"[kernel] {name}: sequence {i} has a "
+                                 f"non-zero row past its {v} tokens")
         if v == 0:
-            # a row with no live block writes zeros (acc / max(l, 1e-30))
-            if out[i].abs().max().item() != 0.0:
-                raise AssertionError(f"[kernel] {name}: padded row {i} "
-                                     "is not zero")
             continue
         o, r = out[i, :v].float(), ref[i, :v].float()
         d = (o - r).abs()
@@ -253,8 +281,11 @@ def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw):
             raise AssertionError(
                 f"[kernel] {name}: row {i} max |diff| {d.max().item():.3g}"
                 f" over atol {atol} + rtol {rtol}·|ref|")
+    route = paged_route_name(q, kp)
+    if routes is not None:
+        routes.add(route)
     log(f"[kernel] {name}: ok, max |kernel - plain| = {err:.3g} "
-        f"({str(dtype).split('.')[-1]}, atol {atol}, rtol {rtol})")
+        f"({str(dtype).split('.')[-1]}, atol {atol}, rtol {rtol}; {route})")
     return err
 
 
@@ -278,32 +309,38 @@ def phase_kernel_paged():
     decode shape (bs = 128, contiguous tables). Returns the max error over
     the bf16 cases (the serving dtype) of each branch."""
     max_err = {"bf16": 0.0, "quant": 0.0}
+    routes = set()
     v1_ctx = [n + MAIN_NEW_TOKENS for n in MAIN_PROMPT_LENS]
     err = check_paged("v1 decode bs=128 C=1 contiguous tables G=4 window",
                       *v1_decode_case(5, v1_ctx), torch.bfloat16,
-                      dict(window=4096))
+                      dict(window=4096), routes)
     max_err["bf16"] = max(max_err["bf16"], err)
-    for (name, ctxs, C, H, KH, D, bs, dtype, n_pad, alibi,
-         window) in KERNEL_CASES:
+    for (name, ctxs, C, H, KH, D, bs, dtype, n_pad, alibi, window,
+         *chunks) in KERNEL_CASES:
+        chunks = chunks[0] if chunks else None
         slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)],
                                device="cuda") if alibi else None)
         kw = dict(alibi_slopes=slopes, window=window)
         q, kp, vp, tbl, sp, nt = make_case(len(name), ctxs, C, H, KH, D, bs,
-                                           dtype, n_pad)
-        err = check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw)
+                                           dtype, n_pad, chunks=chunks)
+        err = check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes)
         if dtype == torch.bfloat16:
             max_err["bf16"] = max(max_err["bf16"], err)
         q, kp, vp, tbl, sp, nt = make_case(len(name), ctxs, C, H, KH, D, bs,
-                                           torch.float32, n_pad)
+                                           torch.float32, n_pad,
+                                           chunks=chunks)
         q = q.to(dtype)
         for kvd in (torch.int8, torch.float8_e4m3fn):
             kq, ks = quantize_pool(kp, kvd)
             vq, vs = quantize_pool(vp, kvd)
             err = check_paged(f"{name} {str(kvd).split('.')[-1]} pools", q,
                               kq, vq, tbl, sp, nt, dtype,
-                              dict(kw, k_scale=ks, v_scale=vs))
+                              dict(kw, k_scale=ks, v_scale=vs), routes)
             if dtype == torch.bfloat16:
                 max_err["quant"] = max(max_err["quant"], err)
+    if routes != set(pa.PAGED_ROUTES):
+        raise AssertionError(f"[kernel] paged cases took routes "
+                             f"{sorted(routes)}, not all of {pa.PAGED_ROUTES}")
     return max_err
 
 
@@ -462,6 +499,15 @@ QMM_CASES = (
        for M in (1, 37) for K, N in QMM_SHAPES[:3:2]]
     + [(torch.float32, "fp8_e4m3", M, 4096, 1024, 128, torch.float32)
        for M in (8, 2048)]
+    # the wgmma route's edges: M not a multiple of its 256-row tile, fp32
+    # out; then two shapes that keep the mma.sync route (N % 64 != 0, block
+    # 48)
+    + [(torch.bfloat16, "int8", 2000, 4096, 14336, 128, torch.bfloat16),
+       (torch.bfloat16, "fp8_e4m3", 2000, 4096, 1024, 128, torch.bfloat16),
+       (torch.bfloat16, "int8", 2048, 4096, 4096, 128, torch.float32),
+       (torch.bfloat16, "fp8_e4m3", 2048, 4096, 32000, 128, torch.float32),
+       (torch.bfloat16, "int8", 2048, 4096, 4100, 128, torch.bfloat16),
+       (torch.bfloat16, "int8", 512, 1024, 1536, 48, torch.bfloat16)]
     + [(torch.bfloat16, "int8", 37, 100, 200, 128, torch.bfloat16),
        (torch.float32, "fp8_e4m3", 5, 4160, 4160, 128, torch.float32),
        (torch.bfloat16, "int8", 300, 77, 130, 64, torch.float32),
@@ -490,20 +536,35 @@ def check_qmm(x, q, s, block, out_dtype, label):
     return err, scale
 
 
+def qmm_route_name(x, q, block):
+    K, N = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    aligned = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    return qz.QMM_ROUTES[qz.qmm_route(x.numel() // K, N, K, block, x.dtype,
+                                      aligned, sms)]
+
+
 def phase_kernel_qmm():
     gen = torch.Generator("cuda").manual_seed(12)
     max_err = 0.0
+    routes = set()
     for xdt, qdt, M, K, N, block, odt in QMM_CASES:
         w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
         q, s = qz.quantize_blockwise(w, block=block, dtype=qdt)
+        del w
         x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
         label = (f"x {str(xdt).split('.')[-1]} {qdt} M={M} K={K} N={N} "
                  f"B={block} -> {str(odt).split('.')[-1]}")
         err, scale = check_qmm(x, q, s, block, odt, label)
         if xdt == torch.bfloat16 and odt == torch.bfloat16:
             max_err = max(max_err, err)
+        route = qmm_route_name(x, q, block)
+        routes.add(route)
         log(f"[kernel] qmm {label}: ok, max |kernel - plain| = {err:.3g} "
-            f"(max |ref| {scale:.3g})")
+            f"(max |ref| {scale:.3g}; {route})")
+    if routes != set(qz.QMM_ROUTES):
+        raise AssertionError(f"[kernel] qmm cases took routes "
+                             f"{sorted(routes)}, not all of {qz.QMM_ROUTES}")
     return max_err
 
 
@@ -815,9 +876,10 @@ def sdpa_dense(q, kp, vp, tbl, sp, nt, window):
     return call
 
 
-def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None):
+def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None,
+                chunks=None):
     q, kp, vp, tbl, sp, nt = make_case(seed, ctxs, C, 32, 8, 128, 16,
-                                       torch.bfloat16)
+                                       torch.bfloat16, chunks=chunks)
     kw = dict(window=window)
     lib_kp, lib_vp = kp, vp
     if kv_dtype is not None:
@@ -836,7 +898,8 @@ def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None):
     b_ms, by = bound(q, kp, tbl, sp, nt, window)
     row = {"case": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": by, "library_ms": lib_ms}
-    log(f"[timing] paged_attention {json.dumps(row)}")
+    log(f"[timing] paged_attention {json.dumps(row)} "
+        f"({paged_route_name(q, kp)})")
     return row
 
 
@@ -860,7 +923,8 @@ def qmm_timing_case(label, M, K, N, flush, qdt="int8", block=128):
            "bound_ms": max(b_ms, f_ms),
            "bound_by": "bytes" if b_ms >= f_ms else "operations",
            "library_ms": lib_ms}
-    log(f"[timing] quantized_matmul {json.dumps(row)}")
+    log(f"[timing] quantized_matmul {json.dumps(row)} "
+        f"({qmm_route_name(x, q, block)})")
     return row
 
 
@@ -1057,6 +1121,11 @@ def phase_timing():
         timing_case(f"decode N={N}, contexts 512-2048", ctxs, 1, 4096, flush)
     timing_case("prefill chunk C=256 at positions 3840-4095, window 4096",
                 [4096], 256, 4096, flush)
+    timing_case("mixed put C=256: one chunk at 3840-4095 and 7 decode rows "
+                "(n_tokens 1), window 4096", MIXED_CTX, 256, 4096, flush,
+                chunks=MIXED_CHUNKS)
+    timing_case("mixed put C=256, int8 pools", MIXED_CTX, 256, 4096, flush,
+                kv_dtype=torch.int8, chunks=MIXED_CHUNKS)
     rows["paged_attention_quant"] = timing_case(
         head + ", int8 pools", main_ctx, 1, 4096, flush,
         kv_dtype=torch.int8)
@@ -1066,6 +1135,10 @@ def phase_timing():
         "w_in [4096, 14336] int8, decode M=8", 8, 4096, 14336, flush)
     qmm_timing_case("w_in [4096, 14336] int8, mixed put M=2048", 2048, 4096,
                     14336, flush)
+    qmm_timing_case("w_in [4096, 14336] fp8, mixed put M=2048", 2048, 4096,
+                    14336, flush, qdt="fp8_e4m3")
+    qmm_timing_case("wk [4096, 1024] int8, mixed put M=2048", 2048, 4096,
+                    1024, flush)
     qmm_timing_case("lm_head [4096, 32000] int8, M=8", 8, 4096, 32000, flush)
     qmm_timing_case("w_in [4096, 14336] fp8, decode M=8", 8, 4096, 14336,
                     flush, qdt="fp8_e4m3")
@@ -1089,6 +1162,49 @@ def phase_timing():
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_compare():
+    """The main path's attention and quantized-matmul shapes timed through
+    the wrappers' entry points alone (``paged_attention_cuda``,
+    ``quantized_matmul_cuda``), which every checkout of the port since its
+    quantized slice has: copied into another checkout and run there with
+    ``--compare``, this script times that checkout's kernels on the same
+    inputs, so that two commits can be compared in one call (parent,
+    change, change, parent)."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    main_ctx = [n + MAIN_NEW_TOKENS - 1 for n in MAIN_PROMPT_LENS]
+    paged = [("decode N=8, main-path contexts", main_ctx, 1, None, None),
+             ("prefill chunk C=256 at 3840-4095", [4096], 256, None, None),
+             ("mixed put C=256", MIXED_CTX, 256, MIXED_CHUNKS, None),
+             ("mixed put C=256, int8 pools", MIXED_CTX, 256, MIXED_CHUNKS,
+              torch.int8)]
+    for label, ctxs, C, chunks, kvd in paged:
+        q, kp, vp, tbl, sp, nt = make_case(7, ctxs, C, 32, 8, 128, 16,
+                                           torch.bfloat16, chunks=chunks)
+        kw = dict(window=4096)
+        if kvd is not None:
+            kp, ks = quantize_pool(kp, kvd)
+            vp, vs = quantize_pool(vp, kvd)
+            kw.update(k_scale=ks, v_scale=vs)
+        ms = time_ms(lambda: pa.paged_attention_cuda(q, kp, vp, tbl, sp, nt,
+                                                     **kw), flush)
+        log(f"[compare] paged_attention {label}: {ms:.4f} ms")
+    gen = torch.Generator("cuda").manual_seed(3)
+    for label, M, K, N, qdt in (("w_in int8 M=8", 8, 4096, 14336, "int8"),
+                                ("w_in int8 M=2048", 2048, 4096, 14336,
+                                 "int8"),
+                                ("w_in fp8 M=2048", 2048, 4096, 14336,
+                                 "fp8_e4m3"),
+                                ("wk int8 M=2048", 2048, 4096, 1024, "int8")):
+        q, s = qz.quantize_blockwise(
+            torch.randn((K, N), generator=gen, device="cuda") * 0.02,
+            block=128, dtype=qdt)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ms = time_ms(lambda: qz.quantized_matmul_cuda(x, q, s, 128,
+                                                      torch.bfloat16), flush)
+        log(f"[compare] quantized_matmul {label}: {ms:.4f} ms")
 
 
 # ------------------------------------------------------------ main path
@@ -2079,6 +2195,11 @@ def main(argv=None):
                                        "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
+    ap.add_argument("--compare", action="store_true",
+                    help="after device and build, time the kernels at the "
+                         "main path's shapes through their entry points "
+                         "alone, so that a copy of this script in another "
+                         "checkout times that checkout (no result lines)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     secs = {}
@@ -2092,6 +2213,10 @@ def main(argv=None):
 
     card = timed("device", phase_device)
     timed("build", phase_build)
+    if args.compare:
+        timed("compare", phase_compare)
+        log(f"[done] --compare: {json.dumps(secs)}")
+        return
     errs = timed("kernel", phase_kernel)
     if args.quick:
         log(f"[done] --quick: {json.dumps(secs)}")

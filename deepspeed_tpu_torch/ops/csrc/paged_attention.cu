@@ -13,7 +13,8 @@
 // ALiBi the logit gains slope[h] * kv. Head h reads KV head h / G. Softmax is
 // online and in fp32; the output has q's dtype. A row that attends nothing
 // (a padded row with n_tokens = 0) writes zeros, as the Pallas kernel's
-// acc / max(l, 1e-30) does. Quantized pools (int8 or float8_e4m3fn) carry
+// acc / max(l, 1e-30) does; so does every row past n_tokens (the contract
+// leaves those rows unspecified; zeros keep the output finite). Quantized pools (int8 or float8_e4m3fn) carry
 // one f32 scale per (block, KV head), k_scale/v_scale [NB, KH]: each staged
 // K/V element is converted to fp32 and multiplied by its block's scale, as
 // the Pallas kernel dequantizes each block in VMEM right after its DMA; the
@@ -26,8 +27,13 @@
 // chunk with G = 4 has 1024 query rows per (sequence, KV head) and is bound by
 // arithmetic.
 //
-// What this design does about it (simple and right first; tensor cores, TMA
-// and a split-KV decode are later work):
+// What this design does about it. Two __global__ functions; the Python
+// wrapper picks one from the shapes (ops/paged_attention.py::paged_route):
+// - paged_prefill_tc_kernel, for bf16 q at D = 64 or 128 with more than 16
+//   query rows a (sequence, KV head): prefill chunks on the tensor cores,
+//   described in its section below.
+// - paged_attention_kernel, for decode (G * C <= 16), fp32 and other D, on
+//   the CUDA cores (a split-KV decode walk is later work), as follows.
 // - The Pallas grid (N, KH, MB) runs its table dimension in order on one
 //   core and carries the softmax state in VMEM scratch. Blocks on Hopper run
 //   in no order, so the table walk is a loop inside the block, and the grid
@@ -56,6 +62,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -146,21 +153,25 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   const int D8 = D >> 3;
 
   const int startp = start_pos[n];
-  const int ctx = startp + n_tokens[n];
+  const int ntok = n_tokens[n];
+  const int ctx = startp + ntok;
   const int* tbl = tables + (size_t)n * MB;
 
-  // This tile's rows r = g*C + ci span chunk positions [ci_min, ci_max].
+  // This tile's rows r = g*C + ci span chunk positions [ci_min, ci_max],
+  // rows past the chunk's tokens (ci >= n_tokens) left out: they attend
+  // nothing and are written as zeros.
   int ci_min = C, ci_max = -1;
   for (int r = r0; r < min(r0 + ROWS, GC); ++r) {
     const int ci = r % C;
+    if (ci >= ntok) continue;
     ci_min = min(ci_min, ci);
     ci_max = max(ci_max, ci);
   }
   // Live positions: [lo, hi). Nothing past the context or the table, and no
   // row of this tile attends past its own position; with a window nothing
-  // before startp + ci_min - window + 1.
-  const int hi = min(min(ctx, MB * bs), startp + ci_max + 1);
-  const int lo = window > 0 ? max(0, startp + ci_min - window + 1) : 0;
+  // before startp + ci_min - window + 1. No live row: nothing.
+  const int hi = ci_max < 0 ? 0 : min(min(ctx, MB * bs), startp + ci_max + 1);
+  const int lo = ci_max < 0 ? 0 : window > 0 ? max(0, startp + ci_min - window + 1) : 0;
 
   for (int idx = tid; idx < ROWS * D8; idx += kThreads) {
     const int rr = idx / D8;
@@ -186,7 +197,8 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   for (int i = 0; i < RW; ++i) {
     const int r = r0 + warp * RW + i;
     const int g = r / C;
-    qpos[i] = r < GC ? startp + (r - g * C) : -1;  // -1: no such row
+    // -1: no such row, or a row past n_tokens
+    qpos[i] = r < GC && r - g * C < ntok ? startp + (r - g * C) : -1;
     slope[i] = (slopes != nullptr && r < GC) ? slopes[kh * G + g] : 0.f;
     m[i] = -INFINITY;
     l[i] = 0.f;
@@ -358,12 +370,298 @@ cudaError_t launch_t(int rows_per_warp, int dch, const void* q,
                            bs, MB, window, sm_scale, stream);
 }
 
+// ---- tensor-core prefill route (bf16 q, D = 64 or 128, G * C > 16)
+//
+// One block owns 64 query rows of one (sequence, KV head): rows r = ci * G
+// + g (chunk position major, so that a decode row of a SplitFuse put and
+// its G heads share one tile), 4 warps of 16 rows. It walks 64-position
+// tiles of the live span of its rows, [lo, hi), with both products on the
+// tensor cores through mma.cuh (mma.sync m16n8k16, bf16 operands, fp32
+// accumulation; logits and output rows in accumulator fragments, the
+// online softmax in registers, p rounded to bf16 as the A operand of p V,
+// V read with ldmatrix.trans), as flash_attention.cu's forward does. K and
+// V tiles are gathered through the block table (entry p / bs for position
+// p; negative entries read block 0, as the JAX gather does) with 16-byte
+// cp.async into a double-buffered ring: the next tile's gather is in flight
+// while this tile's products run. Positions outside [lo, hi) are
+// zero-filled, so no unwritten slot reaches a product. Quantized pools
+// stage the codes; a conversion pass writes code * block scale (fp32,
+// rounded once to bf16, as the plain version rounds its dequantized
+// context) into the bf16 tiles the products read. sm_scale multiplies the
+// fp32 logits, ALiBi adds slope * position in fp32, and the masks
+// (causal, context, window, rows past n_tokens) are applied only on tiles
+// that cross an edge. Rows past n_tokens are written as zeros; a block
+// whose rows all lie there writes zeros and returns.
+
+constexpr int kPfRows = 64;   // query rows a block
+constexpr int kPfTile = 64;   // KV positions a tile
+constexpr int kPfStages = 2;  // K/V tiles in the ring
+
+template <typename P, int HD>
+struct PfLayout {
+  static constexpr bool kQuant = sizeof(P) == 1;
+  static constexpr int STR = HD + 8;                       // bf16 tile pitch
+  static constexpr int TILE = kPfTile * STR * 2;           // bytes of a bf16 tile
+  static constexpr int CPITCH = kQuant ? HD + 16 : STR * 2;  // bytes a staged row
+  static constexpr int STAGE = kPfTile * CPITCH;           // bytes of a staged tile
+  // Q tile, then the staged K and V of each stage, then (quantized pools)
+  // the converted K and V
+  static constexpr size_t kBytes = (size_t)kPfRows * STR * 2 + 2 * kPfStages * (size_t)STAGE +
+                                   (kQuant ? 2 * (size_t)TILE : 0);
+};
+
+// 16 codes (int8_t or __nv_fp8_e4m3) times a scale, in fp32, rounded to bf16
+template <typename P>
+__device__ __forceinline__ void pf_convert16(const P* c, float scale, __nv_bfloat16* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(c);
+  const P* b = reinterpret_cast<const P*>(&raw);
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    o[i] = pack2(__fmul_rn(static_cast<float>(b[2 * i]), scale),
+                 __fmul_rn(static_cast<float>(b[2 * i + 1]), scale));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// grid (N, KH, ceil(G * C / 64)); 128 threads; PfLayout<P, HD>::kBytes of
+// dynamic shared memory
+template <typename P, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ k_pool,
+                        const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, const int* __restrict__ tables,
+                        const int* __restrict__ start_pos, const int* __restrict__ n_tokens,
+                        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ out,
+                        int C, int H, int NB, int KH, int bs, int MB, int window,
+                        float sm_scale) {
+  using L = PfLayout<P, HD>;
+  constexpr int STR = L::STR, DT = HD / 8;
+  constexpr int CPR = HD * (int)sizeof(P) / 16;  // 16-byte chunks a pool row
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
+  uint8_t* stage = sm + kPfRows * STR * 2;  // [kPfStages][K, V][kPfTile][CPITCH]
+  const uint32_t stage_s = (uint32_t)__cvta_generic_to_shared(stage);
+
+  const int n = blockIdx.x, kh = blockIdx.y;
+  const int G = H / KH, GC = G * C;
+  const int r0 = blockIdx.z * kPfRows;
+  const int r_end = min(r0 + kPfRows, GC);
+  const int tid = threadIdx.x, lane = tid & 31, m0 = (tid >> 5) * 16;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int startp = start_pos[n], ntok = n_tokens[n];
+  const int* tbl = tables + (size_t)n * MB;
+
+  // the tile's chunk positions, capped by the chunk's own tokens
+  const int ci_lo = r0 / G;
+  const int ci_hi = min((r_end - 1) / G, ntok - 1);
+  if (ci_lo > ci_hi) {  // every row lies past n_tokens: zeros
+    for (int i = tid; i < (r_end - r0) * (HD / 8); i += kThreads) {
+      const int r = r0 + i / (HD / 8), d = (i % (HD / 8)) * 8;
+      const int ci = r / G, g = r - ci * G;
+      *reinterpret_cast<uint4*>(out + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const int cap = min(startp + ntok, MB * bs);  // context and table
+  const int hi = min(cap, startp + ci_hi + 1);
+  const int lo = window > 0 ? max(0, startp + ci_lo - window + 1) : 0;
+  const int first = (lo / kPfTile) * kPfTile;
+  const int n_tiles = hi > first ? (hi - first + kPfTile - 1) / kPfTile : 0;
+  // every row of the tile is a live row
+  const bool full = r0 + kPfRows <= GC && (r0 + kPfRows - 1) / G < ntok;
+
+  // this thread's two rows: chunk position, query position (-1: past
+  // n_tokens or past G * C, attends nothing), ALiBi slope
+  int qpos[2];
+  float slope[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + m0 + gid + 8 * hf;
+    const int ci = r / G, g = r - ci * G;
+    const bool live = r < GC && ci < ntok;
+    qpos[hf] = live ? startp + ci : -1;
+    slope[hf] = (slopes != nullptr && live) ? slopes[kh * G + g] : 0.f;
+  }
+
+  // Q rows: 16-byte chunks; rows past G * C are zero
+  for (int i = tid; i < kPfRows * (HD / 8); i += kThreads) {
+    const int rr = i / (HD / 8), d = (i % (HD / 8)) * 8, r = r0 + rr;
+    const int ci = r / G, g = r - ci * G;
+    const __nv_bfloat16* src = r < GC ? q + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d : q;
+    cp_async16((uint32_t)__cvta_generic_to_shared(Qs + rr * STR + d), src, r < GC ? 16 : 0);
+  }
+  // gather of the K and V tile at positions [p0, p0 + 64) into stage buf:
+  // a thread's table entries are read first, all at once, then its copies
+  // are issued
+  constexpr int kChunks = kPfTile * CPR / kThreads;  // a thread's, of K and of V
+  auto gather = [&](int p0, int buf) {
+    size_t off[kChunks];
+    bool live[kChunks];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int i = tid + j * kThreads, sl = i / CPR, c = i - sl * CPR;
+      const int p = p0 + sl;
+      live[j] = p >= lo && p < hi;
+      const int b = p / bs;
+      const int blk = live[j] ? min(max(tbl[b], 0), NB - 1) : 0;
+      off[j] = (((size_t)blk * KH + kh) * bs + (p - b * bs)) * HD + c * (16 / sizeof(P));
+    }
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int i = tid + j * kThreads, sl = i / CPR, c = i - sl * CPR;
+      const uint32_t d = stage_s + (uint32_t)((2 * buf) * L::STAGE + sl * L::CPITCH + c * 16);
+      cp_async16(d, live[j] ? k_pool + off[j] : k_pool, live[j] ? 16 : 0);
+      cp_async16(d + L::STAGE, live[j] ? v_pool + off[j] : v_pool, live[j] ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kPfStages - 1; ++st) {
+    if (st < n_tiles) gather(first + st * kPfTile, st);
+    cp_async_commit();
+  }
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float oacc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
+
+  const int qpos_lo = startp + ci_lo, qpos_hi = startp + ci_hi;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = first + it * kPfTile, buf = it % kPfStages;
+    // the stage of tile it + kPfStages - 1 was last read in iteration it - 1
+    if (it + kPfStages - 1 < n_tiles)
+      gather(j0 + (kPfStages - 1) * kPfTile, (it + kPfStages - 1) % kPfStages);
+    cp_async_commit();
+    cp_async_wait<kPfStages - 1>();  // this tile (and the Q rows) have landed
+    __syncthreads();
+    const __nv_bfloat16* Ks;
+    const __nv_bfloat16* Vs;
+    if constexpr (L::kQuant) {
+      __nv_bfloat16* Kc = reinterpret_cast<__nv_bfloat16*>(stage + 2 * kPfStages * L::STAGE);
+      __nv_bfloat16* Vc = Kc + kPfTile * STR;
+      const uint8_t* src = stage + (2 * buf) * L::STAGE;
+      for (int i = tid; i < kPfTile * (HD / 16); i += kThreads) {
+        const int sl = i / (HD / 16), c = (i % (HD / 16)) * 16;
+        const int p = j0 + sl;
+        float ks = 0.f, vs = 0.f;  // dead positions hold zero codes
+        if (p >= lo && p < hi) {
+          const int blk = min(max(tbl[p / bs], 0), NB - 1);
+          ks = k_scale[(size_t)blk * KH + kh];
+          vs = v_scale[(size_t)blk * KH + kh];
+        }
+        pf_convert16(reinterpret_cast<const P*>(src + sl * L::CPITCH + c), ks,
+                     Kc + sl * STR + c);
+        pf_convert16(reinterpret_cast<const P*>(src + L::STAGE + sl * L::CPITCH + c), vs,
+                     Vc + sl * STR + c);
+      }
+      __syncthreads();
+      Ks = Kc;
+      Vs = Vc;
+    } else {
+      Ks = reinterpret_cast<const __nv_bfloat16*>(stage + (2 * buf) * L::STAGE);
+      Vs = reinterpret_cast<const __nv_bfloat16*>(stage + (2 * buf + 1) * L::STAGE);
+    }
+
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
+
+    // every (row, position) pair attends: all rows live, the tile inside
+    // the context, before every row's position, inside every row's window
+    const bool dense = full && j0 >= lo && j0 + kPfTile <= hi && j0 + kPfTile - 1 <= qpos_lo &&
+                       (window <= 0 || qpos_hi - j0 < window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, p = j0 + nt * 8 + tig * 2 + (e & 1);
+        const bool keep = dense || (p < cap && p <= qpos[hf] &&
+                                    (window <= 0 || qpos[hf] - p < window));
+        s[nt][e] = keep ? s[nt][e] * sm_scale + slope[hf] * (float)p : kNegInf;
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = m_r[hf];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hf], s[nt][2 * hf + 1]));
+      mx = quad_max(mx);
+      const float alpha = expf(m_r[hf] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          const float pv = s[nt][e] > kMasked ? expf(s[nt][e] - mx) : 0.f;
+          s[nt][e] = pv;
+          rs += pv;
+        }
+      rs = quad_sum(rs);
+      l_r[hf] = l_r[hf] * alpha + rs;
+      m_r[hf] = mx;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        oacc[dt][2 * hf] *= alpha;
+        oacc[dt][2 * hf + 1] *= alpha;
+      }
+    }
+    tc_dot_acc<HD>(oacc, s, Vs, lane);
+    __syncthreads();  // this buffer (and the converted tiles) are free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + m0 + gid + 8 * hf;
+    if (r >= GC) continue;
+    const int ci = r / G, g = r - ci * G;
+    // a row past n_tokens has l = 0 and acc = 0: zeros
+    const float inv = 1.f / fmaxf(l_r[hf], 1e-30f);
+    __nv_bfloat16* dst = out + ((size_t)(n * C + ci) * H + kh * G + g) * HD;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + dt * 8 + tig * 2) =
+          pack2(oacc[dt][2 * hf] * inv, oacc[dt][2 * hf + 1] * inv);
+  }
+}
+
+template <typename P, int HD>
+cudaError_t launch_prefill_tc(const void* q, const void* k_pool, const void* v_pool,
+                              const float* k_scale, const float* v_scale, const int* tables,
+                              const int* start_pos, const int* n_tokens, const float* slopes,
+                              void* out, int N, int C, int H, int NB, int KH, int bs, int MB,
+                              int window, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = PfLayout<P, HD>::kBytes;
+  auto kernel = paged_prefill_tc_kernel<P, HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int GC = (H / KH) * C;
+  const dim3 grid(N, KH, (GC + kPfRows - 1) / kPfRows);
+  if (grid.z > 65535u) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables, start_pos, n_tokens, slopes,
+      static_cast<__nv_bfloat16*>(out), C, H, NB, KH, bs, MB, window, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it).
 // pool_dtype: 0 = q's dtype; 2 = int8, 3 = float8_e4m3fn, each with the
 // scale planes k_scale/v_scale [NB, KH] float32 (null for dtype 0).
-// rows_per_warp: 1 or 8 (the wrapper picks 1 for small G*C, i.e. decode).
+// route (chosen by ops/paged_attention.py::paged_route from the shapes):
+//   0 paged_attention_kernel, 1 query row a warp (decode: G * C <= 16)
+//   1 paged_attention_kernel, 8 query rows a warp
+//   2 paged_prefill_tc_kernel (bf16 q, D = 64 or 128)
 // slopes: [H] float32 ALiBi slopes, or null. Returns a cudaError_t.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* v_pool, const void* k_scale,
@@ -372,13 +670,13 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* slopes, void* out, int N, int C,
                                    int H, int D, int NB, int KH, int bs,
                                    int MB, int window, float sm_scale,
-                                   int dtype, int pool_dtype, int rows_per_warp,
+                                   int dtype, int pool_dtype, int route,
                                    void* stream) {
   const bool quant = pool_dtype == 2 || pool_dtype == 3;
   if (N <= 0 || C <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || D <= 0 ||
       D % 8 != 0 || D > 256 || NB <= 0 || bs <= 0 || MB <= 0 ||
-      (rows_per_warp != 1 && rows_per_warp != 8) || (dtype != 0 && dtype != 1) ||
-      (pool_dtype != 0 && !quant) ||
+      route < 0 || route > 2 || (route == 2 && (dtype != 1 || (D != 64 && D != 128))) ||
+      (dtype != 0 && dtype != 1) || (pool_dtype != 0 && !quant) ||
       (quant != (k_scale != nullptr && v_scale != nullptr)))
     return cudaErrorInvalidValue;
   const int dch = (D + 31) / 32;
@@ -389,6 +687,21 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+#define DS_TC(P, HD)                                                                   \
+  return launch_prefill_tc<P, HD>(q, k_pool, v_pool, ks, vs, tb, sp, nt, sl, out, N, C, H, \
+                                  NB, KH, bs, MB, window, sm_scale, st)
+    if (D == 64) {
+      if (pool_dtype == 2) DS_TC(int8_t, 64);
+      if (pool_dtype == 3) DS_TC(__nv_fp8_e4m3, 64);
+      DS_TC(__nv_bfloat16, 64);
+    }
+    if (pool_dtype == 2) DS_TC(int8_t, 128);
+    if (pool_dtype == 3) DS_TC(__nv_fp8_e4m3, 128);
+    DS_TC(__nv_bfloat16, 128);
+#undef DS_TC
+  }
+  const int rows_per_warp = route == 0 ? 1 : 8;
 #define DS_PAGED(T, P)                                                           \
   return launch_t<T, P>(rows_per_warp, dch, q, k_pool, v_pool, ks, vs, tb, sp, nt, \
                         sl, out, N, C, H, D, NB, KH, bs, MB, window, sm_scale, st)

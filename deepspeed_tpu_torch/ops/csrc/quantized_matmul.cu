@@ -21,8 +21,8 @@
 // point of a 1-byte weight. A mixed prefill put (M = 2048) does 2MNK flops
 // on 1-byte weights: about 4000 flops a byte, bound by arithmetic.
 //
-// What this design does about it (simple and right first; wgmma, TMA and
-// deeper pipelines are later work, see PERF.md):
+// What this design does about it (the Python wrapper picks the route from
+// the shapes, ops/quantizer.py::qmm_route):
 // - Small M (decode, M <= 16) streams the weight straight from device
 //   memory into registers: each thread owns 4 adjacent columns for all M
 //   rows (one 4-byte load per weight row, a warp reading 128 contiguous
@@ -33,14 +33,22 @@
 //   so that even a 1024-wide projection puts several blocks on each SM;
 //   each split writes an fp32 partial and a second kernel sums the
 //   partials in a fixed order into `out` (deterministic).
-// - Large M with bf16 x (prefill) runs on the tensor cores (mma.sync
-//   m16n8k16, bf16 operands, fp32 accumulation) over a 64 or 128 x 128
+// - Large M with bf16 x at the serving shapes (N, K and the scale block
+//   multiples of 64, aligned pointers: every projection of the models the
+//   port serves) runs qmm_wgmma_kernel: Hopper's warpgroup MMA with the
+//   dequantized weight as the register operand A and x^T read from shared
+//   memory, fed by a 4-stage cp.async ring, 128 or 256 rows of x a block so
+//   that each weight element is dequantized M / 256 times (see its section
+//   below).
+// - Other large-M bf16 shapes run on the tensor cores with mma.sync
+//   (m16n8k16, bf16 operands, fp32 accumulation) over a 64 or 128 x 128
 //   output tile and a 32-deep K step. Each dequantized weight w = q * s
 //   (fp32) is split into two bf16 terms, hi = bf16(w) and lo = bf16(w - hi),
 //   and the tile is multiplied by both: x is exact in bf16 and hi + lo
 //   carries w to about 2^-17 of itself, so the result stays within fp32
 //   rounding of the plain version's (the stated tolerance in chip_smoke.py)
-//   at twice the tensor work of a single bf16 rounding.
+//   at twice the tensor work of a single bf16 rounding. The wgmma route
+//   splits the same way.
 // - Large M with fp32 x takes a 128 x 128 output tile with a 16-deep K
 //   step, 8 x 8 outputs per thread, fp32 FMAs on the CUDA cores from shared
 //   memory (x transposed in shared memory so a thread's 8 rows are one
@@ -49,13 +57,19 @@
 //   read that many bytes a thread; any other width one byte at a time.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+// the routes of the C entry point (ops/quantizer.py::QMM_ROUTES)
+constexpr int kRouteGemv = 0, kRouteTile = 1, kRouteMma = 2, kRouteWgmma128 = 3,
+              kRouteWgmma256 = 4;
 
 __device__ __forceinline__ float x_f32(float v) { return v; }
 __device__ __forceinline__ float x_f32(__nv_bfloat16 v) {
@@ -202,15 +216,6 @@ constexpr int kMmaThreads = 256;  // 8 warps: 2 along M x 4 along N
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_k, __nv_bfloat16 hi_k) {
   return (uint32_t)__bfloat16_as_ushort(lo_k) | ((uint32_t)__bfloat16_as_ushort(hi_k) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // BM = 64 or 128 rows; each warp owns BM/2 rows x 32 columns. FAST: as in
@@ -360,6 +365,342 @@ qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
         else
           static_cast<float*>(out)[o] = acc[i][j][e];
       }
+    }
+  }
+}
+
+// ---- wgmma route (bf16 x, M > 16, N % 64 == 0, K % 64 == 0, block % 64 == 0)
+//
+// out^T = W^T . x^T on the warpgroup tensor-core instruction. Each of the
+// block's two consumer warpgroups owns 64 output columns (n) as wgmma's 64
+// rows of A and all BMX rows of x as its N; A is the dequantized weight,
+// built in registers straight from the staged codes (no shared-memory copy
+// of the bf16 weight), once per block for BMX rows of x; B = x^T is read by
+// the tensor cores from shared memory, where x's rows (K contiguous) lie
+// K-major in the 128-byte swizzle. Each k16 step issues two wgmma, hi then
+// lo, into one fp32 accumulator. A ring of kWgStages stages (x tile, code
+// tile, one scale a K row and warpgroup) is kept full by cp.async, every
+// thread issuing its share; the stage for K step kt + kWgStages - 1 is
+// issued as step kt's last products go out, so the copies of three steps
+// are in flight behind the products.
+//
+// The A fragment layout is mma.m16n8k16's, a warp per 16 rows: lane (g, t)
+// holds rows g and g + 8 at k = 2t, 2t + 1, 2t + 8, 2t + 9. Row g of warp w
+// is output column 16 w + 2 g and row g + 8 column 16 w + 2 g + 1, so a
+// lane's two columns are adjacent: one 2-byte load from the code tile a K
+// row, and in the epilogue one 4-byte (bf16) or 8-byte (fp32) store a row
+// of x, a warp writing whole 32-byte sectors (no staging pass needed for
+// coalescing). The next k16 step's fragments are dequantized while the
+// current step's two wgmma run (wgmma.wait_group 1 frees the registers of
+// the step before).
+
+constexpr int kWgCols = 64;                        // output columns a warpgroup
+constexpr int kWgGroups = 2;                       // consumer warpgroups a block
+constexpr int kWgThreads = 128 * kWgGroups;
+constexpr int kWgBN = kWgCols * kWgGroups;         // output columns a block
+constexpr int kWgBK = 64;                          // K a stage: one 128-byte row of x
+constexpr int kWgStages = 4;
+constexpr int kWgCodePitch = kWgBN + 16;           // bytes a K row of the code tile:
+                                                   // the 4 rows a fragment load reads
+                                                   // fall in 4 bank groups
+
+template <int BMX>
+constexpr size_t wgmma_smem_bytes() {
+  return (size_t)kWgStages * (BMX * kWgBK * 2 + kWgBK * kWgCodePitch + kWgGroups * kWgBK * 4) +
+         1024;  // the x tiles start on a 1024-byte boundary (the swizzle's period)
+}
+
+// 4 bytes global -> shared (a scale), zero when bytes = 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+// writes made through the generic proxy (cp.async, st.shared) become visible
+// to the tensor cores' reads of shared memory (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile in the 128-byte
+// swizzle: rows of 64 values (128 bytes), 8-row groups 1024 bytes apart
+// (stride byte offset), layout type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d += A . B for one k16 step: A the 64 x 16 tile in this warpgroup's
+// registers (mma.m16n8k16's A layout a warp), B the 16 x 128 tile that
+// desc_b describes in shared memory (K-major), d 64 fp32 a thread
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A . B for one k16 step: A the 64 x 16 tile in this warpgroup's
+// registers (mma.m16n8k16's A layout a warp), B the 16 x 256 tile that
+// desc_b describes in shared memory (K-major), d 128 fp32 a thread
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// four codes (bytes of c) to fp32, exactly. int8: the byte with its sign bit
+// flipped is q + 128; as the low mantissa bits of 2^23 it is the float
+// 2^23 + q + 128, from which 2^23 + 128 is subtracted (exact below 2^24).
+// fp8 e4m3: two at a time through f16, which holds every e4m3 value.
+template <bool FP8>
+__device__ __forceinline__ void codes4_f32(uint32_t c, float (&f)[4]) {
+  if (FP8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2_raw r =
+          __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(c >> (16 * h)), __NV_E4M3);
+      const float2 v = __half22float2(__half2(r));
+      f[2 * h] = v.x;
+      f[2 * h + 1] = v.y;
+    }
+  } else {
+    const uint32_t u = c ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __int_as_float((int)__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388736.f;
+  }
+}
+
+// w0, w1 (adjacent k) -> hi = RN bf16 pair, lo = RN bf16 pair of the
+// remainders (exact in fp32), as the mma.sync route splits them
+__device__ __forceinline__ void split_hi_lo(float w0, float w1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(w0 - hf.x, w1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// This lane's hi and lo A fragments of one k16 step from the stage's code
+// tile (rows k0 + 2t, 2t + 1, 2t + 8, 2t + 9 at the lane's two columns) and
+// the warpgroup's scales of those rows: w = q * s in fp32 (__fmul_rn, as
+// the plain version), then split.
+template <bool FP8>
+__device__ __forceinline__ void wg_fragments(const uint8_t* code, const float* sc,
+                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  constexpr int P = kWgCodePitch;
+  const uint32_t u0 = *reinterpret_cast<const uint16_t*>(code);
+  const uint32_t u1 = *reinterpret_cast<const uint16_t*>(code + P);
+  const uint32_t u2 = *reinterpret_cast<const uint16_t*>(code + 8 * P);
+  const uint32_t u3 = *reinterpret_cast<const uint16_t*>(code + 9 * P);
+  const float2 s01 = *reinterpret_cast<const float2*>(sc);
+  const float2 s89 = *reinterpret_cast<const float2*>(sc + 8);
+  float f[4];
+  // bytes: (k, column 2g), (k + 1, 2g), (k, 2g + 1), (k + 1, 2g + 1)
+  codes4_f32<FP8>(__byte_perm(u0, u1, 0x5140), f);
+  split_hi_lo(__fmul_rn(f[0], s01.x), __fmul_rn(f[1], s01.y), hi[0], lo[0]);
+  split_hi_lo(__fmul_rn(f[2], s01.x), __fmul_rn(f[3], s01.y), hi[1], lo[1]);
+  codes4_f32<FP8>(__byte_perm(u2, u3, 0x5140), f);
+  split_hi_lo(__fmul_rn(f[0], s89.x), __fmul_rn(f[1], s89.y), hi[2], lo[2]);
+  split_hi_lo(__fmul_rn(f[2], s89.x), __fmul_rn(f[3], s89.y), hi[3], lo[3]);
+}
+
+template <int BMX>
+__device__ __forceinline__ void wg_mma(float (&d)[BMX / 2], const uint32_t (&a)[4],
+                                       uint64_t desc);
+template <>
+__device__ __forceinline__ void wg_mma<128>(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_m64n128k16_rs(d, a, desc);
+}
+template <>
+__device__ __forceinline__ void wg_mma<256>(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_m64n256k16_rs(d, a, desc);
+}
+
+// grid (N / 128 rounded up, M / BMX rounded up); 256 threads; dynamic shared
+// memory wgmma_smem_bytes<BMX>()
+template <bool FP8, int BMX>
+__global__ void __launch_bounds__(kWgThreads, 1)
+qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                 const float* __restrict__ s, void* __restrict__ out, int out_bf16, int M,
+                 int N, int K, int block, int G) {
+  constexpr int XB = BMX * kWgBK * 2;             // bytes of an x tile
+  constexpr int CB = kWgBK * kWgCodePitch;        // bytes of a code tile
+  constexpr int SB = kWgGroups * kWgBK;           // scales a stage
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(wg_smem);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t xs_s = raw + pad;                          // [stage][BMX][128 B]
+  uint8_t* codes = wg_smem + pad + kWgStages * XB;         // [stage][64][pitch]
+  const uint32_t codes_s = xs_s + kWgStages * XB;
+  float* scales = reinterpret_cast<float*>(codes + kWgStages * CB);  // [stage][2][64]
+  const uint32_t scales_s = codes_s + kWgStages * CB;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kWgBN, m0 = blockIdx.y * BMX;
+  const int KT = K / kWgBK;
+
+  // one stage's copies: x rows past M and columns past N are zero-filled
+  auto load_stage = [&](int st, int kt) {
+    const int k0 = kt * kWgBK;
+    const uint32_t xd = xs_s + st * XB;
+    for (int i = tid; i < BMX * 8; i += kWgThreads) {
+      const int r = i >> 3, c = i & 7, m = m0 + r;
+      cp_async16(xd + r * 128 + ((c ^ (r & 7)) << 4),
+                 x + (size_t)min(m, M - 1) * K + k0 + c * 8, m < M ? 16 : 0);
+    }
+    const uint32_t cd = codes_s + st * CB;
+    for (int i = tid; i < kWgBK * (kWgBN / 16); i += kWgThreads) {
+      const int kk = i >> 3, c = i & 7, n = n0 + c * 16;
+      cp_async16(cd + kk * kWgCodePitch + c * 16, q + (size_t)(k0 + kk) * N + min(n, N - 16),
+                 n < N ? 16 : 0);
+    }
+    if (tid < SB) {
+      const int gi = tid / kWgBK, kk = tid % kWgBK, n = n0 + gi * kWgCols;
+      cp_async4(scales_s + (st * SB + tid) * 4, s + (size_t)(k0 + kk) * G + min(n, N - 1) / block,
+                n < N ? 4 : 0);
+    }
+  };
+  // this lane's code and scale pointers in a stage, at k16 step ks
+  const int col = wg * kWgCols + w * 16 + 2 * g;
+  auto code_at = [&](int st, int ks) {
+    return codes + st * CB + (16 * ks + 2 * t) * kWgCodePitch + col;
+  };
+  auto scale_at = [&](int st, int ks) { return scales + st * SB + wg * kWgBK + 16 * ks + 2 * t; };
+
+  float acc[BMX / 2];
+#pragma unroll
+  for (int i = 0; i < BMX / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kWgStages - 1; ++st) {
+    if (st < KT) load_stage(st, st);
+    cp_async_commit();
+  }
+  cp_async_wait<kWgStages - 2>();
+  fence_proxy_async();
+  __syncthreads();
+
+  uint32_t ah[2][4], al[2][4];
+  wg_fragments<FP8>(code_at(0, 0), scale_at(0, 0), ah[0], al[0]);
+  fence_regs(acc);
+  for (int kt = 0; kt < KT; ++kt) {
+    const int st = kt % kWgStages;
+    const uint64_t desc = sw128_desc(xs_s + st * XB);
+#pragma unroll
+    for (int ks = 0; ks < kWgBK / 16; ++ks) {
+      wgmma_fence();
+      wg_mma<BMX>(acc, ah[ks & 1], desc + 2 * ks);  // + 32 bytes a k16 step
+      wg_mma<BMX>(acc, al[ks & 1], desc + 2 * ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before is done: its fragments are free
+      if (ks + 1 < kWgBK / 16) {
+        wg_fragments<FP8>(code_at(st, ks + 1), scale_at(st, ks + 1), ah[(ks + 1) & 1],
+                          al[(ks + 1) & 1]);
+      } else if (kt + 1 < KT) {
+        // step kt + 1 has landed (at most kWgStages - 3 younger groups in
+        // flight); after the barrier no warpgroup still reads step kt - 1's
+        // stage, which takes step kt + kWgStages - 1
+        cp_async_wait<kWgStages - 3>();
+        fence_proxy_async();
+        __syncthreads();
+        if (kt + kWgStages - 1 < KT) load_stage((kt + kWgStages - 1) % kWgStages, kt + kWgStages - 1);
+        cp_async_commit();
+        const int nst = (kt + 1) % kWgStages;
+        wg_fragments<FP8>(code_at(nst, 0), scale_at(nst, 0), ah[0], al[0]);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // d[4i + e]: column (A row) g + 8 (e >> 1) of warp w, x row 8 i + 2 t + (e & 1)
+  const int n = n0 + col;
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < BMX / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      const size_t o = (size_t)m * N + n;
+      if (out_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+            __floats2bfloat162_rn(acc[4 * i + e], acc[4 * i + 2 + e]);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+            make_float2(acc[4 * i + e], acc[4 * i + 2 + e]);
     }
   }
 }
@@ -554,23 +895,62 @@ cudaError_t launch_mma(const void* x, const void* q, const float* s, void* out,
   return cudaGetLastError();
 }
 
+template <bool FP8, int BMX>
+cudaError_t launch_wgmma(const void* x, const void* q, const float* s, void* out,
+                         int out_bf16, int M, int N, int K, int block,
+                         cudaStream_t stream) {
+  const int G = (N + block - 1) / block;
+  const dim3 grid((N + kWgBN - 1) / kWgBN, (M + BMX - 1) / BMX);
+  if (grid.y > 65535u) return cudaErrorInvalidValue;
+  auto kernel = &qmm_wgmma_kernel<FP8, BMX>;
+  constexpr size_t smem = wgmma_smem_bytes<BMX>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                              static_cast<const uint8_t*>(q), s, out,
+                                              out_bf16, M, N, K, block, G);
+  return cudaGetLastError();
+}
+
 template <typename TX, bool FP8>
-cudaError_t launch_cfg(bool small, const void* x, const void* q, const float* s,
-                       void* out, float* ws, int out_bf16, int M, int N, int K,
-                       int block, int splits, cudaStream_t stream) {
-  if (!small && sizeof(TX) == 2)  // bf16 x: tensor cores
-    return M > 1024 ? launch_mma<FP8, 128>(x, q, s, out, out_bf16, M, N, K, block, stream)
-                    : launch_mma<FP8, 64>(x, q, s, out, out_bf16, M, N, K, block, stream);
-  if (!small)
-    return launch_tile<TX, FP8, 128, 128, 16, 8, 8>(x, q, s, out, out_bf16, M, N, K,
-                                                    block, stream);
+cudaError_t launch_route(int route, const void* x, const void* q, const float* s,
+                         void* out, float* ws, int out_bf16, int M, int N, int K,
+                         int block, int splits, cudaStream_t stream) {
+  constexpr bool bf16_x = sizeof(TX) == 2;
+  switch (route) {
+    case kRouteGemv:
 #define DS_GEMV(MT) \
   return launch_gemv<TX, FP8, MT>(x, q, s, out, ws, out_bf16, M, N, K, block, splits, stream)
-  if (M <= 1) DS_GEMV(1);
-  if (M <= 4) DS_GEMV(4);
-  if (M <= 8) DS_GEMV(8);
-  DS_GEMV(16);
+      if (M <= 1) DS_GEMV(1);
+      if (M <= 4) DS_GEMV(4);
+      if (M <= 8) DS_GEMV(8);
+      DS_GEMV(16);
 #undef DS_GEMV
+    case kRouteTile:
+      if (bf16_x) return cudaErrorInvalidValue;
+      return launch_tile<TX, FP8, 128, 128, 16, 8, 8>(x, q, s, out, out_bf16, M, N, K,
+                                                      block, stream);
+    case kRouteMma:
+      if (!bf16_x) return cudaErrorInvalidValue;
+      return M > 1024 ? launch_mma<FP8, 128>(x, q, s, out, out_bf16, M, N, K, block, stream)
+                      : launch_mma<FP8, 64>(x, q, s, out, out_bf16, M, N, K, block, stream);
+    case kRouteWgmma128:
+    case kRouteWgmma256: {
+      // the shapes the Python wrapper's route choice admits; anything else
+      // is refused here, never run another way
+      const bool ok = bf16_x && N % kWgCols == 0 && K % kWgBK == 0 && block % kWgCols == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(s) % 4 == 0;
+      if (!ok) return cudaErrorInvalidValue;
+      return route == kRouteWgmma256
+                 ? launch_wgmma<FP8, 256>(x, q, s, out, out_bf16, M, N, K, block, stream)
+                 : launch_wgmma<FP8, 128>(x, q, s, out, out_bf16, M, N, K, block, stream);
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -578,25 +958,31 @@ cudaError_t launch_cfg(bool small, const void* x, const void* q, const float* s,
 // x [M, K] (x_dtype 0 = float32, 1 = bfloat16), q [K, N] one byte each
 // (q_dtype 0 = int8, 1 = float8_e4m3fn), s [K, ceil(N / block)] float32,
 // out [M, N] (out_dtype 0 = float32, 1 = bfloat16); all contiguous. The
-// caller chooses the path: splits = 0 takes the tiled path; splits >= 1 the
-// weight-streaming path (M <= 16) with up to `splits` K splits, whose fp32
-// partials go to ws [splits, M, N] (unused with one split). Returns a
-// cudaError_t.
+// caller (ops/quantizer.py::qmm_route) chooses the __global__ function from
+// the shapes, and this entry refuses a route the call does not meet:
+//   0 qmm_gemv_kernel   M <= 16, splits >= 1 K splits whose fp32 partials
+//                       go to ws [splits, M, N] (unused with one split)
+//   1 qmm_kernel        fp32 x, CUDA cores
+//   2 qmm_mma_kernel    bf16 x, mma.sync
+//   3, 4 qmm_wgmma_kernel with 128 or 256 rows of x a block: bf16 x,
+//                       N % 64 == 0, K % 64 == 0, block % 64 == 0, x and q
+//                       16-byte aligned
+// Returns a cudaError_t.
 extern "C" int quantized_matmul(const void* x, const void* q, const void* s,
                                 void* out, void* ws, int M, int N, int K,
-                                int block, int splits, int x_dtype, int q_dtype,
-                                int out_dtype, void* stream) {
+                                int block, int splits, int route, int x_dtype,
+                                int q_dtype, int out_dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || splits < 0 ||
-      (splits > 0 && M > 16) || (x_dtype != 0 && x_dtype != 1) ||
-      (q_dtype != 0 && q_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
+      (route == kRouteGemv) != (splits > 0) || (splits > 0 && M > 16) ||
+      (x_dtype != 0 && x_dtype != 1) || (q_dtype != 0 && q_dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1))
     return cudaErrorInvalidValue;
-  const bool small = splits > 0;
   const float* sf = static_cast<const float*>(s);
   float* wsf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_QMM(TX, FP8)                                                          \
-  return launch_cfg<TX, FP8>(small, x, q, sf, out, wsf, out_dtype, M, N, K, block, \
-                             splits, st)
+#define DS_QMM(TX, FP8)                                                            \
+  return launch_route<TX, FP8>(route, x, q, sf, out, wsf, out_dtype, M, N, K, block, \
+                               splits, st)
   if (x_dtype == 0) {
     if (q_dtype == 0) DS_QMM(float, false);
     DS_QMM(float, true);

@@ -15,7 +15,9 @@ Counterpart of ``deepspeed_tpu/ops/paged_attention.py``:
   the plain version; a CUDA tensor launches the hand-written kernel
   ``csrc/paged_attention.cu`` (the counterpart of the Pallas
   ``_paged_kernel``, both its bf16/fp32 and its int8/fp8 branch) or raises.
-  There is no fallback between them.
+  There is no fallback between them. ``paged_route`` picks the kernel's
+  ``__global__`` function from the shapes (decode and fp32 on the CUDA
+  cores, bf16 prefill chunks on the tensor cores).
   ``force_reference`` (keyword, or the module hook ``FORCE_REFERENCE``)
   pins the plain version on the card, for comparisons only.
 
@@ -116,6 +118,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
+# The routes of ``csrc/paged_attention.cu``, by the C entry point's code:
+# the __global__ function (and its query rows a warp) each one launches.
+PAGED_ROUTES = ("paged_attention_kernel<1 row a warp>",
+                "paged_attention_kernel<8 rows a warp>",
+                "paged_prefill_tc_kernel")
+
+
+def paged_route(C: int, H: int, KH: int, D: int, q_dtype) -> int:
+    """The route (an index into ``PAGED_ROUTES``) that a call takes, from
+    its shapes alone. A (sequence, KV head) group of G·C <= 16 query rows
+    (decode) takes the CUDA-core kernel with one row a warp, so that every
+    warp of a block gets a row; a larger group in bf16 at D = 64 or 128
+    (prefill chunks at the served widths; any pool type) the tensor-core
+    kernel; anything else (fp32, other D) the CUDA-core kernel with 8 rows a
+    warp."""
+    if (H // KH) * C <= 16:
+        return 0
+    if q_dtype == torch.bfloat16 and D in (64, 128):
+        return 2
+    return 1
+
+
 def _bind():
     from . import _build
 
@@ -197,9 +221,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
     lib, fn = _bind()
     from ._build import check
 
-    # query rows per warp: 1 for a small group (decode: every warp of the
-    # block gets a row), else 8 (a 32-row tile of the G·C rows)
-    rows_per_warp = 1 if (H // KH) * C <= 16 else 8
+    route = paged_route(C, H, KH, D, q.dtype)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
@@ -208,7 +230,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
              slopes.data_ptr() if slopes is not None else None,
              out.data_ptr(), N, C, H, D, NB, KH, bs, MB, int(window or 0),
              sm_scale, _DTYPE_CODE[q.dtype],
-             _POOL_CODE[k_pool.dtype] if quant else 0, rows_per_warp,
+             _POOL_CODE[k_pool.dtype] if quant else 0, route,
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "paged_attention_fwd")
     launches += 1
@@ -228,8 +250,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, start_pos, n_tokens,
     must already hold this chunk's K/V (write-then-attend). ``alibi_slopes``
     [H]: ALiBi slopes; ``window`` > 0: sliding window; ``k_scale``/
     ``v_scale`` [NB, KH] f32: the scales of int8/fp8 pools. Rows beyond
-    n_tokens are unspecified. A CPU tensor runs ``paged_attention_torch``;
-    a CUDA tensor runs the kernel or raises.
+    n_tokens are unspecified (the kernel writes zeros there). A CPU tensor
+    runs ``paged_attention_torch``; a CUDA tensor runs the kernel or
+    raises.
     """
     kw = dict(alibi_slopes=alibi_slopes, window=window, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale)

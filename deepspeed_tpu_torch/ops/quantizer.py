@@ -16,7 +16,10 @@ with block size ``B``, ``q[..., N]`` (int8, or ``float8_e4m3fn`` with
   version.
 - ``quantized_matmul`` launches ``csrc/quantized_matmul.cu`` (replaces
   ``_qmm_kernel`` :257) on a CUDA tensor; its plain version is the XLA
-  branch (dequantize in fp32, then an fp32 product).
+  branch (dequantize in fp32, then an fp32 product). ``qmm_route`` picks
+  the kernel's ``__global__`` function from the shapes (decode weight
+  streaming, the wgmma kernel at the serving shapes, mma.sync or CUDA
+  cores otherwise).
 - ``dequantize_blockwise`` launches ``csrc/dequantize.cu`` (replaces
   ``_dequant_kernel`` :142) on a CUDA tensor: int8 codes, any shape, a
   ragged last group, bf16, fp16 or fp32 out, bit-identical to the plain
@@ -233,11 +236,34 @@ def dequantize_cuda(q, scales, block: int, dtype=torch.float32):
     return out
 
 
+# The routes of ``csrc/quantized_matmul.cu``, by the C entry point's code:
+# the __global__ function each one launches.
+QMM_ROUTES = ("qmm_gemv_kernel", "qmm_kernel", "qmm_mma_kernel",
+              "qmm_wgmma_kernel<128>", "qmm_wgmma_kernel<256>")
 # decode-sized M (at most this many rows, the kernel's largest
-# weight-streaming row tile) streams the weight with a split over K; larger M
-# takes the tiled path. The choice is made here alone: the kernel reads
-# splits = 0 as the tiled path.
+# weight-streaming row tile) streams the weight with a split over K
 _QMM_SMALL_M = 16
+
+
+def qmm_route(M: int, N: int, K: int, block: int, x_dtype,
+              aligned: bool = True, sms: int = 132) -> int:
+    """The route (an index into ``QMM_ROUTES``) that a call takes, from its
+    shapes alone. ``aligned``: x and q start on 16-byte boundaries.
+
+    - M <= 16 (decode): the weight-streaming kernel, K split over the grid.
+    - bf16 x with N, K and the scale block multiples of 64 (every serving
+      projection: wq/wo, wk/wv, w_in/w_out, lm_head) and aligned pointers:
+      the wgmma kernel, 256 rows of x a block when that still gives at
+      least one block an SM (``sms``), else 128 (wk/wv at M = 2048).
+    - other bf16 x: the mma.sync kernel; fp32 x: the CUDA-core tile.
+    """
+    if M <= _QMM_SMALL_M:
+        return 0
+    if x_dtype == torch.bfloat16:
+        if aligned and N % 64 == 0 and K % 64 == 0 and block % 64 == 0:
+            return 4 if -(-N // 128) * -(-M // 256) >= sms else 3
+        return 2
+    return 1
 
 
 def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
@@ -270,23 +296,25 @@ def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
     if K == 0:
         return out.zero_()
     x2 = x.reshape(M, K).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route = qmm_route(M, N, K, block, x.dtype,
+                      x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0, sms)
     # split K so that the grid puts about six blocks (of 512 columns) on
     # each SM at decode, at least 64 rows of K and at most 64 splits; each
     # split writes an fp32 partial and a second kernel sums them into
     # ``out``
     splits = 0
-    if M <= _QMM_SMALL_M:
+    if route == 0:
         col_blocks = -(-N // 512)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = max(1, min(-(-6 * sms // col_blocks), K // 64, 64))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
           if splits > 1 else out)
     lib, fn = _bind("quantized_matmul", [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     from ._build import check
 
     err = fn(x2.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-             ws.data_ptr(), M, N, K, block, splits, _X_CODE[x.dtype],
+             ws.data_ptr(), M, N, K, block, splits, route, _X_CODE[x.dtype],
              _Q_CODE[q.dtype], _X_CODE[out_dtype],
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "quantized_matmul")

@@ -143,3 +143,49 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tpa.paged_attention_cuda(*arrs)
 
+
+
+def _mixed_case(seed, C, H, KH, D, bs, ctx_lens, chunks):
+    """A SplitFuse put: sequence i brings ``chunks[i]`` tokens ending at its
+    context ``ctx_lens[i]`` into a C-wide chunk (the first a full prompt
+    chunk, the rest one decode token each)."""
+    q, kp, vp, tables, start, ntok = _case(seed, len(ctx_lens), C, H, KH, D,
+                                           bs, -(-max(ctx_lens) // bs) + 1,
+                                           ctx_lens)
+    ntok = np.minimum(np.asarray(chunks, np.int32), ntok)
+    start = np.asarray(ctx_lens, np.int32) - ntok
+    return q, kp, vp, tables, start, ntok
+
+
+@pytest.mark.parametrize("window", [0, 40])
+def test_mixed_put_matches_xla(window):
+    """The bucketed SplitFuse shape the tensor-core route serves: one
+    sequence's full chunk beside sequences of one token (rows past their
+    n_tokens are unspecified and not compared)."""
+    arrs = _mixed_case(4, 16, 8, 2, 16, 8, [64, 5, 17, 33], [16, 1, 1, 1])
+    ref, out, ntok = _both(arrs, window=window)
+    assert list(ntok) == [16, 1, 1, 1]
+    for i in range(len(ntok)):
+        v = int(ntok[i])
+        np.testing.assert_allclose(out[i, :v], ref[i, :v], atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("C,H,KH,D,dtype,route", [
+    (1, 32, 8, 128, torch.bfloat16, 0),      # decode, G = 4
+    (4, 32, 8, 128, torch.bfloat16, 0),      # G * C = 16
+    (5, 32, 8, 128, torch.bfloat16, 2),      # G * C = 20
+    (256, 32, 8, 128, torch.bfloat16, 2),    # a prefill chunk
+    (64, 8, 8, 64, torch.bfloat16, 2),       # D = 64, G = 1
+    (64, 8, 8, 80, torch.bfloat16, 1),       # other D
+    (64, 32, 8, 128, torch.float32, 1),      # fp32
+    (1, 8, 8, 256, torch.float32, 0),
+])
+def test_route_choice(C, H, KH, D, dtype, route):
+    """Which __global__ function a call takes is a function of its shapes:
+    decode groups (G * C <= 16) the CUDA-core kernel a row a warp, bf16
+    prefill at D = 64 or 128 the tensor-core kernel, the rest the CUDA-core
+    kernel with 8 rows a warp."""
+    assert tpa.paged_route(C, H, KH, D, dtype) == route
+    assert tpa.PAGED_ROUTES[route].startswith(
+        ("paged_attention_kernel", "paged_prefill_tc_kernel")[route == 2])

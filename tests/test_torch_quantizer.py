@@ -272,3 +272,42 @@ def test_import_needs_no_nvcc():
            "PYTHONPATH": ":".join(sys.path)}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+@pytest.mark.parametrize("M,N,K,block,x_dtype,aligned,route", [
+    (1, 14336, 4096, 128, torch.bfloat16, True, 0),      # decode
+    (16, 4096, 4096, 128, torch.float32, True, 0),
+    (2048, 14336, 4096, 128, torch.bfloat16, True, 4),   # w_in, mixed put
+    (2048, 4096, 4096, 128, torch.bfloat16, True, 4),    # wq / wo
+    (2048, 1024, 4096, 128, torch.bfloat16, True, 3),    # wk / wv: 64 blocks
+    (2048, 32000, 4096, 128, torch.bfloat16, True, 4),   # lm_head
+    (2000, 4096, 14336, 128, torch.bfloat16, True, 4),   # w_out, ragged M
+    (37, 14336, 4096, 128, torch.bfloat16, True, 3),
+    (2048, 4100, 4096, 128, torch.bfloat16, True, 2),    # N % 64 != 0
+    (512, 1536, 1024, 48, torch.bfloat16, True, 2),      # block 48
+    (300, 130, 77, 64, torch.bfloat16, True, 2),         # K % 64 != 0
+    (2048, 4096, 4096, 128, torch.bfloat16, False, 2),   # unaligned
+    (2048, 4096, 4096, 128, torch.float32, True, 1),     # fp32 x
+])
+def test_qmm_route_choice(M, N, K, block, x_dtype, aligned, route):
+    """Which __global__ function a call takes is a function of its shapes
+    (and pointer alignment): decode streams the weight, bf16 x at the
+    serving shapes takes the wgmma kernel (256 rows of x a block where that
+    still fills the 132 SMs), other bf16 shapes mma.sync, fp32 x the CUDA
+    cores."""
+    assert tq.qmm_route(M, N, K, block, x_dtype, aligned, 132) == route
+    assert tq.QMM_ROUTES[route].startswith(
+        ("qmm_gemv_kernel", "qmm_kernel", "qmm_mma_kernel",
+         "qmm_wgmma_kernel", "qmm_wgmma_kernel")[route])
+
+
+def test_quantized_matmul_cuda_route_never_takes_plain_version(monkeypatch):
+    """A tensor that takes the kernel path goes to the kernel's wrapper
+    (``quantized_matmul_cuda``), never to the plain version, and the wrapper
+    raises on what is not a CUDA tensor."""
+    x = torch.from_numpy(_x(8, (4, 128)))
+    q, s = tq.quantize_blockwise(torch.from_numpy(_x(9, (128, 64))))
+    monkeypatch.setattr(tq, "_use_reference", lambda t: False)
+    monkeypatch.setattr(tq, "_quantized_matmul_torch", None)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.quantized_matmul(x, q, s)
