@@ -13,10 +13,14 @@ Phases, each of which raises on failure (nothing is caught):
              decode and prefill chunks, G = 1 and 4, D = 64 and 128,
              negative table entries, padded rows, ALiBi, a window smaller
              than the context, a SplitFuse put of one 256-token chunk and
-             seven one-token rows, and v1 decode's bs = 128 with
-             contiguous tables) on valid rows, with every row past
-             n_tokens zero and every route of the wrapper (decode, CUDA-core
-             and tensor-core prefill) taken; the blockwise quantizer bit for bit
+             seven one-token rows, v1 decode's bs = 128 with contiguous
+             tables, and the split-KV decode route's edges: spans not a
+             multiple of its piece, a window shorter than a piece, one live
+             position, 16-row groups) on valid rows, with every row past
+             n_tokens zero, each output bit-identical over two runs, bf16
+             decode on the split-KV route over every pool type, fp32
+             decode on the CUDA-core kernel, and every route of the wrapper
+             taken; the blockwise quantizer bit for bit
              (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails, rows not
              a multiple of 8, an all-zero group); the dequantize kernel bit
              for bit (torch.equal; int8 and unpacked int4 codes at the v1
@@ -29,11 +33,14 @@ Phases, each of which raises on failure (nothing is caught):
              the wrapper taken, the __global__ function logged); the flash
              attention forward, delta, dq and dkv kernels (bf16, fp32 and
              fp16; MHA, GQA, MQA; D = 64, 80, 128, 256; causal with T = S
-             and T < S, non-causal, windows, tails, sm_scale; and the train
-             phase's own shape, T = S = 8192 with window 4096) and the
+             and T < S, non-causal, windows, tails, sm_scale; the train
+             phase's own shape, T = S = 8192 with window 4096, and the v1
+             prefill's; the forward bit-identical over two runs) and the
              autograd Function built on them.
 4. timing  — each kernel at its path's shapes beside its bound, its plain
-             version and, where there is one, one PyTorch library call.
+             version and, where there is one, one PyTorch library call
+             (the device idles before each timed call, so that the events
+             time the kernels and not the wrappers' Python).
 5. main    — the serving path at full MISTRAL_7B width (32 layers, bf16,
              random weights from a seeded torch.Generator): greedy
              generation of 32 tokens for 8 requests through
@@ -153,6 +160,10 @@ def phase_device():
 
 # ----------------------------------------------------------------- build
 
+# kernels whose registers and spills the build log reports one by one
+REPORTED_KERNELS = r"decode_split|decode_combine|fwd_wgmma"
+
+
 def phase_build():
     t0 = time.perf_counter()
     secs = _build.build()
@@ -164,6 +175,18 @@ def phase_build():
         log(f"[build] {name}: {len(regs)} kernels, at most "
             f"{max(regs, default=0)} registers a thread, {spills} bytes of "
             "spill stores")
+        fn = None
+        for line in log_text.splitlines():
+            if re.search(r"wgmma.*(serializ|performance)", line, re.I):
+                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Function properties for \S*\d([a-z_]+_kernel)I(\w+?)EE",
+                          line)
+            if m:
+                fn = f"{m.group(1)}<{m.group(2)}>"
+            m = re.search(r"(\d+) bytes spill stores|Used (\d+) registers",
+                          line)
+            if m and fn and re.search(REPORTED_KERNELS, fn):
+                log(f"[build] {name}: {fn}: {line.strip()[:70]}")
     log(f"[build] built {sorted(secs)} in {wall:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in secs.items()})})")
     for name in _build.sources():
@@ -241,6 +264,22 @@ KERNEL_CASES = [
      torch.bfloat16, 0, False, 4096, MIXED_CHUNKS),
     ("prefill C=64 G=4 D=64 alibi window", [64, 90, 700], 64, 16, 4, 64, 16,
      torch.bfloat16, 1, True, 300),
+    # the split-KV decode route's edges: spans that are not a multiple of
+    # its 256-position piece, a window shorter than one piece, a single
+    # live position, padded rows (n_tokens = 0) at v1's bs = 128, and
+    # 16-row groups (C = 4 at G = 4; C = 2 at G = 8)
+    ("decode spans not a multiple of the piece", [255, 257, 777, 1000], 1,
+     32, 8, 128, 16, torch.bfloat16, 1, False, 0),
+    ("decode window 100 < piece", [50, 257, 3000], 1, 32, 8, 128, 16,
+     torch.bfloat16, 1, False, 100),
+    ("decode window 1: one live position", [1, 300, 2000], 1, 32, 8, 128,
+     16, torch.bfloat16, 1, False, 1),
+    ("decode bs=128 padded rows window", [129, 4000, 4700], 1, 32, 8, 128,
+     128, torch.bfloat16, 3, False, 4096),
+    ("decode C=4 G=4 (16 rows) window", [4, 60, 700, 1500], 4, 32, 8, 128,
+     16, torch.bfloat16, 1, False, 600),
+    ("decode C=2 G=8 D=64 alibi (16 rows)", [2, 90, 1300], 2, 16, 2, 64, 16,
+     torch.bfloat16, 1, True, 0),
     ("fp32 C=5 G=2 bs=12 D=256", [5, 30, 97], 5, 8, 4, 256, 12,
      torch.float32, 1, False, 0),
     ("fp32 decode G=4 alibi window", [3, 77, 400], 1, 16, 4, 64, 8,
@@ -257,11 +296,15 @@ def paged_route_name(q, kp):
 
 def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes=None):
     out = pa.paged_attention(q, kp, vp, tbl, sp, nt, **kw)
+    again = pa.paged_attention(q, kp, vp, tbl, sp, nt, **kw)
     ref = pa.paged_attention(q, kp, vp, tbl, sp, nt, force_reference=True,
                              **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"[kernel] {name}: non-finite output")
+    if not torch.equal(out, again):
+        raise AssertionError(f"[kernel] {name}: two runs of the kernel on "
+                             "the same inputs differ")
     atol, rtol = TOL[dtype]
     err = 0.0
     for i in range(q.shape[0]):
@@ -285,8 +328,9 @@ def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes=None):
     if routes is not None:
         routes.add(route)
     log(f"[kernel] {name}: ok, max |kernel - plain| = {err:.3g} "
-        f"({str(dtype).split('.')[-1]}, atol {atol}, rtol {rtol}; {route})")
-    return err
+        f"({str(dtype).split('.')[-1]}, atol {atol}, rtol {rtol}; {route}; "
+        "bit-identical twice)")
+    return err, route
 
 
 def v1_decode_case(seed, ctx_lens, bs=128, H=32, KH=8, D=128):
@@ -310,20 +354,35 @@ def phase_kernel_paged():
     the bf16 cases (the serving dtype) of each branch."""
     max_err = {"bf16": 0.0, "quant": 0.0}
     routes = set()
+    decode_routes = {}   # the route each decode (G * C <= 16) case took
     v1_ctx = [n + MAIN_NEW_TOKENS for n in MAIN_PROMPT_LENS]
-    err = check_paged("v1 decode bs=128 C=1 contiguous tables G=4 window",
-                      *v1_decode_case(5, v1_ctx), torch.bfloat16,
-                      dict(window=4096), routes)
+    name = "v1 decode bs=128 C=1 contiguous tables G=4 window"
+    q, kp, vp, tbl, sp, nt = v1_decode_case(5, v1_ctx)
+    err, decode_routes[name] = check_paged(name, q, kp, vp, tbl, sp, nt,
+                                           torch.bfloat16, dict(window=4096),
+                                           routes)
     max_err["bf16"] = max(max_err["bf16"], err)
+    for kvd in (torch.int8, torch.float8_e4m3fn):
+        kq, ks = quantize_pool(kp, kvd)
+        vq, vs = quantize_pool(vp, kvd)
+        qname = f"{name} {str(kvd).split('.')[-1]} pools"
+        err, decode_routes[qname] = check_paged(
+            qname, q, kq, vq, tbl, sp, nt, torch.bfloat16,
+            dict(window=4096, k_scale=ks, v_scale=vs), routes)
+        max_err["quant"] = max(max_err["quant"], err)
     for (name, ctxs, C, H, KH, D, bs, dtype, n_pad, alibi, window,
          *chunks) in KERNEL_CASES:
         chunks = chunks[0] if chunks else None
         slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)],
                                device="cuda") if alibi else None)
         kw = dict(alibi_slopes=slopes, window=window)
+        decode = (H // KH) * C <= 16
         q, kp, vp, tbl, sp, nt = make_case(len(name), ctxs, C, H, KH, D, bs,
                                            dtype, n_pad, chunks=chunks)
-        err = check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes)
+        err, route = check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw,
+                                 routes)
+        if decode:
+            decode_routes[name] = route
         if dtype == torch.bfloat16:
             max_err["bf16"] = max(max_err["bf16"], err)
         q, kp, vp, tbl, sp, nt = make_case(len(name), ctxs, C, H, KH, D, bs,
@@ -333,14 +392,25 @@ def phase_kernel_paged():
         for kvd in (torch.int8, torch.float8_e4m3fn):
             kq, ks = quantize_pool(kp, kvd)
             vq, vs = quantize_pool(vp, kvd)
-            err = check_paged(f"{name} {str(kvd).split('.')[-1]} pools", q,
-                              kq, vq, tbl, sp, nt, dtype,
-                              dict(kw, k_scale=ks, v_scale=vs), routes)
+            qname = f"{name} {str(kvd).split('.')[-1]} pools"
+            err, route = check_paged(qname, q, kq, vq, tbl, sp, nt, dtype,
+                                     dict(kw, k_scale=ks, v_scale=vs), routes)
+            if decode:
+                decode_routes[qname] = route
             if dtype == torch.bfloat16:
                 max_err["quant"] = max(max_err["quant"], err)
     if routes != set(pa.PAGED_ROUTES):
         raise AssertionError(f"[kernel] paged cases took routes "
                              f"{sorted(routes)}, not all of {pa.PAGED_ROUTES}")
+    # bf16 decode, over every pool type, takes the split-KV walk; fp32
+    # decode keeps the CUDA-core kernel a row a warp
+    for name, route in decode_routes.items():
+        want = pa.PAGED_ROUTES[0 if name.startswith("fp32") else 3]
+        if route != want:
+            raise AssertionError(f"[kernel] {name}: took {route}, not {want}")
+    log(f"[kernel] paged: {len(decode_routes)} decode cases, each on its "
+        f"route ({pa.PAGED_ROUTES[3]} for bf16 q, {pa.PAGED_ROUTES[0]} for "
+        "fp32)")
     return max_err
 
 
@@ -663,6 +733,11 @@ def flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
     dtype, KH = q.dtype, k.shape[2]
     args = (causal, window, sm_scale)
     o, lse = fa.flash_fwd_cuda(q, k, v, *args)
+    o2, lse2 = fa.flash_fwd_cuda(q, k, v, *args)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"[kernel] flash {name}: two runs of the "
+                             "forward on the same inputs differ")
+    del o2, lse2
     worst = {"fwd": (0.0, 0.0)}
     if backward:
         delta = fa.flash_delta_cuda(o, do)
@@ -789,14 +864,26 @@ def phase_kernel():
 
 # ---------------------------------------------------------------- timing
 
+# device cycles the stream idles before each timed call (about 0.5 ms):
+# the host enqueues the call meanwhile, so that the events bracket the
+# device's work and not the wrapper's Python time
+HOST_LEAD_CYCLES = 1_000_000
+
+
 def time_ms(fn, flush, iters=20, warmup=3):
-    """Median CUDA-event time of one call, L2 flushed before each call."""
+    """Median CUDA-event time of one call, L2 flushed before each call. A
+    device-side wait (``torch.cuda._sleep``) between the flush and the
+    start event lets the host enqueue the call ahead of the device, so a
+    call whose kernels take less time than its Python wrapper is timed by
+    its kernels (a plain version of many small ops may still be host-bound:
+    it is no yardstick of speed)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1014,18 +1101,19 @@ def flash_bounds(B, T, S, H, KH, D, causal, window, item):
     return out
 
 
-def sdpa_library(q, k, v, causal, window):
+def sdpa_library(q, k, v, causal, window, backward=True):
     """The same attention as one PyTorch library call (timed only; never
     used by the port): heads first, GQA heads repeated (made untimed),
     ``is_causal`` where there is no window and a boolean band mask where
-    there is. Returns (forward call, backward call through autograd)."""
+    there is. Returns (forward call, backward call through autograd, or
+    None when ``backward`` is False)."""
     H, KH = q.shape[2], k.shape[2]
     T, S = q.shape[1], k.shape[1]
-    qh = q.permute(0, 2, 1, 3).contiguous().requires_grad_()
+    qh = q.permute(0, 2, 1, 3).contiguous().requires_grad_(backward)
     kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KH, dim=1) \
-        .contiguous().requires_grad_()
+        .contiguous().requires_grad_(backward)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KH, dim=1) \
-        .contiguous().requires_grad_()
+        .contiguous().requires_grad_(backward)
     kw = {}
     if window and window < S:
         keep = fa._keep_mask(T, S, causal, window, q.device)
@@ -1040,6 +1128,8 @@ def sdpa_library(q, k, v, causal, window):
     def fwd():
         return F.scaled_dot_product_attention(qh, kh, vh, **kw)
 
+    if not backward:
+        return fwd, None
     out = fwd()
     do = torch.randn_like(out)
 
@@ -1049,12 +1139,12 @@ def sdpa_library(q, k, v, causal, window):
     return fwd, bwd
 
 
-def flash_timing_case(label, B, T, H, KH, D, window, flush):
+def flash_timing_case(label, B, T, H, KH, D, window, flush, backward=True):
     """Forward, dq (delta pre-pass included) and dkv at one shape, bf16,
     causal, T = S. The plain versions run on the same inputs one KV head's
     group of query heads at a time (their dense [G, T, S] logits of all
     heads at once do not fit at T = 8192); their time is that of all KH
-    calls."""
+    calls. ``backward`` False: the forward alone."""
     gen = torch.Generator("cuda").manual_seed(T + H)
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(torch.bfloat16)
@@ -1062,17 +1152,15 @@ def flash_timing_case(label, B, T, H, KH, D, window, flush):
         mk(B, T, H, D)
     args = (True, window, None)
     o, lse = fa.flash_fwd_cuda(q, k, v, *args)
-    delta = fa.flash_delta_cuda(o, do)
-    ms = {
-        "fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, *args), flush,
-                       iters=5, warmup=1),
-        "dq": time_ms(lambda: fa.flash_dq_cuda(
+    ms = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, *args), flush,
+                         iters=5, warmup=1)}
+    if backward:
+        delta = fa.flash_delta_cuda(o, do)
+        ms["dq"] = time_ms(lambda: fa.flash_dq_cuda(
             q, k, v, do, lse, fa.flash_delta_cuda(o, do), *args), flush,
-            iters=5, warmup=1),
-        "dkv": time_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
-                                                 *args), flush, iters=5,
-                       warmup=1),
-    }
+            iters=5, warmup=1)
+        ms["dkv"] = time_ms(lambda: fa.flash_dkv_cuda(
+            q, k, v, do, lse, delta, *args), flush, iters=5, warmup=1)
     groups = [[kv_head_part(t, kh, KH).contiguous()
                for t in (q, k, v, o, do, lse)] for kh in range(KH)]
 
@@ -1090,15 +1178,16 @@ def flash_timing_case(label, B, T, H, KH, D, window, flush):
 
     plain = {key: time_ms(fn, flush, iters=3, warmup=1)
              for key, fn in (("fwd", plain_fwd), ("dq", plain_dq),
-                             ("dkv", plain_dkv))}
+                             ("dkv", plain_dkv)) if key in ms}
     del groups
-    lib_fwd, lib_bwd = sdpa_library(q, k, v, True, window)
+    lib_fwd, lib_bwd = sdpa_library(q, k, v, True, window, backward)
     lib = {"fwd": time_ms(lib_fwd, flush, iters=5, warmup=1)}
-    lib["dq"] = lib["dkv"] = time_ms(lib_bwd, flush, iters=5, warmup=1)
+    if backward:
+        lib["dq"] = lib["dkv"] = time_ms(lib_bwd, flush, iters=5, warmup=1)
     del lib_fwd, lib_bwd
     bounds = flash_bounds(B, T, T, H, KH, D, True, window, 2)
     rows = {}
-    for key in ("fwd", "dq", "dkv"):
+    for key in ms:
         note = label + f"; plain version as {KH} calls, one KV head each"
         if key != "fwd":
             note += "; library = autograd through SDPA (dq, dk, dv at once)"
@@ -1158,6 +1247,11 @@ def phase_timing():
                                   flush))
     flash_timing_case("B=4 T=S=2048 H=32 KH=8 D=128 window 4096 (no bite) "
                       "bf16", 4, 2048, 32, 8, 128, 4096, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    name, B, T, _, H, KH, D, _, window, _ = FLASH_V1_CASE
+    flash_timing_case(name + " bf16, forward only", B, T, H, KH, D, window,
+                      flush, backward=False)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -1167,14 +1261,21 @@ def phase_timing():
 def phase_compare():
     """The main path's attention and quantized-matmul shapes timed through
     the wrappers' entry points alone (``paged_attention_cuda``,
-    ``quantized_matmul_cuda``), which every checkout of the port since its
-    quantized slice has: copied into another checkout and run there with
-    ``--compare``, this script times that checkout's kernels on the same
-    inputs, so that two commits can be compared in one call (parent,
-    change, change, parent)."""
+    ``quantized_matmul_cuda``, ``flash_fwd_cuda``, ``flash_dq_cuda``,
+    ``flash_dkv_cuda``), which every checkout of
+    the port since its training slice has: copied into another checkout
+    and run there with ``--compare``, this script times that checkout's
+    kernels on the same inputs, so that two commits can be compared in one
+    call (parent, change, change, parent)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     main_ctx = [n + MAIN_NEW_TOKENS - 1 for n in MAIN_PROMPT_LENS]
+    n32 = [int(c) for c in np.linspace(512, 2048, 32)]
     paged = [("decode N=8, main-path contexts", main_ctx, 1, None, None),
+             ("decode N=8, main-path contexts, int8 pools", main_ctx, 1,
+              None, torch.int8),
+             ("decode N=8, main-path contexts, fp8 pools", main_ctx, 1,
+              None, torch.float8_e4m3fn),
+             ("decode N=32, contexts 512-2048", n32, 1, None, None),
              ("prefill chunk C=256 at 3840-4095", [4096], 256, None, None),
              ("mixed put C=256", MIXED_CTX, 256, MIXED_CHUNKS, None),
              ("mixed put C=256, int8 pools", MIXED_CTX, 256, MIXED_CHUNKS,
@@ -1205,6 +1306,32 @@ def phase_compare():
         ms = time_ms(lambda: qz.quantized_matmul_cuda(x, q, s, 128,
                                                       torch.bfloat16), flush)
         log(f"[compare] quantized_matmul {label}: {ms:.4f} ms")
+    del q, s, x
+    mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+    for label, B, T, window, backward in (
+            ("B=1 T=S=8192 window 4096 (training)", 1, 8192, 4096, True),
+            ("B=4 T=S=2048 causal", 4, 2048, 4096, True),
+            ("B=8 T=S=4600 window 4096 (v1 prefill)", 8, 4600, 4096, False)):
+        q, k, v = mk(B, T, 32, 128), mk(B, T, 8, 128), mk(B, T, 8, 128)
+        ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, window), flush,
+                     iters=5, warmup=1)
+        log(f"[compare] flash_fwd {label}: {ms:.4f} ms")
+        if backward:
+            # as the timing phase times them: dq with its delta pre-pass
+            do = mk(B, T, 32, 128)
+            o, lse = fa.flash_fwd_cuda(q, k, v, True, window)
+            delta = fa.flash_delta_cuda(o, do)
+            ms = time_ms(lambda: fa.flash_dq_cuda(
+                q, k, v, do, lse, fa.flash_delta_cuda(o, do), True, window),
+                flush, iters=5, warmup=1)
+            log(f"[compare] flash_dq {label}: {ms:.4f} ms")
+            ms = time_ms(lambda: fa.flash_dkv_cuda(
+                q, k, v, do, lse, delta, True, window), flush, iters=5,
+                warmup=1)
+            log(f"[compare] flash_dkv {label}: {ms:.4f} ms")
+            del do, o, lse, delta
+        del q, k, v
 
 
 # ------------------------------------------------------------ main path

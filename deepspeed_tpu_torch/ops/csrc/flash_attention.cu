@@ -36,8 +36,9 @@
 // 4 D flops, dq 6 D and dkv 8 D against a few bytes of q, k, v per pair
 // after tiling. Two sets of kernels share the structure above:
 // - bf16 with D = 64 or 128 (the training widths) runs every product on the
-//   tensor cores with mma.sync (see "tensor-core path" below); wgmma with
-//   TMA-fed tiles is the next step.
+//   tensor cores: the forward on wgmma with K/V tiles in flight behind the
+//   products (see "wgmma forward" below), dq and dkv with mma.sync (see
+//   "tensor-core path" below).
 // - fp32, fp16, and bf16 at any other D, does the products in fp32 on the
 //   CUDA cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so
 //   that fp32 inputs keep fp32 accuracy: 256 threads as a 16 x 16 grid, each with
@@ -544,8 +545,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------- tensor-core path
 // bf16 with D = 64 or 128 (the widths of the models the port trains): the
-// same three kernels with every product on the tensor cores (mma.sync
-// m16n8k16, bf16 operands, fp32 accumulation). 128 threads; each of the 4
+// backward kernels with every product on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 accumulation); the forward is the wgmma
+// kernel further below. 128 threads; each of the 4
 // warps owns 16 rows of the block's 64-row tile and keeps its logits and
 // its output rows in mma accumulator fragments, so the online softmax is
 // done in registers with two shuffles a row. Tiles are staged in shared
@@ -594,109 +596,14 @@ __device__ __forceinline__ void tc_store(__nv_bfloat16* out, long long row_strid
   }
 }
 
-// Does every (row, column) pair of the 64 x 64 tile at (r0, c0) attend?
-__device__ __forceinline__ bool tile_is_dense(int r0, int c0, int n_rows, int offs, int S,
-                                              int causal, int window) {
-  if (c0 + kTcTile > S || r0 + kTcTile > n_rows) return false;
-  if (causal && c0 + kTcTile - 1 > r0 + offs) return false;
-  if (window > 0 && r0 + kTcTile - 1 + offs - c0 >= window) return false;
+// Does every (row, column) pair of rows [r0, r0 + nr) x columns [c0, c0 +
+// nc) attend?
+__device__ __forceinline__ bool span_is_dense(int r0, int nr, int c0, int nc, int n_rows,
+                                              int offs, int S, int causal, int window) {
+  if (c0 + nc > S || r0 + nr > n_rows) return false;
+  if (causal && c0 + nc - 1 > r0 + offs) return false;
+  if (window > 0 && r0 + nr - 1 + offs - c0 >= window) return false;
   return true;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, int Tq, int S, int H, int KH, int causal,
-                    int window, float scale) {
-  constexpr int STR = HD + 8, DT = HD / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + kTcTile * STR;
-  __nv_bfloat16* Vs = Ks + kTcTile * STR;
-  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
-  const int gid = lane / 4, tig = lane % 4;
-  const int q0 = blockIdx.x * kTcTile, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int offs = S - Tq;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
-  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
-  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
-
-  tc_load_tile<HD>(Qs, q + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
-
-  const int rows[2] = {q0 + m0 + gid, q0 + m0 + gid + 8};
-  const int q_last = min(q0 + kTcTile, Tq) - 1;
-  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
-  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
-
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float oacc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-
-  for (int j0 = (col_lo / kTcTile) * kTcTile; j0 < col_hi; j0 += kTcTile) {
-    __syncthreads();  // the last tile's reads of Ks and Vs are done
-    tc_load_tile<HD>(Ks, kg, kv_stride, j0, S);
-    tc_load_tile<HD>(Vs, vg, kv_stride, j0, S);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
-
-    const bool dense = tile_is_dense(q0, j0, Tq, offs, S, causal, window);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j0 + nt * 8 + tig * 2 + (e & 1);
-        const bool keep = dense || attends(rows[e >> 1], col, offs, S, causal, window);
-        s[nt][e] = keep ? s[nt][e] * scale : kNegInf;
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float mx = m_r[hf];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hf], s[nt][2 * hf + 1]));
-      mx = quad_max(mx);
-      const float alpha = expf(m_r[hf] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
-          const float p = s[nt][e] > kMasked ? expf(s[nt][e] - mx) : 0.f;
-          s[nt][e] = p;
-          rs += p;
-        }
-      rs = quad_sum(rs);
-      l_r[hf] = l_r[hf] * alpha + rs;
-      m_r[hf] = mx;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        oacc[dt][2 * hf] *= alpha;
-        oacc[dt][2 * hf + 1] *= alpha;
-      }
-    }
-    tc_dot_acc<HD>(oacc, s, Vs, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const float li = fmaxf(l_r[hf], 1e-30f);
-    inv[hf] = 1.f / li;
-    if (tig == 0 && rows[hf] < Tq)
-      lse[((long long)b * H + h) * Tq + rows[hf]] = m_r[hf] + logf(li);
-  }
-  tc_store<HD>(o + ((long long)b * Tq * H + h) * HD, q_stride, rows[0], rows[1], Tq, tig,
-               oacc, inv[0], inv[1]);
 }
 
 template <int HD>
@@ -756,7 +663,7 @@ flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
     tc_dot_nt<HD>(dp, dOs, Vs, m0, gid, tig);
 
-    const bool dense = tile_is_dense(q0, j0, Tq, offs, S, causal, window);
+    const bool dense = span_is_dense(q0, kTcTile, j0, kTcTile, Tq, offs, S, causal, window);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -834,7 +741,7 @@ flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int e = 0; e < 4; ++e) pt[nt][e] = 0.f;
       tc_dot_nt<HD>(pt, Ks, Qs, m0, gid, tig);
-      const bool dense = tile_is_dense(i0, k0, Tq, offs, S, causal, window);
+      const bool dense = span_is_dense(i0, kTcTile, k0, kTcTile, Tq, offs, S, causal, window);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -867,6 +774,287 @@ flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                dk_acc, 1.f, 1.f);
   tc_store<HD>(dv + ((long long)b * S * KH + kh) * HD, kv_stride, cols[0], cols[1], S, tig,
                dv_acc, 1.f, 1.f);
+}
+
+// ---- wgmma forward (bf16, D = 64 or 128: the training and v1 prefill path)
+//
+// One block owns 128 query rows of one (batch, head): two warpgroups of 64
+// rows (256 threads). Both products run on wgmma (mma.cuh), fp32
+// accumulation:
+// - S = Q K^T, m64n128k16 over D / 16 steps: Q is the register A operand,
+//   loaded once from device memory in mma.m16n8k16's A layout a warp; a K
+//   tile of 128 positions is B, K-major (D contiguous) in the 128-byte
+//   swizzle: [D / 64][128 positions][128 bytes].
+// - O += P V, m64nDk16 over 8 steps of 16 positions: P is the S
+//   accumulators rounded to bf16 and repacked in registers as the A operand
+//   (p rounded to bf16, as the mma.sync route and the plain forward do); the
+//   V tile, laid out as K, is B MN-major (the transpose bit): rows of 64
+//   values of D at one position, 8-position groups 1024 bytes apart, the
+//   two 64-value blocks of D 16 KB apart.
+// K and V tiles arrive through a ring of kFwdStages stages filled with
+// 16-byte cp.async copies (rows past S zero-filled) by all 256 threads: the
+// next tile's copies are in flight while this tile's products and softmax
+// run. The online softmax stays in registers in fp32, with the logits in
+// base 2 (s * scale * log2 e; lse = m ln 2 + log l), the masks of the
+// CUDA-core kernels (causal with offset S - T, window, tail rows and
+// columns) applied only on tiles that cross an edge, and p = 0 for masked
+// pairs. A warpgroup skips a tile none of its rows attends. Query tiles
+// are issued longest first: blockIdx.z counts down from the last tile, and
+// z is the slowest grid dimension, so under a causal mask the tiles with
+// the most live columns start first. o and lse have the layout and meaning
+// of the other forward kernels; the dq, delta and dkv kernels read them.
+// The kernel needs scale > 0; the entry sends any other scale to the
+// CUDA-core forward. On an H100 the softmax's instructions, not the
+// products, set the pace (fast_exp2 in place of exp2f made the kernel about
+// 10% faster); two warpgroups taking turns on the tensor cores, P V
+// overlapped with the next tile's softmax (Q in shared memory) and a
+// 3-stage ring were each no faster (PERF.md section 6).
+
+constexpr int kFwdRows = 128;   // query rows a block: two warpgroups of 64
+constexpr int kFwdThreads = 256;
+constexpr int kFwdCols = 128;   // K/V positions a tile
+constexpr int kFwdStages = 2;   // K/V tiles in the ring
+
+template <int HD>
+struct FwdLayout {
+  static constexpr int TILE = kFwdCols * HD * 2;  // bytes of a K (or V) tile
+  // the stages, on a 1024-byte boundary (the swizzle's period)
+  static constexpr size_t kBytes = (size_t)kFwdStages * 2 * TILE + 1024;
+};
+
+
+template <int HD>
+__device__ __forceinline__ void wg_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t desc);
+template <>
+__device__ __forceinline__ void wg_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc) {
+  wgmma_m64n64k16_rs<1>(o, a, desc, 1);
+}
+template <>
+__device__ __forceinline__ void wg_pv<128>(float (&o)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  wgmma_m64n128k16_rs<1>(o, a, desc, 1);
+}
+
+// 2^x on the special-function unit in one instruction (ex2.approx, results
+// below 2^-126 flushed to zero: p that small is zero in bf16 as well, and
+// nothing in a row sum of at least 1); exp2f adds a range fix-up around it
+// that costs more than the exponential itself in the softmax's loop.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile in registers: s holds this thread's raw
+// logits of rows row_a (s[4 j], s[4 j + 1]) and row_b (s[4 j + 2], s[4 j +
+// 3]) at columns col0 + 8 j (+1); on return s holds p = 2^(s * sl2 - m)
+// (sl2 = scale * log2 e > 0; m in the same base-2 units), the row maxima
+// m_r, sums l_r and the output accumulators o (same row layout) rescaled.
+// MASKED: the pairs the mask drops get p = 0.
+template <bool MASKED, int NS, int NO>
+__device__ __forceinline__ void fwd_softmax(float (&s)[NS], float (&m_r)[2], float (&l_r)[2],
+                                            float (&o)[NO], float sl2, int row_a, int row_b,
+                                            int col0, int offs, int S, int causal, int window) {
+  if (MASKED) {
+#pragma unroll
+    for (int jt = 0; jt < NS / 4; ++jt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!attends(e < 2 ? row_a : row_b, col0 + jt * 8 + (e & 1), offs, S, causal, window))
+          s[4 * jt + e] = kNegInf;
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int jt = 0; jt < NS / 4; ++jt)
+      mx = fmaxf(mx, fmaxf(s[4 * jt + 2 * hf], s[4 * jt + 2 * hf + 1]));
+    const float m_new = fmaxf(m_r[hf], quad_max(mx) * sl2);
+    const float alpha = fast_exp2(m_r[hf] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int jt = 0; jt < NS / 4; ++jt)
+#pragma unroll
+      for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+        float p = fast_exp2(fmaf(s[4 * jt + e], sl2, -m_new));
+        if (MASKED) p = s[4 * jt + e] > kMasked ? p : 0.f;
+        s[4 * jt + e] = p;
+        rs += p;
+      }
+    l_r[hf] = l_r[hf] * alpha + quad_sum(rs);
+    m_r[hf] = m_new;
+#pragma unroll
+    for (int dt = 0; dt < NO / 4; ++dt) {
+      o[4 * dt + 2 * hf] *= alpha;
+      o[4 * dt + 2 * hf + 1] *= alpha;
+    }
+  }
+}
+
+// grid (H, B, ceil(T / 128)); 256 threads; FwdLayout<HD>::kBytes of dynamic
+// shared memory
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Tq, int S, int H, int KH, int causal,
+                       int window, float scale) {
+  constexpr int KS = HD / 16;        // k16 steps of Q K^T
+  constexpr int CH = HD / 8;         // 16-byte chunks a row
+  constexpr int PV = kFwdCols / 16;  // k16 steps of P V
+  constexpr int TILE = FwdLayout<HD>::TILE;
+  extern __shared__ __align__(16) uint8_t fw_smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(fw_smem);
+  const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);  // [stage][K, V][D / 64][128][128 B]
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows;  // longest tiles first
+  const int kh = h / (H / KH);
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
+  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
+
+  // the block's columns: from the window's first to the last row's diagonal
+  const int q_last = min(q0 + kFwdRows, Tq) - 1;
+  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
+  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
+  const int first = (col_lo / kFwdCols) * kFwdCols;
+  const int n_tiles = col_hi > first ? (col_hi - first + kFwdCols - 1) / kFwdCols : 0;
+
+  // the K and V tile at positions [j0, j0 + 128) into stage st: chunk c of
+  // position row r at c ^ (r & 7) of its 128-byte row. A thread copies the
+  // same chunk column lc of rows lr + 256 / CH * i, so its shared-memory
+  // offsets and its rows' strides are fixed before the loop.
+  constexpr int RSTEP = kFwdThreads / CH;  // rows between a thread's chunks
+  const int lr = tid / CH, lc = tid % CH;
+  const uint32_t soff =
+      (uint32_t)((lc >> 3) * (kFwdCols * 128) + lr * 128 + (((lc & 7) ^ (lr & 7)) << 4));
+  const __nv_bfloat16* kt = kg + (long long)lr * kv_stride + lc * 8;
+  const __nv_bfloat16* vt = vg + (long long)lr * kv_stride + lc * 8;
+  auto load_tile = [&](int j0, int st) {
+    const uint32_t kd = base + (uint32_t)(st * 2 * TILE) + soff;
+    const long long g0 = (long long)j0 * kv_stride;
+#pragma unroll
+    for (int i = 0; i < kFwdCols / RSTEP; ++i) {
+      const int row = j0 + lr + i * RSTEP;
+      const long long g = row < S ? g0 + (long long)i * RSTEP * kv_stride : 0;
+      cp_async16(kd + i * RSTEP * 128, kt + g, row < S ? 16 : 0);
+      cp_async16(kd + TILE + i * RSTEP * 128, vt + g, row < S ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    if (st < n_tiles) load_tile(first + st * kFwdCols, st);
+    cp_async_commit();
+  }
+
+  // this thread's two rows and its Q fragments (rows past T are zero)
+  const int wr0 = q0 + wg * 64;
+  const int row_a = wr0 + w * 16 + gid, row_b = row_a + 8;
+  uint32_t qa[KS][4];
+  {
+    const __nv_bfloat16* qg = q + ((long long)b * Tq * H + h) * HD;
+    const __nv_bfloat16* qra = qg + (long long)min(row_a, Tq - 1) * q_stride + 2 * tig;
+    const __nv_bfloat16* qrb = qg + (long long)min(row_b, Tq - 1) * q_stride + 2 * tig;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[ks][0] = row_a < Tq ? *reinterpret_cast<const uint32_t*>(qra + 16 * ks) : 0u;
+      qa[ks][1] = row_b < Tq ? *reinterpret_cast<const uint32_t*>(qrb + 16 * ks) : 0u;
+      qa[ks][2] = row_a < Tq ? *reinterpret_cast<const uint32_t*>(qra + 16 * ks + 8) : 0u;
+      qa[ks][3] = row_b < Tq ? *reinterpret_cast<const uint32_t*>(qrb + 16 * ks + 8) : 0u;
+    }
+  }
+  fence_regs(qa);
+
+  // this warpgroup's columns; a warpgroup whose rows all lie past T has none
+  const bool wg_live = wr0 < Tq;
+  const int wr_last = min(wr0 + 64, Tq) - 1;
+  const int wcol_hi = causal ? min(S, wr_last + offs + 1) : S;
+  const int wcol_lo = window > 0 ? max(0, wr0 + offs - window + 1) : 0;
+  const float sl2 = scale * 1.4426950408889634f;  // logits in base 2
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float s[kFwdCols / 2];
+  uint32_t pa[PV][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = first + it * kFwdCols, st = it % kFwdStages;
+    cp_async_wait<kFwdStages - 2>();  // tile it has landed (this thread's copies)
+    fence_proxy_async();
+    // every thread's copies of tile it are visible to the tensor cores, and
+    // no warpgroup still reads the stage that tile it + kFwdStages - 1 takes
+    __syncthreads();
+    if (it + kFwdStages - 1 < n_tiles)
+      load_tile(j0 + (kFwdStages - 1) * kFwdCols, (it + kFwdStages - 1) % kFwdStages);
+    cp_async_commit();
+    if (!wg_live || j0 >= wcol_hi || j0 + kFwdCols <= wcol_lo) continue;  // warpgroup-uniform
+
+    const uint32_t ks_s = base + (uint32_t)(st * 2 * TILE), vs_s = ks_s + TILE;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n128k16_rs<0>(
+          s, qa[ks], sw128_desc(ks_s + (ks >> 2) * (kFwdCols * 128) + (ks & 3) * 32), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // s[4 j + e]: row row_a (e < 2) or row_b, column j0 + 8 j + 2 tig + (e &
+    // 1). A tile that crosses an edge of the mask (warpgroup-uniform) sets
+    // its masked logits to kNegInf and gives them p = 0.
+    if (span_is_dense(wr0, 64, j0, kFwdCols, Tq, offs, S, causal, window))
+      fwd_softmax<false>(s, m_r, l_r, oacc, sl2, row_a, row_b, j0 + 2 * tig, offs, S, causal,
+                         window);
+    else
+      fwd_softmax<true>(s, m_r, l_r, oacc, sl2, row_a, row_b, j0 + 2 * tig, offs, S, causal,
+                        window);
+#pragma unroll
+    for (int kk = 0; kk < PV; ++kk) {
+      pa[kk][0] = pack2(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(pa);
+    fence_regs(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PV; ++kk)
+      wg_pv<HD>(oacc, pa[kk], sw128_desc(vs_s + kk * 2048, kFwdCols * 128));
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is read before the next iteration's barrier
+    fence_regs(oacc);
+    fence_regs(pa);
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = hf ? row_b : row_a;
+    const float li = fmaxf(l_r[hf], 1e-30f);
+    inv[hf] = 1.f / li;
+    if (tig == 0 && row < Tq)
+      lse[((long long)b * H + h) * Tq + row] = m_r[hf] * 0.6931471805599453f + logf(li);
+  }
+  __nv_bfloat16* og = o + ((long long)b * Tq * H + h) * HD;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int d = dt * 8 + tig * 2;
+    if (row_a < Tq)
+      *reinterpret_cast<uint32_t*>(og + (long long)row_a * q_stride + d) =
+          pack2(oacc[4 * dt] * inv[0], oacc[4 * dt + 1] * inv[0]);
+    if (row_b < Tq)
+      *reinterpret_cast<uint32_t*>(og + (long long)row_b * q_stride + d) =
+          pack2(oacc[4 * dt + 2] * inv[1], oacc[4 * dt + 3] * inv[1]);
+  }
 }
 
 // ----------------------------------------------------------------- launchers
@@ -940,15 +1128,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }
 
 template <int HD>
-cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
-                          const Shape& s, cudaStream_t st) {
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                             const Shape& s, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
-  const size_t smem = (size_t)3 * kTcTile * (HD + 8) * sizeof(bf16);
-  auto kernel = flash_fwd_tc_kernel<HD>;
+  constexpr size_t smem = FwdLayout<HD>::kBytes;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Tq + kTcTile - 1) / kTcTile, s.H, s.B);
-  kernel<<<grid, kTcThreads, smem, st>>>(
+  const dim3 grid(s.H, s.B, (s.Tq + kFwdRows - 1) / kFwdRows);
+  if (grid.z > 65535u) return cudaErrorInvalidValue;
+  kernel<<<grid, kFwdThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
   return cudaGetLastError();
@@ -1023,9 +1212,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  if (takes_tc(s, dtype))
-    return (int)(D == 64 ? launch_fwd_tc<64>(q, k, v, o, lse_f, s, st)
-                         : launch_fwd_tc<128>(q, k, v, o, lse_f, s, st));
+  // the wgmma forward folds scale into its base-2 exponent and takes the
+  // row maximum of the raw logits: it needs scale > 0
+  if (takes_tc(s, dtype) && scale > 0.f)
+    return (int)(D == 64 ? launch_fwd_wgmma<64>(q, k, v, o, lse_f, s, st)
+                         : launch_fwd_wgmma<128>(q, k, v, o, lse_f, s, st));
 #define FWD(TT, NJ) launch_fwd<TT, NJ>(q, k, v, o, lse_f, s, st)
   DS_DISPATCH(FWD);
 #undef FWD

@@ -27,13 +27,18 @@
 // chunk with G = 4 has 1024 query rows per (sequence, KV head) and is bound by
 // arithmetic.
 //
-// What this design does about it. Two __global__ functions; the Python
-// wrapper picks one from the shapes (ops/paged_attention.py::paged_route):
+// What this design does about it. Three routes; the Python wrapper picks
+// one from the shapes (ops/paged_attention.py::paged_route):
+// - paged_decode_split_kernel, then paged_decode_combine_kernel, for bf16
+//   q at D = 64 or 128 with at most 16 query rows a (sequence, KV head)
+//   (decode, any pool type): a split-KV walk, each (sequence, KV head)'s
+//   live span cut into 256-position pieces, one block each, merged by a
+//   second kernel in a fixed order; described in its section below.
 // - paged_prefill_tc_kernel, for bf16 q at D = 64 or 128 with more than 16
 //   query rows a (sequence, KV head): prefill chunks on the tensor cores,
 //   described in its section below.
-// - paged_attention_kernel, for decode (G * C <= 16), fp32 and other D, on
-//   the CUDA cores (a split-KV decode walk is later work), as follows.
+// - paged_attention_kernel, for fp32 and other D, on the CUDA cores, as
+//   follows.
 // - The Pallas grid (N, KH, MB) runs its table dimension in order on one
 //   core and carries the softmax state in VMEM scratch. Blocks on Hopper run
 //   in no order, so the table walk is a loop inside the block, and the grid
@@ -60,6 +65,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -653,7 +661,409 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_pool, const void* v_p
   return cudaGetLastError();
 }
 
+
+// ---- split-KV decode route (bf16 q, D = 64 or 128, G * C <= 16)
+//
+// Decode reads each live K/V byte once for at most 16 query rows a
+// (sequence, KV head), so the card's memory rate bounds it, and reaching
+// that rate needs bytes in flight on every SM. A (sequence, KV head)'s live
+// span [lo, hi) (the window's first position to the context's end, as
+// paged_attention_kernel walks it) is cut at multiples of kSplitPiece = 256
+// positions, a multiple of every served block size (16 for serving, 128
+// for v1), and each piece is one block: grid (N, KH, n_split), n_split the
+// most pieces any span of these shapes can cover (decode_splits; the
+// wrapper sizes the scratch with it through paged_decode_splits). A piece with no live position writes a
+// neutral partial (m = -inf, l = 0) and returns.
+//
+// Inside a block the 4 warps share the piece: warp w owns its positions
+// [64 w, 64 w + 64), two tiles of 32, one position a lane. A warp issues
+// both tiles' K and V rows at once, as raw pool bytes (bf16, int8 or fp8
+// codes) in 16-byte cp.async copies gathered through the block table
+// (negative entries read block 0; dead positions are zero-filled), into a
+// region of shared memory of its own: nothing is converted or staged in
+// fp32, and no barrier of the block is crossed while they land. The
+// group's G * C query rows are staged once as fp32 pre-scaled by sm_scale
+// and read as broadcasts (every lane reads the same q value at once). Lane
+// j scores position j against all the rows with 16-byte reads of its K
+// row; then the online softmax of paged_attention_kernel (fp32 max and sum
+// by warp shuffles) and p V with each lane owning D / 32 adjacent output
+// columns, p_j and V's block scale broadcast from lane j. Quantized codes
+// become code * block scale in fp32 before each product, as in
+// paged_attention_kernel; all arithmetic is fp32. The four warps' (m, l,
+// acc) are merged in shared memory in warp order, and the block writes its
+// partial to fp32 scratch [N, KH, n_split, R] (m, l) and [.., R, D] (acc).
+// paged_decode_combine_kernel then merges the pieces of each (sequence, KV
+// head) in piece order and writes the rows: the same inputs give the same
+// bits on every run. Rows past n_tokens, and rows that attend nothing, have
+// l = 0 in every piece and are written as zeros.
+
+constexpr int kSplitPiece = 256;                                  // positions a block
+constexpr int kSplitTile = 32;                                    // positions a warp tile
+constexpr int kSplitWarpTiles = kSplitPiece / (kWarps * kSplitTile);  // tiles a warp: 2
+
+// The most pieces a live span can cover: spans lie inside the table's MB *
+// bs positions, and with a window they hold at most window + C - 1
+// positions, wherever they start.
+long long decode_splits(int MB, int bs, int C, int window) {
+  const long long all = (long long)MB * bs;
+  const long long n_all = (all + kSplitPiece - 1) / kSplitPiece;
+  if (window <= 0) return n_all;
+  const long long span = std::min(all, (long long)window + C - 1);
+  return std::min(n_all, (span + kSplitPiece - 2) / kSplitPiece + 1);
+}
+
+template <typename P, int HD, int RT>
+struct SplitLayout {
+  static constexpr int ROW = HD * (int)sizeof(P) + 16;  // bytes a staged row: 16-byte
+                                                        // reads of 8 lanes in 8 rows
+                                                        // fall in distinct banks
+  static constexpr int TILE = kSplitTile * ROW;         // bytes of a K (or V) tile
+  static constexpr size_t kStage = (size_t)kWarps * kSplitWarpTiles * 2 * TILE;
+  static constexpr size_t kMerge = (size_t)kWarps * RT * (HD + 2) * sizeof(float);
+  static constexpr size_t kBytes =
+      (size_t)RT * HD * sizeof(float) + (kStage > kMerge ? kStage : kMerge);
+};
+
+// 16 staged bytes (8 bf16 or 16 codes) to fp32
+__device__ __forceinline__ void chunk_f32(const __nv_bfloat16*, uint4 raw, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+template <typename P>
+__device__ __forceinline__ void chunk_f32(const P*, uint4 raw, float* f) {
+  const P* b = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+
+// DCH adjacent values of a staged row to fp32, in one 2-, 4- or 8-byte read
+template <int DCH, typename P>
+__device__ __forceinline__ void cols_f32(const P* p, float* f) {
+  constexpr int kBytes = DCH * (int)sizeof(P);
+  using W = typename std::conditional<
+      kBytes == 8, uint2, typename std::conditional<kBytes == 4, uint32_t, uint16_t>::type>::type;
+  const W raw = *reinterpret_cast<const W*>(p);
+  const P* b = reinterpret_cast<const P*>(&raw);
+#pragma unroll
+  for (int c = 0; c < DCH; ++c) f[c] = to_f32(b[c]);
+}
+
+// grid (N, KH, n_split); 128 threads; SplitLayout<P, HD, RT>::kBytes of
+// dynamic shared memory. part_ml [N, KH, n_split, R, 2] (m, l) and part_acc
+// [N, KH, n_split, R, HD], R = G * C <= RT.
+template <typename P, int HD, int RT>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ k_pool,
+                          const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale, const int* __restrict__ tables,
+                          const int* __restrict__ start_pos, const int* __restrict__ n_tokens,
+                          const float* __restrict__ slopes, float* __restrict__ part_ml,
+                          float* __restrict__ part_acc, int C, int H, int NB, int KH, int bs,
+                          int MB, int window, float sm_scale) {
+  using L = SplitLayout<P, HD, RT>;
+  constexpr bool kQuant = sizeof(P) == 1;
+  constexpr int EPC = 16 / (int)sizeof(P);    // values in 16 bytes
+  constexpr int CPR = HD / EPC;               // 16-byte chunks a row
+  constexpr int DCH = HD / 32;                // output columns a lane
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [RT][HD]
+  uint8_t* stage = reinterpret_cast<uint8_t*>(q_s + RT * HD);
+  const int n = blockIdx.x, kh = blockIdx.y, j = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int G = H / KH, R = G * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int startp = start_pos[n], ntok = n_tokens[n];
+  const int* tbl = tables + (size_t)n * MB;
+  const size_t piece = ((size_t)n * KH + kh) * n_split + j;
+
+  // the group's live span, as paged_attention_kernel's: rows r = g * C + ci
+  // with ci < n_tokens; then this piece's share of it
+  const int ci_max = min(C, ntok) - 1;
+  const int hi = ci_max < 0 ? 0 : min(min(startp + ntok, MB * bs), startp + ci_max + 1);
+  const int lo = ci_max < 0 ? 0 : window > 0 ? max(0, startp - window + 1) : 0;
+  const int p0 = (lo / kSplitPiece) * kSplitPiece + j * kSplitPiece;
+  const int p_lo = max(p0, lo), p_hi = min(p0 + kSplitPiece, hi);
+  if (p_lo >= p_hi) {  // nothing live here: a neutral partial
+    for (int r = tid; r < R; r += kThreads) {
+      part_ml[(piece * R + r) * 2] = -INFINITY;
+      part_ml[(piece * R + r) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+
+  // this warp's tiles: K and V rows of positions w0 + 32 t + row
+  const int w0 = p0 + warp * kSplitWarpTiles * kSplitTile;
+  uint8_t* kst = stage + (size_t)warp * kSplitWarpTiles * 2 * L::TILE;  // [t][K, V][32][ROW]
+  const uint32_t kst_s = (uint32_t)__cvta_generic_to_shared(kst);
+#pragma unroll
+  for (int t = 0; t < kSplitWarpTiles; ++t) {
+    const int t0 = w0 + t * kSplitTile;
+#pragma unroll
+    for (int k = 0; k < CPR; ++k) {
+      const int i = lane + 32 * k, row = i / CPR, c = i - row * CPR;
+      const int p = t0 + row;
+      const bool live = p >= p_lo && p < p_hi;
+      const int b = p / bs;
+      const int blk = live ? min(max(tbl[b], 0), NB - 1) : 0;
+      const size_t off = (((size_t)blk * KH + kh) * bs + (p - b * bs)) * HD + c * EPC;
+      const uint32_t d = kst_s + (uint32_t)((2 * t) * L::TILE + row * L::ROW + c * 16);
+      cp_async16(d, live ? k_pool + off : k_pool, live ? 16 : 0);
+      cp_async16(d + L::TILE, live ? v_pool + off : v_pool, live ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // the rows, pre-scaled, as fp32; rows past R are zero
+  for (int i = tid; i < RT * (HD / 8); i += kThreads) {
+    const int r = i / (HD / 8), d = (i - r * (HD / 8)) * 8;
+    float vals[8];
+    if (r < R) {
+      const int g = r / C, ci = r - g * C;
+      load8(q + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d, vals);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vals[e] *= sm_scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vals[e] = 0.f;
+    }
+    *reinterpret_cast<float4*>(q_s + r * HD + d) = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    *reinterpret_cast<float4*>(q_s + r * HD + d + 4) =
+        make_float4(vals[4], vals[5], vals[6], vals[7]);
+  }
+  __syncthreads();  // q staged
+
+  float m[RT], l[RT], slope[RT], acc[RT][DCH];
+  int qpos[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int g = r / C, ci = r - g * C;
+    // -1: no such row, or a row past n_tokens
+    qpos[r] = r < R && ci < ntok ? startp + ci : -1;
+    slope[r] = (slopes != nullptr && r < R) ? slopes[kh * G + g] : 0.f;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int t = 0; t < kSplitWarpTiles; ++t) {
+    if (t == 0)
+      cp_async_wait<kSplitWarpTiles - 1>();
+    else
+      cp_async_wait<0>();
+    __syncwarp();  // every lane's copies of tile t have landed
+    const int t0 = w0 + t * kSplitTile;
+    if (t0 >= p_hi || t0 + kSplitTile <= p_lo) continue;  // warp-uniform: nothing live
+    const int pos = t0 + lane;
+    const bool pos_live = pos >= p_lo && pos < p_hi;
+    float ks = 1.f, vs = 1.f;  // this lane's position's block scales
+    if (kQuant && pos_live) {
+      const int blk = min(max(tbl[pos / bs], 0), NB - 1);
+      ks = k_scale[(size_t)blk * KH + kh];
+      vs = v_scale[(size_t)blk * KH + kh];
+    }
+
+    // scores: lane j against position t0 + j, for every row
+    float sc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) sc[r] = 0.f;
+    const uint8_t* krow = kst + (2 * t) * L::TILE + lane * L::ROW;
+#pragma unroll 2
+    for (int c = 0; c < CPR; ++c) {
+      float kf[EPC];
+      chunk_f32(static_cast<const P*>(nullptr), *reinterpret_cast<const uint4*>(krow + c * 16),
+                kf);
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) kf[e] *= ks;
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int e = 0; e < EPC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + r * HD + c * EPC + e);
+          sc[r] = fmaf(qv.x, kf[e], sc[r]);
+          sc[r] = fmaf(qv.y, kf[e + 1], sc[r]);
+          sc[r] = fmaf(qv.z, kf[e + 2], sc[r]);
+          sc[r] = fmaf(qv.w, kf[e + 3], sc[r]);
+        }
+      }
+    }
+
+    // online softmax update (fp32), one row at a time
+    float p[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const float s = sc[r] + slope[r] * (float)pos;
+      const bool keep = pos_live && pos <= qpos[r] && (window <= 0 || qpos[r] - pos < window);
+      const float mt = warp_max(keep ? s : -INFINITY);
+      p[r] = 0.f;
+      if (mt == -INFINITY) continue;  // warp-uniform: nothing live for this row
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);  // 0 on the row's first live tile
+      p[r] = keep ? expf(s - m_new) : 0.f;
+      l[r] = l[r] * alpha + warp_sum(p[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) acc[r][c] *= alpha;
+    }
+
+    // acc += p V: p_j and V's scale come from lane j; a lane owns DCH
+    // adjacent columns
+    const P* vt = reinterpret_cast<const P*>(kst + (2 * t + 1) * L::TILE) + lane * DCH;
+    const int jn = min(kSplitTile, p_hi - t0);
+    for (int jj = 0; jj < jn; ++jj) {
+      float vv[DCH];
+      cols_f32<DCH>(reinterpret_cast<const P*>(reinterpret_cast<const uint8_t*>(vt) + jj * L::ROW),
+                    vv);
+      if (kQuant) {
+        const float vj = __shfl_sync(0xffffffffu, vs, jj);
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) vv[c] *= vj;
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], jj);
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      }
+    }
+  }
+
+  // merge the warps' (m, l, acc) in warp order: the staged tiles are free
+  // once every warp is past its last product
+  __syncthreads();
+  float* wml = reinterpret_cast<float*>(stage);  // [kWarps][RT][2]
+  float* wacc = wml + kWarps * RT * 2;           // [kWarps][RT][HD]
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (lane == 0) {
+      wml[(warp * RT + r) * 2] = m[r];
+      wml[(warp * RT + r) * 2 + 1] = l[r];
+    }
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) wacc[(warp * RT + r) * HD + lane * DCH + c] = acc[r][c];
+  }
+  __syncthreads();
+  for (int i = tid; i < R * HD; i += kThreads) {
+    const int r = i / HD, d = i - r * HD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wml[(w * RT + r) * 2]);
+    float ls = 0.f, a = 0.f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = wml[(w * RT + r) * 2];
+        if (mw == -INFINITY) continue;  // this warp saw nothing of the row
+        const float sc = expf(mw - mx);
+        ls += wml[(w * RT + r) * 2 + 1] * sc;
+        a += wacc[(w * RT + r) * HD + d] * sc;
+      }
+    }
+    part_acc[(piece * R + r) * HD + d] = a;
+    if (d == 0) {
+      part_ml[(piece * R + r) * 2] = mx;
+      part_ml[(piece * R + r) * 2 + 1] = ls;
+    }
+  }
+}
+
+// grid (N, KH); 128 threads. Merges the n_split pieces of each row in piece
+// order and writes out [N, C, H, HD] in bf16 (rows past n_tokens: zeros).
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                            __nv_bfloat16* __restrict__ out, int C, int H, int KH, int n_split) {
+  const int n = blockIdx.x, kh = blockIdx.y;
+  const int G = H / KH, R = G * C;
+  const size_t first = ((size_t)n * KH + kh) * n_split;  // piece 0 of this group
+  for (int i = threadIdx.x; i < R * (HD / 4); i += kThreads) {
+    const int r = i / (HD / 4), d = (i - r * (HD / 4)) * 4;
+    float mx = -INFINITY;
+    for (int j = 0; j < n_split; ++j) mx = fmaxf(mx, part_ml[((first + j) * R + r) * 2]);
+    float ls = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+    if (mx != -INFINITY) {
+      for (int j = 0; j < n_split; ++j) {
+        const float mj = part_ml[((first + j) * R + r) * 2];
+        if (mj == -INFINITY) continue;  // a neutral piece: its acc was never written
+        const float sc = expf(mj - mx);
+        ls += part_ml[((first + j) * R + r) * 2 + 1] * sc;
+        const float4 v =
+            *reinterpret_cast<const float4*>(part_acc + ((first + j) * R + r) * HD + d);
+        a[0] += v.x * sc;
+        a[1] += v.y * sc;
+        a[2] += v.z * sc;
+        a[3] += v.w * sc;
+      }
+    }
+    const float den = fmaxf(ls, 1e-30f);
+    const int g = r / C, ci = r - g * C;
+    __nv_bfloat16* dst = out + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d;
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(pack2(a[0] / den, a[1] / den), pack2(a[2] / den, a[3] / den));
+  }
+}
+
+template <typename P, int HD, int RT>
+cudaError_t launch_decode_split(const void* q, const void* k_pool, const void* v_pool,
+                                const float* k_scale, const float* v_scale, const int* tables,
+                                const int* start_pos, const int* n_tokens, const float* slopes,
+                                float* ws, void* out, int N, int C, int H, int NB, int KH, int bs,
+                                int MB, int window, float sm_scale, int n_split,
+                                cudaStream_t stream) {
+  constexpr size_t smem = SplitLayout<P, HD, RT>::kBytes;
+  auto kernel = paged_decode_split_kernel<P, HD, RT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int R = (H / KH) * C;
+  float* part_ml = ws;
+  float* part_acc = ws + (size_t)N * KH * n_split * R * 2;
+  kernel<<<dim3(N, KH, n_split), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables, start_pos, n_tokens, slopes,
+      part_ml, part_acc, C, H, NB, KH, bs, MB, window, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_decode_combine_kernel<HD><<<dim3(N, KH), kThreads, 0, stream>>>(
+      part_ml, part_acc, static_cast<__nv_bfloat16*>(out), C, H, KH, n_split);
+  return cudaGetLastError();
+}
+
+template <typename P, int HD>
+cudaError_t launch_decode_split_r(int R, const void* q, const void* k_pool, const void* v_pool,
+                                  const float* k_scale, const float* v_scale, const int* tables,
+                                  const int* start_pos, const int* n_tokens, const float* slopes,
+                                  float* ws, void* out, int N, int C, int H, int NB, int KH,
+                                  int bs, int MB, int window, float sm_scale, int n_split,
+                                  cudaStream_t stream) {
+  if (R <= 4)
+    return launch_decode_split<P, HD, 4>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                         start_pos, n_tokens, slopes, ws, out, N, C, H, NB,
+                                         KH, bs, MB, window, sm_scale, n_split, stream);
+  return launch_decode_split<P, HD, 16>(q, k_pool, v_pool, k_scale, v_scale, tables, start_pos,
+                                        n_tokens, slopes, ws, out, N, C, H, NB, KH, bs, MB,
+                                        window, sm_scale, n_split, stream);
+}
+
 }  // namespace
+
+// The pieces route 3 cuts each (sequence, KV head)'s live span into (its
+// grid's third extent); the wrapper sizes route 3's scratch with it.
+extern "C" long long paged_decode_splits(int MB, int bs, int C, int window) {
+  return decode_splits(MB, bs, C, window);
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it).
 // pool_dtype: 0 = q's dtype; 2 = int8, 3 = float8_e4m3fn, each with the
@@ -662,23 +1072,52 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_pool, const void* v_p
 //   0 paged_attention_kernel, 1 query row a warp (decode: G * C <= 16)
 //   1 paged_attention_kernel, 8 query rows a warp
 //   2 paged_prefill_tc_kernel (bf16 q, D = 64 or 128)
+//   3 paged_decode_split_kernel + paged_decode_combine_kernel (bf16 q,
+//     D = 64 or 128, G * C <= 16): ws is fp32 scratch of N * KH * n_split
+//     * G * C * (D + 2) values, n_split = paged_decode_splits(MB, bs, C,
+//     window) (null for the other routes)
 // slopes: [H] float32 ALiBi slopes, or null. Returns a cudaError_t.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* v_pool, const void* k_scale,
                                    const void* v_scale, const void* tables,
                                    const void* start_pos, const void* n_tokens,
-                                   const void* slopes, void* out, int N, int C,
-                                   int H, int D, int NB, int KH, int bs,
+                                   const void* slopes, void* out, void* ws, int N,
+                                   int C, int H, int D, int NB, int KH, int bs,
                                    int MB, int window, float sm_scale,
                                    int dtype, int pool_dtype, int route,
                                    void* stream) {
   const bool quant = pool_dtype == 2 || pool_dtype == 3;
+  const bool tc_shape = dtype == 1 && (D == 64 || D == 128);
   if (N <= 0 || C <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || D <= 0 ||
       D % 8 != 0 || D > 256 || NB <= 0 || bs <= 0 || MB <= 0 ||
-      route < 0 || route > 2 || (route == 2 && (dtype != 1 || (D != 64 && D != 128))) ||
+      route < 0 || route > 3 || (route >= 2 && !tc_shape) ||
       (dtype != 0 && dtype != 1) || (pool_dtype != 0 && !quant) ||
       (quant != (k_scale != nullptr && v_scale != nullptr)))
     return cudaErrorInvalidValue;
+  if (route == 3) {
+    const int R = (H / KH) * C;
+    const long long n_split = decode_splits(MB, bs, C, window);
+    if (R > 16 || ws == nullptr || n_split > 65535) return cudaErrorInvalidValue;
+#define DS_SPLIT(P, HD)                                                                      \
+  return launch_decode_split_r<P, HD>(R, q, k_pool, v_pool, static_cast<const float*>(k_scale), \
+                                      static_cast<const float*>(v_scale),                      \
+                                      static_cast<const int*>(tables),                         \
+                                      static_cast<const int*>(start_pos),                      \
+                                      static_cast<const int*>(n_tokens),                       \
+                                      static_cast<const float*>(slopes),                       \
+                                      static_cast<float*>(ws), out, N, C, H, NB, KH, bs, MB,   \
+                                      window, sm_scale, n_split,                               \
+                                      static_cast<cudaStream_t>(stream))
+    if (D == 64) {
+      if (pool_dtype == 2) DS_SPLIT(int8_t, 64);
+      if (pool_dtype == 3) DS_SPLIT(__nv_fp8_e4m3, 64);
+      DS_SPLIT(__nv_bfloat16, 64);
+    }
+    if (pool_dtype == 2) DS_SPLIT(int8_t, 128);
+    if (pool_dtype == 3) DS_SPLIT(__nv_fp8_e4m3, 128);
+    DS_SPLIT(__nv_bfloat16, 128);
+#undef DS_SPLIT
+  }
   const int dch = (D + 31) / 32;
   const int* tb = static_cast<const int*>(tables);
   const int* sp = static_cast<const int*>(start_pos);

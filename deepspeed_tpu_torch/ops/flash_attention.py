@@ -22,10 +22,11 @@ Counterpart of ``deepspeed_tpu/ops/flash_attention.py``:
   the card, for comparisons only.
 
 Two sets of kernels: bf16 with D = 64 or 128 runs every product on the tensor
-cores (``mma.sync``, fp32 accumulation, p and ds rounded to bf16 for the
-second product as the plain forward rounds p; ``sm_scale`` multiplies the
-fp32 logits); fp32, fp16 (the engine's ``fp16.enabled``), and bf16 at any
-other D, run in fp32 on the CUDA cores
+cores (the forward on ``wgmma``, dq and dkv on ``mma.sync``; fp32
+accumulation, p and ds rounded to bf16 for the second product as the plain
+forward rounds p; ``sm_scale`` multiplies the fp32 logits; a forward with
+``sm_scale <= 0`` takes the CUDA-core kernel); fp32, fp16 (the engine's
+``fp16.enabled``), and bf16 at any other D, run in fp32 on the CUDA cores
 (there the forward folds ``sm_scale`` into q before the product and the
 backward scales the logits after it, as the Pallas kernels do; in fp32 the
 two differ by rounding only). The kernels index [B, T, H, D]

@@ -16,13 +16,15 @@ Counterpart of ``deepspeed_tpu/ops/paged_attention.py``:
   ``csrc/paged_attention.cu`` (the counterpart of the Pallas
   ``_paged_kernel``, both its bf16/fp32 and its int8/fp8 branch) or raises.
   There is no fallback between them. ``paged_route`` picks the kernel's
-  ``__global__`` function from the shapes (decode and fp32 on the CUDA
-  cores, bf16 prefill chunks on the tensor cores).
+  ``__global__`` function from the shapes (bf16 decode as a split-KV walk
+  with a combine kernel, bf16 prefill chunks on the tensor cores, fp32 and
+  other head sizes on the CUDA cores).
   ``force_reference`` (keyword, or the module hook ``FORCE_REFERENCE``)
   pins the plain version on the card, for comparisons only.
 
-``launches`` counts the kernel's launches (a plain integer; set it to 0
-before a run and read it after).
+``launches`` counts the wrapper's kernel calls (a plain integer; set it to
+0 before a run and read it after): one a call, whichever route it takes
+(the split-KV route launches two kernels in that call).
 """
 
 from __future__ import annotations
@@ -122,22 +124,22 @@ _POOL_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}
 # the __global__ function (and its query rows a warp) each one launches.
 PAGED_ROUTES = ("paged_attention_kernel<1 row a warp>",
                 "paged_attention_kernel<8 rows a warp>",
-                "paged_prefill_tc_kernel")
+                "paged_prefill_tc_kernel",
+                "paged_decode_split_kernel")
 
 
 def paged_route(C: int, H: int, KH: int, D: int, q_dtype) -> int:
     """The route (an index into ``PAGED_ROUTES``) that a call takes, from
     its shapes alone. A (sequence, KV head) group of G·C <= 16 query rows
-    (decode) takes the CUDA-core kernel with one row a warp, so that every
-    warp of a block gets a row; a larger group in bf16 at D = 64 or 128
-    (prefill chunks at the served widths; any pool type) the tensor-core
-    kernel; anything else (fp32, other D) the CUDA-core kernel with 8 rows a
-    warp."""
-    if (H // KH) * C <= 16:
-        return 0
+    (decode) in bf16 at D = 64 or 128 (the served widths; any pool type)
+    takes the split-KV kernel, a larger group the tensor-core prefill
+    kernel. fp32 and other D take the CUDA-core kernel: one row a warp for
+    a decode group, so that every warp of a block gets a row, 8 rows a warp
+    otherwise."""
+    decode = (H // KH) * C <= 16
     if q_dtype == torch.bfloat16 and D in (64, 128):
-        return 2
-    return 1
+        return 3 if decode else 2
+    return 0 if decode else 1
 
 
 def _bind():
@@ -146,10 +148,12 @@ def _bind():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.paged_decode_splits.argtypes = [ctypes.c_int] * 4
+        lib.paged_decode_splits.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -222,13 +226,22 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
     from ._build import check
 
     route = paged_route(C, H, KH, D, q.dtype)
+    window = int(window or 0)
+    ws = None
+    if route == 3:
+        # the pieces' partials, (m, l) and acc [N, KH, n_split, G·C, D] in
+        # fp32; the kernel's source decides the split count
+        n_split = lib.paged_decode_splits(MB, bs, C, window)
+        ws = torch.empty(N * KH * n_split * (H // KH) * C * (D + 2),
+                         dtype=torch.float32, device=dev)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
              block_tables.data_ptr(), start_pos.data_ptr(),
              n_tokens.data_ptr(),
              slopes.data_ptr() if slopes is not None else None,
-             out.data_ptr(), N, C, H, D, NB, KH, bs, MB, int(window or 0),
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             N, C, H, D, NB, KH, bs, MB, window,
              sm_scale, _DTYPE_CODE[q.dtype],
              _POOL_CODE[k_pool.dtype] if quant else 0, route,
              torch.cuda.current_stream(dev).cuda_stream)

@@ -172,20 +172,69 @@ def test_mixed_put_matches_xla(window):
 
 
 @pytest.mark.parametrize("C,H,KH,D,dtype,route", [
-    (1, 32, 8, 128, torch.bfloat16, 0),      # decode, G = 4
-    (4, 32, 8, 128, torch.bfloat16, 0),      # G * C = 16
+    (1, 32, 8, 128, torch.bfloat16, 3),      # decode, G = 4
+    (4, 32, 8, 128, torch.bfloat16, 3),      # G * C = 16
     (5, 32, 8, 128, torch.bfloat16, 2),      # G * C = 20
     (256, 32, 8, 128, torch.bfloat16, 2),    # a prefill chunk
     (64, 8, 8, 64, torch.bfloat16, 2),       # D = 64, G = 1
     (64, 8, 8, 80, torch.bfloat16, 1),       # other D
     (64, 32, 8, 128, torch.float32, 1),      # fp32
     (1, 8, 8, 256, torch.float32, 0),
+    (1, 8, 8, 64, torch.bfloat16, 3),        # decode at D = 64, G = 1
+    (2, 16, 2, 64, torch.bfloat16, 3),       # G * C = 16 at D = 64
+    (1, 32, 2, 128, torch.bfloat16, 3),      # G = 16
+    (1, 64, 2, 128, torch.bfloat16, 2),      # G = 32: G * C > 16
+    (3, 32, 8, 128, torch.bfloat16, 3),      # G * C = 12
+    (1, 32, 8, 96, torch.bfloat16, 0),       # other D keeps the CUDA cores
+    (1, 32, 8, 128, torch.float32, 0),       # fp32 decode
+    (4, 32, 8, 64, torch.float32, 0),        # fp32, G * C = 16
+    (64, 32, 8, 64, torch.float32, 1),       # fp32 prefill
+    (17, 8, 8, 128, torch.bfloat16, 2),      # bf16, G * C = 17
 ])
 def test_route_choice(C, H, KH, D, dtype, route):
-    """Which __global__ function a call takes is a function of its shapes:
-    decode groups (G * C <= 16) the CUDA-core kernel a row a warp, bf16
-    prefill at D = 64 or 128 the tensor-core kernel, the rest the CUDA-core
-    kernel with 8 rows a warp."""
+    """Which __global__ function a call takes is a function of its shapes
+    (the pool type does not enter): bf16 decode groups (G * C <= 16) at D =
+    64 or 128 the split-KV kernel, bf16 prefill at D = 64 or 128 the
+    tensor-core kernel, fp32 and other D the CUDA-core kernel (one row a
+    warp for decode groups, 8 rows a warp otherwise)."""
     assert tpa.paged_route(C, H, KH, D, dtype) == route
     assert tpa.PAGED_ROUTES[route].startswith(
-        ("paged_attention_kernel", "paged_prefill_tc_kernel")[route == 2])
+        ("paged_attention_kernel", "paged_attention_kernel",
+         "paged_prefill_tc_kernel", "paged_decode_split_kernel")[route])
+
+
+SPLIT_EDGE_CASES = [
+    # H, KH, C, bs, ctx lens, padded rows, alibi, window
+    pytest.param(8, 2, 1, 16, [255, 257, 777, 1000], 1, False, 0,
+                 id="spans-not-a-multiple-of-the-piece"),
+    pytest.param(8, 2, 1, 16, [50, 257, 1000], 0, False, 100,
+                 id="window-shorter-than-a-piece"),
+    pytest.param(8, 2, 1, 16, [1, 300, 600], 1, False, 1,
+                 id="window-1-one-live-position"),
+    pytest.param(8, 2, 1, 128, [129, 900, 1100], 3, False, 512,
+                 id="bs128-padded-rows-window"),
+    pytest.param(8, 2, 4, 16, [4, 60, 700], 1, False, 300,
+                 id="16-rows-C4-G4-window"),
+    pytest.param(16, 2, 2, 16, [2, 90, 600], 1, True, 0,
+                 id="16-rows-C2-G8-alibi"),
+]
+
+
+@pytest.mark.parametrize("H,KH,C,bs,ctx_lens,n_pad,alibi,window",
+                         SPLIT_EDGE_CASES)
+def test_split_route_edge_shapes_match_xla(H, KH, C, bs, ctx_lens, n_pad,
+                                           alibi, window):
+    """The plain version that the card holds the split-KV route against, at
+    that route's edge shapes (the same kinds of spans as the card's cases,
+    narrower): live spans not a multiple of the 256-position piece, windows
+    shorter than a piece and of one position, bs = 128 tables with padded
+    rows, and 16-row groups. Valid rows match ``paged_attention_xla`` (rows
+    past n_tokens are unspecified here and not compared)."""
+    MB = max(-(-c // bs) for c in ctx_lens) + 1
+    arrs = _case(5 + len(ctx_lens), len(ctx_lens), C, H, KH, 16, bs, MB,
+                 ctx_lens, n_pad)
+    ref, out, ntok = _both(arrs, alibi=alibi, window=window)
+    for i in range(len(ntok)):
+        v = int(ntok[i])
+        np.testing.assert_allclose(out[i, :v], ref[i, :v], atol=ATOL,
+                                   rtol=RTOL)
