@@ -33,9 +33,13 @@ Phases, each of which raises on failure (nothing is caught):
              the wrapper taken, the __global__ function logged); the flash
              attention forward, delta, dq and dkv kernels (bf16, fp32 and
              fp16; MHA, GQA, MQA; D = 64, 80, 128, 256; causal with T = S
-             and T < S, non-causal, windows, tails, sm_scale; the train
-             phase's own shape, T = S = 8192 with window 4096, and the v1
-             prefill's; the forward bit-identical over two runs) and the
+             and T < S, non-causal, windows, tails, sm_scale, the edges of
+             the wgmma kernels' 128-row blocks and 64-row tiles; the train
+             phase's own shape, T = S = 8192 with window 4096, the timing
+             shape B = 4, T = S = 2048, and the v1 prefill's; the forward,
+             dq and dkv each bit-identical over two runs; every case's
+             route logged, every bf16 D = 64/128 case on the wgmma
+             kernels and every other on the CUDA-core kernels) and the
              autograd Function built on them.
 4. timing  — each kernel at its path's shapes beside its bound, its plain
              version and, where there is one, one PyTorch library call
@@ -161,7 +165,7 @@ def phase_device():
 # ----------------------------------------------------------------- build
 
 # kernels whose registers and spills the build log reports one by one
-REPORTED_KERNELS = r"decode_split|decode_combine|fwd_wgmma"
+REPORTED_KERNELS = r"decode_split|decode_combine|fwd_wgmma|dq_wgmma|dkv_wgmma"
 
 
 def phase_build():
@@ -675,6 +679,19 @@ FLASH_CASES = [
     ("GQA 8/2 D=128 T=S=129 sm_scale=1", 2, 129, 129, 8, 2, 128, True, 0,
      1.0),
     ("MHA 4/4 D=256 causal", 1, 200, 200, 4, 4, 256, True, 0, None),
+    # the edges of the wgmma kernels' 128-row blocks and 64-row tiles: a
+    # sequence one short of and one past two blocks with a window across
+    # them, T < S with a window across a block of KV rows, dkv's group loop
+    # over a single KV head at D = 64, and the timing phase's shape
+    ("GQA 8/2 D=128 T=S=255 window 129", 1, 255, 255, 8, 2, 128, True, 129,
+     None),
+    ("GQA 8/2 D=128 T=S=257 window 129", 1, 257, 257, 8, 2, 128, True, 129,
+     None),
+    ("GQA 8/2 D=128 window 150 T<S", 1, 200, 450, 8, 2, 128, True, 150,
+     None),
+    ("MQA 8/1 D=64 causal", 1, 300, 300, 8, 1, 64, True, 0, None),
+    ("timing shape B=4 T=S=2048 H=32 KH=8 D=128 causal", 4, 2048, 2048, 32,
+     8, 128, True, 0, None),
 ]
 # What every layer of the train phase gives the kernels, in bf16: T =
 # TRAIN_SEQ - 1; 128 tiles of 64 rows a head, of which the window leaves
@@ -723,12 +740,13 @@ def kv_head_part(t, kh, KH):
 
 def flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
                         backward=True):
-    """Launch the forward, delta, dq and dkv kernels once on these inputs and
+    """Launch the forward, delta, dq and dkv kernels on these inputs and
     hold o, lse, delta, dq, dk and dv to the plain versions (the backward
     ones fed the forward kernel's o and lse), one KV head's group of query
     heads at a time so that the plain versions' dense fp32 [G, T, S]
-    intermediates fit at any shape the card trains on. ``backward`` False:
-    the forward alone. Returns {kernel: (max |diff|, worst share of the
+    intermediates fit at any shape the card trains on. The forward, dq and
+    dkv run twice and must give the same bits. ``backward`` False: the
+    forward alone. Returns {kernel: (max |diff|, worst share of the
     limit)}."""
     dtype, KH = q.dtype, k.shape[2]
     args = (causal, window, sm_scale)
@@ -743,6 +761,13 @@ def flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
         delta = fa.flash_delta_cuda(o, do)
         dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, *args)
         dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, *args)
+        dq2 = fa.flash_dq_cuda(q, k, v, do, lse, delta, *args)
+        dk2, dv2 = fa.flash_dkv_cuda(q, k, v, do, lse, delta, *args)
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"[kernel] flash {name}: two runs of dq "
+                                 "or dkv on the same inputs differ")
+        del dq2, dk2, dv2
         worst.update(dq=(0.0, 0.0), dkv=(0.0, 0.0))
 
     def hold(key, what, got, ref):
@@ -770,7 +795,13 @@ def flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
 
 
 def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
-                gen, backward=True):
+                gen, backward=True, routes=None):
+    """One case against the plain versions; its route (``fa.flash_route``,
+    the kernels the C entries launched) is logged and, given ``routes``,
+    recorded there under (name, dtype)."""
+    route = fa.flash_route(dtype, D, sm_scale)
+    if routes is not None:
+        routes[(name, dtype)] = route
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(dtype)
     q, k, v, do = mk(B, T, H, D), mk(B, S, KH, D), mk(B, S, KH, D), \
@@ -781,8 +812,8 @@ def check_flash(name, B, T, S, H, KH, D, causal, window, sm_scale, dtype,
         do = (do.float() / (sm_scale * math.sqrt(D))).to(dtype)
     worst = flash_against_plain(name, q, k, v, do, causal, window, sm_scale,
                                 backward)
-    log(f"[kernel] flash {name} {str(dtype).split('.')[-1]}: ok, max "
-        f"|kernel - plain| (share of the limit) " + ", ".join(
+    log(f"[kernel] flash {name} {str(dtype).split('.')[-1]} ({route}): ok, "
+        f"max |kernel - plain| (share of the limit) " + ", ".join(
             f"{key} {e:.3g} ({sh:.2f})" for key, (e, sh) in worst.items()))
     return worst
 
@@ -820,14 +851,32 @@ def phase_kernel_flash():
     shape, and the v1 prefill's for the forward."""
     gen = torch.Generator("cuda").manual_seed(13)
     n0 = dict(fa.launches)
+    routes = {}
     for case in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            check_flash(*case, dtype, gen)
+            check_flash(*case, dtype, gen, routes=routes)
         if case in FLASH_CASES[1::3]:
-            check_flash(*case, torch.float16, gen)
-    worst = check_flash(*FLASH_TRAIN_CASE, torch.bfloat16, gen)
+            check_flash(*case, torch.float16, gen, routes=routes)
+    worst = check_flash(*FLASH_TRAIN_CASE, torch.bfloat16, gen,
+                        routes=routes)
     max_err = {key: e for key, (e, _) in worst.items()}
-    v1 = check_flash(*FLASH_V1_CASE, torch.bfloat16, gen, backward=False)
+    v1 = check_flash(*FLASH_V1_CASE, torch.bfloat16, gen, backward=False,
+                     routes=routes)
+    # bf16 at D = 64/128 (every case's scale is positive) on the wgmma
+    # kernels, fp32, fp16 and other D on the CUDA-core kernels
+    cases = {c[0]: c for c in FLASH_CASES + [FLASH_TRAIN_CASE, FLASH_V1_CASE]}
+    for (name, dtype), route in routes.items():
+        want = "wgmma" if dtype == torch.bfloat16 \
+            and cases[name][6] in (64, 128) else "cuda_core"
+        if route != want:
+            raise AssertionError(f"[kernel] flash {name} {dtype}: took "
+                                 f"{route}, not {want}")
+    if set(routes.values()) != set(fa.FLASH_ROUTES):
+        raise AssertionError(f"[kernel] flash cases took routes "
+                             f"{sorted(set(routes.values()))}, not all of "
+                             f"{fa.FLASH_ROUTES}")
+    log(f"[kernel] flash: {len(routes)} cases, each on its route "
+        f"(wgmma for bf16 at D = 64/128, cuda_core for the rest)")
     max_err["fwd"] = max(max_err["fwd"], v1["fwd"][0])
     for case in (FLASH_CASES[1], FLASH_CASES[4], FLASH_CASES[5],
                  FLASH_CASES[7], FLASH_CASES[12]):

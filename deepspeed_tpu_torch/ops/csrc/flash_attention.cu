@@ -34,11 +34,13 @@
 //
 // What bounds it on an H100: operations. Per attended pair the forward does
 // 4 D flops, dq 6 D and dkv 8 D against a few bytes of q, k, v per pair
-// after tiling. Two sets of kernels share the structure above:
-// - bf16 with D = 64 or 128 (the training widths) runs every product on the
-//   tensor cores: the forward on wgmma with K/V tiles in flight behind the
-//   products (see "wgmma forward" below), dq and dkv with mma.sync (see
-//   "tensor-core path" below).
+// after tiling. Two sets of kernels share the structure above, one route
+// each (the wrapper's flash_route picks it; the entries refuse a route the
+// call does not meet):
+// - bf16 with D = 64 or 128 and scale > 0 (the training widths) runs every
+//   product on the tensor cores with wgmma, with the next tile in flight
+//   behind the products (see "wgmma kernels" below): flash_fwd_wgmma_kernel,
+//   flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel.
 // - fp32, fp16, and bf16 at any other D, does the products in fp32 on the
 //   CUDA cores (67 TFLOP/s peak against 989 on the bf16 tensor cores), so
 //   that fp32 inputs keep fp32 accuracy: 256 threads as a 16 x 16 grid, each with
@@ -162,6 +164,16 @@ __device__ __forceinline__ bool attends(int row, int col, int offs, int S, int c
   if (col >= S) return false;
   if (causal && col > row + offs) return false;
   if (window > 0 && row + offs - col >= window) return false;
+  return true;
+}
+
+// Does every (row, column) pair of rows [r0, r0 + nr) x columns [c0, c0 +
+// nc) attend?
+__device__ __forceinline__ bool span_is_dense(int r0, int nr, int c0, int nc, int n_rows,
+                                              int offs, int S, int causal, int window) {
+  if (c0 + nc > S || r0 + nr > n_rows) return false;
+  if (causal && c0 + nc - 1 > r0 + offs) return false;
+  if (window > 0 && r0 + nr - 1 + offs - c0 >= window) return false;
   return true;
 }
 
@@ -543,296 +555,124 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, CI, NJ>(dvg, kv_stride, k0, S, D, ty, tx, dv_acc, one);
 }
 
-// ------------------------------------------------------- tensor-core path
-// bf16 with D = 64 or 128 (the widths of the models the port trains): the
-// backward kernels with every product on the tensor cores (mma.sync
-// m16n8k16, bf16 operands, fp32 accumulation); the forward is the wgmma
-// kernel further below. 128 threads; each of the 4
-// warps owns 16 rows of the block's 64-row tile and keeps its logits and
-// its output rows in mma accumulator fragments, so the online softmax is
-// done in registers with two shuffles a row. Tiles are staged in shared
-// memory as bf16 with a row pitch of D + 8, which makes the 4-byte
-// fragment loads and the 16-byte ldmatrix rows free of bank conflicts.
-// The logits' accumulators are repacked in registers as the A operand of
-// the second product (p and ds rounded to bf16 there, as in the plain
-// forward); an operand that is needed with its reduction dimension along
-// rows (v in p v, k in ds k, do and q in the dkv sums) is read with
-// ldmatrix.trans. sm_scale multiplies the fp32 logits after the product.
+// ---- wgmma kernels (bf16, D = 64 or 128: the training and v1 prefill path)
+//
+// Shared by the forward and the backward below: 128 rows a block as two
+// warpgroups of 64 (256 threads); products on wgmma (mma.cuh) with fp32
+// accumulation; tiles of bf16 in shared memory in the 128-byte swizzle,
+// [D / 64][rows][128 B], filled by 16-byte cp.async copies (TileCopy: rows
+// past the end zero-filled) through a ring of 2 stages, so the next tile's
+// copies are in flight while this tile's products and exponentials run;
+// the masks of the CUDA-core kernels (causal with offset S - T, window,
+// tail rows and columns) applied only on tiles that cross an edge, p = 0
+// for masked pairs, and a warpgroup skipping a tile none of its rows
+// attends; logits in base 2 (s * scale * log2 e) through ex2.approx. An
+// operand whose reduction dimension runs along D (K in Q K^T) is read
+// K-major; one whose reduction runs along the tile's rows (V in P V, K in
+// dS K, dO and Q in the dkv sums) is read MN-major through the transpose
+// bit, the tile's two 64-value halves of D one half-tile apart (the
+// descriptor's leading byte offset), so every tile shares one layout and
+// one copy routine. A probability tile (p, ds) in accumulator registers is
+// rounded to bf16 once and repacked in registers as the A operand of the
+// second product, as the plain forward rounds p.
 
-constexpr int kTcThreads = 128;
-constexpr int kTcTile = 64;
+constexpr int kWgThreads = 256;  // two warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Stage 64 rows [row0, row0 + 64) of one (batch, head) as bf16, row pitch
-// HD + 8; rows at or past n_rows are zero.
+// One thread's share of copying ROWS rows of HD bf16 values of two tensors
+// of one layout (rows [row0, row0 + ROWS) of one (batch, head) of a [*,
+// n_rows, heads, HD] tensor, ga and gb at the head's row 0) into two tiles
+// [HD / 64][ROWS][128 B] (at dst and dst + gap), chunk c of row r at chunk
+// c ^ (r & 7) of its 128-byte row. Of kWgThreads threads, thread tid
+// copies chunk column lc of rows lr + RSTEP i, so its shared-memory offset
+// and its rows' strides are fixed before any loop, and the two tensors
+// share each row's offset (copying them one at a time made the forward
+// 8-13% slower on an H100). Rows at or past n_rows are zero-filled.
+template <int HD, int ROWS>
+struct TileCopy {
+  static constexpr int CH = HD / 8;                // 16-byte chunks a row
+  static constexpr int RSTEP = kWgThreads / CH;    // rows between a thread's chunks
+  static_assert(RSTEP % 8 == 0 && ROWS % RSTEP == 0, "a thread's rows share a swizzle phase");
+  int lr;
+  uint32_t soff;
+  long long lead, stride;
+  __device__ __forceinline__ TileCopy(int tid, long long row_stride)
+      : lr(tid / CH),
+        soff((uint32_t)(((tid % CH) >> 3) * (ROWS * 128) + (tid / CH) * 128 +
+                        ((((tid % CH) & 7) ^ ((tid / CH) & 7)) << 4))),
+        lead((long long)(tid / CH) * row_stride + (tid % CH) * 8),
+        stride(row_stride) {}
+  __device__ __forceinline__ void operator()(uint32_t dst, uint32_t gap,
+                                             const __nv_bfloat16* ga, const __nv_bfloat16* gb,
+                                             int row0, int n_rows) const {
+    const __nv_bfloat16* ta = ga + lead;
+    const __nv_bfloat16* tb = gb + lead;
+    const uint32_t d = dst + soff;
+    const long long g0 = (long long)row0 * stride;
+#pragma unroll
+    for (int i = 0; i < ROWS / RSTEP; ++i) {
+      const int row = row0 + lr + i * RSTEP;
+      const long long g = row < n_rows ? g0 + (long long)i * RSTEP * stride : 0;
+      cp_async16(d + i * RSTEP * 128, ta + g, row < n_rows ? 16 : 0);
+      cp_async16(d + gap + i * RSTEP * 128, tb + g, row < n_rows ? 16 : 0);
+    }
+  }
+};
+
+// the 1024-byte-aligned start (the swizzle's period) of a kernel's dynamic
+// shared memory, as a shared-memory address
+__device__ __forceinline__ uint32_t sw128_base(const uint8_t* smem) {
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  return raw + ((1024u - (raw & 1023u)) & 1023u);
+}
+
+// d += A . B over one k16 step, N = HD: A (64 x 16) from registers, B from
+// shared memory MN-major (HD values of N at one k a row)
 template <int HD>
-__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                             long long row_stride, int row0, int n_rows) {
-  constexpr int STR = HD + 8, CH = HD / 8;
-  for (int idx = threadIdx.x; idx < kTcTile * CH; idx += kTcThreads) {
-    const int r = idx / CH, d = (idx % CH) * 8;
-    const int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_rows) v = *reinterpret_cast<const uint4*>(g + (long long)row * row_stride + d);
-    *reinterpret_cast<uint4*>(s + r * STR + d) = v;
+__device__ __forceinline__ void wg_dot_mn(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                          uint64_t desc);
+template <>
+__device__ __forceinline__ void wg_dot_mn<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  wgmma_m64n64k16_rs<1>(d, a, desc, 1);
+}
+template <>
+__device__ __forceinline__ void wg_dot_mn<128>(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  wgmma_m64n128k16_rs<1>(d, a, desc, 1);
+}
+
+// KK k16 A fragments from 16 KK columns of fp32 accumulators (x[4 j + e]:
+// row gid + 8 (e >> 1), column 8 j + 2 tig + (e & 1)), rounded to bf16
+template <int KK>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KK][4], const float (&x)[8 * KK]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    a[kk][0] = pack2(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack2(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack2(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack2(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// rows row_a (elements 0, 1) and row_b (elements 2, 3) of accumulator tiles
-// to a [*, n_rows, heads, HD] tensor, times mul_a / mul_b.
+// rows row_a (acc[4 dt], acc[4 dt + 1]) and row_b (acc[4 dt + 2], acc[4 dt +
+// 3]) of a 64 x HD accumulator tile to a [*, n_rows, heads, HD] tensor (out
+// at the head's row 0), times mul_a / mul_b
 template <int HD>
-__device__ __forceinline__ void tc_store(__nv_bfloat16* out, long long row_stride, int row_a,
-                                         int row_b, int n_rows, int tig,
-                                         const float (&acc)[HD / 8][4], float mul_a,
-                                         float mul_b) {
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long row_stride, int row_a,
+                                           int row_b, int n_rows, int tig,
+                                           const float (&acc)[HD / 2], float mul_a,
+                                           float mul_b) {
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int d = dt * 8 + tig * 2;
     if (row_a < n_rows)
       *reinterpret_cast<uint32_t*>(out + (long long)row_a * row_stride + d) =
-          pack2(acc[dt][0] * mul_a, acc[dt][1] * mul_a);
+          pack2(acc[4 * dt] * mul_a, acc[4 * dt + 1] * mul_a);
     if (row_b < n_rows)
       *reinterpret_cast<uint32_t*>(out + (long long)row_b * row_stride + d) =
-          pack2(acc[dt][2] * mul_b, acc[dt][3] * mul_b);
+          pack2(acc[4 * dt + 2] * mul_b, acc[4 * dt + 3] * mul_b);
   }
-}
-
-// Does every (row, column) pair of rows [r0, r0 + nr) x columns [c0, c0 +
-// nc) attend?
-__device__ __forceinline__ bool span_is_dense(int r0, int nr, int c0, int nc, int n_rows,
-                                              int offs, int S, int causal, int window) {
-  if (c0 + nc > S || r0 + nr > n_rows) return false;
-  if (causal && c0 + nc - 1 > r0 + offs) return false;
-  if (window > 0 && r0 + nr - 1 + offs - c0 >= window) return false;
-  return true;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KH, int causal,
-                   int window, float scale) {
-  constexpr int STR = HD + 8, DT = HD / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* dOs = Qs + kTcTile * STR;
-  __nv_bfloat16* Ks = dOs + kTcTile * STR;
-  __nv_bfloat16* Vs = Ks + kTcTile * STR;
-  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
-  const int gid = lane / 4, tig = lane % 4;
-  const int q0 = blockIdx.x * kTcTile, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int offs = S - Tq;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
-  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
-  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
-
-  tc_load_tile<HD>(Qs, q + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
-  tc_load_tile<HD>(dOs, dO + ((long long)b * Tq * H + h) * HD, q_stride, q0, Tq);
-
-  const int rows[2] = {q0 + m0 + gid, q0 + m0 + gid + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const long long at = ((long long)b * H + h) * Tq + rows[hf];
-    lse_r[hf] = rows[hf] < Tq ? lse[at] : 0.f;
-    delta_r[hf] = rows[hf] < Tq ? delta[at] : 0.f;
-  }
-  const int q_last = min(q0 + kTcTile, Tq) - 1;
-  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
-  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  for (int j0 = (col_lo / kTcTile) * kTcTile; j0 < col_hi; j0 += kTcTile) {
-    __syncthreads();  // the last tile's reads of Ks and Vs are done
-    tc_load_tile<HD>(Ks, kg, kv_stride, j0, S);
-    tc_load_tile<HD>(Vs, vg, kv_stride, j0, S);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    tc_dot_nt<HD>(s, Qs, Ks, m0, gid, tig);
-    tc_dot_nt<HD>(dp, dOs, Vs, m0, gid, tig);
-
-    const bool dense = span_is_dense(q0, kTcTile, j0, kTcTile, Tq, offs, S, causal, window);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const int col = j0 + nt * 8 + tig * 2 + (e & 1);
-        const bool keep = dense || (rows[hf] < Tq &&
-                                    attends(rows[hf], col, offs, S, causal, window));
-        const float p = keep ? expf(s[nt][e] * scale - lse_r[hf]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[hf]) * scale;
-      }
-    tc_dot_acc<HD>(acc, s, Ks, lane);
-  }
-  tc_store<HD>(dq + ((long long)b * Tq * H + h) * HD, q_stride, rows[0], rows[1], Tq, tig,
-               acc, 1.f, 1.f);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
-                    int S, int H, int KH, int causal, int window, float scale) {
-  constexpr int STR = HD + 8, DT = HD / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Vs = Ks + kTcTile * STR;
-  __nv_bfloat16* Qs = Vs + kTcTile * STR;
-  __nv_bfloat16* dOs = Qs + kTcTile * STR;
-  float* lse_s = reinterpret_cast<float*>(dOs + kTcTile * STR);
-  float* delta_s = lse_s + kTcTile;
-  const int lane = threadIdx.x % 32, m0 = (threadIdx.x / 32) * 16;
-  const int gid = lane / 4, tig = lane % 4;
-  const int k0 = blockIdx.x * kTcTile, kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH;
-  const int offs = S - Tq;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
-
-  tc_load_tile<HD>(Ks, k + ((long long)b * S * KH + kh) * HD, kv_stride, k0, S);
-  tc_load_tile<HD>(Vs, v + ((long long)b * S * KH + kh) * HD, kv_stride, k0, S);
-
-  const int cols[2] = {k0 + m0 + gid, k0 + m0 + gid + 8};  // this thread's KV rows
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  const int k_last = min(k0 + kTcTile, S) - 1;
-  const int row_lo = causal ? max(0, k0 - offs) : 0;
-  const int row_hi = window > 0 ? min(Tq, k_last + window - offs) : Tq;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const __nv_bfloat16* qg = q + ((long long)b * Tq * H + h) * HD;
-    const __nv_bfloat16* dog = dO + ((long long)b * Tq * H + h) * HD;
-    const float* lse_g = lse + ((long long)b * H + h) * Tq;
-    const float* delta_g = delta + ((long long)b * H + h) * Tq;
-    for (int i0 = (row_lo / kTcTile) * kTcTile; i0 < row_hi; i0 += kTcTile) {
-      __syncthreads();  // the last tile's reads of Qs, dOs and the statistics are done
-      tc_load_tile<HD>(Qs, qg, q_stride, i0, Tq);
-      tc_load_tile<HD>(dOs, dog, q_stride, i0, Tq);
-      if (threadIdx.x < kTcTile) {
-        const int row = i0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < Tq ? lse_g[row] : 0.f;
-        delta_s[threadIdx.x] = row < Tq ? delta_g[row] : 0.f;
-      }
-      __syncthreads();
-
-      // transposed logits: this warp's 16 KV rows by the tile's 64 query rows
-      float pt[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pt[nt][e] = 0.f;
-      tc_dot_nt<HD>(pt, Ks, Qs, m0, gid, tig);
-      const bool dense = span_is_dense(i0, kTcTile, k0, kTcTile, Tq, offs, S, causal, window);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = nt * 8 + tig * 2 + (e & 1);
-          const int row = i0 + rl;
-          const bool keep = dense || (row < Tq && attends(row, cols[e >> 1], offs, S,
-                                                          causal, window));
-          pt[nt][e] = keep ? expf(pt[nt][e] * scale - lse_s[rl]) : 0.f;
-        }
-      tc_dot_acc<HD>(dv_acc, pt, dOs, lane);
-
-      float dst[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[nt][e] = 0.f;
-      tc_dot_nt<HD>(dst, Vs, dOs, m0, gid, tig);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = nt * 8 + tig * 2 + (e & 1);
-          dst[nt][e] = pt[nt][e] * (dst[nt][e] - delta_s[rl]) * scale;
-        }
-      tc_dot_acc<HD>(dk_acc, dst, Qs, lane);
-    }
-  }
-  tc_store<HD>(dk + ((long long)b * S * KH + kh) * HD, kv_stride, cols[0], cols[1], S, tig,
-               dk_acc, 1.f, 1.f);
-  tc_store<HD>(dv + ((long long)b * S * KH + kh) * HD, kv_stride, cols[0], cols[1], S, tig,
-               dv_acc, 1.f, 1.f);
-}
-
-// ---- wgmma forward (bf16, D = 64 or 128: the training and v1 prefill path)
-//
-// One block owns 128 query rows of one (batch, head): two warpgroups of 64
-// rows (256 threads). Both products run on wgmma (mma.cuh), fp32
-// accumulation:
-// - S = Q K^T, m64n128k16 over D / 16 steps: Q is the register A operand,
-//   loaded once from device memory in mma.m16n8k16's A layout a warp; a K
-//   tile of 128 positions is B, K-major (D contiguous) in the 128-byte
-//   swizzle: [D / 64][128 positions][128 bytes].
-// - O += P V, m64nDk16 over 8 steps of 16 positions: P is the S
-//   accumulators rounded to bf16 and repacked in registers as the A operand
-//   (p rounded to bf16, as the mma.sync route and the plain forward do); the
-//   V tile, laid out as K, is B MN-major (the transpose bit): rows of 64
-//   values of D at one position, 8-position groups 1024 bytes apart, the
-//   two 64-value blocks of D 16 KB apart.
-// K and V tiles arrive through a ring of kFwdStages stages filled with
-// 16-byte cp.async copies (rows past S zero-filled) by all 256 threads: the
-// next tile's copies are in flight while this tile's products and softmax
-// run. The online softmax stays in registers in fp32, with the logits in
-// base 2 (s * scale * log2 e; lse = m ln 2 + log l), the masks of the
-// CUDA-core kernels (causal with offset S - T, window, tail rows and
-// columns) applied only on tiles that cross an edge, and p = 0 for masked
-// pairs. A warpgroup skips a tile none of its rows attends. Query tiles
-// are issued longest first: blockIdx.z counts down from the last tile, and
-// z is the slowest grid dimension, so under a causal mask the tiles with
-// the most live columns start first. o and lse have the layout and meaning
-// of the other forward kernels; the dq, delta and dkv kernels read them.
-// The kernel needs scale > 0; the entry sends any other scale to the
-// CUDA-core forward. On an H100 the softmax's instructions, not the
-// products, set the pace (fast_exp2 in place of exp2f made the kernel about
-// 10% faster); two warpgroups taking turns on the tensor cores, P V
-// overlapped with the next tile's softmax (Q in shared memory) and a
-// 3-stage ring were each no faster (PERF.md section 6).
-
-constexpr int kFwdRows = 128;   // query rows a block: two warpgroups of 64
-constexpr int kFwdThreads = 256;
-constexpr int kFwdCols = 128;   // K/V positions a tile
-constexpr int kFwdStages = 2;   // K/V tiles in the ring
-
-template <int HD>
-struct FwdLayout {
-  static constexpr int TILE = kFwdCols * HD * 2;  // bytes of a K (or V) tile
-  // the stages, on a 1024-byte boundary (the swizzle's period)
-  static constexpr size_t kBytes = (size_t)kFwdStages * 2 * TILE + 1024;
-};
-
-
-template <int HD>
-__device__ __forceinline__ void wg_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t desc);
-template <>
-__device__ __forceinline__ void wg_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc) {
-  wgmma_m64n64k16_rs<1>(o, a, desc, 1);
-}
-template <>
-__device__ __forceinline__ void wg_pv<128>(float (&o)[64], const uint32_t (&a)[4],
-                                           uint64_t desc) {
-  wgmma_m64n128k16_rs<1>(o, a, desc, 1);
 }
 
 // 2^x on the special-function unit in one instruction (ex2.approx, results
@@ -844,6 +684,36 @@ __device__ __forceinline__ float fast_exp2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// ---- wgmma forward
+//
+// One block owns 128 query rows of one (batch, head). S = Q K^T,
+// m64n128k16 over D / 16 steps: Q is the register A operand, loaded once
+// from device memory in mma.m16n8k16's A layout a warp; a K tile of 128
+// positions is B, K-major. O += P V, m64nDk16 over 8 steps of 16
+// positions: P is the S accumulators repacked; the V tile is B MN-major.
+// The online softmax stays in registers in fp32 (lse = m ln 2 + log l).
+// Query tiles are issued longest first: blockIdx.z counts down from the
+// last tile, and z is the slowest grid dimension, so under a causal mask
+// the tiles with the most live columns start first. o and lse have the
+// layout and meaning of the other forward kernels; the dq, delta and dkv
+// kernels read them. The kernel needs scale > 0 (the route check in the
+// entry). On an H100 the softmax's instructions, not the products, set
+// the pace (fast_exp2 in place of exp2f made the kernel about 10% faster);
+// two warpgroups taking turns on the tensor cores, P V overlapped with the
+// next tile's softmax (Q in shared memory) and a 3-stage ring were each no
+// faster (PERF.md section 6).
+
+constexpr int kFwdRows = 128;   // query rows a block: two warpgroups of 64
+constexpr int kFwdCols = 128;   // K/V positions a tile
+constexpr int kFwdStages = 2;   // K/V tiles in the ring
+
+template <int HD>
+struct FwdLayout {
+  static constexpr int TILE = kFwdCols * HD * 2;  // bytes of a K (or V) tile
+  // the stages, on a 1024-byte boundary (the swizzle's period)
+  static constexpr size_t kBytes = (size_t)kFwdStages * 2 * TILE + 1024;
+};
 
 // The online softmax of one tile in registers: s holds this thread's raw
 // logits of rows row_a (s[4 j], s[4 j + 1]) and row_b (s[4 j + 2], s[4 j +
@@ -894,18 +764,16 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[NS], float (&m_r)[2], flo
 // grid (H, B, ceil(T / 128)); 256 threads; FwdLayout<HD>::kBytes of dynamic
 // shared memory
 template <int HD>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int Tq, int S, int H, int KH, int causal,
                        int window, float scale) {
   constexpr int KS = HD / 16;        // k16 steps of Q K^T
-  constexpr int CH = HD / 8;         // 16-byte chunks a row
   constexpr int PV = kFwdCols / 16;  // k16 steps of P V
   constexpr int TILE = FwdLayout<HD>::TILE;
   extern __shared__ __align__(16) uint8_t fw_smem[];
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(fw_smem);
-  const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);  // [stage][K, V][D / 64][128][128 B]
+  const uint32_t base = sw128_base(fw_smem);  // [stage][K, V][D / 64][128][128 B]
 
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -924,26 +792,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int first = (col_lo / kFwdCols) * kFwdCols;
   const int n_tiles = col_hi > first ? (col_hi - first + kFwdCols - 1) / kFwdCols : 0;
 
-  // the K and V tile at positions [j0, j0 + 128) into stage st: chunk c of
-  // position row r at c ^ (r & 7) of its 128-byte row. A thread copies the
-  // same chunk column lc of rows lr + 256 / CH * i, so its shared-memory
-  // offsets and its rows' strides are fixed before the loop.
-  constexpr int RSTEP = kFwdThreads / CH;  // rows between a thread's chunks
-  const int lr = tid / CH, lc = tid % CH;
-  const uint32_t soff =
-      (uint32_t)((lc >> 3) * (kFwdCols * 128) + lr * 128 + (((lc & 7) ^ (lr & 7)) << 4));
-  const __nv_bfloat16* kt = kg + (long long)lr * kv_stride + lc * 8;
-  const __nv_bfloat16* vt = vg + (long long)lr * kv_stride + lc * 8;
+  // the K and V tile at positions [j0, j0 + 128) into stage st
+  const TileCopy<HD, kFwdCols> copy(tid, kv_stride);
   auto load_tile = [&](int j0, int st) {
-    const uint32_t kd = base + (uint32_t)(st * 2 * TILE) + soff;
-    const long long g0 = (long long)j0 * kv_stride;
-#pragma unroll
-    for (int i = 0; i < kFwdCols / RSTEP; ++i) {
-      const int row = j0 + lr + i * RSTEP;
-      const long long g = row < S ? g0 + (long long)i * RSTEP * kv_stride : 0;
-      cp_async16(kd + i * RSTEP * 128, kt + g, row < S ? 16 : 0);
-      cp_async16(kd + TILE + i * RSTEP * 128, vt + g, row < S ? 16 : 0);
-    }
+    copy(base + (uint32_t)(st * 2 * TILE), TILE, kg, vg, j0, S);
   };
 #pragma unroll
   for (int st = 0; st < kFwdStages - 1; ++st) {
@@ -974,7 +826,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int wr_last = min(wr0 + 64, Tq) - 1;
   const int wcol_hi = causal ? min(S, wr_last + offs + 1) : S;
   const int wcol_lo = window > 0 ? max(0, wr0 + offs - window + 1) : 0;
-  const float sl2 = scale * 1.4426950408889634f;  // logits in base 2
+  const float sl2 = scale * kLog2e;  // logits in base 2
 
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   float oacc[HD / 2];
@@ -1015,19 +867,13 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     else
       fwd_softmax<true>(s, m_r, l_r, oacc, sl2, row_a, row_b, j0 + 2 * tig, offs, S, causal,
                         window);
-#pragma unroll
-    for (int kk = 0; kk < PV; ++kk) {
-      pa[kk][0] = pack2(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    pack_a(pa, s);
     fence_regs(pa);
     fence_regs(oacc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PV; ++kk)
-      wg_pv<HD>(oacc, pa[kk], sw128_desc(vs_s + kk * 2048, kFwdCols * 128));
+      wg_dot_mn<HD>(oacc, pa[kk], sw128_desc(vs_s + kk * 2048, kFwdCols * 128));
     wgmma_commit();
     wgmma_wait<0>();  // the stage is read before the next iteration's barrier
     fence_regs(oacc);
@@ -1044,17 +890,368 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     if (tig == 0 && row < Tq)
       lse[((long long)b * H + h) * Tq + row] = m_r[hf] * 0.6931471805599453f + logf(li);
   }
-  __nv_bfloat16* og = o + ((long long)b * Tq * H + h) * HD;
+  store_rows<HD>(o + ((long long)b * Tq * H + h) * HD, q_stride, row_a, row_b, Tq, tig, oacc,
+                 inv[0], inv[1]);
+}
+
+// ---- wgmma backward
+//
+// dq and dkv stay two kernels, each output written once by one block (no
+// atomics: the same bits every run); delta comes from flash_delta_kernel.
+// Both compute p = 2^(s * scale * log2 e - lse * log2 e) (lse the
+// forward's m + log l in natural units) and ds = p (dp - delta) scale in
+// fp32, and round p and ds to bf16 once, as the A operands of the second
+// products. Neither needs scale > 0 itself; the route check sends a call
+// to the wgmma kernels only with the wgmma forward.
+//
+// dq: a block owns 128 query rows of one (batch, head); Q and dO are
+// copied once into shared memory beside the K/V ring. Over each live tile
+// of 64 K/V positions a warpgroup issues S = Q K^T and then dP = dO V^T
+// (m64n64k16, both operands K-major in shared memory), computes p while dP
+// runs, then ds, and issues dQ += dS K (m64nDk16, dS from registers, K
+// MN-major). Query tiles are issued longest first, as in the forward.
+//
+// dkv: a block owns 128 KV rows of one (batch, KV head); K and V are
+// copied once into shared memory. The block walks the group's G query
+// heads and, for each, the 64-row query tiles that see its rows, as one
+// stream through the ring (Q, dO, and the tile's lse and delta by 4-byte
+// copies), so the ring is not drained between heads. Per tile a warpgroup
+// issues S^T = K Q^T and dP^T = V dO^T (m64n64k16, shared-memory
+// operands), computes p^T while dP^T runs, issues dV += P^T dO, computes
+// ds^T while dV runs, then issues dK += dS^T Q (m64nDk16, P^T and dS^T from
+// registers, dO and Q MN-major). dK and dV stay in registers for the whole
+// walk (D fp32 a thread): that is why the first products take both
+// operands from shared memory instead of holding K and V as register
+// fragments. KV tiles are issued from position 0 up: under a causal mask
+// the first see the most query rows.
+//
+// Registers (ptxas -v, in chip_smoke.py's build log): dq 170 a thread at D
+// = 128 (134 at 64), dkv 255 (196 at 64; dK and dV alone take 128), no
+// spills. On an H100 they run at 38-51% of the tensor cores' peak on the
+// attended pairs (PERF.md section 6); a 3-stage ring was no faster (dkv
+// 1%, dq none).
+
+constexpr int kBwdRows = 128;   // rows a block owns: query rows (dq), KV rows (dkv)
+constexpr int kBwdCols = 64;    // rows of a streamed tile: K/V positions (dq), query rows (dkv)
+constexpr int kBwdStages = 2;   // streamed tiles in the ring
+
+template <int HD>
+struct BwdLayout {
+  static constexpr int OWN = kBwdRows * HD * 2;   // bytes of an owned tile (Q, dO; K, V)
+  static constexpr int TILE = kBwdCols * HD * 2;  // bytes of a streamed tile (K, V; Q, dO)
+  // a stage: two streamed tiles, then (dkv) the query tile's lse and delta,
+  // rounded up to the swizzle's period
+  static constexpr int STAGE = (2 * TILE + 2 * kBwdCols * 4 + 1023) / 1024 * 1024;
+  // [owned 0, owned 1][stage], from a 1024-byte boundary
+  static constexpr size_t kBytes = 2 * (size_t)OWN + (size_t)kBwdStages * STAGE + 1024;
+};
+
+__device__ __forceinline__ bool keeps(int row, int col, int Tq, int offs, int S, int causal,
+                                      int window) {
+  return row < Tq && attends(row, col, offs, S, causal, window);
+}
+
+// dq's p in place: s holds this thread's raw logits of query rows row_a
+// (s[4 j], s[4 j + 1]) and row_b (s[4 j + 2], s[4 j + 3]) at positions col0
+// + 8 j (+1); lse2 their rows' lse * log2 e. MASKED: pairs the mask drops,
+// and rows past T, get p = 0.
+template <bool MASKED>
+__device__ __forceinline__ void dq_probs(float (&s)[kBwdCols / 2], const float (&lse2)[2],
+                                         float sl2, int row_a, int row_b, int col0, int Tq,
+                                         int offs, int S, int causal, int window) {
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int d = dt * 8 + tig * 2;
-    if (row_a < Tq)
-      *reinterpret_cast<uint32_t*>(og + (long long)row_a * q_stride + d) =
-          pack2(oacc[4 * dt] * inv[0], oacc[4 * dt + 1] * inv[0]);
-    if (row_b < Tq)
-      *reinterpret_cast<uint32_t*>(og + (long long)row_b * q_stride + d) =
-          pack2(oacc[4 * dt + 2] * inv[1], oacc[4 * dt + 3] * inv[1]);
+  for (int j = 0; j < kBwdCols / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(s[4 * j + e], sl2, -lse2[e >> 1]));
+      s[4 * j + e] = !MASKED || keeps(e < 2 ? row_a : row_b, col0 + 8 * j + (e & 1), Tq, offs, S,
+                                      causal, window)
+                         ? p
+                         : 0.f;
+    }
+}
+
+// dkv's p^T in place: s holds this thread's raw logits of KV rows kv_a
+// (s[4 j], s[4 j + 1]) and kv_b (s[4 j + 2], s[4 j + 3]) at query rows row0
+// + 8 j (+1), whose lse (natural units) lse_t[8 j] (+1) holds. MASKED as
+// above.
+template <bool MASKED>
+__device__ __forceinline__ void dkv_probs(float (&s)[kBwdCols / 2], const float* lse_t,
+                                          float sl2, int kv_a, int kv_b, int row0, int Tq,
+                                          int offs, int S, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < kBwdCols / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * j);
+    const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(s[4 * j + e], sl2, -l2[e & 1]));
+      s[4 * j + e] = !MASKED || keeps(row0 + 8 * j + (e & 1), e < 2 ? kv_a : kv_b, Tq, offs, S,
+                                      causal, window)
+                         ? p
+                         : 0.f;
+    }
   }
+}
+
+// d = A B^T over D for one warpgroup: A (at a) its 64 rows of an owned
+// tile, B (at b) a streamed tile, both K-major in shared memory (their D
+// halves kBwdRows * 128 and kBwdCols * 128 bytes apart)
+template <int HD>
+__device__ __forceinline__ void wg_dot_kk(float (&d)[kBwdCols / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+    wgmma_m64n64k16_ss(d, sw128_desc(a + (ks >> 2) * (kBwdRows * 128) + (ks & 3) * 32),
+                       sw128_desc(b + (ks >> 2) * (kBwdCols * 128) + (ks & 3) * 32), ks > 0);
+}
+
+// grid (H, B, ceil(T / 128)); 256 threads; BwdLayout<HD>::kBytes of dynamic
+// shared memory
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KH, int causal,
+                      int window, float scale) {
+  using L = BwdLayout<HD>;
+  constexpr int PK = kBwdCols / 16;  // k16 steps of dS K
+  extern __shared__ __align__(16) uint8_t dq_smem[];
+  const uint32_t q_s = sw128_base(dq_smem), do_s = q_s + L::OWN, ring = do_s + L::OWN;
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdRows;  // longest tiles first
+  const int kh = h / (H / KH);
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+  const long long qh = ((long long)b * Tq * H + h) * HD;
+  const __nv_bfloat16* kg = k + ((long long)b * S * KH + kh) * HD;
+  const __nv_bfloat16* vg = v + ((long long)b * S * KH + kh) * HD;
+
+  const int q_last = min(q0 + kBwdRows, Tq) - 1;
+  const int col_hi = causal ? min(S, q_last + offs + 1) : S;
+  const int col_lo = window > 0 ? max(0, q0 + offs - window + 1) : 0;
+  const int first = (col_lo / kBwdCols) * kBwdCols;
+  const int n_tiles = col_hi > first ? (col_hi - first + kBwdCols - 1) / kBwdCols : 0;
+
+  {  // Q and dO join the first K/V tile's group of copies
+    const TileCopy<HD, kBwdRows> own(tid, q_stride);
+    own(q_s, L::OWN, q + qh, dO + qh, q0, Tq);
+  }
+  const TileCopy<HD, kBwdCols> copy(tid, kv_stride);
+  auto load_tile = [&](int j0, int st) {
+    copy(ring + (uint32_t)(st * L::STAGE), L::TILE, kg, vg, j0, S);
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) {
+    if (st < n_tiles) load_tile(first + st * kBwdCols, st);
+    cp_async_commit();
+  }
+
+  const int wr0 = q0 + wg * 64;
+  const int row_a = wr0 + w * 16 + gid, row_b = row_a + 8;
+  const float sl2 = scale * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = hf ? row_b : row_a;
+    const long long at = ((long long)b * H + h) * Tq + row;
+    lse2[hf] = row < Tq ? lse[at] * kLog2e : 0.f;
+    dlt[hf] = row < Tq ? delta[at] : 0.f;
+  }
+  const bool wg_live = wr0 < Tq;
+  const int wr_last = min(wr0 + 64, Tq) - 1;
+  const int wcol_hi = causal ? min(S, wr_last + offs + 1) : S;
+  const int wcol_lo = window > 0 ? max(0, wr0 + offs - window + 1) : 0;
+  const uint32_t qa_s = q_s + wg * 64 * 128, da_s = do_s + wg * 64 * 128;  // this warpgroup's rows
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float s[kBwdCols / 2], dp[kBwdCols / 2];
+  uint32_t dsa[PK][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = first + it * kBwdCols, st = it % kBwdStages;
+    cp_async_wait<kBwdStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it visible; no warpgroup still reads the stage the next copy takes
+    if (it + kBwdStages - 1 < n_tiles)
+      load_tile(j0 + (kBwdStages - 1) * kBwdCols, (it + kBwdStages - 1) % kBwdStages);
+    cp_async_commit();
+    if (!wg_live || j0 >= wcol_hi || j0 + kBwdCols <= wcol_lo) continue;  // warpgroup-uniform
+
+    const uint32_t ks_s = ring + (uint32_t)(st * L::STAGE), vs_s = ks_s + L::TILE;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wg_dot_kk<HD>(s, qa_s, ks_s);
+    wgmma_commit();
+    wg_dot_kk<HD>(dp, da_s, vs_s);
+    wgmma_commit();
+    wgmma_wait<1>();  // S is done; dP runs on
+    fence_regs(s);
+    if (span_is_dense(wr0, 64, j0, kBwdCols, Tq, offs, S, causal, window))
+      dq_probs<false>(s, lse2, sl2, row_a, row_b, j0 + 2 * tig, Tq, offs, S, causal, window);
+    else
+      dq_probs<true>(s, lse2, sl2, row_a, row_b, j0 + 2 * tig, Tq, offs, S, causal, window);
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < kBwdCols / 2; ++i) dp[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * scale;
+    pack_a(dsa, dp);
+    fence_regs(dsa);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      wg_dot_mn<HD>(acc, dsa[kk], sw128_desc(ks_s + kk * 2048, kBwdCols * 128));
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is read before the next iteration's barrier
+    fence_regs(acc);
+    fence_regs(dsa);
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dq + qh, q_stride, row_a, row_b, Tq, tig, acc, 1.f, 1.f);
+}
+
+// grid (KH, B, ceil(S / 128)); 256 threads; BwdLayout<HD>::kBytes of
+// dynamic shared memory
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
+                       int S, int H, int KH, int causal, int window, float scale) {
+  using L = BwdLayout<HD>;
+  constexpr int PK = kBwdCols / 16;  // k16 steps of P^T dO and dS^T Q
+  extern __shared__ __align__(16) uint8_t dkv_smem[];
+  const uint32_t k_s = sw128_base(dkv_smem), v_s = k_s + L::OWN, ring = v_s + L::OWN;
+  // the ring's statistics are read through generic pointers
+  const uint8_t* ring_g = dkv_smem + (ring - (uint32_t)__cvta_generic_to_shared(dkv_smem));
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBwdRows;  // longest first under a causal mask
+  const int G = H / KH;
+  const int offs = S - Tq;
+  const long long q_stride = (long long)H * HD, kv_stride = (long long)KH * HD;
+  const long long kvh = ((long long)b * S * KH + kh) * HD;
+
+  // the query rows that see the block's KV rows, the same for every head
+  const int k_last = min(k0 + kBwdRows, S) - 1;
+  const int row_lo = causal ? max(0, k0 - offs) : 0;
+  const int row_hi = window > 0 ? min(Tq, k_last + window - offs) : Tq;
+  const int first = (row_lo / kBwdCols) * kBwdCols;
+  const int per_head = row_hi > first ? (row_hi - first + kBwdCols - 1) / kBwdCols : 0;
+  const int n_tiles = G * per_head;
+
+  {  // K and V join the first query tile's group of copies
+    const TileCopy<HD, kBwdRows> own(tid, kv_stride);
+    own(k_s, L::OWN, k + kvh, v + kvh, k0, S);
+  }
+  // query tile t: head kh * G + t / per_head, rows from first + 64 (t % per_head)
+  const TileCopy<HD, kBwdCols> copy(tid, q_stride);
+  auto load_tile = [&](int t, int st) {
+    const int g = t / per_head, i0 = first + (t - g * per_head) * kBwdCols;
+    const int h = kh * G + g;
+    const long long qh = ((long long)b * Tq * H + h) * HD;
+    const uint32_t d = ring + (uint32_t)(st * L::STAGE);
+    copy(d, L::TILE, q + qh, dO + qh, i0, Tq);
+    if (tid < 2 * kBwdCols) {  // lse, then delta, of the tile's rows (0 past T)
+      const int row = i0 + tid % kBwdCols;
+      const float* src = (tid < kBwdCols ? lse : delta) + ((long long)b * H + h) * Tq;
+      cp_async4(d + 2 * L::TILE + tid * 4, src + (row < Tq ? row : 0), row < Tq ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, st);
+    cp_async_commit();
+  }
+
+  // this thread's two KV rows; the warpgroup's query rows
+  const int wk0 = k0 + wg * 64;
+  const int kv_a = wk0 + w * 16 + gid, kv_b = kv_a + 8;
+  const bool wg_live = wk0 < S;
+  const int wk_last = min(wk0 + 64, S) - 1;
+  const int wrow_lo = causal ? max(0, wk0 - offs) : 0;
+  const int wrow_hi = window > 0 ? min(Tq, wk_last + window - offs) : Tq;
+  const uint32_t ka_s = k_s + wg * 64 * 128, va_s = v_s + wg * 64 * 128;
+  const float sl2 = scale * kLog2e;
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float s[kBwdCols / 2], dp[kBwdCols / 2];
+  uint32_t pa[PK][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int g = t / per_head, i0 = first + (t - g * per_head) * kBwdCols;
+    const int st = t % kBwdStages;
+    cp_async_wait<kBwdStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile t visible; no warpgroup still reads the stage the next copy takes
+    if (t + kBwdStages - 1 < n_tiles) load_tile(t + kBwdStages - 1, (t + kBwdStages - 1) % kBwdStages);
+    cp_async_commit();
+    if (!wg_live || i0 >= wrow_hi || i0 + kBwdCols <= wrow_lo) continue;  // warpgroup-uniform
+
+    const uint32_t qs_s = ring + (uint32_t)(st * L::STAGE), dos_s = qs_s + L::TILE;
+    const float* lse_t =
+        reinterpret_cast<const float*>(ring_g + st * L::STAGE + 2 * L::TILE) + 2 * tig;
+    const float* dlt_t = lse_t + kBwdCols;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wg_dot_kk<HD>(s, ka_s, qs_s);
+    wgmma_commit();
+    wg_dot_kk<HD>(dp, va_s, dos_s);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is done; dP^T runs on
+    fence_regs(s);
+    if (span_is_dense(i0, kBwdCols, wk0, 64, Tq, offs, S, causal, window))
+      dkv_probs<false>(s, lse_t, sl2, kv_a, kv_b, i0 + 2 * tig, Tq, offs, S, causal, window);
+    else
+      dkv_probs<true>(s, lse_t, sl2, kv_a, kv_b, i0 + 2 * tig, Tq, offs, S, causal, window);
+    pack_a(pa, s);
+    fence_regs(pa);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      wg_dot_mn<HD>(dv_acc, pa[kk], sw128_desc(dos_s + kk * 2048, kBwdCols * 128));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done; dV runs on
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < kBwdCols / 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(dlt_t + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? dl.y : dl.x)) * scale;
+    }
+    wgmma_wait<0>();  // dV has read P^T's fragments
+    fence_regs(dv_acc);
+    fence_regs(pa);
+    pack_a(pa, dp);
+    fence_regs(pa);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      wg_dot_mn<HD>(dk_acc, pa[kk], sw128_desc(qs_s + kk * 2048, kBwdCols * 128));
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is read before the next iteration's barrier
+    fence_regs(dk_acc);
+    fence_regs(pa);
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dk + kvh, kv_stride, kv_a, kv_b, S, tig, dk_acc, 1.f, 1.f);
+  store_rows<HD>(dv + kvh, kv_stride, kv_a, kv_b, S, tig, dv_acc, 1.f, 1.f);
 }
 
 // ----------------------------------------------------------------- launchers
@@ -1069,6 +1266,19 @@ bool bad_shape(const Shape& s, int dtype) {
          s.D <= 0 || s.D % 8 || s.D > 256 || s.window < 0 || (s.window > 0 && !s.causal) ||
          (s.causal && s.Tq > s.S) || s.H > 65535 || s.B > 65535 ||
          dtype < 0 || dtype > 2;
+}
+
+// The routes of the C entries (ops/flash_attention.py::FLASH_ROUTES, the
+// wrapper's flash_route picks one from the type, D and scale): 0 the
+// CUDA-core kernels, which take every shape bad_shape admits; 1 the wgmma
+// kernels, which take bf16 with D = 64 or 128 and scale > 0 (the forward
+// folds scale into its base-2 exponent and takes the row maximum of the
+// raw logits). A route the call does not meet is refused.
+constexpr int kRouteCudaCore = 0, kRouteWgmma = 1;
+
+bool bad_route(const Shape& s, int dtype, int route) {
+  if (route == kRouteCudaCore) return false;
+  return route != kRouteWgmma || dtype != 1 || (s.D != 64 && s.D != 128) || !(s.scale > 0.f);
 }
 
 template <typename K>
@@ -1127,60 +1337,55 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+using bf16 = __nv_bfloat16;
+
 template <int HD>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                              const Shape& s, cudaStream_t st) {
-  using bf16 = __nv_bfloat16;
   constexpr size_t smem = FwdLayout<HD>::kBytes;
   auto kernel = flash_fwd_wgmma_kernel<HD>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(s.H, s.B, (s.Tq + kFwdRows - 1) / kFwdRows);
   if (grid.z > 65535u) return cudaErrorInvalidValue;
-  kernel<<<grid, kFwdThreads, smem, st>>>(
+  kernel<<<grid, kWgThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dO,
-                         const float* lse, const float* delta, void* dq, const Shape& s,
-                         cudaStream_t st) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = (size_t)4 * kTcTile * (HD + 8) * sizeof(bf16);
-  auto kernel = flash_dq_tc_kernel<HD>;
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dO,
+                            const float* lse, const float* delta, void* dq, const Shape& s,
+                            cudaStream_t st) {
+  constexpr size_t smem = BwdLayout<HD>::kBytes;
+  auto kernel = flash_dq_wgmma_kernel<HD>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Tq + kTcTile - 1) / kTcTile, s.H, s.B);
-  kernel<<<grid, kTcThreads, smem, st>>>(
+  const dim3 grid(s.H, s.B, (s.Tq + kBwdRows - 1) / kBwdRows);
+  if (grid.z > 65535u) return cudaErrorInvalidValue;
+  kernel<<<grid, kWgThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dq), s.Tq, s.S, s.H,
-      s.KH, s.causal, s.window, s.scale);
+      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dq), s.Tq, s.S, s.H, s.KH,
+      s.causal, s.window, s.scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
-                          const float* lse, const float* delta, void* dk, void* dv,
-                          const Shape& s, cudaStream_t st) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem =
-      (size_t)4 * kTcTile * (HD + 8) * sizeof(bf16) + 2 * kTcTile * sizeof(float);
-  auto kernel = flash_dkv_tc_kernel<HD>;
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dO,
+                             const float* lse, const float* delta, void* dk, void* dv,
+                             const Shape& s, cudaStream_t st) {
+  constexpr size_t smem = BwdLayout<HD>::kBytes;
+  auto kernel = flash_dkv_wgmma_kernel<HD>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.S + kTcTile - 1) / kTcTile, s.KH, s.B);
-  kernel<<<grid, kTcThreads, smem, st>>>(
+  const dim3 grid(s.KH, s.B, (s.S + kBwdRows - 1) / kBwdRows);
+  if (grid.z > 65535u) return cudaErrorInvalidValue;
+  kernel<<<grid, kWgThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
+      static_cast<const bf16*>(dO), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      s.Tq, s.S, s.H, s.KH, s.causal, s.window, s.scale);
   return cudaGetLastError();
-}
-
-// The tensor-core kernels take bf16 with D = 64 or 128.
-bool takes_tc(const Shape& s, int dtype) {
-  return dtype == 1 && (s.D == 64 || s.D == 128);
 }
 
 // dtype 0 = float32, 1 = bfloat16, 2 = float16; NJ = ceil(D / 64)
@@ -1203,18 +1408,16 @@ bool takes_tc(const Shape& s, int dtype) {
 
 // All tensors contiguous: q, o, do, dq [B, T, H, D]; k, v, dk, dv [B, S, KH,
 // D] (dtype 0 = float32, 1 = bfloat16, 2 = float16); lse, delta [B, H, T]
-// float32. Each returns a cudaError_t.
+// float32; route as above. Each returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int T, int S, int H, int KH, int D,
-                                   int causal, int window, float scale, int dtype,
+                                   int causal, int window, float scale, int dtype, int route,
                                    void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
-  if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
+  if (bad_shape(s, dtype) || bad_route(s, dtype, route)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  // the wgmma forward folds scale into its base-2 exponent and takes the
-  // row maximum of the raw logits: it needs scale > 0
-  if (takes_tc(s, dtype) && scale > 0.f)
+  if (route == kRouteWgmma)
     return (int)(D == 64 ? launch_fwd_wgmma<64>(q, k, v, o, lse_f, s, st)
                          : launch_fwd_wgmma<128>(q, k, v, o, lse_f, s, st));
 #define FWD(TT, NJ) launch_fwd<TT, NJ>(q, k, v, o, lse_f, s, st)
@@ -1247,16 +1450,16 @@ extern "C" int flash_attention_delta(const void* o, const void* dO, void* delta,
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   const void* dO, const void* lse, const void* delta,
                                   void* dq, int B, int T, int S, int H, int KH, int D,
-                                  int causal, int window, float scale, int dtype,
+                                  int causal, int window, float scale, int dtype, int route,
                                   void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
-  if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
+  if (bad_shape(s, dtype) || bad_route(s, dtype, route)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  if (takes_tc(s, dtype))
-    return (int)(D == 64 ? launch_dq_tc<64>(q, k, v, dO, lse_f, delta_f, dq, s, st)
-                         : launch_dq_tc<128>(q, k, v, dO, lse_f, delta_f, dq, s, st));
+  if (route == kRouteWgmma)
+    return (int)(D == 64 ? launch_dq_wgmma<64>(q, k, v, dO, lse_f, delta_f, dq, s, st)
+                         : launch_dq_wgmma<128>(q, k, v, dO, lse_f, delta_f, dq, s, st));
 #define DQ(TT, NJ) launch_dq<TT, NJ>(q, k, v, dO, lse_f, delta_f, dq, s, st)
   DS_DISPATCH(DQ);
 #undef DQ
@@ -1266,16 +1469,16 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
                                    const void* dO, const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int T, int S, int H, int KH,
                                    int D, int causal, int window, float scale, int dtype,
-                                   void* stream) {
+                                   int route, void* stream) {
   const Shape s{B, T, S, H, KH, D, causal, window, scale};
-  if (bad_shape(s, dtype)) return cudaErrorInvalidValue;
+  if (bad_shape(s, dtype) || bad_route(s, dtype, route)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  if (takes_tc(s, dtype))
+  if (route == kRouteWgmma)
     return (int)(D == 64
-                     ? launch_dkv_tc<64>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
-                     : launch_dkv_tc<128>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st));
+                     ? launch_dkv_wgmma<64>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
+                     : launch_dkv_wgmma<128>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st));
 #define DKV(TT, NJ) launch_dkv<TT, NJ>(q, k, v, dO, lse_f, delta_f, dk, dv, s, st)
   DS_DISPATCH(DKV);
 #undef DKV

@@ -1,16 +1,16 @@
 // Building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu's training kernels, paged_attention.cu's prefill
-// route, quantized_matmul.cu's wgmma route): 16-byte cp.async copies into
+// (flash_attention.cu's wgmma kernels, paged_attention.cu's prefill route,
+// quantized_matmul.cu's wgmma route): 16- and 4-byte cp.async copies into
 // shared memory; mma.sync m16n8k16 bf16 products with fp32 accumulation,
 // fragment loads from bf16 tiles staged in shared memory with a row pitch
 // of HD + 8 (free of bank conflicts for the 4-byte fragment loads and the
 // 16-byte ldmatrix rows), and the repacking of a 16 x 64 accumulator tile
 // as the A operand of a second product over a 64-row tile; the warpgroup
-// products (wgmma m64nNk16, N = 64, 128 or 256, A from registers, B from
-// shared memory in the 128-byte swizzle, K-major or, transposed,
-// MN-major) with their fences and shared-memory descriptors (flash
-// forward, quantized matmul); the attention kernels' masked-logit
-// constants.
+// products (wgmma m64nNk16: N = 64, 128 or 256 with A from registers and
+// B from shared memory in the 128-byte swizzle, K-major or, transposed,
+// MN-major; N = 64 with both operands K-major in shared memory) with their
+// fences and shared-memory descriptors (flash forward and backward,
+// quantized matmul); the attention kernels' masked-logit constants.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +27,12 @@ constexpr float kMasked = -5e29f;  // any logit at or below this was masked
 // free to hoist the loads that compute the next copies' addresses.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+// 4 bytes global -> shared, zero unless bytes = 4 (a row statistic: 4-byte
+// alignment only)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -270,6 +276,30 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (+)= A . B for one k16 step with both operands in shared memory, K-major
+// in the 128-byte swizzle: A the 64 x 16 tile that desc_a describes (a
+// warpgroup's 64 rows), B the 16 x 64 tile of desc_b; d as for the
+// register-A products above.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace

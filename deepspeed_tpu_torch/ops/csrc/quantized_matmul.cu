@@ -411,11 +411,6 @@ constexpr size_t wgmma_smem_bytes() {
          1024;  // the x tiles start on a 1024-byte boundary (the swizzle's period)
 }
 
-// 4 bytes global -> shared (a scale), zero when bytes = 0
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
-}
-
 // four codes (bytes of c) to fp32, exactly. int8: the byte with its sign bit
 // flipped is q + 128; as the low mantissa bits of 2^23 it is the float
 // 2^23 + q + 128, from which 2^23 + 128 is subtracted (exact below 2^24).

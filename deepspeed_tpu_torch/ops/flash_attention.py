@@ -15,21 +15,24 @@ Counterpart of ``deepspeed_tpu/ops/flash_attention.py``:
 - ``flash_attention`` is a ``torch.autograd.Function``. On CPU tensors its
   forward and backward are the three plain functions above, so the CPU tests
   exercise the same wiring and formulas as the card. On CUDA tensors the
-  forward launches ``flash_fwd_kernel`` and the backward launches
-  ``flash_delta_kernel`` (δ once, as a pre-pass), ``flash_dq_kernel`` and
-  ``flash_dkv_kernel`` of ``csrc/flash_attention.cu`` — or raises. There is
-  no fallback between them. ``FORCE_REFERENCE`` pins the plain versions on
-  the card, for comparisons only.
+  forward launches the forward kernel and the backward launches
+  ``flash_delta_kernel`` (δ once, as a pre-pass), then the dq and dkv
+  kernels of ``csrc/flash_attention.cu`` — or raises. There is no fallback
+  between them. ``FORCE_REFERENCE`` pins the plain versions on the card,
+  for comparisons only.
 
-Two sets of kernels: bf16 with D = 64 or 128 runs every product on the tensor
-cores (the forward on ``wgmma``, dq and dkv on ``mma.sync``; fp32
-accumulation, p and ds rounded to bf16 for the second product as the plain
-forward rounds p; ``sm_scale`` multiplies the fp32 logits; a forward with
-``sm_scale <= 0`` takes the CUDA-core kernel); fp32, fp16 (the engine's
-``fp16.enabled``), and bf16 at any other D, run in fp32 on the CUDA cores
-(there the forward folds ``sm_scale`` into q before the product and the
-backward scales the logits after it, as the Pallas kernels do; in fp32 the
-two differ by rounding only). The kernels index [B, T, H, D]
+Two routes (``FLASH_ROUTES``; ``flash_route`` picks one from the type, D and
+``sm_scale``, and the C entries refuse a route the call does not meet):
+bf16 with D = 64 or 128 and a positive scale runs every product on the
+tensor cores with ``wgmma`` (``flash_fwd_wgmma_kernel``,
+``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``; fp32 accumulation, p
+and ds rounded to bf16 for the second product as the plain forward rounds
+p; ``sm_scale`` multiplies the fp32 logits); fp32, fp16 (the engine's
+``fp16.enabled``), bf16 at any other D and any ``sm_scale <= 0`` run in fp32
+on the CUDA cores (``flash_fwd_kernel``, ``flash_dq_kernel``,
+``flash_dkv_kernel``: there the forward folds ``sm_scale`` into q before the
+product and the backward scales the logits after it, as the Pallas kernels
+do; in fp32 the two differ by rounding only). The kernels index [B, T, H, D]
 directly (no head-major copies), take any T and S and any D with D % 8 == 0
 up to 256. ``block_q``/``block_kv`` stay in the signature for the JAX
 callers' sake and are ignored: the CUDA kernels pick their own tiles.
@@ -133,13 +136,31 @@ def _dkv_torch(q, k, v, o, do, lse, causal: bool, window: int = 0,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP = ctypes.c_void_p
-_SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _VP]
+# B, T, S, H, KH, D, causal, window, scale, dtype, route, stream
+_SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+    + [_VP]
 _ARGTYPES = {
     "flash_attention_fwd": [_VP] * 5 + _SHAPE_ARGS,
     "flash_attention_delta": [_VP] * 3 + [ctypes.c_int] * 5 + [_VP],
     "flash_attention_dq": [_VP] * 7 + _SHAPE_ARGS,
     "flash_attention_dkv": [_VP] * 8 + _SHAPE_ARGS,
 }
+
+
+# The routes of ``csrc/flash_attention.cu``'s C entries, by their code.
+FLASH_ROUTES = ("cuda_core", "wgmma")
+
+
+def flash_route(dtype, D: int, sm_scale) -> str:
+    """The route (a name in ``FLASH_ROUTES``) that the forward, dq and dkv
+    kernels take, from the type, the head width and the scale alone: bf16
+    at D = 64 or 128 (the trained and served widths) with a positive scale
+    takes the ``wgmma`` kernels; every other call the CUDA-core kernels,
+    which compute in fp32 (the wgmma forward folds the scale into a base-2
+    exponent and takes the row maximum of the raw logits)."""
+    if dtype == torch.bfloat16 and D in (64, 128) and _scale(D, sm_scale) > 0:
+        return "wgmma"
+    return "cuda_core"
 
 
 def _bind(name):
@@ -204,13 +225,15 @@ def _kernel_inputs(q, k, v, causal, window, *more):
 
 def _shape_args(q, k, causal, window, sm_scale):
     B, T, H, D = q.shape
+    route = FLASH_ROUTES.index(flash_route(q.dtype, D, sm_scale))
     return (B, T, k.shape[1], H, k.shape[2], D, int(bool(causal)),
             int(window or 0), _scale(D, sm_scale), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            route, torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, window: int = 0, sm_scale=None):
-    """Launch ``flash_fwd_kernel``; returns (o as q, lse [B, H, T] fp32)."""
+    """Launch the forward kernel of ``flash_route``'s route; returns (o as
+    q, lse [B, H, T] fp32)."""
     from ._build import check
 
     q, k, v = _kernel_inputs(q, k, v, causal, window)
@@ -255,7 +278,7 @@ def _stats(q, lse, delta):
 
 def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, window: int = 0,
                   sm_scale=None):
-    """Launch ``flash_dq_kernel``; returns dq as q."""
+    """Launch the dq kernel of ``flash_route``'s route; returns dq as q."""
     from ._build import check
 
     q, k, v, do, lse, delta = _kernel_inputs(q, k, v, causal, window, do,
@@ -273,7 +296,8 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, window: int = 0,
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool, window: int = 0,
                    sm_scale=None):
-    """Launch ``flash_dkv_kernel``; returns (dk, dv) as k."""
+    """Launch the dkv kernel of ``flash_route``'s route; returns (dk, dv)
+    as k."""
     from ._build import check
 
     q, k, v, do, lse, delta = _kernel_inputs(q, k, v, causal, window, do,

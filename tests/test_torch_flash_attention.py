@@ -41,6 +41,13 @@ CASES = {
     "window-wide": (1, 16, 16, 4, 2, 16, True, 100, None),
     "sm-scale-1": (1, 16, 16, 4, 2, 8, True, 0, 1.0),
     "d-80": (1, 12, 12, 2, 1, 80, True, 0, None),
+    # the edges of the card's tiles, at small widths: a sequence one past a
+    # 128-row tile, a window of 127 across two tiles, T < S with a window
+    # across a tile, and a group of 8 query heads over one KV head
+    "tile-plus-one": (1, 129, 129, 4, 2, 16, True, 0, None),
+    "window-127-two-tiles": (1, 200, 200, 4, 2, 16, True, 127, None),
+    "window-t-lt-s": (1, 70, 200, 4, 2, 16, True, 90, None),
+    "gqa-8-1": (1, 40, 40, 8, 1, 16, True, 0, None),
 }
 
 
@@ -155,7 +162,8 @@ def pallas_interpret(monkeypatch):
 
 
 @pytest.mark.parametrize("T,H,KH,window", [(128, 4, 2, 0), (256, 4, 4, 0),
-                                           (256, 2, 1, 100)])
+                                           (256, 2, 1, 100),
+                                           (256, 4, 1, 100)])
 def test_plain_versions_match_pallas_kernels_in_interpret_mode(
         pallas_interpret, T, H, KH, window):
     """The three Pallas kernels themselves (``_fwd_kernel``, ``_dq_kernel``,
@@ -174,6 +182,19 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(
     dk, dv = tfa._dkv_torch(tq, tk, tv, to, tdo, lse, True, window)
     for got, want in zip((to, dq, dk, dv), ref):
         np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("sm_scale", [None, 1.0, 0.0])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_route_by_type_width_and_scale(dtype, D, sm_scale):
+    """The route the C entries are told to take: the wgmma kernels for bf16
+    at D = 64 or 128 with a positive scale, the CUDA-core kernels for every
+    other call."""
+    route = tfa.flash_route(getattr(torch, dtype), D, sm_scale)
+    assert route in tfa.FLASH_ROUTES
+    wgmma = dtype == "bfloat16" and D in (64, 128) and sm_scale != 0.0
+    assert route == ("wgmma" if wgmma else "cuda_core")
 
 
 def test_contract_errors_and_counters():
