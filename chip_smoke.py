@@ -20,17 +20,24 @@ Phases, each of which raises on failure (nothing is caught):
              n_tokens zero, each output bit-identical over two runs, bf16
              decode on the split-KV route over every pool type, fp32
              decode on the CUDA-core kernel, and every route of the wrapper
-             taken; the blockwise quantizer bit for bit
-             (bits 8 and 4, fp8, bf16 and fp32 input, ragged tails, rows not
-             a multiple of 8, an all-zero group); the dequantize kernel bit
+             taken; the blockwise quantizer bit for bit and the same bits
+             over two runs (bits 8 and 4, fp8, bf16 and fp32 input, ragged
+             tails, rows not a multiple of 8, an all-zero group, the serving
+             build's stacked w_in; each case on its asserted route, both
+             routes taken); the dequantize kernel bit
              for bit (torch.equal; int8 and unpacked int4 codes at the v1
              widths, gathered embedding rows, a norm row, ragged tails,
              bf16, fp16 and fp32 out) and that it raises on what it does not
              take (fp8 or packed codes, mismatched scales); the quantized
-             matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 37, 2000 and
-             2048 at the serving widths, bf16 and fp32 out, ragged last
-             groups, shapes that keep the mma.sync route; every route of
-             the wrapper taken, the __global__ function logged); the flash
+             matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 16, 37, 2000
+             and 2048 at the serving widths, bf16 and fp32 out, ragged last
+             groups, shapes that keep the mma.sync route; every bf16 decode
+             case at the serving shapes on the tensor-core decode route and
+             bit-identical over two runs, its edges (block 64 and 192, a
+             64-column last strip, K slices of unequal length, empty
+             ones), an unaligned x on the weight-streaming kernel; every
+             route of the wrapper taken, the __global__ function logged);
+             the flash
              attention forward, delta, dq and dkv kernels (bf16, fp32 and
              fp16; MHA, GQA, MQA; D = 64, 80, 128, 256; causal with T = S
              and T < S, non-causal, windows, tails, sm_scale, the edges of
@@ -165,7 +172,8 @@ def phase_device():
 # ----------------------------------------------------------------- build
 
 # kernels whose registers and spills the build log reports one by one
-REPORTED_KERNELS = r"decode_split|decode_combine|fwd_wgmma|dq_wgmma|dkv_wgmma"
+REPORTED_KERNELS = (r"decode_split|decode_combine|fwd_wgmma|dq_wgmma|dkv_wgmma"
+                    r"|qmm_decode_tc|quantize_vec")
 
 
 def phase_build():
@@ -419,51 +427,114 @@ def phase_kernel_paged():
 
 
 QUANT_CASES = [
-    # name, shape, in dtype, bits, q dtype, block, zero group (row, group)
+    # name, shape, in dtype, bits, q dtype, block, zero group (row, group),
+    # the route it must take (an index into qz.QUANT_ROUTES), and the
+    # elements by which x starts past a 16-byte boundary
     ("w_in layer bf16 int8", (4096, 14336), torch.bfloat16, 8, "int8", 128,
-     (5, 3)),
+     (5, 3), 1, 0),
     ("fp32 int4 ragged tail 1001 rows", (1001, 300), torch.float32, 4,
-     "int8", 128, (7, 2)),
+     "int8", 128, (7, 2), 0, 0),
     ("bf16 fp8 ragged tail", (37, 200), torch.bfloat16, 8, "fp8_e4m3", 128,
-     (0, 1)),
+     (0, 1), 0, 0),
     ("fp32 fp8 3d", (5, 4096, 1024), torch.float32, 8, "fp8_e4m3", 128,
-     None),
-    ("bf16 int8 block 48", (13, 256), torch.bfloat16, 8, "int8", 48, (12, 5)),
+     None, 0, 0),
+    ("bf16 int8 block 48", (13, 256), torch.bfloat16, 8, "int8", 48, (12, 5),
+     0, 0),
     ("fp32 int8 group > 256", (9, 1000), torch.float32, 8, "int8", 500,
-     (3, 1)),
+     (3, 1), 0, 0),
+    # the 16-byte route's shapes and edges: the serving build's stacked w_in
+    # (compared in slabs of rows), fp8 and int4, blocks 8 to 256, a group
+    # count that leaves a warp's last task part-empty, a 3-d tensor; then
+    # bf16 calls that keep the warp-a-group kernel (block 512, x off a
+    # 16-byte boundary)
+    ("build: stacked w_in [32*4096, 14336] bf16 int8", (32 * 4096, 14336),
+     torch.bfloat16, 8, "int8", 128, (70_000, 100), 1, 0),
+    ("w_in layer bf16 fp8", (4096, 14336), torch.bfloat16, 8, "fp8_e4m3",
+     128, (9, 111), 1, 0),
+    ("bf16 int4 block 64", (1000, 4096), torch.bfloat16, 4, "int8", 64,
+     (999, 63), 1, 0),
+    ("bf16 int8 block 256, 37 rows", (37, 1024), torch.bfloat16, 8, "int8",
+     256, (36, 3), 1, 0),
+    ("bf16 fp8 block 16, 111 groups", (37, 48), torch.bfloat16, 8,
+     "fp8_e4m3", 16, (2, 2), 1, 0),
+    ("bf16 int8 block 32 3d", (3, 5, 96), torch.bfloat16, 8, "int8", 32,
+     None, 1, 0),
+    ("bf16 int8 block 8", (7, 64), torch.bfloat16, 8, "int8", 8, (6, 7), 1,
+     0),
+    ("bf16 int8 block 512", (16, 1024), torch.bfloat16, 8, "int8", 512,
+     (15, 1), 0, 0),
+    ("bf16 int8 x off a 16-byte boundary", (64, 1024), torch.bfloat16, 8,
+     "int8", 128, (1, 1), 0, 1),
 ]
 
 
-def check_quantize(name, x, bits, dtype, block):
+def check_quantize(name, x, bits, dtype, block, slab=8192):
     """The kernel against the plain version: codes and scales must be
-    bit-identical. Returns max |dequant(kernel) - dequant(plain)|, which is
+    bit-identical (the plain version taken over slabs of ``slab`` rows, so
+    that its fp32 copies stay small), and a second launch must give the
+    same bits. Returns max |dequant(kernel) - dequant(plain)|, which is
     then 0."""
     q, s = qz.quantize_blockwise(x, bits=bits, block=block, dtype=dtype)
-    rq, rs = qz._quantize_torch(x, bits, block, dtype)
+    q2, s2 = qz.quantize_blockwise(x, bits=bits, block=block, dtype=dtype)
     torch.cuda.synchronize()
-    nq = int((q.view(torch.uint8) != rq.view(torch.uint8)).sum())
-    ns = int((s != rs).sum())
-    err = (qz._dequantize_torch(q, s, block)
-           - qz._dequantize_torch(rq, rs, block)).abs().max().item()
+    if not (torch.equal(q.view(torch.uint8), q2.view(torch.uint8))
+            and torch.equal(s, s2)):
+        raise AssertionError(f"[kernel] quantize {name}: two runs differ")
+    del q2, s2
+    n = x.shape[-1]
+    xr, qr, sr = x.reshape(-1, n), q.reshape(-1, n), s.reshape(-1, s.shape[-1])
+    nq = ns = 0
+    err = 0.0
+    for r in range(0, xr.shape[0], slab):
+        rq, rs = qz._quantize_torch(xr[r:r + slab], bits, block, dtype)
+        kq, ks = qr[r:r + slab], sr[r:r + slab]
+        nq += int((kq.view(torch.uint8) != rq.view(torch.uint8)).sum())
+        ns += int((ks != rs).sum())
+        err = max(err, (qz._dequantize_torch(kq, ks, block)
+                        - qz._dequantize_torch(rq, rs, block)).abs().max()
+                  .item())
     if nq or ns:
         raise AssertionError(f"[kernel] quantize {name}: not bit-identical "
                              f"({nq} codes, {ns} scales differ; max |dequant "
                              f"diff| {err:.3g})")
-    log(f"[kernel] quantize {name}: ok, bit-identical ({q.numel()} codes, "
-        f"{s.numel()} scales; max |dequant diff| {err:.3g})")
+    log(f"[kernel] quantize {name}: ok, bit-identical, the same over two "
+        f"runs ({q.numel()} codes, {s.numel()} scales; max |dequant diff| "
+        f"{err:.3g})")
     return err
 
 
 def phase_kernel_quantize():
     gen = torch.Generator("cuda").manual_seed(11)
     max_err = 0.0
-    for name, shape, xdt, bits, dtype, block, zero in QUANT_CASES:
-        x = torch.randn(shape, generator=gen, device="cuda") * 3.0
+    routes = set()
+    for name, shape, xdt, bits, dtype, block, zero, want, off in QUANT_CASES:
+        numel = math.prod(shape)
+        if numel + off <= 1 << 28:
+            x = (torch.randn(numel + off, generator=gen, device="cuda")
+                 * 3.0).to(xdt)
+        else:                       # drawn in slabs: no fp32 copy of x
+            x = torch.empty(numel + off, dtype=xdt, device="cuda")
+            for i in range(0, numel + off, 1 << 28):
+                m = min(1 << 28, numel + off - i)
+                x[i:i + m] = torch.randn(m, generator=gen,
+                                         device="cuda") * 3.0
+        x = x[off:].view(shape)
         if zero is not None:
             r, g = zero
             x.reshape(-1, shape[-1])[r, g * block:(g + 1) * block] = 0.0
-        max_err = max(max_err, check_quantize(name, x.to(xdt), bits, dtype,
-                                              block))
+        route = qz.QUANT_ROUTES[qz.quant_route(shape[-1], block, xdt,
+                                               x.data_ptr() % 16 == 0)]
+        if route != qz.QUANT_ROUTES[want]:
+            raise AssertionError(f"[kernel] quantize {name}: took {route}, "
+                                 f"not {qz.QUANT_ROUTES[want]}")
+        routes.add(route)
+        max_err = max(max_err, check_quantize(f"{name} ({route})", x, bits,
+                                               dtype, block))
+        del x
+    if routes != set(qz.QUANT_ROUTES):
+        raise AssertionError(f"[kernel] quantize cases took routes "
+                             f"{sorted(routes)}, not all of "
+                             f"{qz.QUANT_ROUTES}")
     return max_err
 
 
@@ -564,7 +635,8 @@ def phase_kernel_dequantize():
 QMM_SHAPES = [(4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000),
               (4096, 4096)]
 QMM_CASES = (
-    # x dtype, q dtype, M, K, N, block, out dtype
+    # x dtype, q dtype, M, K, N, block, out dtype[, elements by which x
+    # starts past a 16-byte boundary]
     [(torch.bfloat16, "int8", M, K, N, 128, torch.bfloat16)
      for M in (1, 8, 37, 2048) for K, N in QMM_SHAPES]
     + [(torch.bfloat16, "fp8_e4m3", M, K, N, 128, torch.bfloat16)
@@ -590,6 +662,23 @@ QMM_CASES = (
        (torch.bfloat16, "int8", 16, 4096, 1024, 128, torch.bfloat16),
        (torch.bfloat16, "fp8_e4m3", 2, 1000, 520, 128, torch.float32),
        (torch.float32, "int8", 1500, 512, 384, 128, torch.float32)])
+# the tensor-core decode route at every serving shape: M = 1, 8 and 16, int8
+# and fp8, bf16 and fp32 out (the cases above not repeated); its edges:
+# block 64, block 192 (the two 64-column halves of a strip in different
+# groups), N = 4160 (a last strip of 64 columns) with K = 4160 (K slices of
+# unequal length), K = 64 (most of a cluster's blocks without K rows), M = 5
+# and 12; then an unaligned x, which keeps the weight-streaming kernel
+QMM_CASES += [c for c in ((torch.bfloat16, qdt, M, K, N, 128, odt)
+                          for qdt in ("int8", "fp8_e4m3") for M in (1, 8, 16)
+                          for odt in (torch.bfloat16, torch.float32)
+                          for K, N in QMM_SHAPES)
+              if c not in QMM_CASES]
+QMM_CASES += [
+    (torch.bfloat16, "int8", 8, 4096, 14336, 64, torch.bfloat16),
+    (torch.bfloat16, "fp8_e4m3", 12, 4096, 4224, 192, torch.float32),
+    (torch.bfloat16, "int8", 5, 4160, 4160, 64, torch.bfloat16),
+    (torch.bfloat16, "int8", 3, 64, 1024, 64, torch.bfloat16),
+    (torch.bfloat16, "int8", 8, 4096, 4096, 128, torch.bfloat16, 1)]
 
 
 def check_qmm(x, q, s, block, out_dtype, label):
@@ -607,7 +696,7 @@ def check_qmm(x, q, s, block, out_dtype, label):
         raise AssertionError(f"[kernel] qmm {label}: max |diff| {err:.3g} "
                              f"over {atol}·max|ref| ({scale:.3g}) + "
                              f"{rtol}·|ref|")
-    return err, scale
+    return err, scale, out
 
 
 def qmm_route_name(x, q, block):
@@ -622,23 +711,47 @@ def phase_kernel_qmm():
     gen = torch.Generator("cuda").manual_seed(12)
     max_err = 0.0
     routes = set()
-    for xdt, qdt, M, K, N, block, odt in QMM_CASES:
+    n_decode = 0
+    for xdt, qdt, M, K, N, block, odt, *rest in QMM_CASES:
+        off = rest[0] if rest else 0
         w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
         q, s = qz.quantize_blockwise(w, block=block, dtype=qdt)
         del w
-        x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+        x = torch.randn((M * K + off,), generator=gen, device="cuda").to(
+            xdt)[off:].view(M, K)
         label = (f"x {str(xdt).split('.')[-1]} {qdt} M={M} K={K} N={N} "
-                 f"B={block} -> {str(odt).split('.')[-1]}")
-        err, scale = check_qmm(x, q, s, block, odt, label)
+                 f"B={block} -> {str(odt).split('.')[-1]}"
+                 + (f", x {off} element off 16 bytes" if off else ""))
+        err, scale, out = check_qmm(x, q, s, block, odt, label)
         if xdt == torch.bfloat16 and odt == torch.bfloat16:
             max_err = max(max_err, err)
         route = qmm_route_name(x, q, block)
         routes.add(route)
+        # what each decode case must take: the tensor-core route for bf16 x
+        # at widths that are multiples of 64, the weight-streaming kernel
+        # for an unaligned x
+        want = None
+        if off:
+            want = "qmm_gemv_kernel"
+        elif (xdt == torch.bfloat16 and M <= 16 and N % 64 == 0
+              and K % 64 == 0 and block % 64 == 0):
+            want = "qmm_decode_tc_kernel"
+        if want is not None and route != want:
+            raise AssertionError(f"[kernel] qmm {label}: took {route}, not "
+                                 f"{want}")
+        if route == "qmm_decode_tc_kernel":
+            again = qz.quantized_matmul(x, q, s, block=block, out_dtype=odt)
+            if not torch.equal(out, again):
+                raise AssertionError(f"[kernel] qmm {label}: two runs "
+                                     "differ")
+            n_decode += 1
         log(f"[kernel] qmm {label}: ok, max |kernel - plain| = {err:.3g} "
             f"(max |ref| {scale:.3g}; {route})")
     if routes != set(qz.QMM_ROUTES):
         raise AssertionError(f"[kernel] qmm cases took routes "
                              f"{sorted(routes)}, not all of {qz.QMM_ROUTES}")
+    log(f"[kernel] qmm: {n_decode} cases on qmm_decode_tc_kernel, each "
+        "bit-identical over two runs")
     return max_err
 
 
@@ -1271,6 +1384,10 @@ def phase_timing():
                 kv_dtype=torch.float8_e4m3fn)
     rows["quantized_matmul"] = qmm_timing_case(
         "w_in [4096, 14336] int8, decode M=8", 8, 4096, 14336, flush)
+    for label, K, N in (("wq/wo [4096, 4096]", 4096, 4096),
+                        ("wk/wv [4096, 1024]", 4096, 1024),
+                        ("w_out [14336, 4096]", 14336, 4096)):
+        qmm_timing_case(f"{label} int8, decode M=8", 8, K, N, flush)
     qmm_timing_case("w_in [4096, 14336] int8, mixed put M=2048", 2048, 4096,
                     14336, flush)
     qmm_timing_case("w_in [4096, 14336] fp8, mixed put M=2048", 2048, 4096,
@@ -1308,10 +1425,11 @@ def phase_timing():
 
 
 def phase_compare():
-    """The main path's attention and quantized-matmul shapes timed through
-    the wrappers' entry points alone (``paged_attention_cuda``,
-    ``quantized_matmul_cuda``, ``flash_fwd_cuda``, ``flash_dq_cuda``,
-    ``flash_dkv_cuda``), which every checkout of
+    """The main path's attention, quantized-matmul (every decode projection
+    and the mixed put's) and quantize shapes timed through the wrappers'
+    entry points alone (``paged_attention_cuda``,
+    ``quantized_matmul_cuda``, ``quantize_cuda``, ``flash_fwd_cuda``,
+    ``flash_dq_cuda``, ``flash_dkv_cuda``), which every checkout of
     the port since its training slice has: copied into another checkout
     and run there with ``--compare``, this script times that checkout's
     kernels on the same inputs, so that two commits can be compared in one
@@ -1342,6 +1460,11 @@ def phase_compare():
         log(f"[compare] paged_attention {label}: {ms:.4f} ms")
     gen = torch.Generator("cuda").manual_seed(3)
     for label, M, K, N, qdt in (("w_in int8 M=8", 8, 4096, 14336, "int8"),
+                                ("w_in fp8 M=8", 8, 4096, 14336, "fp8_e4m3"),
+                                ("wq/wo int8 M=8", 8, 4096, 4096, "int8"),
+                                ("wk/wv int8 M=8", 8, 4096, 1024, "int8"),
+                                ("w_out int8 M=8", 8, 14336, 4096, "int8"),
+                                ("lm_head int8 M=8", 8, 4096, 32000, "int8"),
                                 ("w_in int8 M=2048", 2048, 4096, 14336,
                                  "int8"),
                                 ("w_in fp8 M=2048", 2048, 4096, 14336,
@@ -1356,6 +1479,14 @@ def phase_compare():
                                                       torch.bfloat16), flush)
         log(f"[compare] quantized_matmul {label}: {ms:.4f} ms")
     del q, s, x
+    rows, n = 32 * 4096, 14336          # the serving build's stacked w_in
+    x = torch.empty((rows, n), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, rows, 4096):
+        x[i:i + 4096] = torch.randn((4096, n), generator=gen,
+                                    device="cuda") * 0.02
+    ms = time_ms(lambda: qz.quantize_cuda(x, 8, 128), flush, iters=10)
+    log(f"[compare] quantize [32*4096, 14336] bf16 -> int8: {ms:.4f} ms")
+    del x
     mk = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                     device="cuda").to(torch.bfloat16)
     for label, B, T, window, backward in (
@@ -1555,7 +1686,16 @@ def profile_steps(engine, prompts, label, top=8):
             engine.put(us, chunks)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        device_summary(prof, wall, f"profile {label}", name, top)
+        busy, evs = device_summary(prof, wall, f"profile {label}", name, top)
+        # the quantized matmul's kernels and the split-K sum behind the
+        # weight-streaming route, all launches of the put together
+        share = {k: sum(e.self_device_time_total for e in evs if k in e.key)
+                 / 1e3 for k in ("qmm_", "splitk_sum")}
+        if share["qmm_"] or share["splitk_sum"]:
+            log(f"[profile {label}] {name}: quantized matmul kernels "
+                f"{share['qmm_']:.3f} ms, splitk_sum "
+                f"{share['splitk_sum']:.3f} ms "
+                f"({100 * sum(share.values()) / busy:.1f}% of device time)")
     for u in uids:
         engine.flush(u)
 

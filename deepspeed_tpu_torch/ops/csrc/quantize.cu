@@ -25,12 +25,30 @@
 // handful of operations per element: far below the ~295 flop/byte at which
 // arithmetic would be the limit.
 //
-// What this design does about it (simple first): one warp per (row, group).
-// Lanes stride over the group, so a warp's loads of one group are
-// contiguous; the amax is a warp reduction held in registers, so x is read
-// from device memory once (a group of up to kMaxPerLane * 32 elements stays
-// in registers between the max and the quantization; a larger group is read
-// again from L2).
+// What this design does about it. Two routes (the Python wrapper picks one
+// from the shapes, ops/quantizer.py::quant_route; this entry refuses a route
+// the call does not meet):
+// - quantize_vec_kernel (bf16 x, groups that tile each row, a power-of-two
+//   block of 8 to 256 elements, x 16-byte aligned: the engine builds' weight
+//   leaves). The groups of a contiguous tensor with n % block == 0 lie end
+//   to end, so the kernel walks a flat array of groups. Each lane loads 16
+//   bytes (8 values) at a time, so block / 8 lanes hold a group (16 for
+//   block 128: a warp covers two groups a pass), and the amax is a
+//   __shfl_xor_sync reduction over those lanes. A warp issues kVecPasses
+//   passes' loads before it uses any (4 x 16 bytes in flight a lane), writes
+//   each lane's 8 codes as one 8-byte store and the group's scale from its
+//   first lane, and the grid strides over the groups with about as many
+//   blocks as the card holds at once. A warp's loads of one pass are 512
+//   contiguous bytes and its stores 256.
+// - quantize_kernel (every other call: fp32 x, ragged last groups, other
+//   blocks, unaligned x), simple first: one warp per (row, group). Lanes
+//   stride over the group, so a warp's loads of one group are contiguous;
+//   the amax is a warp reduction held in registers, so x is read from device
+//   memory once (a group of up to kMaxPerLane * 32 elements stays in
+//   registers between the max and the quantization; a larger group is read
+//   again from L2).
+// Both compute each code and scale with the same operations, so they give
+// the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -114,6 +132,102 @@ quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
   }
 }
 
+constexpr int kVecThreads = 256;
+constexpr int kVecPasses = 4;  // passes whose loads a warp keeps in flight
+
+// the 8 codes of one lane (8 values of x scaled by inv), one byte each
+template <bool FP8>
+__device__ __forceinline__ uint2 encode8(const float (&v)[8], float inv, float qmax) {
+  uint32_t c[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float t = __fmul_rn(v[i], inv);
+    const uint32_t b = FP8 ? encode_fp8(t, qmax) : encode_int8(t, qmax);
+    c[i >> 2] |= b << (8 * (i & 3));
+  }
+  return make_uint2(c[0], c[1]);
+}
+
+// groups: rows * n / block, each `block` = 8 L contiguous values of x and of
+// q, and one scale; grid-stride over tasks of kVecPasses passes of 32 / L
+// groups a warp
+template <bool FP8, int L>
+__global__ void __launch_bounds__(kVecThreads)
+quantize_vec_kernel(const __nv_bfloat16* __restrict__ x, uint8_t* __restrict__ q,
+                    float* __restrict__ scales, long long groups, float qmax) {
+  constexpr int P = 32 / L;               // groups a pass
+  constexpr int TG = P * kVecPasses;      // groups a task
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / L, part = lane % L;
+  const long long tasks = (groups + TG - 1) / TG;
+  const long long nwarps = (long long)gridDim.x * (kVecThreads / 32);
+  for (long long task = (long long)blockIdx.x * (kVecThreads / 32) + (threadIdx.x >> 5);
+       task < tasks; task += nwarps) {  // warp-uniform
+    const long long g0 = task * TG + sub;
+    uint4 raw[kVecPasses];
+#pragma unroll
+    for (int u = 0; u < kVecPasses; ++u) {
+      const long long gi = g0 + u * P;
+      raw[u] = gi < groups
+                   ? *reinterpret_cast<const uint4*>(x + gi * (8 * L) + 8 * part)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecPasses; ++u) {
+      const long long gi = g0 + u * P;
+      const uint32_t w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+      float v[8];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);  // bf16 -> fp32, exact
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+        amax = fmaxf(amax, fmaxf(fabsf(v[2 * i]), fabsf(v[2 * i + 1])));
+      }
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float scale = __fdiv_rn(amax, qmax);
+      const float inv = scale > 0.f ? __frcp_rn(scale) : 0.f;
+      if (gi < groups) {
+        *reinterpret_cast<uint2*>(q + gi * (8 * L) + 8 * part) = encode8<FP8>(v, inv, qmax);
+        if (part == 0) scales[gi] = scale;
+      }
+    }
+  }
+}
+
+template <bool FP8, int L>
+cudaError_t launch_vec(const void* x, void* q, float* scales, long long groups, float qmax,
+                       cudaStream_t stream) {
+  auto kernel = &quantize_vec_kernel<FP8, L>;
+  static int resident = 0;  // one device's worth
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, kVecThreads, 0, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int TG = 32 / L * kVecPasses * (kVecThreads / 32);  // groups a block a round
+  const long long want = (groups + TG - 1) / TG;
+  const int nblocks = (int)(want < resident ? want : resident);
+  kernel<<<nblocks, kVecThreads, 0, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                              static_cast<uint8_t*>(q), scales, groups, qmax);
+  return cudaGetLastError();
+}
+
+template <bool FP8>
+cudaError_t launch_vec_block(const void* x, void* q, float* scales, long long groups,
+                             int block, float qmax, cudaStream_t stream) {
+  switch (block) {
+    case 8: return launch_vec<FP8, 1>(x, q, scales, groups, qmax, stream);
+    case 16: return launch_vec<FP8, 2>(x, q, scales, groups, qmax, stream);
+    case 32: return launch_vec<FP8, 4>(x, q, scales, groups, qmax, stream);
+    case 64: return launch_vec<FP8, 8>(x, q, scales, groups, qmax, stream);
+    case 128: return launch_vec<FP8, 16>(x, q, scales, groups, qmax, stream);
+    case 256: return launch_vec<FP8, 32>(x, q, scales, groups, qmax, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, bool FP8>
 cudaError_t launch(const void* x, void* q, float* scales, long long rows, int n,
                    int block, float qmax, cudaStream_t stream) {
@@ -131,22 +245,33 @@ cudaError_t launch(const void* x, void* q, float* scales, long long rows, int n,
 
 // x [rows, n] (x_dtype 0 = float32, 1 = bfloat16), contiguous. q [rows, n]
 // one byte each (q_dtype 0 = int8 with `bits` 8 or 4, 1 = float8_e4m3fn);
-// scales [rows, ceil(n / block)] float32. Returns a cudaError_t.
+// scales [rows, ceil(n / block)] float32. route (ops/quantizer.py::
+// QUANT_ROUTES): 0 quantize_kernel, any call; 1 quantize_vec_kernel, bf16 x
+// with n % block == 0, block a power of two from 8 to 256, x 16-byte and q
+// 8-byte aligned. Returns a cudaError_t.
 extern "C" int quantize(const void* x, void* q, void* scales, long long rows,
                         int n, int block, int bits, int x_dtype, int q_dtype,
-                        void* stream) {
+                        int route, void* stream) {
   if (rows < 0 || n <= 0 || block <= 0 || (x_dtype != 0 && x_dtype != 1) ||
-      (q_dtype != 0 && q_dtype != 1) || (q_dtype == 0 && bits != 8 && bits != 4))
+      (q_dtype != 0 && q_dtype != 1) || (q_dtype == 0 && bits != 8 && bits != 4) ||
+      (route != 0 && route != 1))
+    return cudaErrorInvalidValue;
+  if (route == 1 &&
+      (x_dtype != 1 || n % block != 0 || block < 8 || block > 256 || (block & (block - 1)) ||
+       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 8 != 0))
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   float* s = static_cast<float*>(scales);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1) {
-    const float qmax = 448.f;
+  const float qmax = q_dtype == 1 ? 448.f : (float)((1 << (bits - 1)) - 1);
+  if (route == 1) {
+    const long long groups = rows * (n / block);
+    return q_dtype == 1 ? launch_vec_block<true>(x, q, s, groups, block, qmax, st)
+                        : launch_vec_block<false>(x, q, s, groups, block, qmax, st);
+  }
+  if (q_dtype == 1)
     return x_dtype == 0 ? launch<float, true>(x, q, s, rows, n, block, qmax, st)
                         : launch<__nv_bfloat16, true>(x, q, s, rows, n, block, qmax, st);
-  }
-  const float qmax = (float)((1 << (bits - 1)) - 1);
   return x_dtype == 0 ? launch<float, false>(x, q, s, rows, n, block, qmax, st)
                       : launch<__nv_bfloat16, false>(x, q, s, rows, n, block, qmax, st);
 }

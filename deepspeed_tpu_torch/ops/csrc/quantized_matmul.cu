@@ -23,16 +23,20 @@
 //
 // What this design does about it (the Python wrapper picks the route from
 // the shapes, ops/quantizer.py::qmm_route):
-// - Small M (decode, M <= 16) streams the weight straight from device
-//   memory into registers: each thread owns 4 adjacent columns for all M
-//   rows (one 4-byte load per weight row, a warp reading 128 contiguous
-//   bytes), x is staged in shared memory 128 rows of K at a time and read
-//   as a broadcast. The weight rows come in groups of 8 and the next
-//   group's loads are issued before the current one is used, so loads stay
-//   in flight while the FMAs run. K is split over the grid's second dimension
-//   so that even a 1024-wide projection puts several blocks on each SM;
-//   each split writes an fp32 partial and a second kernel sums the
-//   partials in a fixed order into `out` (deterministic).
+// - Decode with bf16 x at the serving shapes (M <= 16; N, K and the scale
+//   block multiples of 64; x and q 16-byte aligned: every projection the
+//   port serves) runs qmm_decode_tc_kernel, on the tensor cores with the
+//   split-K partials summed on chip (see its section below).
+// - Other small M (fp32 x, odd widths, unaligned pointers) streams the
+//   weight straight from device memory into registers: each thread owns 4
+//   adjacent columns for all M rows (one 4-byte load per weight row, a warp
+//   reading 128 contiguous bytes), x is staged in shared memory 128 rows of
+//   K at a time and read as a broadcast. The weight rows come in groups of
+//   8 and the next group's loads are issued before the current one is used,
+//   so loads stay in flight while the FMAs run. K is split over the grid's
+//   second dimension so that even a 1024-wide projection puts several
+//   blocks on each SM; each split writes an fp32 partial and a second
+//   kernel sums the partials in a fixed order into `out` (deterministic).
 // - Large M with bf16 x at the serving shapes (N, K and the scale block
 //   multiples of 64, aligned pointers: every projection of the models the
 //   port serves) runs qmm_wgmma_kernel: Hopper's warpgroup MMA with the
@@ -56,6 +60,7 @@
 // - Weight rows that are 16-byte (fp32 tile) or 4-byte (others) aligned are
 //   read that many bytes a thread; any other width one byte at a time.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -67,9 +72,11 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 // the routes of the C entry point (ops/quantizer.py::QMM_ROUTES)
 constexpr int kRouteGemv = 0, kRouteTile = 1, kRouteMma = 2, kRouteWgmma128 = 3,
-              kRouteWgmma256 = 4;
+              kRouteWgmma256 = 4, kRouteDecodeTc = 5;
 
 __device__ __forceinline__ float x_f32(float v) { return v; }
 __device__ __forceinline__ float x_f32(__nv_bfloat16 v) {
@@ -601,7 +608,7 @@ qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   }
 }
 
-// ---- weight-streaming path (M <= 16)
+// ---- weight-streaming path (M <= 16, the calls the decode route does not take)
 
 constexpr int kGemvThreads = 128;  // 4 columns each: 512 columns a block
 constexpr int kGemvKT = 128;       // rows of x staged per step
@@ -729,6 +736,295 @@ __global__ void splitk_sum(const float* __restrict__ ws, void* __restrict__ out,
   }
 }
 
+// ---- decode route on the tensor cores (bf16 x, M <= 16, N % 64 == 0,
+//      K % 64 == 0, block % 64 == 0, x and q 16-byte aligned)
+//
+// out^T[N, M] = W^T[N, K] . x^T[K, M] on mma.sync m16n8k16: the weight gives
+// A (16 output columns x 16 of K), x^T gives B, whose n8 is 8 rows of x (two
+// n8 halves for M <= 16). The scale varies along K (s[k, n / B]), so it is
+// folded into x rather than into every weight element: for each K row k and
+// scale group the kernel forms x'[m, k] = fl32(x[m, k] * s[k, group]) once,
+// splits it into hi = bf16(x') and lo = bf16(x' - hi), and issues one MMA on
+// hi and one on lo into one fp32 accumulator. The codes are exact in bf16
+// (int8 through two logic operations and one packed FMA a pair, e4m3
+// through f16), so a weight element costs about 2 instructions where the
+// CUDA-core kernel spends about 13. Each product q * hi and q * lo is
+// exact, and hi + lo carries x' to 2^-16 of itself, as the wgmma route's
+// split of the dequantized weight does.
+//
+// Work split. A block (4 warps) owns a strip of 512, 256 or 128 output
+// columns (each warp 128 of them; KW = 1, 2 or 4 warps share a 128-column
+// sub-strip and take turns over its K rows) and one K slice; the blocks that
+// share a strip form a thread-block cluster along K (8 or 16 blocks).
+// dec_plan picks the strip and the cluster from N and the number of blocks
+// the card holds at once: a warp's 16-row step is a chain of dependent
+// loads, conversions and products, so the kernel wants every resident slot
+// filled. The block streams its slice through a ring of kDecStages stages
+// of 16 KW K rows, filled by 16-byte cp.async from all 128 threads: a warp's
+// copies cover 512 / KW contiguous bytes of each weight row, and the stage's
+// x (16 columns of each row for each K phase) and scales (each warp's two
+// 64-column halves, 16 K rows) are fetched once for the block. At the end
+// the partials of the KW warps of a sub-strip are summed in shared memory
+// (in warp order), then each block of the cluster sums its share of the
+// strip's columns over the cluster's blocks (ranks in order) through
+// distributed shared memory and writes `out`: no fp32 partial goes to
+// device memory, no second kernel runs, and every sum has a fixed order
+// (the same bits on every run).
+//
+// Fragments. Lane (g, t) (g = lane / 4, t = lane % 4) holds A rows g and
+// g + 8 of each of the warp's 8 tiles at k = 2t, 2t + 1, 2t + 8, 2t + 9.
+// The k of the MMA map to the step's K rows 4t .. 4t + 3 (A and B permuted
+// alike), and tile j = 4 h + jj's rows g and g + 8 to columns 64 h + 8 g +
+// 2 jj and + 1: a tile stays in one 64-column half, hence in one scale
+// group (block % 64 == 0), and a lane reads the 8 adjacent codes of each
+// half from each of its 4 rows as one 8-byte load. The 16-byte chunk c of
+// code row r is stored at chunk c ^ 2 (r / 4), which keeps those loads free
+// of bank conflicts. The accumulator of tile j holds out rows 2t and 2t + 1
+// (+ 8 in the second n8 half) at the tile's two columns of the lane.
+
+constexpr int kDecThreads = 128;  // 4 warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecBN = 128;       // output columns a warp: two 64-column halves
+constexpr int kDecStages = 6;     // ring stages a block
+
+// a stage: each warp's code tile (16 K rows x 128 columns), x for up to 4 K
+// phases (16 columns of 8 MT rows each), each warp's two halves' scales
+template <int MT>
+__host__ __device__ constexpr int dec_stage_bytes() {
+  return kDecWarps * 16 * kDecBN + kDecWarps * 8 * MT * 32 + kDecWarps * 2 * 16 * 4;
+}
+template <int MT>
+__host__ __device__ constexpr size_t dec_smem_bytes() {
+  return (size_t)kDecStages * dec_stage_bytes<MT>();
+}
+
+// (a & m) | c in one instruction (the compiler splits it in two when m and
+// c are both immediates)
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t m, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(m), "r"(c));
+  return d;
+}
+
+// Two codes (byte b of w0, K row k; byte b of w1, row k + 1) -> the bf16
+// pair (row k in the low half), exactly. int8: with s the sign bit and l the
+// low 7 bits, q = l - 128 s; 0x4300 | l is the bf16 128 + l and 0xC300 |
+// s << 7 is -(128 + 128 s), so one packed FMA (times 1) adds them without
+// rounding.
+// e4m3: two at a time through f16 and fp32, exact at every step.
+template <bool FP8>
+__device__ __forceinline__ uint32_t codes2_bf16(uint32_t w0, uint32_t w1, int b) {
+  if (FP8) {
+    const uint32_t z = __byte_perm(w0, w1, b | ((b + 4) << 4));
+    const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)z, __NV_E4M3);
+    const float2 f = __half22float2(__half2(hr));
+    return pack2(f.x, f.y);
+  }
+  const uint32_t z = __byte_perm(w0, w1, b | ((b + 4) << 8));
+  const uint32_t l = and_or(z, 0x007F007Fu, 0x43004300u);
+  const uint32_t s = and_or(z, 0x00800080u, 0xC300C300u);
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(l), "r"(0x3F803F80u), "r"(s));
+  return r;
+}
+
+// grid (C, strips of 128 * 4 / KW columns) in clusters of C blocks along x
+// (C = 8 or 16); 128 threads; dynamic shared memory dec_smem_bytes<MT>().
+// M <= 8 MT rows of x; KW: warps that share a 128-column sub-strip (1, 2 or
+// 4), warp w taking K phase w % KW of each stage (a stage is 16 KW K rows);
+// kchunk: K rows a block (a multiple of 16).
+template <bool FP8, int MT>
+__global__ void __launch_bounds__(kDecThreads)
+qmm_decode_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                     const float* __restrict__ s, void* __restrict__ out, int out_bf16, int M,
+                     int N, int K, int block, int G, int kchunk, int KW) {
+  constexpr int SB = dec_stage_bytes<MT>();
+  constexpr int MP = 8 * MT;                           // x rows a block sums
+  constexpr int XO = kDecWarps * 16 * kDecBN;          // x's offset in a stage
+  constexpr int SO = XO + kDecWarps * MP * 32;         // the scales'
+  constexpr int E = MP * kDecBN;                       // one warp's partial, in floats
+  static_assert(dec_smem_bytes<MT>() >= (size_t)kDecWarps * E * 4,
+                "the partials reuse the ring");
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int subs = kDecWarps / KW;                      // 128-column sub-strips a block
+  const int n0 = blockIdx.y * kDecBN * subs;
+  const int kq = warp % KW;                             // this warp's K phase
+  const int kbeg = blockIdx.x * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int steps = max(0, kend - kbeg) / 16;           // 16-row steps of the slice
+  const int nstage = (steps + KW - 1) / KW;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(dec_smem);
+
+  // This thread's copies of a stage, the same every stage but for k0 (the
+  // stage's first K row). Codes: chunks tid + 128 u of the stage's 16 KW
+  // rows x 512 / KW bytes, row by row, so that a warp reads 512 / KW
+  // contiguous bytes of each row; each lands in its warp's tile, chunk c of
+  // tile row r at chunk c ^ 2 (r / 4). x: 16-byte chunks of (phase, row).
+  // Scales: K row tid / 8 of the 8 (warp, half) pairs. What lies past N, M
+  // or the slice is zero-filled.
+  const int cpr = 32 / KW;                              // 16-byte chunks a row
+  const int crow = tid / cpr, cc = tid % cpr;
+  const bool clive = n0 + 16 * cc < N;
+  const uint8_t* csrc = q + (size_t)crow * N + (clive ? n0 + 16 * cc : 0);
+  const size_t cstep = (size_t)4 * KW * N;              // rows between u and u + 1
+  uint32_t cdst[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int r = crow + 4 * KW * u, lr = r % 16;
+    cdst[u] = ((cc / 8) * KW + r / 16) * 16 * kDecBN + lr * kDecBN +
+              16 * ((cc % 8) ^ (2 * (lr >> 2)));
+  }
+  const int xq = tid / (2 * MP), xm = (tid / 2) % MP;
+  const bool xlive = tid < 2 * MP * KW && xm < M;
+  const __nv_bfloat16* xsrc = x + (size_t)(xlive ? xm : 0) * K + 16 * xq + 8 * (tid & 1);
+  const int sr = tid / 8, sw = (tid % 8) / 2, sh = tid % 2;
+  const int scol = n0 + kDecBN * (sw / KW) + 64 * sh;
+  const bool slive = scol < N;
+  const int srow = 16 * (sw % KW) + sr;                 // the scale's row in the stage
+  const float* ssrc = s + (size_t)srow * G + (slive ? scol / block : 0);
+  auto load = [&](int slot, int i) {
+    const int k0 = kbeg + 16 * KW * i;
+    const uint32_t st = ring_s + slot * SB;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      cp_async16(st + cdst[u], csrc + (size_t)k0 * N + u * cstep,
+                 clive && k0 + crow + 4 * KW * u < kend ? 16 : 0);
+    if (tid < 2 * MP * KW)
+      cp_async16(st + XO + 16 * tid, xsrc + k0, xlive && k0 + 16 * xq < kend ? 16 : 0);
+    cp_async4(st + SO + 4 * ((tid % 8) * 16 + sr), ssrc + (size_t)k0 * G,
+              slive && k0 + srow < kend ? 4 : 0);
+  };
+
+  // this warp's columns: halves in one scale group or two
+  const int nw = n0 + kDecBN * (warp / KW);
+  const bool same = nw + 64 >= N || (nw + 64) / block == nw / block;
+
+  float acc[8][MT][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < nstage) load(i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nstage; ++i) {
+    cp_async_wait<kDecStages - 2>();  // stage i has landed (this thread's copies)
+    __syncthreads();                  // ... and every thread's; stage i - 1's slot is free
+    if (i + kDecStages - 1 < nstage) load((i + kDecStages - 1) % kDecStages, i + kDecStages - 1);
+    cp_async_commit();
+    if (kq + KW * i >= steps) continue;  // this warp's phase lies past the slice
+    const uint8_t* st = dec_smem + (i % kDecStages) * SB;
+    const uint8_t* ct = st + warp * 16 * kDecBN;        // this warp's code tile
+    const uint8_t* xt = st + XO + kq * MP * 32;         // its phase's x
+    const uint8_t* sc = st + SO + warp * 2 * 16 * 4;    // its halves' scales
+
+    // B: x' = x * s at K rows 4t .. 4t + 3 for x rows g (+ 8), split hi + lo
+    uint32_t bh[2][MT][2], bl[2][MT][2];
+    const float4 s0 = *reinterpret_cast<const float4*>(sc + 16 * t);
+    const float4 s1 = *reinterpret_cast<const float4*>(sc + 64 + 16 * t);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint2 xv = *reinterpret_cast<const uint2*>(xt + (g + 8 * mt) * 32 + 8 * t);
+      const float x0 = __uint_as_float(xv.x << 16), x1 = __uint_as_float(xv.x & 0xFFFF0000u);
+      const float x2 = __uint_as_float(xv.y << 16), x3 = __uint_as_float(xv.y & 0xFFFF0000u);
+      split_hi_lo(__fmul_rn(x0, s0.x), __fmul_rn(x1, s0.y), bh[0][mt][0], bl[0][mt][0]);
+      split_hi_lo(__fmul_rn(x2, s0.z), __fmul_rn(x3, s0.w), bh[0][mt][1], bl[0][mt][1]);
+      if (same) {
+        bh[1][mt][0] = bh[0][mt][0], bh[1][mt][1] = bh[0][mt][1];
+        bl[1][mt][0] = bl[0][mt][0], bl[1][mt][1] = bl[0][mt][1];
+      } else {
+        split_hi_lo(__fmul_rn(x0, s1.x), __fmul_rn(x1, s1.y), bh[1][mt][0], bl[1][mt][0]);
+        split_hi_lo(__fmul_rn(x2, s1.z), __fmul_rn(x3, s1.w), bh[1][mt][1], bl[1][mt][1]);
+      }
+    }
+    // A: the lane's 8 codes of each half in each of its 4 K rows
+    uint2 w[4][2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        w[r][h] = *reinterpret_cast<const uint2*>(ct + (4 * t + r) * kDecBN +
+                                                  8 * ((8 * h + g) ^ (4 * t)));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int b = 2 * (jj & 1);  // the byte of the tile's column in its word
+        const uint32_t r0 = jj < 2 ? w[0][h].x : w[0][h].y, r1 = jj < 2 ? w[1][h].x : w[1][h].y;
+        const uint32_t r2 = jj < 2 ? w[2][h].x : w[2][h].y, r3 = jj < 2 ? w[3][h].x : w[3][h].y;
+        uint32_t a[4];
+        a[0] = codes2_bf16<FP8>(r0, r1, b);
+        a[1] = codes2_bf16<FP8>(r0, r1, b + 1);
+        a[2] = codes2_bf16<FP8>(r2, r3, b);
+        a[3] = codes2_bf16<FP8>(r2, r3, b + 1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[4 * h + jj][mt], a, bh[h][mt][0], bh[h][mt][1]);
+          mma_bf16(acc[4 * h + jj][mt], a, bl[h][mt][0], bl[h][mt][1]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: the partials reuse it
+  float* red = reinterpret_cast<float*>(dec_smem);  // [warp][MP][128]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 64 * (j >> 2) + 8 * g + 2 * (j & 3);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float* r = red + (warp * MP + 8 * mt + 2 * t) * kDecBN + col;
+      *reinterpret_cast<float2*>(r) = make_float2(acc[j][mt][0], acc[j][mt][2]);
+      *reinterpret_cast<float2*>(r + kDecBN) = make_float2(acc[j][mt][1], acc[j][mt][3]);
+    }
+  }
+  __syncthreads();
+  // the KW warps of a sub-strip, summed in order into the first one's slot
+  for (int e = tid; e < subs * E; e += kDecThreads) {
+    float* p = red + (e / E) * KW * E + e % E;
+    float v = p[0];
+    for (int k = 1; k < KW; ++k) v += p[k * E];
+    p[0] = v;
+  }
+  cluster.sync();  // every block's partial is in its shared memory
+
+  // this block's share of the strip's columns, summed over the cluster's
+  // blocks in rank order (the cluster spans the grid's x: rank = blockIdx.x);
+  // the C loads are issued before the sum
+  const int C = gridDim.x, cw = kDecBN * subs / C, c0 = blockIdx.x * cw;
+  for (int e = tid; e < M * cw; e += kDecThreads) {
+    const int m = e / cw, c = c0 + e % cw;
+    const int off = ((c / kDecBN) * KW * MP + m) * kDecBN + c % kDecBN;
+    float part[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < C) part[r] = cluster.map_shared_rank(red, r)[off];
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < C) v += part[r];
+    const int n = n0 + c;
+    if (n < N) {
+      const size_t o = (size_t)m * N + n;
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
+      else
+        static_cast<float*>(out)[o] = v;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
 template <typename TX, bool FP8, int BM, int BN, int BK, int TM, int TN>
 cudaError_t launch_tile(const void* x, const void* q, const float* s, void* out,
                         int out_bf16, int M, int N, int K, int block,
@@ -809,6 +1105,72 @@ cudaError_t launch_wgmma(const void* x, const void* q, const float* s, void* out
   return cudaGetLastError();
 }
 
+// The decode route's work split for an output width N: among strips of 512,
+// 256 and 128 columns (KW = 1, 2 or 4 warps a 128-column sub-strip) and
+// clusters of 8 or 16 blocks along K, the one with the most blocks that the
+// card holds at once (`resident`), the widest strip and then the smaller
+// cluster on a tie; if none fits, the one with the fewest blocks. A warp's
+// 16-row step is a chain of dependent loads, conversions and products, so
+// the kernel needs many warps on each SM more than long-lived ones.
+void dec_plan(int N, int resident, int& KW, int& C) {
+  long best = -1, fewest = 0;
+  for (int kw = 1; kw <= 4; kw *= 2)
+    for (int c = 8; c <= 16; c *= 2) {
+      const int width = kDecBN * kDecWarps / kw;
+      const long blocks = (long)(N + width - 1) / width * c;
+      const bool fits = blocks <= resident;
+      if ((fits && blocks > best) || (best < 0 && (fewest == 0 || blocks < fewest))) {
+        if (fits) best = blocks;
+        else fewest = blocks;
+        KW = kw;
+        C = c;
+      }
+    }
+}
+
+template <bool FP8, int MT>
+cudaError_t launch_decode_tc(const void* x, const void* q, const float* s, void* out,
+                             int out_bf16, int M, int N, int K, int block,
+                             cudaStream_t stream) {
+  const int G = (N + block - 1) / block;
+  auto kernel = &qmm_decode_tc_kernel<FP8, MT>;
+  constexpr size_t smem = dec_smem_bytes<MT>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  static int resident = 0;  // one device's worth
+  if (resident == 0) {
+    err = resident_blocks(kernel, kDecThreads, smem, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  int KW = 4, C = 8;
+  dec_plan(N, resident, KW, C);
+  const int width = kDecBN * kDecWarps / KW;
+  const int strips = (N + width - 1) / width;
+  if (strips > 65535) return cudaErrorInvalidValue;
+  const int kchunk = (K / 16 + C - 1) / C * 16;
+  if (C > 8)  // 16 is a non-portable cluster size
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, strips);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                           static_cast<const uint8_t*>(q), s, out, out_bf16, M, N, K, block, G,
+                           kchunk, KW);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <typename TX, bool FP8>
 cudaError_t launch_route(int route, const void* x, const void* q, const float* s,
                          void* out, float* ws, int out_bf16, int M, int N, int K,
@@ -844,6 +1206,15 @@ cudaError_t launch_route(int route, const void* x, const void* q, const float* s
                  ? launch_wgmma<FP8, 256>(x, q, s, out, out_bf16, M, N, K, block, stream)
                  : launch_wgmma<FP8, 128>(x, q, s, out, out_bf16, M, N, K, block, stream);
     }
+    case kRouteDecodeTc: {
+      const bool ok = bf16_x && M <= 16 && N % 64 == 0 && K % 64 == 0 && block % 64 == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(s) % 4 == 0;
+      if (!ok) return cudaErrorInvalidValue;
+      return M <= 8 ? launch_decode_tc<FP8, 1>(x, q, s, out, out_bf16, M, N, K, block, stream)
+                    : launch_decode_tc<FP8, 2>(x, q, s, out, out_bf16, M, N, K, block, stream);
+    }
     default:
       return cudaErrorInvalidValue;
   }
@@ -863,6 +1234,7 @@ cudaError_t launch_route(int route, const void* x, const void* q, const float* s
 //   3, 4 qmm_wgmma_kernel with 128 or 256 rows of x a block: bf16 x,
 //                       N % 64 == 0, K % 64 == 0, block % 64 == 0, x and q
 //                       16-byte aligned
+//   5 qmm_decode_tc_kernel  the same shapes at M <= 16 (splits 0, ws unused)
 // Returns a cudaError_t.
 extern "C" int quantized_matmul(const void* x, const void* q, const void* s,
                                 void* out, void* ws, int M, int N, int K,

@@ -13,13 +13,14 @@ with block size ``B``, ``q[..., N]`` (int8, or ``float8_e4m3fn`` with
   fp8 clips to ±448 and casts (round to nearest even).
 - ``quantize_blockwise`` launches ``csrc/quantize.cu`` (replaces the Pallas
   ``_quant_kernel`` :130) on a CUDA tensor, bit-identical to the plain
-  version.
+  version; ``quant_route`` picks its ``__global__`` function from the
+  shapes (16-byte loads for bf16 weight leaves, a warp a group otherwise).
 - ``quantized_matmul`` launches ``csrc/quantized_matmul.cu`` (replaces
   ``_qmm_kernel`` :257) on a CUDA tensor; its plain version is the XLA
   branch (dequantize in fp32, then an fp32 product). ``qmm_route`` picks
-  the kernel's ``__global__`` function from the shapes (decode weight
-  streaming, the wgmma kernel at the serving shapes, mma.sync or CUDA
-  cores otherwise).
+  the kernel's ``__global__`` function from the shapes (at the serving
+  shapes the tensor-core decode kernel or the wgmma kernel, otherwise
+  weight streaming at decode, mma.sync or CUDA cores).
 - ``dequantize_blockwise`` launches ``csrc/dequantize.cu`` (replaces
   ``_dequant_kernel`` :142) on a CUDA tensor: int8 codes, any shape, a
   ragged last group, bf16, fp16 or fp32 out, bit-identical to the plain
@@ -165,6 +166,28 @@ def _check_cuda(**tensors):
     return dev
 
 
+# The routes of ``csrc/quantize.cu``, by the C entry point's code.
+QUANT_ROUTES = ("quantize_kernel", "quantize_vec_kernel")
+
+
+def quant_route(n: int, block: int, x_dtype, aligned: bool = True) -> int:
+    """The route (an index into ``QUANT_ROUTES``) that a quantization of
+    rows of ``n`` values takes, from its shapes alone. ``aligned``: x starts
+    on a 16-byte boundary.
+
+    - bf16 x whose groups tile each row (``n % block == 0``) with a
+      power-of-two block of 8 to 256 values, aligned: the kernel with
+      16-byte loads, ``block / 8`` lanes a group (every weight leaf the
+      engines quantize).
+    - anything else (fp32 x, a ragged last group, other blocks, unaligned
+      x): a warp a group.
+    """
+    if (x_dtype == torch.bfloat16 and aligned and n % block == 0
+            and 8 <= block <= 256 and block & (block - 1) == 0):
+        return 1
+    return 0
+
+
 def quantize_cuda(x, bits: int, block: int, dtype: str = "int8"):
     """Launch ``csrc/quantize.cu`` on a CUDA tensor x[..., N]."""
     dev = _check_cuda(x=x)
@@ -184,12 +207,13 @@ def quantize_cuda(x, bits: int, block: int, dtype: str = "int8"):
     if rows == 0 or n == 0:
         return q, s
     x2 = x.contiguous()
+    route = quant_route(n, block, x.dtype, x2.data_ptr() % 16 == 0)
     lib, fn = _bind("quantize", [ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     from ._build import check
 
     err = fn(x2.data_ptr(), q.data_ptr(), s.data_ptr(), rows, n, block,
-             bits, _X_CODE[x.dtype], _Q_CODE[q.dtype],
+             bits, _X_CODE[x.dtype], _Q_CODE[q.dtype], route,
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "quantize")
     launches["quantize"] += 1
@@ -239,9 +263,10 @@ def dequantize_cuda(q, scales, block: int, dtype=torch.float32):
 # The routes of ``csrc/quantized_matmul.cu``, by the C entry point's code:
 # the __global__ function each one launches.
 QMM_ROUTES = ("qmm_gemv_kernel", "qmm_kernel", "qmm_mma_kernel",
-              "qmm_wgmma_kernel<128>", "qmm_wgmma_kernel<256>")
-# decode-sized M (at most this many rows, the kernel's largest
-# weight-streaming row tile) streams the weight with a split over K
+              "qmm_wgmma_kernel<128>", "qmm_wgmma_kernel<256>",
+              "qmm_decode_tc_kernel")
+# decode-sized M: at most this many rows (two n8 halves of the tensor-core
+# decode kernel, the largest row tile of the weight-streaming one)
 _QMM_SMALL_M = 16
 
 
@@ -250,20 +275,22 @@ def qmm_route(M: int, N: int, K: int, block: int, x_dtype,
     """The route (an index into ``QMM_ROUTES``) that a call takes, from its
     shapes alone. ``aligned``: x and q start on 16-byte boundaries.
 
-    - M <= 16 (decode): the weight-streaming kernel, K split over the grid.
     - bf16 x with N, K and the scale block multiples of 64 (every serving
       projection: wq/wo, wk/wv, w_in/w_out, lm_head) and aligned pointers:
-      the wgmma kernel, 256 rows of x a block when that still gives at
-      least one block an SM (``sms``), else 128 (wk/wv at M = 2048).
-    - other bf16 x: the mma.sync kernel; fp32 x: the CUDA-core tile.
+      at M <= 16 (decode) the tensor-core decode kernel, K split over a
+      thread-block cluster; above, the wgmma kernel, 256 rows of x a block
+      when that still gives at least one block an SM (``sms``), else 128
+      (wk/wv at M = 2048).
+    - other calls at M <= 16: the weight-streaming kernel, K split over the
+      grid; other bf16 x: the mma.sync kernel; fp32 x: the CUDA-core tile.
     """
+    serving = (x_dtype == torch.bfloat16 and aligned and N % 64 == 0
+               and K % 64 == 0 and block % 64 == 0)
     if M <= _QMM_SMALL_M:
-        return 0
-    if x_dtype == torch.bfloat16:
-        if aligned and N % 64 == 0 and K % 64 == 0 and block % 64 == 0:
-            return 4 if -(-N // 128) * -(-M // 256) >= sms else 3
-        return 2
-    return 1
+        return 5 if serving else 0
+    if serving:
+        return 4 if -(-N // 128) * -(-M // 256) >= sms else 3
+    return 2 if x_dtype == torch.bfloat16 else 1
 
 
 def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
@@ -299,10 +326,10 @@ def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     route = qmm_route(M, N, K, block, x.dtype,
                       x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0, sms)
-    # split K so that the grid puts about six blocks (of 512 columns) on
-    # each SM at decode, at least 64 rows of K and at most 64 splits; each
+    # route 0: split K so that the grid puts about six blocks (of 512
+    # columns) on each SM, at least 64 rows of K and at most 64 splits; each
     # split writes an fp32 partial and a second kernel sums them into
-    # ``out``
+    # ``out``. Route 5 sums its K slices on chip (no scratch).
     splits = 0
     if route == 0:
         col_blocks = -(-N // 512)

@@ -56,8 +56,9 @@ VARIANTS = {
 }
 
 
-def build_copies(edits: dict, tmp: Path) -> dict:
-    """One library per entry of ``edits``, compiled in parallel."""
+def build_copies(edits: dict, tmp: Path, source: str = SOURCE) -> dict:
+    """One library of ``csrc/<source>.cu`` per entry of ``edits``, compiled
+    in parallel."""
     nvcc = _build.find_nvcc()
     procs = {}
     for i, (label, pairs) in enumerate(edits.items()):
@@ -66,7 +67,7 @@ def build_copies(edits: dict, tmp: Path) -> dict:
         for p in _build.CSRC.iterdir():
             if p.suffix in (".cu", ".cuh"):
                 (src_dir / p.name).write_text(p.read_text())
-        src = src_dir / f"{SOURCE}.cu"
+        src = src_dir / f"{source}.cu"
         text = src.read_text()
         for old, new in pairs:
             if text.count(old) != 1:
@@ -92,8 +93,8 @@ def build_copies(edits: dict, tmp: Path) -> dict:
     return libs
 
 
-def use(lib):
-    _build._libs[SOURCE] = lib
+def use(lib, source: str = SOURCE):
+    _build._libs[source] = lib
 
 
 def run_faults(base, libs):

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import QMM_TOL
 from deepspeed_tpu.ops import quantizer as jq
 from deepspeed_tpu_torch.ops import quantizer as tq
 
@@ -274,8 +275,12 @@ def test_import_needs_no_nvcc():
                    timeout=120)
 
 
+SERVING_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                  (32000, 4096)]     # (N, K): wq/wo, wk/wv, w_in, w_out, lm_head
+
+
 @pytest.mark.parametrize("M,N,K,block,x_dtype,aligned,route", [
-    (1, 14336, 4096, 128, torch.bfloat16, True, 0),      # decode
+    (1, 14336, 4096, 128, torch.bfloat16, True, 5),      # decode
     (16, 4096, 4096, 128, torch.float32, True, 0),
     (2048, 14336, 4096, 128, torch.bfloat16, True, 4),   # w_in, mixed put
     (2048, 4096, 4096, 128, torch.bfloat16, True, 4),    # wq / wo
@@ -288,17 +293,107 @@ def test_import_needs_no_nvcc():
     (300, 130, 77, 64, torch.bfloat16, True, 2),         # K % 64 != 0
     (2048, 4096, 4096, 128, torch.bfloat16, False, 2),   # unaligned
     (2048, 4096, 4096, 128, torch.float32, True, 1),     # fp32 x
-])
+]
+    # the tensor-core decode route: bf16 x at every serving shape
+    + [(M, N, K, 128, torch.bfloat16, True, 5)
+       for M in (1, 8, 16) for N, K in SERVING_SHAPES]
+    + [(8, 14336, 4096, 64, torch.bfloat16, True, 5),    # block 64
+       (12, 4224, 4096, 192, torch.bfloat16, True, 5),   # block 192
+       (17, 14336, 4096, 128, torch.bfloat16, True, 3),  # past decode
+       # the weight-streaming kernel keeps fp32 x, unaligned pointers and
+       # widths that are not multiples of 64
+       (1, 14336, 4096, 128, torch.float32, True, 0),
+       (8, 4096, 14336, 128, torch.float32, True, 0),
+       (8, 4096, 4096, 128, torch.bfloat16, False, 0),
+       (8, 4100, 4096, 96, torch.bfloat16, True, 0),      # N % 64 != 0
+       (8, 4096, 4160, 96, torch.bfloat16, True, 0),      # block 96
+       (2, 520, 1000, 128, torch.bfloat16, True, 0),      # K % 64 != 0
+       (3, 130, 300, 50, torch.bfloat16, True, 0)])
 def test_qmm_route_choice(M, N, K, block, x_dtype, aligned, route):
     """Which __global__ function a call takes is a function of its shapes
-    (and pointer alignment): decode streams the weight, bf16 x at the
-    serving shapes takes the wgmma kernel (256 rows of x a block where that
-    still fills the 132 SMs), other bf16 shapes mma.sync, fp32 x the CUDA
-    cores."""
+    (and pointer alignment): bf16 x at the serving shapes takes the
+    tensor-core decode kernel at M <= 16 and the wgmma kernel above (256
+    rows of x a block where that still fills the 132 SMs); otherwise
+    decode streams the weight, other bf16 shapes take mma.sync and fp32 x
+    the CUDA cores."""
     assert tq.qmm_route(M, N, K, block, x_dtype, aligned, 132) == route
     assert tq.QMM_ROUTES[route].startswith(
         ("qmm_gemv_kernel", "qmm_kernel", "qmm_mma_kernel",
-         "qmm_wgmma_kernel", "qmm_wgmma_kernel")[route])
+         "qmm_wgmma_kernel", "qmm_wgmma_kernel",
+         "qmm_decode_tc_kernel")[route])
+
+
+def _decode_tc_scheme(x, q, s, block):
+    """The tensor-core decode route's arithmetic (``qmm_decode_tc_kernel``
+    in ``csrc/quantized_matmul.cu``), in torch on the CPU: the codes as
+    bf16 (exact), x' = fl32(x * s) for each K row and scale group split
+    into hi = bf16(x') and lo = bf16(x' - hi), and the products of the
+    codes with hi and with lo summed in fp32."""
+    codes = q.float().bfloat16()
+    assert torch.equal(codes.float(), q.float())       # exact in bf16
+    codes = codes.float()
+    M, K = x.shape
+    N = q.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32)
+    for g in range(-(-N // block)):
+        cols = slice(g * block, min(N, (g + 1) * block))
+        xs = x.float() * s[:, g]
+        hi = xs.bfloat16().float()
+        lo = (xs - hi).bfloat16().float()
+        out[:, cols] = hi @ codes[:, cols] + lo @ codes[:, cols]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (14336, 4096)],
+                         ids=["wq", "w_out"])
+def test_decode_tc_scheme_matches_xla(dtype, K, N):
+    """Before any card run: the decode route's numeric scheme (scale folded
+    into x, split hi + lo, fp32 sums) against the JAX package's XLA branch
+    of ``quantized_matmul`` (dequantize in fp32, fp32 product) on the same
+    seeded inputs at M = 8, within the tolerance the kernel is held to on
+    the card (``chip_smoke.QMM_TOL``), for fp32 and for bf16 output."""
+    rng = np.random.default_rng(K + N + len(dtype))
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    xj = jnp.asarray(rng.standard_normal((8, K)).astype(np.float32)).astype(
+        jnp.bfloat16)
+    qj, sj = jq.quantize_blockwise(jnp.asarray(w), block=128, dtype=dtype)
+    del w
+    qt = torch.from_numpy(np.array(qj).view(np.uint8)).view(
+        tq._Q_DTYPES[dtype])
+    st = torch.from_numpy(np.array(sj))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+    ref = jq.quantized_matmul(xj, qj, sj, block=128, out_dtype=jnp.float32)
+    got = _decode_tc_scheme(xt, qt, st, 128)
+    for out, (atol, rtol) in QMM_TOL.items():
+        r = torch.from_numpy(np.array(ref)).to(out).float()
+        o = got.to(out).float()
+        lim = atol * r.abs().max() + rtol * r.abs()
+        assert ((o - r).abs() <= lim).all(), (out, (o - r).abs().max())
+
+
+@pytest.mark.parametrize("n,block,x_dtype,aligned,route", [
+    (14336, 128, torch.bfloat16, True, 1),    # a serving weight leaf
+    (4096, 128, torch.bfloat16, True, 1),
+    (4096, 64, torch.bfloat16, True, 1),
+    (1024, 256, torch.bfloat16, True, 1),
+    (48, 16, torch.bfloat16, True, 1),
+    (64, 8, torch.bfloat16, True, 1),
+    (14336, 128, torch.float32, True, 0),     # fp32 x
+    (14336, 128, torch.bfloat16, False, 0),   # x off a 16-byte boundary
+    (200, 128, torch.bfloat16, True, 0),      # a ragged last group
+    (1024, 512, torch.bfloat16, True, 0),     # a group wider than 256
+    (256, 48, torch.bfloat16, True, 0),       # block not a power of two
+    (12, 4, torch.bfloat16, True, 0),         # block under 8
+])
+def test_quant_route_choice(n, block, x_dtype, aligned, route):
+    """The quantize kernel's __global__ function is a function of the row
+    width, the block, the input type and x's alignment: 16-byte loads for
+    bf16 rows that power-of-two groups of 8 to 256 values tile, a warp a
+    group otherwise."""
+    assert tq.quant_route(n, block, x_dtype, aligned) == route
+    assert tq.QUANT_ROUTES[route] == ("quantize_kernel",
+                                      "quantize_vec_kernel")[route]
 
 
 def test_quantized_matmul_cuda_route_never_takes_plain_version(monkeypatch):
