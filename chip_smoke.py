@@ -16,7 +16,11 @@ Phases, each of which raises on failure (nothing is caught):
              seven one-token rows, v1 decode's bs = 128 with contiguous
              tables, and the split-KV decode route's edges: spans not a
              multiple of its piece, a window shorter than a piece, one live
-             position, 16-row groups) on valid rows, with every row past
+             position, 16-row groups; and the serving features' traffic:
+             speculative verify rows at C = 4, 5 and 8 whose rows carry
+             different draft counts, rows of one put sharing their first 8
+             blocks, a first chunk at position 2048, each on the route
+             paged_route names) on valid rows, with every row past
              n_tokens zero, each output bit-identical over two runs, bf16
              decode on the split-KV route over every pool type, fp32
              decode on the CUDA-core kernel, and every route of the wrapper
@@ -30,7 +34,8 @@ Phases, each of which raises on failure (nothing is caught):
              bf16, fp16 and fp32 out) and that it raises on what it does not
              take (fp8 or packed codes, mismatched scales); the quantized
              matmul (int8 and fp8, x bf16 and fp32, M = 1, 8, 16, 37, 2000
-             and 2048 at the serving widths, bf16 and fp32 out, ragged last
+             and 2048 at the serving widths, M = 32 and 40 — a verify
+             put's rows — on the wgmma route, bf16 and fp32 out, ragged last
              groups, shapes that keep the mma.sync route; every bf16 decode
              case at the serving shapes on the tensor-core decode route and
              bit-identical over two runs, its edges (block 64 and 192, a
@@ -78,7 +83,28 @@ Phases, each of which raises on failure (nothing is caught):
              the plain versions, and that small fp32 v1 engines (quant off,
              8 and 4; tied and untied) give the same greedy streams on the
              card as on the CPU. Traces one decode step of each way.
-8. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
+8. features — the v2 serving features: small fp32 engines give the same
+             greedy streams and counters on the card as on the CPU with the
+             prefix cache, speculation at K = 3 and 4, and preemption (dense,
+             int8 and fp8); then one MISTRAL_7B engine at full width (32
+             layers, bf16): the kernels' logits against the plain versions'
+             on a verify put and a prefix-hit chunk (the gap the greedy-
+             parity rule allows), the prefix cache off, cold and warm over a
+             2048-token system prompt (the warm pass matches 8 x 2048
+             tokens; every block free after clearing), n-gram and draft-
+             model speculation at K = 3 (verify puts on the split-KV route)
+             and K = 4 (on the tensor-core prefill route), preemption in a
+             400-block pool (every preempted sequence resumes), KV export/
+             import byte round trips on bf16, int8 and fp8 pools, preemption
+             with int8 KV and speculation with int8 weights + int8 KV; each
+             run's streams equal the feature-off run's or diverge only at a
+             margin within that gap, with one paged launch per layer and put
+             (and 225 quantized-matmul launches with int8 weights); then a
+             universal checkpoint of the model with 2 layers, written with
+             numpy (some leaves as shard files), loaded onto the card leaf
+             for leaf, and served by v2 and v1 with the in-memory tree's
+             streams.
+9. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
              micro batch 1 x 2 accumulation steps, sequences of 8193 tokens:
@@ -94,8 +120,8 @@ The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler trace of two puts of the bf16 and of the
-int8 main path and of one training step (the breakdowns in PERF.md section
-5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
+int8 main path, of a verify put and a prefix-hit put, and of one training
+step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
 later phase after it (a short call after an edit; no result lines).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
@@ -105,13 +131,17 @@ times the parent's kernels on the same inputs (no result lines).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -411,6 +441,8 @@ def phase_kernel_paged():
                 decode_routes[qname] = route
             if dtype == torch.bfloat16:
                 max_err["quant"] = max(max_err["quant"], err)
+    for name, route in phase_kernel_features():
+        routes.add(route)
     if routes != set(pa.PAGED_ROUTES):
         raise AssertionError(f"[kernel] paged cases took routes "
                              f"{sorted(routes)}, not all of {pa.PAGED_ROUTES}")
@@ -424,6 +456,65 @@ def phase_kernel_paged():
         f"route ({pa.PAGED_ROUTES[3]} for bf16 q, {pa.PAGED_ROUTES[0]} for "
         "fp32)")
     return max_err
+
+
+# The serving features' traffic (bf16 q, G = 4, D = 128, window 4096, blocks
+# of 16): speculative verify rows (K + 1 = 4 and 5 tokens, and the engine's
+# power-of-two bucket C = 8 of K = 4) whose rows carry different draft counts
+# and start mid-context; two rows of one put that read the same first 8
+# blocks (a prefix-cache hit); a first chunk starting at position 2048 (the
+# matched length). name, ctx_lens, C, chunks (n_tokens per row), the route
+# ``paged_route`` must name, the rows that share their first 8 blocks.
+FEATURE_CASES = [
+    ("verify C=4 (K=3) mixed drafts", [300, 1000, 2100, 4200], 4,
+     [4, 2, 1, 3], "paged_decode_split_kernel", 0),
+    ("verify C=5 (K=4) mixed drafts", [301, 999, 2101, 4199], 5,
+     [5, 3, 1, 4], "paged_prefill_tc_kernel", 0),
+    ("verify C=8 (K=4 bucket) mixed drafts", [512, 777, 2048, 4601], 8,
+     [5, 2, 4, 1], "paged_prefill_tc_kernel", 0),
+    ("verify C=4 two rows sharing 8 blocks", [700, 900, 200], 4, [4, 4, 1],
+     "paged_decode_split_kernel", 2),
+    ("prefix hit: first chunk C=256 at 2048, two rows sharing 8 blocks",
+     [2304, 2100], 256, [256, 52], "paged_prefill_tc_kernel", 2),
+]
+
+
+def share_first_blocks(tbl, rows, n=8):
+    """Rows 1..rows-1 of ``tbl`` read row 0's first n blocks (as prefix-
+    cache hits do); the blocks they owned there go unused."""
+    tbl = tbl.clone()
+    for r in range(1, rows):
+        tbl[r, :n] = tbl[0, :n]
+    return tbl
+
+
+def phase_kernel_features():
+    """The feature cases on bf16, int8 and fp8 pools, each on its asserted
+    route. Returns (name, route) of every case."""
+    out = []
+    for name, ctxs, C, chunks, want, shared in FEATURE_CASES:
+        q, kp, vp, tbl, sp, nt = make_case(len(name) + 100, ctxs, C, 32, 8,
+                                           128, 16, torch.float32,
+                                           chunks=chunks)
+        if shared:
+            tbl = share_first_blocks(tbl, shared)
+        q = q.to(torch.bfloat16)
+        pools = {"bf16": (kp.to(torch.bfloat16), vp.to(torch.bfloat16), {})}
+        for kvd in (torch.int8, torch.float8_e4m3fn):
+            kq, ks = quantize_pool(kp, kvd)
+            vq, vs = quantize_pool(vp, kvd)
+            pools[str(kvd).split(".")[-1]] = (kq, vq, dict(k_scale=ks,
+                                                         v_scale=vs))
+        for pname, (k, v, kw) in pools.items():
+            label = f"{name} {pname} pools"
+            _, route = check_paged(label, q, k, v, tbl, sp, nt,
+                                   torch.bfloat16, dict(kw, window=4096))
+            if route != want:
+                raise AssertionError(f"[kernel] {label}: took {route}, not "
+                                     f"{want}")
+            out.append((label, route))
+    log(f"[kernel] paged feature cases: {len(out)}, each on its route")
+    return out
 
 
 QUANT_CASES = [
@@ -681,6 +772,14 @@ QMM_CASES += [
     (torch.bfloat16, "int8", 8, 4096, 4096, 128, torch.bfloat16, 1)]
 
 
+# speculative verify puts at the serving shapes: M = 8 rows x 4 tokens and
+# 8 x 5, int8 and fp8, on the wgmma route (a partial 128- or 256-row tile)
+QMM_VERIFY_CASES = [(torch.bfloat16, qdt, M, K, N, 128, torch.bfloat16)
+                    for qdt in ("int8", "fp8_e4m3") for M in (32, 40)
+                    for K, N in QMM_SHAPES]
+QMM_CASES += QMM_VERIFY_CASES
+
+
 def check_qmm(x, q, s, block, out_dtype, label):
     out = qz.quantized_matmul(x, q, s, block=block, out_dtype=out_dtype)
     ref = qz._quantized_matmul_torch(x, q, s, block, out_dtype)
@@ -736,6 +835,10 @@ def phase_kernel_qmm():
         elif (xdt == torch.bfloat16 and M <= 16 and N % 64 == 0
               and K % 64 == 0 and block % 64 == 0):
             want = "qmm_decode_tc_kernel"
+        elif ((xdt, qdt, M, K, N, block, odt) in QMM_VERIFY_CASES
+              and not route.startswith("qmm_wgmma_kernel")):
+            raise AssertionError(f"[kernel] qmm {label}: took {route}, not "
+                                 "the wgmma route")
         if want is not None and route != want:
             raise AssertionError(f"[kernel] qmm {label}: took {route}, not "
                                  f"{want}")
@@ -1073,19 +1176,20 @@ def live_spans(start, ntok, C, window):
     return rows, seqs
 
 
-def bound(q, kp, tbl, sp, nt, window):
+def bound(q, kp, tbl, sp, nt, window, dup_blocks=0):
     """Least time the card could take: the larger of the bytes the function
     must move (q read, o written, each live K/V position read once — with
-    its block's two scales for a quantized pool — the tables and lengths)
-    over HBM bandwidth, and its flops (QK and PV over each row's live
-    positions) over the bf16 tensor-core peak (the timed q is bf16)."""
+    its block's two scales for a quantized pool — the tables and lengths;
+    ``dup_blocks`` live blocks that two rows share counted once) over HBM
+    bandwidth, and its flops (QK and PV over each row's live positions)
+    over the bf16 tensor-core peak (the timed q is bf16)."""
     N, C, H, D = q.shape
     KH, bs = kp.shape[1], kp.shape[2]
     item = q.element_size()
     rows, seqs = live_spans(sp.tolist(), nt.tolist(), C, window)
-    kv_bytes = sum(seqs) * KH * D * kp.element_size() * 2
+    kv_bytes = (sum(seqs) - dup_blocks * bs) * KH * D * kp.element_size() * 2
     if kp.element_size() == 1:
-        kv_bytes += sum(-(-s // bs) for s in seqs) * KH * 4 * 2
+        kv_bytes += (sum(-(-s // bs) for s in seqs) - dup_blocks) * KH * 4 * 2
     qo_bytes = 2 * N * C * H * D * item
     meta = tbl.numel() * 4 + 2 * N * 4
     flops = sum(rows) * H * D * 4
@@ -1126,9 +1230,11 @@ def sdpa_dense(q, kp, vp, tbl, sp, nt, window):
 
 
 def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None,
-                chunks=None):
+                chunks=None, shared=0):
     q, kp, vp, tbl, sp, nt = make_case(seed, ctxs, C, 32, 8, 128, 16,
                                        torch.bfloat16, chunks=chunks)
+    if shared:
+        tbl = share_first_blocks(tbl, shared)
     kw = dict(window=window)
     lib_kp, lib_vp = kp, vp
     if kv_dtype is not None:
@@ -1144,7 +1250,8 @@ def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None,
                                                         nt, **kw), flush,
                        iters=5, warmup=1)
     lib_ms = time_ms(sdpa_dense(q, lib_kp, lib_vp, tbl, sp, nt, window), flush)
-    b_ms, by = bound(q, kp, tbl, sp, nt, window)
+    b_ms, by = bound(q, kp, tbl, sp, nt, window,
+                     dup_blocks=8 * max(0, shared - 1))
     row = {"case": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": by, "library_ms": lib_ms}
     log(f"[timing] paged_attention {json.dumps(row)} "
@@ -1377,6 +1484,11 @@ def phase_timing():
                 chunks=MIXED_CHUNKS)
     timing_case("mixed put C=256, int8 pools", MIXED_CTX, 256, 4096, flush,
                 kv_dtype=torch.int8, chunks=MIXED_CHUNKS)
+    for name, ctxs, C, chunks, _, shared in FEATURE_CASES:
+        timing_case(name + ", window 4096", ctxs, C, 4096, flush,
+                    chunks=chunks, shared=shared)
+    timing_case(FEATURE_CASES[0][0] + ", int8 pools", FEATURE_CASES[0][1], 4,
+                4096, flush, kv_dtype=torch.int8, chunks=FEATURE_CASES[0][3])
     rows["paged_attention_quant"] = timing_case(
         head + ", int8 pools", main_ctx, 1, 4096, flush,
         kv_dtype=torch.int8)
@@ -1395,6 +1507,11 @@ def phase_timing():
     qmm_timing_case("wk [4096, 1024] int8, mixed put M=2048", 2048, 4096,
                     1024, flush)
     qmm_timing_case("lm_head [4096, 32000] int8, M=8", 8, 4096, 32000, flush)
+    for M in (32, 40, 64):      # verify puts: 8 rows x 4, 5 and 8 tokens
+        qmm_timing_case(f"w_in [4096, 14336] int8, verify M={M}", M, 4096,
+                        14336, flush)
+        qmm_timing_case(f"lm_head [4096, 32000] int8, verify M={M}", M,
+                        4096, 32000, flush)
     qmm_timing_case("w_in [4096, 14336] fp8, decode M=8", 8, 4096, 14336,
                     flush, qdt="fp8_e4m3")
     rows["quantize"] = quantize_timing_case(
@@ -1580,11 +1697,11 @@ def small_parity():
                 f"smallest top-2 margin {margin:.3g})")
 
 
-def step_logits(engine, chunks, step, mode):
-    """Logits of one prefill step (two sequences, 256 and 200 prompt
-    tokens) or of the decode step after it, with the kernels or with every
-    op pinned to its plain version (``mode`` "plain"), or with the plain
-    version and the attention in fp32 arithmetic (pools upcast per call,
+@contextlib.contextmanager
+def pinned(mode):
+    """Run the body with the kernels (``mode`` "kernel"), with every op
+    pinned to its plain version ("plain"), or with the plain version and
+    the attention in fp32 arithmetic ("plain_fp32": pools upcast per call,
     output rounded once to q's dtype — the exact-softmax yardstick;
     test-only, swapped in here)."""
     plain = pa.paged_attention_torch
@@ -1596,30 +1713,39 @@ def step_logits(engine, chunks, step, mode):
     pa.FORCE_REFERENCE = qz.FORCE_REFERENCE = mode != "kernel"
     if mode == "plain_fp32":
         pa.paged_attention_torch = plain_fp32
-    uids = [20_000, 20_001]
     try:
-        out = engine.put(uids, [chunks[0][:256], chunks[1][:200]])
-        if step == "decode":
-            out = engine.put(uids, [[chunks[0][256]], [chunks[1][200]]])
-        return out.float()
+        yield
     finally:
         pa.FORCE_REFERENCE = qz.FORCE_REFERENCE = False
         pa.paged_attention_torch = plain
-        for u in uids:
-            engine.flush(u)
 
 
-def compare_steps(get_logits, label):
-    """One prefill and one decode step through the kernels against the
-    plain versions; ``get_logits(step, mode)`` gives the logits of ``step``
-    ("prefill" or "decode") in ``mode`` ("kernel", "plain" or "plain_fp32").
+def step_logits(engine, chunks, step, mode):
+    """Logits of one prefill step (two sequences, 256 and 200 prompt
+    tokens) or of the decode step after it, in ``mode`` (``pinned``)."""
+    uids = [20_000, 20_001]
+    with pinned(mode):
+        try:
+            out = engine.put(uids, [chunks[0][:256], chunks[1][:200]])
+            if step == "decode":
+                out = engine.put(uids, [[chunks[0][256]], [chunks[1][200]]])
+            return out.float()
+        finally:
+            for u in uids:
+                engine.flush(u)
+
+
+def compare_steps(get_logits, label, steps=("prefill", "decode")):
+    """One prefill and one decode step (or ``steps``) through the kernels
+    against the plain versions; ``get_logits(step, mode)`` gives the logits
+    of ``step`` in ``mode`` ("kernel", "plain" or "plain_fp32").
     The runs differ only in rounding, which 32 layers amplify; the check is
     that the kernels' logits are no further from the fp32-arithmetic
     attention's than the plain bf16 version's are (the plain version rounds
     p — and dequantized K/V — to bf16 before the products; the kernel keeps
     them in fp32)."""
     res = {}
-    for step in ("prefill", "decode"):
+    for step in steps:
         k, p, p32 = (get_logits(step, m)
                      for m in ("kernel", "plain", "plain_fp32"))
         if not torch.isfinite(k).all():
@@ -1872,6 +1998,713 @@ def phase_quant(profile_puts=False):
                                  kv_quant_enabled=True,
                                  kv_quant_dtype="fp8_e4m3"))
     return int8, fp8
+
+
+# ------------------------------------------------------------- features
+
+# The serving features at MISTRAL_7B width, on one bf16 engine built once
+# (32 layers, blocks of 16, chunks of 256). The features are switched
+# between runs with configure_prefix_cache, configure_admission and
+# configure_kv_quant; the pool is re-sized for the preemption runs
+# (``set_pool``); the int8 speculative runs quantize the same engine's
+# weights in place, last.
+FEATURE_KV_BLOCKS = 2048            # 8 x (2048 + 512 + 32) tokens and room
+FEATURE_PREFIX = 2048               # shared system prompt, 128 full blocks
+FEATURE_NEW_TOKENS = 32
+PREFIX_SUFFIXES = {"cold": (70, 90, 200, 260, 310, 390, 470, 500),
+                   "warm": (64, 100, 180, 256, 300, 400, 450, 512)}
+SPEC_SEGMENT_LENS = (112, 134, 192, 240, 284, 372, 434, 496)
+PREEMPT_KV_BLOCKS = 400             # the main prompts need 432 blocks whole
+PREEMPT_RANKS = (1, 0, 1, 0, 1, 0, 1, 0)   # two urgency classes
+
+
+def margin_of(logits):
+    top = np.partition(logits, -2)[-2:]
+    return float(top[1] - top[0])
+
+
+def set_pool(engine, kv_blocks):
+    """Re-allocate the engine's KV pools at ``kv_blocks`` (no sequence may
+    be tracked): the preemption runs need a pool smaller than the demand."""
+    if engine.state_manager.tracked_sequences:
+        raise AssertionError("set_pool with sequences tracked")
+    engine.config.kv_blocks = kv_blocks
+    engine.state_manager = None
+    torch.cuda.empty_cache()
+    engine.state_manager = engine._build_state_manager()
+
+
+def feature_run(engine, prompts, label, ranks=None, record_margins=False,
+                draft_engine=None, **sched_kw):
+    """Serve ``prompts`` (all submitted at once) through a scheduler with
+    ``sched_kw``; every put is timed and the route of each of its paged
+    launches recorded. The kernels' launch counts are set to 0 just before
+    and read just after. Checks stream lengths, one paged launch per layer
+    and put, 7 quantized-matmul launches per layer and put plus lm_head's
+    (225 at MISTRAL_7B) with quantized weights (else 0), and that every
+    block is free or held by the prefix cache alone. ``record_margins``
+    keeps each request's top-2 logit margin at each sampled position (for
+    the greedy-parity rule); the puts of a ``draft_engine`` (a draft-model
+    proposer's) count in the launches."""
+    from deepspeed_tpu_torch.inference.v2 import ContinuousBatchingScheduler
+
+    class MarginScheduler(ContinuousBatchingScheduler):
+        def _pack(self):
+            for uid, req in self.running.items():
+                if req.prompt_remaining == 0 and req.last_logits is not None:
+                    self.margins.setdefault(uid, {})[len(req.generated)] = \
+                        margin_of(req.last_logits)
+            return super()._pack()
+
+    cls = MarginScheduler if record_margins else ContinuousBatchingScheduler
+    sched = cls(engine, **sched_kw)
+    sched.margins = {}
+    puts, put_routes = [], []
+    real_put, real_cuda = engine.put, pa.paged_attention_cuda
+
+    def routed(q, k_pool, *a, **kw):
+        put_routes.append(pa.PAGED_ROUTES[pa.paged_route(
+            q.shape[1], q.shape[2], k_pool.shape[1], q.shape[3], q.dtype)])
+        return real_cuda(q, k_pool, *a, **kw)
+
+    def timed_put(uids, chunks, **kw):
+        put_routes.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_put(uids, chunks, **kw)
+        torch.cuda.synchronize()
+        puts.append({"tokens": sum(len(c) for c in chunks),
+                     "max_chunk": max(len(c) for c in chunks),
+                     "verify": kw.get("verify_width", 0),
+                     "s": time.perf_counter() - t,
+                     "routes": set(put_routes)})
+        return out
+
+    draft_puts = []
+    if draft_engine is not None:
+        real_draft_put = draft_engine.put
+
+        def counted_put(*a, **kw):
+            draft_puts.append(1)
+            return real_draft_put(*a, **kw)
+        draft_engine.put = counted_put
+    base = 40_000
+    engine.put, pa.paged_attention_cuda = timed_put, routed
+    pa.launches = 0
+    qz.launches["quantized_matmul"] = 0
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            sched.submit(base + i, p, max_new_tokens=FEATURE_NEW_TOKENS,
+                         shed_rank=ranks[i] if ranks else 0)
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+    finally:
+        del engine.put
+        pa.paged_attention_cuda = real_cuda
+        if draft_engine is not None:
+            del draft_engine.put
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pa.launches,
+                "quantized_matmul": qz.launches["quantized_matmul"]}
+    streams = [sched.finished[base + i].generated for i in range(len(prompts))]
+    if any(len(s) != FEATURE_NEW_TOKENS for s in streams):
+        raise AssertionError(f"[features] {label}: stream lengths "
+                             f"{[len(s) for s in streams]}")
+    mcfg = engine.model.cfg
+    L = mcfg.num_layers
+    n_puts = len(puts) + len(draft_puts)
+    if launches["paged_attention"] != L * n_puts:
+        raise AssertionError(f"[features] {label}: "
+                             f"{launches['paged_attention']} paged launches "
+                             f"for {n_puts} puts x {L} layers")
+    # 7 projections a layer and lm_head (225 at MISTRAL_7B); a draft
+    # engine shares the target's (quantized) tree
+    want_qmm = ((7 * L + (0 if mcfg.tie_embeddings else 1)) * n_puts
+                if engine.config.weight_quant_enabled else 0)
+    if launches["quantized_matmul"] != want_qmm:
+        raise AssertionError(f"[features] {label}: "
+                             f"{launches['quantized_matmul']} quantized-matmul "
+                             f"launches, want {want_qmm}")
+    occ = engine.occupancy()
+    if occ["available_blocks"] != engine.config.kv_blocks:
+        raise AssertionError(f"[features] {label}: {occ} after the run")
+    log(f"[features] {label}: {len(prompts)} requests x "
+        f"{FEATURE_NEW_TOKENS} tokens in {wall:.2f} s, {len(puts)} puts "
+        f"({sum(1 for p in puts if p['verify'])} verify"
+        + (f"; {len(draft_puts)} draft-engine puts" if draft_puts else "")
+        + "), launches "
+        f"{json.dumps(launches)}; blocks free {occ['free_blocks']} + cached "
+        f"{occ['evictable_blocks']} of {engine.config.kv_blocks}")
+    return {"streams": streams, "puts": puts, "launches": launches,
+            "sched": sched, "wall": wall,
+            "margins": [sched.margins.get(base + i, {})
+                        for i in range(len(prompts))]}
+
+
+def parity_rule(off, on, gap, label):
+    """Greedy parity between feature off and on at full width: bf16 batches
+    of different composition may round differently, so each request's
+    streams must be equal, or at their first differing position the
+    feature-off run's top-2 logit margin must be no larger than ``gap``,
+    the largest |kernel - plain| logit difference ``compare_steps``
+    measured on this engine."""
+    diverged = []
+    for i, (a, b) in enumerate(zip(off["streams"], on["streams"])):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        m = off["margins"][i].get(j)
+        if m is None or m > gap:
+            raise AssertionError(
+                f"[features] {label}: request {i} diverges at token {j} "
+                f"with a feature-off top-2 margin of {m} > the kernel/plain "
+                f"logit gap {gap:.4g}")
+        diverged.append((i, j, round(m, 4)))
+    log(f"[features] {label}: greedy parity: "
+        f"{len(off['streams']) - len(diverged)} of {len(off['streams'])} "
+        f"streams equal; diverged (request, token, off-run margin) "
+        f"{diverged} within the kernel/plain gap {gap:.4g}")
+    return diverged
+
+
+def feature_step_logits(engine, prompts, step, mode):
+    """Logits of one speculative verify put ("verify K=3": two rows of
+    K + 1 and K - 1 tokens after 256 and 230 prompt tokens, verify_width
+    K + 1) or of one prefix-hit first chunk ("prefix hit": 256 tokens at
+    position 2048 after a match of 2048 cached tokens that a donor wrote in
+    the same mode), in ``mode`` (``pinned``)."""
+    uids, donor = [21_000, 21_001], 21_002
+    with pinned(mode):
+        try:
+            if step.startswith("verify"):
+                W = int(step.split("K=")[1]) + 1
+                engine.put(uids, [prompts[0][:256], prompts[1][:230]])
+                return engine.put(
+                    uids, [prompts[0][256:256 + W],
+                           prompts[1][230:230 + W - 2]],
+                    verify_width=W).float()
+            engine.configure_prefix_cache(True)
+            fill = prompts[0][:FEATURE_PREFIX + 16]
+            for s in range(0, len(fill), 256):
+                engine.put([donor], [fill[s:s + 256]])
+            engine.flush(donor)
+            hit = fill[:FEATURE_PREFIX] + prompts[1][:256]
+            matched = engine.match_prefix(uids[0], hit)
+            if matched != FEATURE_PREFIX:
+                raise AssertionError(f"[features] prefix hit matched "
+                                     f"{matched}")
+            return engine.put([uids[0]], [hit[FEATURE_PREFIX:]]).float()
+        finally:
+            for u in uids + [donor]:
+                engine.flush(u)
+            engine.configure_prefix_cache(False)
+
+
+def feature_gap(engine, label, steps):
+    """compare_steps over the main path's prefill and decode steps and the
+    features' ``steps``; returns the largest |kernel - plain| logit gap."""
+    rng = np.random.default_rng(99)
+    V = engine.model.cfg.vocab_size
+    prompts = [rng.integers(0, V, FEATURE_PREFIX + 300).tolist(),
+               rng.integers(0, V, 600).tolist()]
+
+    def get_logits(step, mode):
+        if step in ("prefill", "decode"):
+            return step_logits(engine, prompts, step, mode)
+        return feature_step_logits(engine, prompts, step, mode)
+
+    res = compare_steps(get_logits, f"features {label}",
+                        steps=("prefill", "decode") + tuple(steps))
+    gap = max(r["max_dlogit"] for r in res.values())
+    log(f"[features] {label}: kernel/plain logit gap {gap:.4g}")
+    return gap
+
+
+def feature_prefix(engine, gap):
+    """8 requests sharing a 2048-token system prompt: cache off, then on
+    (a cold pass with other suffixes, then a warm pass)."""
+    rng = np.random.default_rng(21)
+    V = engine.model.cfg.vocab_size
+    sys_p = rng.integers(0, V, FEATURE_PREFIX).tolist()
+    sets = {k: [sys_p + rng.integers(0, V, n).tolist() for n in lens]
+            for k, lens in PREFIX_SUFFIXES.items()}
+    off = feature_run(engine, sets["warm"], "prefix cache off",
+                      record_margins=True)
+    engine.configure_prefix_cache(True)
+    res = {}
+    for name in ("cold", "warm"):
+        st0 = engine.prefix_stats()
+        res[name] = feature_run(engine, sets[name], f"prefix cache {name}")
+        st = {k: v - st0[k] for k, v in engine.prefix_stats().items()}
+        lookups = st["hits"] + st["misses"]
+        res[name]["stats"] = st
+        log(f"[features] prefix cache {name} pass: matched "
+            f"{st['tokens_saved']} tokens, {st['hits']} block hits of "
+            f"{lookups} lookups (hit rate "
+            f"{st['hits'] / max(1, lookups):.3f}), {st['queries']} queries")
+    if res["warm"]["stats"]["tokens_saved"] < 7 * FEATURE_PREFIX:
+        raise AssertionError(f"[features] the warm pass matched "
+                             f"{res['warm']['stats']['tokens_saved']} tokens")
+    engine.configure_prefix_cache(False)
+    if engine.free_blocks != engine.config.kv_blocks:
+        raise AssertionError(f"[features] {engine.free_blocks} blocks free "
+                             "after clear_prefix_cache")
+    log(f"[features] prefix cache cleared: {engine.free_blocks} of "
+        f"{engine.config.kv_blocks} blocks free")
+    parity_rule(off, res["warm"], gap, "prefix cache (warm) vs off")
+    return {k: v["stats"] for k, v in res.items()}
+
+
+def feature_spec(engine, label, gap):
+    """Speculative decoding at K = 3 and 4 with the n-gram proposer and with
+    a draft-model proposer over a second engine that shares this one's
+    weights (its own pools, the same KV representation), against a plain
+    run of the same prompts: a seeded segment, the model's own greedy
+    continuation of it (32 tokens, from a first plain run), and the segment
+    again (256-1024 tokens).
+
+    Random weights do not continue a repeated text, so the n-gram proposer
+    finds few matches here and its drafts are rejected (each one a KV
+    rollback); the draft model, the same weights, proposes what the target
+    computes, so its drafts are accepted unless the two puts round apart.
+    The draft runs must accept drafts on verify puts of width K + 1 on the
+    route that width takes; every run is held to the greedy-parity rule."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.spec import (DraftModelProposer,
+                                                       NGramProposer)
+    from deepspeed_tpu_torch.inference.v2.testing import spec_summary
+
+    rng = np.random.default_rng(33)
+    V = engine.model.cfg.vocab_size
+    segs = [rng.integers(0, V, n).tolist() for n in SPEC_SEGMENT_LENS]
+    cont = feature_run(engine, segs, f"{label} spec prompts")["streams"]
+    prompts = [seg + c + seg for seg, c in zip(segs, cont)]
+    off = feature_run(engine, prompts, f"{label} spec off",
+                      record_margins=True)
+    ecfg = engine.config
+    deng = InferenceEngineV2(engine.model, engine.params,
+                             RaggedInferenceEngineConfig(
+                                 kv_block_size=ecfg.kv_block_size,
+                                 max_chunk_tokens=ecfg.max_chunk_tokens,
+                                 kv_blocks=ecfg.kv_blocks,
+                                 kv_quant_enabled=ecfg.kv_quant_enabled,
+                                 kv_quant_dtype=ecfg.kv_quant_dtype),
+                             device="cuda")
+    proposers = {"ngram": NGramProposer,
+                 "draft model": lambda: DraftModelProposer(deng)}
+    out = {}
+    for pname, make in proposers.items():
+        for K in (3, 4):
+            name = f"{label} spec {pname} K={K}"
+            run = feature_run(engine, prompts, name, proposer=make(),
+                              max_draft_tokens=K,
+                              draft_engine=deng if pname != "ngram" else None)
+            st = run["sched"].spec_stats()
+            # verify puts of width K + 1 take the route their width gives
+            # (K = 3: C = 4, G.C = 16; K = 4: C = 8 after the bucket, G.C
+            # = 32), whichever rows they carry
+            want = {"paged_decode_split_kernel"} if K == 3 \
+                else {"paged_prefill_tc_kernel"}
+            full = [p for p in run["puts"]
+                    if p["verify"] and p["max_chunk"] == K + 1]
+            if any(p["routes"] != want for p in full):
+                raise AssertionError(
+                    f"[features] {name}: verify puts of width {K + 1} took "
+                    f"{[sorted(p['routes']) for p in full]}, want {want}")
+            if pname != "ngram" and (not full or st["accepted"] == 0):
+                raise AssertionError(f"[features] {name}: {st}, "
+                                     f"{len(full)} verify puts of width "
+                                     f"{K + 1}")
+            dec = [p for p in run["puts"] if p["max_chunk"] <= K + 1]
+            summ = spec_summary(st)
+            log(f"[features] {name}: proposed {st['proposed']}, accepted "
+                f"{st['accepted']} (rate {summ['acceptance_rate']:.3f}), "
+                f"emitted {st['emitted']} in {st['decode_rows']} decode "
+                f"rows ({summ['tokens_per_forward']:.3f} tokens a row); "
+                f"{len(dec)} decode puts for {st['emitted']} tokens "
+                f"({len(dec) / st['emitted']:.4f} puts a token; spec off "
+                f"{sum(1 for p in off['puts'] if p['max_chunk'] == 1)} "
+                f"puts); {len(full)} verify puts of width {K + 1} on "
+                f"{sorted(want)}")
+            parity_rule(off, run, gap, f"{name} vs off")
+            out[f"{pname} K={K}"] = dict(st, puts=len(dec))
+    del deng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def feature_preempt(engine, label, gap):
+    """The main path's 8 prompts in a pool of 400 blocks with two urgency
+    classes, reservation admission and preemption (oversubscription 2),
+    against an uncontended run in a pool of 1024."""
+    rng = np.random.default_rng(0)
+    V = engine.model.cfg.vocab_size
+    prompts = [rng.integers(0, V, n).tolist() for n in MAIN_PROMPT_LENS]
+    set_pool(engine, 1024)
+    off = feature_run(engine, prompts, f"{label} uncontended",
+                      record_margins=True)
+    set_pool(engine, PREEMPT_KV_BLOCKS)
+    engine.configure_admission(True, oversubscription_factor=2.0,
+                               preemption_enabled=True)
+    try:
+        run = feature_run(engine, prompts, f"{label} preemption",
+                          ranks=PREEMPT_RANKS)
+    finally:
+        engine.configure_admission(False)
+    st = run["sched"].preempt_stats()
+    if st["preempted"] < 1 or st["resumed"] != st["preempted"] \
+            or run["sched"].preempted:
+        raise AssertionError(f"[features] {label}: {st}")
+    if engine.free_blocks != PREEMPT_KV_BLOCKS:
+        raise AssertionError(f"[features] {label}: {engine.free_blocks} "
+                             f"of {PREEMPT_KV_BLOCKS} blocks free")
+    spills, resumes = run["sched"].drain_preempt_times()
+    events = run["sched"].drain_preempt_events()
+    log(f"[features] {label}: {st['preempted']} preempted, {st['resumed']} "
+        f"resumed ({events}); spill {[round(t * 1e3, 2) for t in spills]} "
+        f"ms, resume {[round(t * 1e3, 2) for t in resumes]} ms; all "
+        f"{len(prompts)} finished, {engine.free_blocks} blocks free")
+    parity_rule(off, run, gap, f"{label} preemption vs uncontended")
+    set_pool(engine, FEATURE_KV_BLOCKS)
+    return st
+
+
+def raw_bytes(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def feature_kv_roundtrip(engine, label):
+    """Export a sequence in mid-decode (1000 prompt tokens and 3 decoded),
+    flush it, import it under a new uid at other block ids, and hold a
+    re-export (whole and chunked) to the payload byte for byte, slabs and
+    scale planes alike."""
+    rng = np.random.default_rng(44)
+    V = engine.model.cfg.vocab_size
+    toks = rng.integers(0, V, 1003).tolist()
+    uid = 22_000
+    for s in range(0, 1000, 256):
+        engine.put([uid], [toks[s:min(s + 256, 1000)]])
+    for t in toks[1000:]:
+        engine.put([uid], [[t]])
+    old = list(engine.state_manager.get_sequence(uid).kv_blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = engine.export_sequence(uid)
+    t_exp = time.perf_counter() - t0
+    engine.flush(uid)
+    hold = engine.state_manager.allocator.allocate(len(old))
+    t0 = time.perf_counter()
+    engine.import_sequence(uid + 1, payload, toks)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    new = engine.state_manager.get_sequence(uid + 1).kv_blocks
+    if set(new) & set(old):
+        raise AssertionError(f"[features] {label}: import reused block ids")
+    again = engine.export_sequence(uid + 1)
+    chunked = engine.export_sequence(uid + 1, chunk_blocks=16)
+    nbytes = 0
+    for name, t in payload["slabs"].items():
+        glued = torch.cat([raw_bytes(c[name]) for c in chunked["chunks"]],
+                          dim=1)
+        if not (torch.equal(raw_bytes(t), raw_bytes(again["slabs"][name]))
+                and torch.equal(raw_bytes(t), glued)):
+            raise AssertionError(f"[features] {label}: slab {name} differs "
+                                 "after export, import and re-export")
+        nbytes += t.numel() * t.element_size()
+    engine.flush(uid + 1)
+    engine.state_manager.allocator.release(hold)
+    if engine.free_blocks != engine.config.kv_blocks:
+        raise AssertionError(f"[features] {label}: blocks not returned")
+    log(f"[features] {label} KV export/import: {payload['n_blocks']} blocks, "
+        f"{sorted(payload['slabs'])}, {nbytes / 1e6:.1f} MB; re-export "
+        f"(whole and 16-block chunks) byte-identical; export "
+        f"{t_exp * 1e3:.1f} ms, import {t_imp * 1e3:.1f} ms")
+
+
+def flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+# leaves written as shard files split along dim 0 (layers: one a layer)
+CKPT_SHARDED = {"embed.wte": 4, "layers.w_in": 2, "layers.wq": 2,
+                "lm_head.w": 2}
+
+
+def feature_checkpoint():
+    """A universal checkpoint of MISTRAL_7B at full width with 2 layers
+    (fp32 params from a seeded generator), written with numpy — some leaves
+    as shard files — then loaded onto the card through
+    load_params_for_model and held leaf for leaf; the v2 engine and v1
+    generate from it give the streams of the in-memory tree."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.testing import greedy_generate
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+    from deepspeed_tpu_torch.runtime.checkpointing import \
+        load_params_for_model
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    model = CausalLM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(5),
+                        device="cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(here, "build"))
+    try:
+        pdir = os.path.join(root, "smoke0", "params")
+        os.makedirs(pdir)
+        index, nbytes = {}, 0
+        t0 = time.perf_counter()
+        for key, t in flat_leaves(params).items():
+            a = t.cpu().numpy()
+            nbytes += a.nbytes
+            parts = CKPT_SHARDED.get(key, 1)
+            if parts == 1:
+                np.save(os.path.join(pdir, key + ".npy"), a)
+                index[key] = key + ".npy"
+                continue
+            step = -(-a.shape[0] // parts)
+            for s in range(0, a.shape[0], step):
+                start = "-".join([str(s)] + ["0"] * (a.ndim - 1))
+                np.save(os.path.join(pdir, f"{key}.shard_{start}.npy"),
+                        a[s:s + step])
+            index[key] = key + ".shard_*"
+        with open(os.path.join(root, "smoke0", "manifest.json"), "w") as fh:
+            json.dump({"tag": "smoke0", "params_index": index,
+                       "format_version": 1}, fh)
+        with open(os.path.join(root, "latest"), "w") as fh:
+            fh.write("smoke0")
+        t_write = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_params_for_model(model, root, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        src, got = flat_leaves(params), flat_leaves(loaded)
+        if set(src) != set(got) or not all(
+                got[k].device.type == "cuda" and torch.equal(got[k], src[k])
+                for k in src):
+            raise AssertionError("[features] checkpoint: loaded leaves differ")
+        log(f"[features] checkpoint: {len(src)} leaves, {nbytes / 1e9:.3f} GB "
+            f"fp32 ({sorted(CKPT_SHARDED)} as shard files) written in "
+            f"{t_write:.2f} s, loaded onto the card in {t_load:.2f} s "
+            f"({nbytes / 1e9 / t_load:.2f} GB/s), equal leaf for leaf")
+        rng = np.random.default_rng(55)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (300, 1200)]
+        ecfg = dict(kv_block_size=16, max_chunk_tokens=256, kv_blocks=256)
+        streams = [greedy_generate(
+            InferenceEngineV2(model, tree, RaggedInferenceEngineConfig(**ecfg),
+                              device="cuda"), prompts, max_new_tokens=16,
+            sequential=False) for tree in (loaded, params)]
+        if streams[0] != streams[1]:
+            raise AssertionError(f"[features] checkpoint: v2 streams differ "
+                                 f"{streams}")
+        outs = [init_inference(model, config=dict(conf, dtype="bf16"),
+                               device="cuda", **kw).generate(
+                                   prompts, max_new_tokens=16)
+                for conf, kw in (({"checkpoint": root}, {}),
+                                 ({}, {"params": params}))]
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError("[features] checkpoint: v1 generate differs")
+        log(f"[features] checkpoint: v2 engine and v1 generate from the "
+            f"checkpoint give the in-memory tree's streams (2 requests x 16 "
+            f"tokens: {[s[:4] for s in streams[0]]}...)")
+        return {"gb": nbytes / 1e9, "write_s": t_write, "load_s": t_load}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def small_feature_parity():
+    """TINY_TEST-shaped fp32 models (weights x3, so that greedy streams vary
+    and fall into loops the n-gram proposer drafts) give the same greedy
+    streams on the card as on the CPU with each feature on: the prefix cache
+    (a cold and a warm pass), speculative decoding at K = 3 and 4, and
+    preemption in a pool too small for the demand — each with dense
+    weights and fp32 pools, with int8 weights and KV, and with fp8."""
+    from deepspeed_tpu_torch.inference.v2 import (ContinuousBatchingScheduler,
+                                                  InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.spec import NGramProposer
+    from deepspeed_tpu_torch.models.transformer import TINY_TEST, CausalLM
+
+    model = CausalLM(TINY_TEST)
+    params = model.init(torch.Generator("cpu").manual_seed(3), device="cpu")
+    params = {g: {k: v * 3 if v.dim() >= 2 else v for k, v in sub.items()}
+              for g, sub in params.items()}
+    rng = np.random.default_rng(4)
+    sys_p = rng.integers(0, 256, 37).tolist()
+    motif = rng.integers(0, 256, 5).tolist()
+    prompts = {"prefix": [sys_p + rng.integers(0, 256, n).tolist()
+                          for n in (3, 9, 5, 11)],
+               "spec": [motif * 4 + [7, 9], rng.integers(0, 6, 20).tolist(),
+                        motif * 3, rng.integers(0, 256, 10).tolist()],
+               "preempt": [rng.integers(0, 256, n).tolist()
+                           for n in (60, 44, 76, 30)]}
+    quant = {"dense": {},
+             "int8/int8": dict(weight_quant_enabled=True,
+                               kv_quant_enabled=True),
+             "fp8/fp8": dict(weight_quant_enabled=True, kv_quant_enabled=True,
+                             weight_quant_dtype="fp8_e4m3",
+                             kv_quant_dtype="fp8_e4m3")}
+    features = {
+        "prefix cache": ("prefix", dict(enable_prefix_cache=True), {}, 2),
+        "spec K=3": ("spec", {}, {"max_draft_tokens": 3}, 1),
+        "spec K=4": ("spec", {}, {"max_draft_tokens": 4}, 1),
+        "preemption": ("preempt", dict(
+            kv_blocks=14, admission_reservation=True,
+            admission_preemption_enabled=True,
+            admission_oversubscription_factor=3.0), {}, 1)}
+    base = dict(kv_blocks=64, kv_block_size=8, max_chunk_tokens=16,
+                max_ragged_batch_size=48)
+    for fname, (pkey, ecfg, skw, passes) in features.items():
+        for qname, qkw in quant.items():
+            streams, stats = {}, {}
+            for dev in ("cpu", "cuda"):
+                eng = InferenceEngineV2(model, params,
+                                        RaggedInferenceEngineConfig(
+                                            **dict(base, **ecfg), **qkw),
+                                        device=dev)
+                out = []
+                for p in range(passes):
+                    sched = ContinuousBatchingScheduler(
+                        eng, proposer=NGramProposer() if skw else None, **skw)
+                    for i, pr in enumerate(prompts[pkey]):
+                        sched.submit(100 * p + i, pr, max_new_tokens=12,
+                                     shed_rank=int(i < 2))
+                    fin = sched.run_to_completion()
+                    out += [fin[100 * p + i].generated
+                            for i in range(len(prompts[pkey]))]
+                streams[dev] = out
+                stats[dev] = (sched.spec_stats(), sched.preempt_stats(),
+                              eng.prefix_stats())
+            label = f"small fp32 {fname} {qname}"
+            spec, pre, pfx = stats["cuda"]
+            if not (spec["accepted"] if "spec" in fname else
+                    pre["preempted"] if fname == "preemption" else
+                    pfx["tokens_saved"]):
+                raise AssertionError(f"[features] {label}: the feature did "
+                                     f"not act: {stats['cuda']}")
+            if streams["cpu"] != streams["cuda"] or \
+                    stats["cpu"] != stats["cuda"]:
+                raise AssertionError(f"[features] {label}: the card's "
+                                     f"streams or counters differ from the "
+                                     f"CPU's: {streams} {stats}")
+            log(f"[features] {label}: streams on the card equal the CPU's "
+                f"(spec {stats['cuda'][0]}, preemption {stats['cuda'][1]}, "
+                f"prefix tokens saved {stats['cuda'][2]['tokens_saved']})")
+
+
+def profile_feature_puts(engine):
+    """torch.profiler over one speculative verify put (8 rows of K + 1 = 4
+    tokens after 300-1000 prompt tokens, verify_width 4) and one prefix-hit
+    put (a 256-token first chunk at position 2048 after a 2048-token
+    match)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(66)
+    V = engine.model.cfg.vocab_size
+    uids = [23_000 + i for i in range(8)]
+    ctx = [rng.integers(0, V, n).tolist()
+           for n in (300, 400, 500, 600, 700, 800, 900, 1000)]
+    for u, c in zip(uids, ctx):
+        for s in range(0, len(c), 256):
+            engine.put([u], [c[s:s + 256]])
+    engine.configure_prefix_cache(True)
+    fill = rng.integers(0, V, FEATURE_PREFIX + 16).tolist()
+    for s in range(0, len(fill), 256):
+        engine.put([23_100], [fill[s:s + 256]])
+    engine.flush(23_100)
+    hit = fill[:FEATURE_PREFIX] + rng.integers(0, V, 256).tolist()
+    engine.match_prefix(23_101, hit)
+    steps = [("verify put: 8 rows x 4 tokens, verify_width 4",
+              lambda: engine.put(uids, [rng.integers(0, V, 4).tolist()
+                                        for _ in uids], verify_width=4)),
+             ("prefix-hit put: 256 tokens at 2048 after a 2048-token match",
+              lambda: engine.put([23_101], [hit[FEATURE_PREFIX:]]))]
+    try:
+        for name, call in steps:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            device_summary(prof, wall, "profile features", name, 8)
+    finally:
+        for u in uids + [23_101]:
+            engine.flush(u)
+        engine.configure_prefix_cache(False)
+
+
+def phase_features(profile_puts=False):
+    """The features phase: small fp32 card == CPU parity with each feature,
+    then MISTRAL_7B at full width (32 layers, bf16): the prefix cache, n-gram
+    speculative decoding at K = 3 and 4, reservation admission with
+    preemption, KV export/import (bf16, int8 and fp8 pools), preemption
+    again with int8 KV, speculative decoding again with int8 weights and
+    int8 KV; then the universal checkpoint at full width with 2 layers."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    small_feature_parity()
+    cfg = MISTRAL_7B
+    log(f"[features] MISTRAL_7B at full width, {cfg.num_layers} layers "
+        "(no depth cut), bf16, random weights from a seed")
+    model = CausalLM(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator("cuda").manual_seed(7),
+                        device="cuda", dtype=torch.bfloat16)
+    engine = InferenceEngineV2(
+        model, params, RaggedInferenceEngineConfig(
+            kv_block_size=16, max_chunk_tokens=256,
+            max_ragged_sequence_count=32, kv_blocks=FEATURE_KV_BLOCKS),
+        device="cuda")
+    del params
+    engine.put([10_000], [list(range(16))])       # warm-up
+    engine.flush(10_000)
+    res = {}
+    gap = feature_gap(engine, "bf16", ("verify K=3", "verify K=4",
+                                       "prefix hit"))
+    res["prefix"] = feature_prefix(engine, gap)
+    res["spec bf16"] = feature_spec(engine, "bf16", gap)
+    res["preempt bf16"] = feature_preempt(engine, "bf16", gap)
+    if profile_puts:
+        profile_feature_puts(engine)
+    feature_kv_roundtrip(engine, "bf16 pools")
+    engine.configure_kv_quant(True, "int8")
+    gap_kv8 = feature_gap(engine, "bf16 weights + int8 KV", ())
+    res["preempt int8 KV"] = feature_preempt(engine, "int8 KV", gap_kv8)
+    feature_kv_roundtrip(engine, "int8 pools")
+    engine.configure_kv_quant(True, "fp8_e4m3")
+    feature_kv_roundtrip(engine, "fp8 pools")
+    engine.configure_kv_quant(True, "int8")
+    qz.launches["quantize"] = 0
+    engine.configure_weight_quant(True, "int8", block=128)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap_q = feature_gap(engine, "int8 weights + int8 KV",
+                        ("verify K=3", "verify K=4"))
+    res["spec int8"] = feature_spec(engine, "int8 weights + int8 KV", gap_q)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["checkpoint"] = feature_checkpoint()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------ v1 inference
@@ -2508,7 +3341,7 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
-                                       "train"],
+                                       "features", "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--compare", action="store_true",
@@ -2540,7 +3373,7 @@ def main(argv=None):
     if args.only:
         phase = {"timing": phase_timing, "main": phase_main,
                  "quant": phase_quant, "v1": phase_v1,
-                 "train": phase_train}[args.only]
+                 "features": phase_features, "train": phase_train}[args.only]
         kw = {} if args.only in ("timing", "v1") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
@@ -2551,6 +3384,7 @@ def main(argv=None):
     main_res = timed("main", phase_main, profile_puts=args.profile)
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
     v1 = timed("v1", phase_v1)
+    features = timed("features", phase_features, profile_puts=args.profile)
     train = timed("train", phase_train, profile_step=args.profile)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
@@ -2576,6 +3410,18 @@ def main(argv=None):
         + "; weights GB "
         + " | ".join(f"{r['weights_gb']:.3f}" for r in v1.values())
         + "; peak GB " + " | ".join(f"{r['peak_gb']:.2f}" for r in v1.values()))
+    log(f"[features] MISTRAL_7B, 32 layers: prefix cache warm pass "
+        f"{features['prefix']['warm']}; spec (proposed/accepted/decode "
+        f"puts) bf16 "
+        + ", ".join(f"{k} {v['proposed']}/{v['accepted']}/{v['puts']}"
+                    for k, v in features["spec bf16"].items())
+        + "; int8 "
+        + ", ".join(f"{k} {v['proposed']}/{v['accepted']}/{v['puts']}"
+                    for k, v in features["spec int8"].items())
+        + f"; preemption bf16 {features['preempt bf16']}, int8 KV "
+        f"{features['preempt int8 KV']}; checkpoint "
+        f"{features['checkpoint']['gb']:.3f} GB loaded in "
+        f"{features['checkpoint']['load_s']:.2f} s")
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

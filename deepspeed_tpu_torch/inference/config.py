@@ -7,7 +7,8 @@ dataclasses over ``runtime/config_utils.DSConfigModel``:
 have no effect, as in the JAX package (the model is one plain
 implementation with its kernels already in it; no graph capture).
 ``raise_if_not_ported`` raises for the keys whose feature the port does
-not run yet.
+not run yet. ``checkpoint`` takes a universal checkpoint; an HF directory
+raises.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from .. import not_ported
+from ..models.convert import is_hf_checkpoint
 from ..runtime.config_utils import DSConfigModel
 
 
@@ -57,9 +59,10 @@ class InferenceConfig(DSConfigModel):
             (self.tensor_parallel.tp_size > 1,
              f"tensor_parallel.tp_size={self.tensor_parallel.tp_size} "
              "(tensor parallelism over a device mesh)", "queue 1 item 14"),
-            (self.checkpoint is not None,
-             "inference checkpoint loading (config.checkpoint: HF or "
-             "universal checkpoints)", "queue 1 items 2 and 16"),
+            (self.checkpoint is not None
+             and is_hf_checkpoint(str(self.checkpoint)),
+             "HF checkpoint loading (config.checkpoint naming an HF "
+             "directory; universal checkpoints load)", "queue 1 item 16"),
             (self.ep_size > 1, f"ep_size={self.ep_size} (expert parallelism)",
              "queue 1 item 14"),
             (bool(self.moe), "the moe block (MoE inference)",

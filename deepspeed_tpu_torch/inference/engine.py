@@ -16,14 +16,21 @@ JAX package's stream on the same weights. Sampled streams draw from a
 ``torch.Generator``, which cannot give ``jax.random``'s numbers: each token
 lies in the top-k set, and one generator seed gives one stream.
 
+``config.checkpoint`` loads a universal checkpoint
+(``runtime/checkpointing.py``): a tag directory (with ``manifest.json``) or
+a save directory with ``latest`` through ``load_params_for_model``, any
+other directory read as the leaves' own directory, as the JAX engine reads
+it (its ``inference/engine.py:99-104``).
+
 Not ported (they raise): encoder models (``encode``/``mlm``/``classify``),
-a device mesh and tensor parallelism, HF and universal checkpoints
-(``config.checkpoint``, ``load_checkpoint``), ``profile_model_time``.
+a device mesh and tensor parallelism, HF checkpoints (``config.checkpoint``
+naming one), ``load_checkpoint``, ``profile_model_time``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -96,7 +103,10 @@ class InferenceEngine:
             model = type(model)(dataclasses.replace(model.cfg, dtype=dtype))
         self.module = model
 
-        if params is None:
+        ckpt = self.config.checkpoint
+        if params is None and ckpt is not None:
+            params = self._load_universal(model, str(ckpt))
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = model.init(gen, device=self.device)
         else:
@@ -106,6 +116,17 @@ class InferenceEngine:
             # the card, one launch a quantized leaf
             params = quantize_param_tree(params, bits=self.config.quant.bits)
         self.params = params
+
+    def _load_universal(self, model, ckpt: str):
+        """fp32 params (as the JAX engine keeps them) from a universal
+        checkpoint on this engine's device."""
+        from ..runtime.checkpointing import (_load_tree, load_params_for_model,
+                                             param_template)
+
+        if (os.path.exists(os.path.join(ckpt, "manifest.json"))
+                or os.path.exists(os.path.join(ckpt, "latest"))):
+            return load_params_for_model(model, ckpt, device=self.device)
+        return _load_tree(param_template(model), ckpt, self.device)
 
     # ------------------------------------------------------------------ API
     def forward(self, tokens, *args, **kwargs):

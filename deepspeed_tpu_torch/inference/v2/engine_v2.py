@@ -8,15 +8,19 @@ a sequence's KV blocks. The Dynamic SplitFuse loop on top lives in
 
 The config keeps every field of the JAX ``RaggedInferenceEngineConfig``.
 A feature the port has not ported yet raises ``NotImplementedError``
-naming its ROADMAP item when it is turned on; none is ignored. Weight
-quantization (``weight_quant_*``: the params are quantized once at build,
-on the engine's device) and KV quantization (``kv_quant_*``: int8/fp8
-pools with scale planes) are ported.
+naming its ROADMAP item when it is turned on; none is ignored. Ported:
+weight quantization (``weight_quant_*``: the params are quantized once at
+build, on the engine's device), KV quantization (``kv_quant_*``: int8/fp8
+pools with scale planes), the prefix cache, speculative verification
+(``put(verify_width=, defer_commit=)``, ``trim_sequence``,
+``commit_tokens``), KV export/import, and reservation admission with
+preemption (``admission_*``; the scheduler reads them). The KV tier
+(``kv_tier_*``, ``configure_kv_tier``) still raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,17 +88,9 @@ class RaggedInferenceEngineConfig:
 
     def check_ported(self) -> None:
         """Raise for every feature that is on but not ported yet."""
-        unported = [
-            (self.enable_prefix_cache, "enable_prefix_cache", "queue 1 item 9"),
-            (self.kv_tier_enabled, "kv_tier_enabled", "queue 1 item 9"),
-            (self.admission_reservation, "admission_reservation",
-             "queue 1 item 9"),
-            (self.admission_preemption_enabled,
-             "admission_preemption_enabled", "queue 1 item 9"),
-        ]
-        for on, name, item in unported:
-            if on:
-                raise not_ported(f"RaggedInferenceEngineConfig.{name}", item)
+        if self.kv_tier_enabled:
+            raise not_ported("RaggedInferenceEngineConfig.kv_tier_enabled",
+                             "queue 1 item 9")
 
 
 def _to_device(tree, device):
@@ -152,7 +148,10 @@ class InferenceEngineV2:
         return DSStateManager(
             self.model.cfg, self.config.max_tracked_sequences,
             self.config.kv_blocks, self.config.kv_block_size,
-            device=self.device, kv_quant=self.config.kv_quant_enabled,
+            device=self.device,
+            enable_prefix_cache=self.config.enable_prefix_cache,
+            prefix_cache_max_blocks=self.config.prefix_cache_max_blocks,
+            kv_quant=self.config.kv_quant_enabled,
             kv_quant_dtype=self.config.kv_quant_dtype)
 
     # ----------------------------------------------------------- admission
@@ -188,11 +187,20 @@ class InferenceEngineV2:
     # -------------------------------------------------------------- serving
     def put(self, uids: Sequence[int],
             tokens_list: Sequence[Sequence[int]], *,
-            verify_width: int = 0) -> torch.Tensor:
+            verify_width: int = 0,
+            defer_commit: bool = False) -> torch.Tensor:
         """Run one forward over the ragged batch; returns next-token logits
         [len(uids), vocab] as a tensor on the engine's device (reference
-        engine_v2.py:89). ``verify_width`` W > 0 returns each row's last W
-        positions right-aligned, [len(uids), W, vocab]."""
+        engine_v2.py:89).
+
+        - ``verify_width`` W > 0: logits of each row's last W valid
+          positions, right-aligned, [len(uids), W, vocab] (speculative
+          verification reads the target's argmax at every draft offset).
+        - ``defer_commit``: advance ``seen_tokens`` but not the prefix-cache
+          hash chain — the tokens may hold drafts a ``trim_sequence`` will
+          roll back; the caller commits the accepted ones with
+          :meth:`commit_tokens`.
+        """
         status = self.can_schedule(uids, [len(t) for t in tokens_list])
         if status != SchedulingResult.Success:
             raise SchedulingError(status)
@@ -217,20 +225,139 @@ class InferenceEngineV2:
             upload(arrays["tokens"]), upload(arrays["start_pos"]),
             upload(arrays["n_tokens"]), upload(arrays["block_tables"]),
             verify_width=int(verify_width))
-        # commit sequence state only after the forward was dispatched: a
-        # failed forward leaves seen_tokens unchanged. (The pools are
-        # written in place during the forward; a retried step rewrites the
-        # same slots with the same tokens.)
+        # commit sequence state only after the forward: a failed forward
+        # leaves seen_tokens unchanged and registers nothing in the prefix
+        # index. (The pools are written in place during the forward; a
+        # retried step rewrites the same slots with the same tokens.)
         for seq, toks in staged:
             seq.seen_tokens += len(toks)
-            self.state_manager.record_tokens(seq, toks)
+            if not defer_commit:
+                self.state_manager.record_tokens(seq, toks)
         return logits[:len(uids)]
 
     def flush(self, uid: int) -> None:
         self.state_manager.flush_sequence(uid)
 
+    # ------------------------------------------------------- speculative
+    def trim_sequence(self, uid: int, n_tokens: int) -> int:
+        """Drop a sequence's trailing ``n_tokens`` from the KV cache (the
+        rejected drafts); returns the number of blocks released."""
+        return self.state_manager.trim_sequence(uid, n_tokens)
+
+    def commit_tokens(self, uid: int, tokens: Sequence[int]) -> None:
+        """Advance the prefix-cache hash chain with verified tokens — the
+        second half of a ``put(defer_commit=True)`` step."""
+        seq = self.state_manager.get_sequence(uid)
+        if seq is not None:
+            self.state_manager.record_tokens(seq, tokens)
+
+    # ----------------------------------------------------------- KV handoff
+    def export_sequence(self, uid: int,
+                        chunk_blocks: int = 0) -> Optional[Dict[str, object]]:
+        """Host snapshot of a sequence's KV blocks (slabs, scale planes,
+        metadata); see :meth:`DSStateManager.export_sequence`. The sequence
+        stays tracked; the caller flushes it."""
+        return self.state_manager.export_sequence(uid,
+                                                  chunk_blocks=chunk_blocks)
+
+    def import_sequence(self, uid: int, payload: Dict[str, object],
+                        tokens: Sequence[int]) -> None:
+        """Adopt an exported sequence's KV and resume decoding from it; see
+        :meth:`DSStateManager.import_sequence`."""
+        self.state_manager.import_sequence(uid, payload, tokens)
+
+    # ---------------------------------------------- admission + preemption
+    def configure_admission(self, reservation: bool,
+                            oversubscription_factor: float = 1.0,
+                            preemption_enabled: bool = False,
+                            victim_policy: str = "lowest_class",
+                            max_preemptions_per_seq: int = 2) -> None:
+        """Set the admission settings on a built engine; schedulers read
+        them at construction, so call it before building one."""
+        if preemption_enabled and not reservation:
+            raise ValueError(
+                "admission preemption requires reservation admission "
+                "(preemption is triggered by reservation shortfall)")
+        self.config.admission_reservation = bool(reservation)
+        self.config.admission_oversubscription_factor = \
+            float(oversubscription_factor)
+        self.config.admission_preemption_enabled = bool(preemption_enabled)
+        self.config.admission_victim_policy = str(victim_policy)
+        self.config.admission_max_preemptions_per_seq = \
+            int(max_preemptions_per_seq)
+
+    def try_reserve(self, uid: int, total_blocks: int) -> bool:
+        return self.state_manager.try_reserve(uid, total_blocks)
+
+    def force_reserve(self, uid: int, total_blocks: int) -> None:
+        self.state_manager.force_reserve(uid, total_blocks)
+
+    def release_reservation(self, uid: int) -> None:
+        self.state_manager.release_reservation(uid)
+
+    def reservation_headroom(self) -> int:
+        return self.state_manager.reservation_headroom()
+
+    def reserved_total_blocks(self) -> int:
+        return self.state_manager.reserved_total_blocks()
+
+    def freeable_blocks_of(self, uid: int) -> int:
+        return self.state_manager.freeable_blocks_of(uid)
+
+    def preempt_stash(self, uid: int, payload: Dict[str, object]) -> None:
+        self.state_manager.preempt_stash(uid, payload)
+
+    def preempt_restore_payload(self, uid: int) -> Optional[Dict[str, object]]:
+        return self.state_manager.preempt_restore_payload(uid)
+
+    def preempt_discard(self, uid: int) -> None:
+        self.state_manager.preempt_discard(uid)
+
+    # --------------------------------------------------------- prefix cache
+    def match_prefix(self, uid: int, prompt_tokens: Sequence[int]) -> int:
+        """Share every cached leading full block of ``prompt_tokens`` and
+        return the matched token count; 0 (and no state created) with the
+        cache off."""
+        return self.state_manager.match_prefix(uid, prompt_tokens)
+
+    def prefix_stats(self) -> Dict[str, int]:
+        """Monotonic counters: hits/misses (block lookups), evictions,
+        tokens_saved, queries."""
+        return self.state_manager.prefix_stats()
+
+    def prefix_digest(self, max_entries: int = 512) -> List[int]:
+        return self.state_manager.prefix_digest(max_entries)
+
+    def export_prefix_blocks(self, max_blocks: int = 64) -> List[tuple]:
+        return self.state_manager.export_prefix_blocks(max_blocks)
+
+    def import_prefix_blocks(self, entries: List[tuple]) -> int:
+        return self.state_manager.import_prefix_blocks(entries)
+
+    def configure_prefix_cache(self, enabled: bool,
+                               max_blocks: Optional[int] = None) -> None:
+        """Turn the prefix cache on or off on a built engine. Enabling is
+        safe at any time (sequences already in flight are not hashed);
+        disabling drops the whole index."""
+        self.config.enable_prefix_cache = bool(enabled)
+        self.config.prefix_cache_max_blocks = max_blocks
+        sm = self.state_manager
+        if enabled:
+            sm.prefix_cache_enabled = True
+            sm.prefix_cache_max_blocks = max_blocks or 0
+        else:
+            sm.clear_prefix_cache()
+            sm.prefix_cache_enabled = False
+
+    def configure_kv_tier(self, enabled: bool, host_bytes=None,
+                          disk_path=None, disk_bytes=None) -> None:
+        """The KV tier is not ported: this raises."""
+        raise not_ported("configure_kv_tier (host and disk KV tier)",
+                         "queue 1 item 9")
+
     def occupancy(self) -> Dict[str, int]:
-        """KV-pool occupancy snapshot (blocks + bytes)."""
+        """KV-pool occupancy snapshot (blocks, bytes, evictable and
+        available blocks)."""
         return self.state_manager.occupancy()
 
     def configure_kv_quant(self, enabled: bool, dtype: str = "int8",

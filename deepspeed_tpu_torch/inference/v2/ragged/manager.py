@@ -1,8 +1,8 @@
 """Ragged sequence state: descriptors, block tables, paged KV pools.
 
-Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` — the core:
-a registry of per-sequence descriptors (seen-token count and KV block
-ownership), on-demand block allocation, and the device-side paged pools
+Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py``: a registry
+of per-sequence descriptors (seen-token count and KV block ownership),
+on-demand block allocation, and the device-side paged pools
 ``[L, NB, KH, bs, D]`` (the per-(block, kv-head) slab is the trailing
 ``[bs, D]``, the layout ``ops/csrc/paged_attention.cu`` reads). The pools
 are torch tensors on the engine's device and ``PagedCausalLM`` writes them
@@ -10,16 +10,35 @@ in place. With ``kv_quant`` the pools are int8 or float8_e4m3fn
 (``kv_quant_dtype``) with f32 scale planes ``k_scale``/``v_scale``
 ``[L, NB, KH]`` beside them (``kv_quant.py``).
 
-Not ported yet: the prefix cache, the KV tier, KV export/import, trim, and
-the reservation ledger (ROADMAP queue 1 item 9). With the prefix cache off
-``record_tokens`` is the no-op it is in the JAX package.
+Prefix cache: every *full* KV block a sequence fills is registered in an
+index keyed by ``(parent_chain_hash, block_tokens)`` with the chain
+``h_i = hash((h_{i-1}, tokens_i))`` starting at 0 — the JAX package's keys
+exactly, so the two packages give the same ``prefix_digest`` for the same
+traffic. A later sequence whose prompt starts with the same tokens shares
+those blocks (:meth:`DSStateManager.match_prefix`); shared blocks are never
+written (a sequence writes only at positions past its matched length, and
+the last token of a prompt is never served from the cache). The cache holds
+a reference of its own on each indexed block; blocks held only by it are
+evicted in LRU order when an allocation would otherwise fail, and dropped
+(there is no host or disk tier in this port yet: ROADMAP queue 1 item 9's
+remainder).
+
+Also here: ``trim_sequence`` (speculative-decoding rollback), KV
+``export_sequence``/``import_sequence`` (whole or chunked, scale planes
+included), the reservation ledger and the host-RAM preemption store.
+Device-to-host copies are non-blocking copies into pinned host tensors,
+all started before the first is read. A payload's slabs are host tensors
+of the pool's dtype (bf16 and fp8 stay torch tensors; nothing needs
+``ml_dtypes``).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .... import resolve_device
@@ -32,10 +51,39 @@ class DSSequenceDescriptor:
     uid: int
     seen_tokens: int = 0                   # tokens already in the KV cache
     kv_blocks: List[int] = field(default_factory=list)
+    # prefix-cache chain state: hash through the last full block, how many
+    # leading blocks have been hashed, and the tokens of the partial block
+    chain_hash: int = 0
+    hashed_blocks: int = 0
+    pending_tokens: List[int] = field(default_factory=list)
 
     @property
     def cur_allocated_blocks(self) -> int:
         return len(self.kv_blocks)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A byte view of a float8 tensor (gathers and scatters move bytes, and
+    not every index op takes float8); any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _to_host(arrs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Device tensors to host tensors: every copy is started (non-blocking,
+    into pinned memory) before the stream is waited on once. CPU tensors
+    are already host copies (``index_select`` made them)."""
+    out, stream = {}, None
+    for name, a in arrs.items():
+        if a.is_cuda:
+            h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            h.copy_(a, non_blocking=True)
+            stream = torch.cuda.current_stream(a.device)
+            out[name] = h
+        else:
+            out[name] = a
+    if stream is not None:
+        stream.synchronize()
+    return out
 
 
 class DSStateManager:
@@ -44,6 +92,8 @@ class DSStateManager:
     def __init__(self, model_cfg, max_tracked_sequences: int = 256,
                  num_blocks: int = 256, block_size: int = 16,
                  dtype: Optional[torch.dtype] = None, device=None,
+                 enable_prefix_cache: bool = False,
+                 prefix_cache_max_blocks: Optional[int] = None,
                  kv_quant: bool = False, kv_quant_dtype: str = "int8"):
         self.cfg = model_cfg
         self.block_size = block_size
@@ -57,6 +107,19 @@ class DSStateManager:
             num_blocks, bytes_per_block=kv_bytes_per_block(
                 model_cfg, block_size, self.kv_quant, dt))
         self._seqs: Dict[int, DSSequenceDescriptor] = {}
+        # reservation ledger: per-sequence TOTAL projected block need,
+        # recorded at admission (empty = passive)
+        self._reserved: Dict[int, int] = {}
+        # preemption store: whole-sequence exports parked in host RAM
+        self._preempt_store: Dict[int, dict] = {}
+        # prefix cache: index key (parent_chain_hash, block_tokens) -> block
+        self.prefix_cache_enabled = bool(enable_prefix_cache)
+        self.prefix_cache_max_blocks = prefix_cache_max_blocks or 0
+        self._index: "OrderedDict[tuple, int]" = OrderedDict()
+        self._block_hash: Dict[int, tuple] = {}
+        self._evictable = 0      # indexed blocks held by the cache alone
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0,
+                       "tokens_saved": 0, "queries": 0}
         shape = (model_cfg.num_layers, num_blocks, model_cfg.kv_heads,
                  block_size, model_cfg.head_dim)
         pool_dt = pool_dtype(self.kv_quant_dtype) if self.kv_quant else dt
@@ -84,10 +147,200 @@ class DSStateManager:
         return self._seqs.get(uid)
 
     def flush_sequence(self, uid: int) -> None:
-        """Release a finished sequence's blocks (reference engine_v2.flush)."""
+        """Release a finished sequence's blocks and its reservation. Blocks
+        the prefix cache also holds stay resident and become evictable once
+        no sequence refers to them."""
         seq = self._seqs.pop(uid, None)
+        self._reserved.pop(uid, None)
         if seq is not None and seq.kv_blocks:
-            self.allocator.release(seq.kv_blocks)
+            self._release_blocks(seq.kv_blocks)
+
+    def _release_blocks(self, blocks: List[int]) -> None:
+        """Drop one reference per block, counting the indexed blocks whose
+        only remaining reference is the cache's (flush and trim)."""
+        self.allocator.release(blocks)
+        if self.prefix_cache_enabled:
+            for b in blocks:
+                if (b in self._block_hash
+                        and self.allocator.ref_count(b) == 1):
+                    self._evictable += 1
+
+    def trim_sequence(self, uid: int, n_tokens: int) -> int:
+        """KV rollback: drop the trailing ``n_tokens`` of a sequence (the
+        rejected drafts of a speculative step). Trailing blocks that become
+        empty are released; blocks below the new length are untouched.
+        Trimming into prefix-indexed blocks, or dropping a block shared
+        outside the index, raises ``ValueError``. Returns the number of
+        blocks released."""
+        seq = self._seqs.get(uid)
+        if seq is None or n_tokens <= 0:
+            return 0
+        if n_tokens > seq.seen_tokens:
+            raise ValueError(
+                f"cannot trim {n_tokens} tokens from sequence {uid} "
+                f"({seq.seen_tokens} seen)")
+        new_seen = seq.seen_tokens - n_tokens
+        if new_seen < seq.hashed_blocks * self.block_size:
+            raise ValueError(
+                f"cannot trim sequence {uid} into prefix-indexed blocks "
+                f"({seq.hashed_blocks} blocks hashed, want "
+                f"{new_seen} tokens)")
+        keep = -(-new_seen // self.block_size)       # ceil; 0 when new_seen=0
+        dropped = seq.kv_blocks[keep:]
+        for b in dropped:
+            if self.allocator.is_shared(b) and b not in self._block_hash:
+                raise ValueError(
+                    f"cannot trim block {b} of sequence {uid}: shared "
+                    "outside the prefix index (sharing invariant violated)")
+        del seq.kv_blocks[keep:]
+        seq.seen_tokens = new_seen
+        # chain state: pending (un-blocked) tokens past the new end go
+        over = (seq.hashed_blocks * self.block_size
+                + len(seq.pending_tokens)) - new_seen
+        if over > 0:
+            del seq.pending_tokens[len(seq.pending_tokens) - over:]
+        if dropped:
+            self._release_blocks(dropped)
+        return len(dropped)
+
+    # -- KV handoff ----------------------------------------------------------
+    def _gather(self, blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """Every pool's slabs at ``blocks`` (dim 1), as device tensors."""
+        ids = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=self.device)
+        return {name: _raw(pool).index_select(1, ids)
+                for name, pool in self.kv_cache.items()}
+
+    def _typed(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Host byte views back to each pool's dtype."""
+        return {name: (t.view(self.kv_cache[name].dtype)
+                       if t.dtype != self.kv_cache[name].dtype else t)
+                for name, t in host.items()}
+
+    def _scatter(self, blocks: Sequence[int],
+                 slabs: Dict[str, object]) -> None:
+        """Write host slabs (tensors, or numpy arrays of the pool's bytes)
+        into every pool at ``blocks``."""
+        ids = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=self.device)
+        for name, pool in self.kv_cache.items():
+            src = slabs[name]
+            if isinstance(src, np.ndarray):
+                src = torch.from_numpy(np.ascontiguousarray(src))
+            raw, src = _raw(pool), _raw(src)
+            if src.dtype != raw.dtype:        # e.g. bf16 widened to fp32
+                src = _raw(src.to(pool.dtype))
+            raw.index_copy_(1, ids, src.to(self.device))
+
+    def export_sequence(self, uid: int,
+                        chunk_blocks: int = 0) -> Optional[Dict[str, object]]:
+        """Host-RAM snapshot of a sequence's KV for cross-engine handoff:
+        every pool slab its block table references — K and V, and the
+        ``k_scale``/``v_scale`` planes under kv_quant — copied whole
+        (stale slots past ``seen_tokens`` included), with the metadata
+        :meth:`import_sequence` checks. ``None`` for unknown or empty
+        sequences; the sequence keeps its state.
+
+        ``chunk_blocks`` > 0 gives the streamed form: ``"chunks"``, a list
+        of slab dicts of at most ``chunk_blocks`` blocks each, every
+        chunk's copy started before any is read; the bytes are those of
+        the whole form."""
+        seq = self._seqs.get(uid)
+        if seq is None or not seq.kv_blocks:
+            return None
+        meta = {"seen_tokens": seq.seen_tokens,
+                "block_size": self.block_size,
+                "kv_quant": self.kv_quant,
+                "kv_quant_dtype": self.kv_quant_dtype,
+                "n_blocks": len(seq.kv_blocks)}
+        if chunk_blocks and chunk_blocks > 0:
+            step = int(chunk_blocks)
+            parts = [self._gather(seq.kv_blocks[s:s + step])
+                     for s in range(0, len(seq.kv_blocks), step)]
+            flat = _to_host({f"{i}/{name}": a for i, c in enumerate(parts)
+                             for name, a in c.items()})
+            meta["chunk_blocks"] = step
+            meta["chunks"] = [self._typed({name: flat[f"{i}/{name}"]
+                                           for name in c})
+                              for i, c in enumerate(parts)]
+            return meta
+        meta["slabs"] = self._typed(_to_host(self._gather(seq.kv_blocks)))
+        return meta
+
+    def import_sequence(self, uid: int, payload: Dict[str, object],
+                        tokens: Sequence[int]) -> None:
+        """Adopt an exported sequence: allocate fresh blocks, write the
+        payload's slabs (and scale planes) at the new ids, and seed the
+        descriptor at the source's ``seen_tokens``. ``tokens`` (as many as
+        ``seen_tokens``) replay ``record_tokens`` so the prefix index covers
+        the imported blocks. Raises on a representation mismatch (block
+        size, kv_quant and its dtype, slab keys), on a uid with state and on
+        too few blocks; a failure leaves the manager untouched. Takes the
+        whole (``"slabs"``) and the chunked (``"chunks"``) form.
+
+        A fresh block keeps its previous tenant's scale-plane entry until
+        the payload's scales overwrite it; the next write of a partly
+        filled last block then keeps the payload's scale (the monotone
+        rule), as it would have in the source engine."""
+        chunks = payload.get("chunks")
+        slabs = (payload["slabs"] if chunks is None
+                 else {k: None for k in chunks[0]} if chunks
+                 else {k: None for k in self.kv_cache})
+        if int(payload["block_size"]) != self.block_size:
+            raise ValueError(
+                f"KV import block_size mismatch: payload "
+                f"{payload['block_size']} vs pool {self.block_size}")
+        if bool(payload["kv_quant"]) != self.kv_quant:
+            raise ValueError(
+                f"KV import representation mismatch: payload kv_quant="
+                f"{payload['kv_quant']} vs pool kv_quant={self.kv_quant}")
+        pay_dt = str(payload.get("kv_quant_dtype", "int8"))
+        if self.kv_quant and pay_dt != self.kv_quant_dtype:
+            raise ValueError(
+                f"KV import representation mismatch: payload "
+                f"kv_quant_dtype={pay_dt!r} vs pool "
+                f"{self.kv_quant_dtype!r}")
+        if set(slabs) != set(self.kv_cache):
+            raise ValueError(f"KV import slab keys {sorted(slabs)} != "
+                             f"pool keys {sorted(self.kv_cache)}")
+        seen = int(payload["seen_tokens"])
+        if len(tokens) != seen:
+            raise ValueError(f"KV import needs the {seen} tokens the KV "
+                             f"encodes, got {len(tokens)}")
+        existing = self._seqs.get(uid)
+        if existing is not None and (existing.seen_tokens
+                                     or existing.kv_blocks):
+            raise ValueError(f"cannot import into sequence {uid}: it "
+                             "already has KV state")
+        n = int(payload["n_blocks"])
+        if chunks is not None:
+            got = sum(int(next(iter(c.values())).shape[1]) for c in chunks)
+            if got != n:
+                raise ValueError(f"KV import chunks cover {got} blocks, "
+                                 f"payload claims {n}")
+        short = n - self.allocator.free_blocks
+        if short > 0 and self.prefix_cache_enabled:
+            self._evict(short)
+        if n > self.allocator.free_blocks:
+            raise RuntimeError(
+                f"cannot import {n} KV blocks "
+                f"({self.allocator.free_blocks} free)")
+        seq = self.get_or_create_sequence(uid)
+        blocks = self.allocator.allocate(n)
+        try:
+            if chunks is not None:
+                # glue the chunks per slab and write each pool once
+                slabs = {name: torch.cat([_raw(torch.as_tensor(c[name]))
+                                          for c in chunks], dim=1)
+                         for name in self.kv_cache}
+            self._scatter(blocks, slabs)
+            seq.kv_blocks.extend(blocks)
+            seq.seen_tokens = seen
+            self.record_tokens(seq, tokens)
+        except Exception:
+            self._seqs.pop(uid, None)
+            self.allocator.release(blocks)
+            raise
 
     @property
     def tracked_sequences(self) -> List[int]:
@@ -96,18 +349,6 @@ class DSStateManager:
     @property
     def free_blocks(self) -> int:
         return self.allocator.free_blocks
-
-    @property
-    def available_blocks(self) -> int:
-        """Blocks an allocate can obtain (free; nothing is evictable with
-        the prefix cache off)."""
-        return self.allocator.free_blocks
-
-    def occupancy(self) -> Dict[str, int]:
-        occ = self.allocator.occupancy()
-        occ["evictable_blocks"] = 0
-        occ["available_blocks"] = occ["free_blocks"]
-        return occ
 
     # -- block math ---------------------------------------------------------
     def blocks_needed(self, seq: DSSequenceDescriptor, new_tokens: int) -> int:
@@ -118,9 +359,267 @@ class DSStateManager:
     def maybe_allocate_kv(self, seq: DSSequenceDescriptor, new_tokens: int):
         need = self.blocks_needed(seq, new_tokens)
         if need > 0:
+            short = need - self.allocator.free_blocks
+            if short > 0 and self.prefix_cache_enabled:
+                self._evict(short)           # LRU unreferenced cached blocks
             seq.kv_blocks.extend(self.allocator.allocate(need))
+
+    # -- reservation ledger -------------------------------------------------
+    def _unfilled(self, uid: int, total: int) -> int:
+        seq = self._seqs.get(uid)
+        have = len(seq.kv_blocks) if seq is not None else 0
+        return max(0, total - have)
+
+    def reserved_unfilled(self) -> int:
+        """Blocks the reserved sequences may still allocate."""
+        return sum(self._unfilled(uid, total)
+                   for uid, total in self._reserved.items())
+
+    def freeable_blocks_of(self, uid: int) -> int:
+        """Blocks a flush of this sequence would return to
+        ``available_blocks``: private ones, and indexed ones whose only
+        other reference is the cache's. Prefix blocks other sequences share
+        free nothing."""
+        seq = self._seqs.get(uid)
+        if seq is None:
+            return 0
+        n = 0
+        for b in seq.kv_blocks:
+            rc = self.allocator.ref_count(b)
+            if rc == 1 or (rc == 2 and b in self._block_hash):
+                n += 1
+        return n
+
+    def reservation_headroom(self) -> int:
+        """``available_blocks`` minus the outstanding claims: what a new
+        reservation or a resume may take. Negative only after a
+        ``force_reserve`` over-commitment."""
+        return self.available_blocks - self.reserved_unfilled()
+
+    def try_reserve(self, uid: int, total_blocks: int) -> bool:
+        """Reserve a sequence's total projected block need (the blocks it
+        holds, prefix hits included, credited). False = shortfall."""
+        prior = self._reserved.pop(uid, None)
+        need = self._unfilled(uid, int(total_blocks))
+        if need > self.reservation_headroom():
+            if prior is not None:
+                self._reserved[uid] = prior
+            return False
+        self._reserved[uid] = int(total_blocks)
+        return True
+
+    def force_reserve(self, uid: int, total_blocks: int) -> None:
+        """Record a reservation unconditionally (an import whose blocks are
+        already resident); may push the headroom negative."""
+        self._reserved[uid] = int(total_blocks)
+
+    def release_reservation(self, uid: int) -> None:
+        self._reserved.pop(uid, None)
+
+    def reserved_total_blocks(self) -> int:
+        return sum(self._reserved.values())
+
+    @property
+    def reserved_sequences(self) -> int:
+        return len(self._reserved)
+
+    # -- preemption store (host RAM) ------------------------------------------
+    def preempt_stash(self, uid: int, payload: Dict[str, object]) -> None:
+        """Park an ``export_sequence`` payload for a later resume; its slabs
+        (scale planes included) stay in host RAM here."""
+        meta = {k: payload[k] for k in ("seen_tokens", "block_size",
+                                        "kv_quant", "n_blocks")}
+        meta["kv_quant_dtype"] = payload.get("kv_quant_dtype", "int8")
+        meta["slabs"] = payload["slabs"]
+        self._preempt_store[uid] = meta
+
+    def preempt_restore_payload(self, uid: int) -> Optional[Dict[str, object]]:
+        """Take a parked payload back (one-shot); ``None`` if nothing is
+        parked — the caller re-prefills."""
+        meta = self._preempt_store.pop(uid, None)
+        return dict(meta) if meta is not None else None
+
+    def preempt_discard(self, uid: int) -> None:
+        """Drop a parked payload (cancel of a preempted sequence)."""
+        self._preempt_store.pop(uid, None)
+
+    @property
+    def preempted_parked(self) -> int:
+        return len(self._preempt_store)
+
+    # -- prefix cache --------------------------------------------------------
+    @property
+    def evictable_blocks(self) -> int:
+        """Cached blocks whose only reference is the cache's own."""
+        if not self.prefix_cache_enabled:
+            return 0
+        return self._evictable
+
+    @property
+    def available_blocks(self) -> int:
+        """Blocks an allocate can obtain: free + evictable."""
+        return self.allocator.free_blocks + self.evictable_blocks
+
+    def occupancy(self) -> Dict[str, int]:
+        """The allocator's block and byte counts plus the prefix-cache view;
+        the tier fields are 0 (no tier), so the schema is the JAX one."""
+        occ = self.allocator.occupancy()
+        occ["evictable_blocks"] = self.evictable_blocks
+        occ["available_blocks"] = occ["free_blocks"] + occ["evictable_blocks"]
+        for k in ("kv_blocks_host_tier", "kv_bytes_host_tier",
+                  "kv_blocks_disk_tier", "kv_bytes_disk_tier"):
+            occ[k] = 0
+        return occ
+
+    def prefix_stats(self) -> Dict[str, int]:
+        return dict(self._stats)
+
+    def match_prefix(self, uid: int, prompt_tokens: Sequence[int]) -> int:
+        """Share every leading full block of ``prompt_tokens`` the index
+        holds, seed the sequence at the matched length and return it. The
+        walk stops at ``len(prompt) - 1``, so at least one token is left to
+        prefill. Returns 0 and creates nothing with the cache off; returns
+        the seen count of a sequence that already has state."""
+        if not self.prefix_cache_enabled:
+            return 0
+        seq = self.get_or_create_sequence(uid)
+        if seq.seen_tokens > 0 or seq.kv_blocks:
+            return seq.seen_tokens
+        self._stats["queries"] += 1
+        limit = len(prompt_tokens) - 1
+        matched: List[int] = []
+        h = 0
+        n = 0
+        while n + self.block_size <= limit:
+            key = (h, tuple(int(t) for t in
+                            prompt_tokens[n:n + self.block_size]))
+            b = self._index.get(key)
+            if b is None:
+                self._stats["misses"] += 1
+                break
+            self._index.move_to_end(key)     # LRU touch
+            if self.allocator.ref_count(b) == 1:
+                self._evictable -= 1         # about to gain a sequence ref
+            self.allocator.share([b])
+            matched.append(b)
+            h = hash(key)
+            n += self.block_size
+            self._stats["hits"] += 1
+        if matched:
+            seq.kv_blocks.extend(matched)
+            seq.seen_tokens = n
+            seq.chain_hash = h
+            seq.hashed_blocks = len(matched)
+            self._stats["tokens_saved"] += n
+        return n
 
     def record_tokens(self, seq: DSSequenceDescriptor,
                       tokens: Sequence[int]) -> None:
-        """Advance the prefix-cache hash chain — a no-op with the cache
-        off, which is the only state this slice has."""
+        """Advance the sequence's hash chain with tokens just written to its
+        blocks; each block that becomes full is registered in the index. A
+        sequence whose chain does not cover it from position 0 (mid-flight
+        when the cache was turned on) is skipped."""
+        if not self.prefix_cache_enabled:
+            return
+        if (seq.hashed_blocks * self.block_size + len(seq.pending_tokens)
+                != seq.seen_tokens - len(tokens)):
+            return
+        seq.pending_tokens.extend(int(t) for t in tokens)
+        while len(seq.pending_tokens) >= self.block_size:
+            chunk = tuple(seq.pending_tokens[:self.block_size])
+            del seq.pending_tokens[:self.block_size]
+            key = (seq.chain_hash, chunk)
+            seq.chain_hash = hash(key)
+            block = seq.kv_blocks[seq.hashed_blocks]
+            seq.hashed_blocks += 1
+            self._register(key, block)
+
+    def _register(self, key: tuple, block: int) -> None:
+        if key in self._index or block in self._block_hash:
+            return          # content already cached / block already indexed
+        if (self.prefix_cache_max_blocks
+                and len(self._index) >= self.prefix_cache_max_blocks
+                and not self._evict(1)):
+            return          # cache full of in-use blocks: skip registration
+        self.allocator.share([block])        # the cache's own reference
+        self._index[key] = block
+        self._block_hash[block] = key
+
+    def _evict(self, n: int) -> int:
+        """Drop up to ``n`` LRU cached blocks held by the cache alone (their
+        cache reference released, so they go free); returns how many."""
+        evicted = 0
+        for key in list(self._index):
+            if evicted >= n:
+                break
+            b = self._index[key]
+            if self.allocator.ref_count(b) == 1:
+                del self._index[key]
+                del self._block_hash[b]
+                self.allocator.release([b])
+                self._evictable -= 1
+                self._stats["evictions"] += 1
+                evicted += 1
+        return evicted
+
+    # -- fleet KV locality ---------------------------------------------------
+    def prefix_digest(self, max_entries: int = 512) -> List[int]:
+        """The chain hashes of the cached prefix content, most recently used
+        first, at most ``max_entries``; empty with the cache off."""
+        if not self.prefix_cache_enabled or max_entries <= 0:
+            return []
+        return [hash(key) for key in reversed(list(self._index))][:max_entries]
+
+    def export_prefix_blocks(self, max_blocks: int = 64) -> List[tuple]:
+        """Host copies of the hottest cached blocks, most recently used
+        first, as ``(index_key, {pool_name: per-block slab})`` pairs; the
+        index is untouched."""
+        if not self.prefix_cache_enabled or max_blocks <= 0:
+            return []
+        pairs = list(reversed(list(self._index.items())))[:max_blocks]
+        if not pairs:
+            return []
+        host = self._typed(_to_host(self._gather([b for _, b in pairs])))
+        return [(key, {name: host[name][:, i] for name in host})
+                for i, (key, _) in enumerate(pairs)]
+
+    def import_prefix_blocks(self, entries: List[tuple]) -> int:
+        """Seed the cache with exported blocks: allocate, write every slab
+        in one scatter per pool, and index each block under its key held by
+        the cache alone (evictable). Entries already indexed or past the
+        free-block / ``prefix_cache_max_blocks`` budget are skipped.
+        Returns how many landed."""
+        if not self.prefix_cache_enabled or not entries:
+            return 0
+        budget = self.allocator.free_blocks
+        if self.prefix_cache_max_blocks:
+            budget = min(budget, max(0, self.prefix_cache_max_blocks
+                                     - len(self._index)))
+        take: List[tuple] = []
+        for key, entry in entries:
+            if len(take) >= budget:
+                break
+            if key in self._index:
+                continue
+            take.append((key, entry))
+        if not take:
+            return 0
+        blocks = self.allocator.allocate(len(take))
+        self._scatter(blocks, {
+            name: torch.stack([_raw(torch.as_tensor(e[name]))
+                               for _, e in take], dim=1)
+            for name in self.kv_cache})
+        for (key, _), b in zip(take, blocks):
+            self._index[key] = b
+            self._block_hash[b] = key
+            self._evictable += 1
+        return len(take)
+
+    def clear_prefix_cache(self) -> None:
+        """Drop every index entry, releasing the cache's references; blocks
+        live sequences still share stay until those sequences flush."""
+        for b in list(self._index.values()):
+            self.allocator.release([b])
+        self._index.clear()
+        self._block_hash.clear()
+        self._evictable = 0

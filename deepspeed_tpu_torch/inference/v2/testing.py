@@ -7,7 +7,7 @@ byte-identical-stream check that holds the port to the JAX engine.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .scheduler import ContinuousBatchingScheduler
 
@@ -26,8 +26,9 @@ def greedy_generate(engine=None, prompts: Sequence[Sequence[int]] = (),
     compare against. ``sequential=False`` submits everything up front and lets
     continuous batching interleave — same tokens, concurrent schedule.
 
-    Pass ``scheduler`` to reuse one, or ``scheduler_kwargs`` (``sample_fn=``
-    ...) to build one on ``engine``.
+    Pass ``scheduler`` to reuse one (e.g. to keep its engine's caches warm
+    across passes), or ``scheduler_kwargs`` (``proposer=``,
+    ``max_draft_tokens=``, ``sample_fn=``...) to build one on ``engine``.
     """
     if scheduler is None:
         if engine is None:
@@ -64,3 +65,16 @@ def assert_greedy_parity(reference: Sequence[List[int]],
             f"got {list(got)[max(0, pos - 2):pos + 3]} "
             f"(lens {len(ref)} vs {len(got)})")
 
+
+
+def spec_summary(stats: Dict[str, int]) -> Dict[str, float]:
+    """Derived speculative-decoding numbers from
+    ``ContinuousBatchingScheduler.spec_stats()`` counters."""
+    proposed = stats.get("proposed", 0)
+    rows = stats.get("decode_rows", 0)
+    return {
+        "acceptance_rate": (stats.get("accepted", 0) / proposed
+                            if proposed else 0.0),
+        "tokens_per_forward": (stats.get("emitted", 0) / rows
+                               if rows else 0.0),
+    }

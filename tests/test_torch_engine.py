@@ -9,7 +9,8 @@ against the JAX engine on the CPU, plus the port's hygiene rules.
 - The pool's blocks all come back after the run.
 - The port imports neither ``jax`` nor ``deepspeed_tpu``, and its entry
   points refuse to run without CUDA unless ``device="cpu"`` is given.
-- Options this slice has not ported raise ``NotImplementedError``.
+- Options the port has not ported raise ``NotImplementedError`` (the KV
+  tier); the prefix cache and the admission options build an engine.
 """
 
 import os
@@ -128,14 +129,25 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-@pytest.mark.parametrize("field", [
-    "enable_prefix_cache", "kv_tier_enabled", "admission_reservation",
-    "admission_preemption_enabled"])
-def test_unported_engine_options_raise(field):
-    cfg = RaggedInferenceEngineConfig(**{field: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_engine_options_raise():
+    cfg = RaggedInferenceEngineConfig(kv_tier_enabled=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
         InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), config=cfg,
                           device="cpu")
+    eng = InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        eng.configure_kv_tier(True)
+
+
+@pytest.mark.parametrize("field", [
+    "enable_prefix_cache", "admission_reservation",
+    "admission_preemption_enabled"])
+def test_ported_engine_options_build(field):
+    eng = InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu",
+                            config=RaggedInferenceEngineConfig(**{field: True}))
+    assert getattr(eng.config, field) is True
+    assert eng.state_manager.prefix_cache_enabled == (
+        field == "enable_prefix_cache")
 
 
 def test_unported_model_paths_raise():

@@ -423,9 +423,15 @@ def test_config_surface_matches_jax():
 
 @pytest.mark.parametrize("config", [
     {"tp": {"tp_size": 2}}, {"tensor_parallel": {"tp_size": 4}},
-    {"checkpoint": "/nowhere"}, {"ep_size": 2}, {"moe": {"enabled": True}},
+    {"checkpoint": "HF"}, {"ep_size": 2}, {"moe": {"enabled": True}},
     {"save_mp_checkpoint_path": "/nowhere"}])
-def test_unported_config_keys_raise(config):
+def test_unported_config_keys_raise(config, tmp_path):
+    if config.get("checkpoint") == "HF":
+        # an HF checkpoint directory (universal ones load: see
+        # test_torch_checkpoint.py)
+        (tmp_path / "config.json").write_text("{}")
+        (tmp_path / "model.safetensors").write_bytes(b"")
+        config = {"checkpoint": str(tmp_path)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference("tiny", config=config,
                                            device="cpu")

@@ -235,3 +235,44 @@ def test_manager_allocates_quantized_pools():
         assert kc["k_scale"].data_ptr() != kc["v_scale"].data_ptr()
         assert (sm.occupancy()["bytes_per_block"]
                 == JK.kv_bytes_per_block(jtf.TINY_TEST, 4, True))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])
+def test_quantized_block_write_after_trim_matches_jax(dtype):
+    """Speculative rollback under kv_quant: a block takes 1 token, then a
+    certain token and 2 large drafts (its scale rises), the 2 drafts are
+    trimmed (start_pos falls back to 2), and the next token lands inside
+    it. Every token kept is small, yet the write keeps the inflated scale
+    (the monotone rule: the block holds earlier tokens), zeroes the
+    trimmed slot past the context, and gives the JAX package's codes and
+    scales bit for bit."""
+    rng = np.random.default_rng(1)
+    tables = np.full((1, MB), -1, np.int32)
+    tables[0, 0] = 4
+    jpool = jnp.zeros((NB, KH, BS, D), JK.pool_dtype(dtype))
+    jscale = jnp.zeros((NB, KH), jnp.float32)
+    tpool = torch.zeros((NB, KH, BS, D), dtype=TK.pool_dtype(dtype))
+    tscale = torch.zeros((NB, KH), dtype=torch.float32)
+    # start, magnitude of each token written
+    steps = [(0, [0.1]), (1, [0.1, 3.0, 3.0]), (2, [0.1])]
+    for i, (start, mags) in enumerate(steps):
+        n = len(mags)
+        vals = (rng.standard_normal((n, KH, D))
+                * np.asarray(mags)[:, None, None]).astype(np.float32)
+        args = (np.asarray([start], np.int32), np.asarray([n], np.int32))
+        jp = JK.touched_block_plan(jnp.asarray(tables), jnp.asarray(args[0]),
+                                   jnp.asarray(args[1]), n, BS, NB)
+        tp = TK.touched_block_plan(torch.from_numpy(tables),
+                                   torch.from_numpy(args[0]),
+                                   torch.from_numpy(args[1]), n, BS, NB)
+        jpool, jscale = JK.quantized_block_write(jpool, jscale,
+                                                 jnp.asarray(vals), jp)
+        TK.quantized_block_write(tpool, tscale, torch.from_numpy(vals), tp)
+        np.testing.assert_array_equal(_bytes(tpool), _bytes(jpool))
+        np.testing.assert_array_equal(tscale.numpy(), np.asarray(jscale))
+        if i == 1:
+            inflated = tscale[4].clone()
+    assert torch.equal(tscale[4], inflated)          # kept, not lowered
+    live = tpool[4, :, :3].float().abs().amax(dim=(1, 2)) * inflated
+    assert (live < inflated * TK.qmax_of(dtype) / 4).all()   # small now
+    assert not tpool[4, :, 3].float().abs().any()    # the trimmed slot
