@@ -20,7 +20,10 @@ Phases, each of which raises on failure (nothing is caught):
              speculative verify rows at C = 4, 5 and 8 whose rows carry
              different draft counts, rows of one put sharing their first 8
              blocks, a first chunk at position 2048, each on the route
-             paged_route names) on valid rows, with every row past
+             paged_route names; and blocks the KV tier restored from host
+             RAM and from disk into other block ids, bf16 and int8 pools,
+             whose output must be bit-identical to the original blocks')
+             on valid rows, with every row past
              n_tokens zero, each output bit-identical over two runs, bf16
              decode on the split-KV route over every pool type, fp32
              decode on the CUDA-core kernel, and every route of the wrapper
@@ -99,11 +102,20 @@ Phases, each of which raises on failure (nothing is caught):
              with int8 KV and speculation with int8 weights + int8 KV; each
              run's streams equal the feature-off run's or diverge only at a
              margin within that gap, with one paged launch per layer and put
-             (and 225 quantized-matmul launches with int8 weights); then a
+             (and 225 quantized-matmul launches with int8 weights); the KV
+             tier cell, bf16 and again with int8 weights + int8 KV: 6
+             system prompts of 1024 tokens (+ 32) twice a pass, two passes,
+             one request at a time, in a 260-block pool with reservation
+             admission, the tier off and then on (host RAM of two
+             prefixes, 1 GiB of disk through the native aio library):
+             restores from both tiers, no corrupt read, every block back;
+             a traced pass whose streams equal the untraced one's and whose
+             spans cover each request's TTFT, a tier configured off equal
+             to none, and an evacuation whose export fails; then a
              universal checkpoint of the model with 2 layers, written with
              numpy (some leaves as shard files), loaded onto the card leaf
-             for leaf, and served by v2 and v1 with the in-memory tree's
-             streams.
+             for leaf, and served by v2 and v1 (built from it, and through
+             ``load_checkpoint``) with the in-memory tree's streams.
 9. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
@@ -122,7 +134,8 @@ power limit, and ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a torch.profiler trace of two puts of the bf16 and of the
 int8 main path, of a verify put and a prefix-hit put, and of one training
 step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
-later phase after it (a short call after an edit; no result lines).
+later phase after it (a short call after an edit; no result lines;
+``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -443,6 +456,9 @@ def phase_kernel_paged():
                 max_err["quant"] = max(max_err["quant"], err)
     for name, route in phase_kernel_features():
         routes.add(route)
+    for kind, err in phase_kernel_tier().items():
+        key = "bf16" if kind == "bf16" else "quant"
+        max_err[key] = max(max_err[key], err)
     if routes != set(pa.PAGED_ROUTES):
         raise AssertionError(f"[kernel] paged cases took routes "
                              f"{sorted(routes)}, not all of {pa.PAGED_ROUTES}")
@@ -515,6 +531,108 @@ def phase_kernel_features():
             out.append((label, route))
     log(f"[kernel] paged feature cases: {len(out)}, each on its route")
     return out
+
+
+TIER_CTX = 1024 + 32        # a 64-block system prompt and a 32-token tail
+
+
+def phase_kernel_tier():
+    """The paged kernel over blocks the KV tier restored: a state manager
+    at MISTRAL_7B's KV widths (2 layers, blocks of 16) holds a 1056-token
+    sequence in random pools (bf16, and int8 codes with their scale
+    planes); its 66 full blocks are evicted through the tier — once into
+    host RAM, once straight to disk (through the native aio library) — and
+    a match of the same tokens restores them into other block ids. The
+    kernel's output over the restored table must be bit-identical to its
+    output over the original one (the routes sum in a fixed order), for a
+    decode row and a 64-token chunk, and within the paged tolerance of the
+    plain version. Returns the largest |kernel - plain| by pool type."""
+    from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    H, KH, D, bs = cfg.num_heads, cfg.kv_heads, cfg.head_dim, 16
+    n_full = TIER_CTX // bs
+    gen = torch.Generator("cuda").manual_seed(17)
+    toks = np.random.default_rng(17).integers(0, cfg.vocab_size,
+                                              TIER_CTX + 1).tolist()
+    errs = {}
+    for kind in ("bf16", "int8"):
+        for where in ("host", "disk"):
+            tmp = tempfile.mkdtemp(prefix="kvtier_kernel_")
+            try:
+                sm = DSStateManager(
+                    cfg, num_blocks=2 * n_full + 8, block_size=bs,
+                    dtype=torch.bfloat16, device="cuda",
+                    enable_prefix_cache=True, kv_quant=kind == "int8",
+                    kv_tier_enabled=True,
+                    kv_tier_host_bytes=(1 << 30) if where == "host" else 1,
+                    kv_tier_disk_path=tmp, kv_tier_disk_bytes=1 << 30)
+                if not sm._tier.has_native:
+                    raise AssertionError("[kernel] tier: the disk tier did "
+                                         "not load the native aio library")
+                for name, pool in sm.kv_cache.items():
+                    if pool.dtype == torch.int8:
+                        pool.copy_(torch.randint(-127, 128, pool.shape,
+                                                 generator=gen, device="cuda",
+                                                 dtype=torch.int8))
+                    elif name.endswith("scale"):
+                        pool.copy_(torch.rand(pool.shape, generator=gen,
+                                              device="cuda") * 0.02 + 1e-3)
+                    else:
+                        pool.copy_(torch.randn(pool.shape, generator=gen,
+                                               device="cuda"))
+                seq = sm.get_or_create_sequence(1)
+                sm.maybe_allocate_kv(seq, TIER_CTX)
+                seq.seen_tokens = TIER_CTX
+                sm.record_tokens(seq, toks[:TIER_CTX])
+                orig = list(seq.kv_blocks[:n_full])
+                sm.flush_sequence(1)
+                if sm._evict(n_full) != n_full:
+                    raise AssertionError("[kernel] tier: eviction")
+                matched = sm.match_prefix(2, toks)
+                new = list(sm.get_sequence(2).kv_blocks)
+                st = sm.tier_stats()
+                if (matched != n_full * bs or set(new) & set(orig)
+                        or st["restored"] != n_full or st["corrupt"]
+                        or (where == "disk") != (st["demoted"] == n_full)):
+                    raise AssertionError(f"[kernel] tier {kind} {where}: "
+                                         f"matched {matched}, {st}")
+                scales = ({} if kind == "bf16" else
+                          dict(k_scale=sm.kv_cache["k_scale"][0],
+                               v_scale=sm.kv_cache["v_scale"][0]))
+                k0, v0 = sm.kv_cache["k"][0], sm.kv_cache["v"][0]
+                for C in (1, 64):
+                    q = torch.randn((1, C, H, D), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    sp = torch.tensor([TIER_CTX - C], dtype=torch.int32,
+                                      device="cuda")
+                    nt = torch.tensor([C], dtype=torch.int32, device="cuda")
+                    outs = []
+                    for blocks in (orig, new):
+                        tbl = torch.tensor([blocks], dtype=torch.int32,
+                                           device="cuda")
+                        outs.append(pa.paged_attention(
+                            q, k0, v0, tbl, sp, nt, window=4096, **scales))
+                    if not torch.equal(outs[0], outs[1]):
+                        raise AssertionError(
+                            f"[kernel] tier {kind} {where} C={C}: the "
+                            "output over the restored blocks differs from "
+                            "the output over the original ones")
+                    label = (f"tier-restored blocks ({where}) {kind} pools "
+                             f"C={C} G=4 D=128")
+                    err, _ = check_paged(label, q, k0, v0, tbl, sp, nt,
+                                         torch.bfloat16,
+                                         dict(scales, window=4096))
+                    errs[kind] = max(errs.get(kind, 0.0), err)
+                sm.flush_sequence(2)
+                sm.configure_kv_tier(False)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[kernel] paged over tier-restored blocks (host and disk, bf16 and "
+        f"int8 pools, {n_full} blocks into other ids): bit-identical to the "
+        "original blocks' output")
+    return errs
 
 
 QUANT_CASES = [
@@ -2023,6 +2141,24 @@ def margin_of(logits):
     return float(top[1] - top[0])
 
 
+def margin_scheduler(engine, **sched_kw):
+    """A scheduler that keeps each request's top-2 logit margin at each
+    sampled position in ``margins`` (for the greedy-parity rule)."""
+    from deepspeed_tpu_torch.inference.v2 import ContinuousBatchingScheduler
+
+    class MarginScheduler(ContinuousBatchingScheduler):
+        def _pack(self):
+            for uid, req in self.running.items():
+                if req.prompt_remaining == 0 and req.last_logits is not None:
+                    self.margins.setdefault(uid, {})[len(req.generated)] = \
+                        margin_of(req.last_logits)
+            return super()._pack()
+
+    sched = MarginScheduler(engine, **sched_kw)
+    sched.margins = {}
+    return sched
+
+
 def set_pool(engine, kv_blocks):
     """Re-allocate the engine's KV pools at ``kv_blocks`` (no sequence may
     be tracked): the preemption runs need a pool smaller than the demand."""
@@ -2048,16 +2184,8 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
     proposer's) count in the launches."""
     from deepspeed_tpu_torch.inference.v2 import ContinuousBatchingScheduler
 
-    class MarginScheduler(ContinuousBatchingScheduler):
-        def _pack(self):
-            for uid, req in self.running.items():
-                if req.prompt_remaining == 0 and req.last_logits is not None:
-                    self.margins.setdefault(uid, {})[len(req.generated)] = \
-                        margin_of(req.last_logits)
-            return super()._pack()
-
-    cls = MarginScheduler if record_margins else ContinuousBatchingScheduler
-    sched = cls(engine, **sched_kw)
+    sched = (margin_scheduler(engine, **sched_kw) if record_margins
+             else ContinuousBatchingScheduler(engine, **sched_kw))
     sched.margins = {}
     puts, put_routes = [], []
     real_put, real_cuda = engine.put, pa.paged_attention_cuda
@@ -2515,14 +2643,358 @@ def feature_checkpoint():
                                    prompts, max_new_tokens=16)
                 for conf, kw in (({"checkpoint": root}, {}),
                                  ({}, {"params": params}))]
-        if not torch.equal(outs[0], outs[1]):
+        te = init_inference(model, config={"dtype": "bf16"}, device="cuda")
+        if te.load_checkpoint(os.path.join(root, "smoke0", "params")) != \
+                os.path.join(root, "smoke0", "params"):
+            raise AssertionError("[features] checkpoint: load_checkpoint's "
+                                 "return value")
+        outs.append(te.generate(prompts, max_new_tokens=16))
+        del te
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[2],
+                                                              outs[1])):
             raise AssertionError("[features] checkpoint: v1 generate differs")
-        log(f"[features] checkpoint: v2 engine and v1 generate from the "
-            f"checkpoint give the in-memory tree's streams (2 requests x 16 "
+        log(f"[features] checkpoint: v2 engine, v1 generate from the "
+            f"checkpoint and v1 load_checkpoint give the in-memory tree's "
+            f"streams (2 requests x 16 "
             f"tokens: {[s[:4] for s in streams[0]]}...)")
         return {"gb": nbytes / 1e9, "write_s": t_write, "load_s": t_load}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# The KV tier cell: 6 system prompts of 1024 tokens (64 blocks of 16, 128 MiB
+# of bf16 KV each), each followed by a 32-token random tail, 8 new tokens a
+# request; two passes of 12 requests (each prompt twice), one at a time. The
+# pool holds about half the prefixes' 384 blocks, so prefixes are evicted
+# between repeats: tier off re-prefills them, tier on restores them from host
+# RAM (two prefixes' blocks: 256 MiB of bf16 KV, half that of int8) or disk.
+TIER_PROMPTS = 6
+TIER_SYS = 1024
+TIER_TAIL = 32
+TIER_NEW = 8
+TIER_KV_BLOCKS = 64 * 3 + 67 + 1
+TIER_HOST_PREFIXES = 2
+TIER_DISK_BYTES = 1 << 30
+
+
+def tier_prompts(vocab):
+    rng = np.random.default_rng(77)
+    sys_p = [rng.integers(0, vocab, TIER_SYS).tolist()
+             for _ in range(TIER_PROMPTS)]
+    return [sys_p[i % TIER_PROMPTS] + rng.integers(0, vocab, TIER_TAIL).tolist()
+            for i in range(2 * TIER_PROMPTS)]
+
+
+def instrument_tier(sm):
+    """Time the tier's work on the host: each spill of evicted blocks (the
+    gather, the copy to the host and the store's puts, demotions included),
+    each disk write (a demotion), each get (a disk read, or a host pop), and
+    count the disk reads that hit."""
+    store = sm._tier
+    io = {"spill_s": [], "write_s": [], "read_s": [], "host_get_s": [],
+          "disk_hits": 0}
+    real_spill, real_demote, real_get = (sm._spill_blocks, store._demote,
+                                         store.get)
+
+    def spill(blocks):
+        t = time.perf_counter()
+        real_spill(blocks)
+        io["spill_s"].append(time.perf_counter() - t)
+
+    def demote(key, entry):
+        t = time.perf_counter()
+        ok = real_demote(key, entry)
+        io["write_s"].append(time.perf_counter() - t)
+        return ok
+
+    def get(key):
+        on_disk = key in store._disk
+        t = time.perf_counter()
+        out = real_get(key)
+        (io["read_s"] if on_disk else io["host_get_s"]).append(
+            time.perf_counter() - t)
+        io["disk_hits"] += on_disk and out is not None
+        return out
+
+    sm._spill_blocks, store._demote, store.get = spill, demote, get
+    return io
+
+
+def tier_run(engine, prompts, label, passes=2, tracer=None):
+    """``passes`` passes over ``prompts``, each request submitted alone and
+    run to completion, through one scheduler (with ``tracer``). Every put
+    and step is timed; the kernels' launch counts are set to 0 just before
+    and read just after. Returns the streams, each request's top-2 margins,
+    the last pass's TTFT (submission to first token, on the monotonic
+    clock) and its prefix-cache counters."""
+    sched = margin_scheduler(engine, tracer=tracer, trace_label="replica-0")
+    puts, steps = [], []
+    real_put, real_step = engine.put, sched.step
+
+    def timed_put(uids, chunks, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_put(uids, chunks, **kw)
+        torch.cuda.synchronize()
+        puts.append((max(len(c) for c in chunks), time.perf_counter() - t))
+        return out
+
+    def timed_step():
+        t = time.perf_counter()
+        out = real_step()
+        steps.append(time.perf_counter() - t)
+        return out
+
+    engine.put, sched.step = timed_put, timed_step
+    reset_launches()
+    t_start = time.perf_counter()
+    streams, ttft, t0, first, windows = [], [], {}, {}, {}
+
+    def on_token(uid, tok):
+        first.setdefault(uid, time.monotonic())
+
+    try:
+        for p in range(passes):
+            st0 = engine.prefix_stats()
+            for i, pr in enumerate(prompts):
+                uid = 50_000 + 1000 * p + i
+                t0[uid] = time.monotonic()
+                sched.submit(uid, pr, max_new_tokens=TIER_NEW,
+                             on_token=on_token, trace_id=f"req-{uid}")
+                sched.run_to_completion()
+                streams.append(sched.finished[uid].generated)
+                windows[f"req-{uid}"] = (t0[uid], first[uid])
+                if p == passes - 1:
+                    ttft.append(first[uid] - t0[uid])
+            pstats = {k: v - st0[k] for k, v in engine.prefix_stats().items()}
+        torch.cuda.synchronize()
+    finally:
+        del engine.put
+    wall = time.perf_counter() - t_start
+    launches = {"paged_attention": pa.launches,
+                "quantized_matmul": qz.launches["quantized_matmul"]}
+    mcfg = engine.model.cfg
+    L = mcfg.num_layers
+    if any(len(s) != TIER_NEW for s in streams):
+        raise AssertionError(f"[kv_tier] {label}: stream lengths "
+                             f"{[len(s) for s in streams]}")
+    if launches["paged_attention"] != L * len(puts):
+        raise AssertionError(f"[kv_tier] {label}: {launches} for "
+                             f"{len(puts)} puts x {L} layers")
+    want_qmm = ((7 * L + (0 if mcfg.tie_embeddings else 1)) * len(puts)
+                if engine.config.weight_quant_enabled else 0)
+    if launches["quantized_matmul"] != want_qmm:
+        raise AssertionError(f"[kv_tier] {label}: {launches}, want "
+                             f"{want_qmm} quantized-matmul launches")
+    lookups = pstats["hits"] + pstats["misses"]
+    n = len(prompts)
+    return {"streams": streams, "ttft": ttft, "pstats": pstats,
+            "hit_rate": pstats["hits"] / max(1, lookups), "puts": puts,
+            "steps": steps, "wall": wall, "launches": launches,
+            "windows": windows,
+            "margins": [sched.margins.get(50_000 + 1000 * p + i, {})
+                        for p in range(passes) for i in range(n)]}
+
+
+def reset_prefix_cache(engine):
+    """Drop the prefix cache's index (and any tier with it), then turn the
+    cache back on empty."""
+    engine.configure_prefix_cache(False)
+    engine.configure_prefix_cache(True)
+
+
+def feature_kv_tier(engine, label, gap, trace=False):
+    """The KV tier cell on ``engine`` (MISTRAL_7B at full width; its weights
+    and KV representation as configured): tier off, then tier on (host RAM
+    256 MiB, disk 1 GiB in a temporary directory), the same two passes.
+    Checks that the tier restored blocks, from host and from disk, with no
+    corrupt read, through the native aio library; that the tier-on streams
+    obey the greedy-parity rule against the tier-off ones; and that every
+    block comes back. With ``trace``: a traced repeat of the first pass
+    gives the untraced streams byte for byte with each request's spans
+    covering its TTFT, and a tier configured off gives the tier-less
+    streams."""
+    from deepspeed_tpu_torch.telemetry import Tracer, trace_coverage
+
+    V = engine.model.cfg.vocab_size
+    prompts = tier_prompts(V)
+    set_pool(engine, TIER_KV_BLOCKS)
+    engine.configure_prefix_cache(True)
+    engine.configure_admission(True)
+    sm = engine.state_manager
+    block_bytes = sum(t[:, 0].numel() * t.element_size()
+                      for t in sm.kv_cache.values())
+    host_bytes = TIER_HOST_PREFIXES * (TIER_SYS // 16) * block_bytes
+    tmp = tempfile.mkdtemp(prefix="kvtier_")
+    out = {}
+    try:
+        off = tier_run(engine, prompts, f"{label} tier off")
+        reset_prefix_cache(engine)
+        engine.configure_kv_tier(True, host_bytes=host_bytes,
+                                 disk_path=tmp, disk_bytes=TIER_DISK_BYTES)
+        if not engine.state_manager._tier.has_native:
+            raise AssertionError(f"[kv_tier] {label}: AsyncTensorSwapper "
+                                 "did not load the native aio library")
+        io = instrument_tier(engine.state_manager)
+        engine.drain_restore_times()
+        on = tier_run(engine, prompts, f"{label} tier on")
+        st = engine.tier_stats()
+        restore_s = engine.drain_restore_times()
+        if not (st["restored"] > 0 and st["demoted"] > 0
+                and io["disk_hits"] > 0 and st["corrupt"] == 0):
+            raise AssertionError(f"[kv_tier] {label}: {st}, disk hits "
+                                 f"{io['disk_hits']}")
+        parity_rule(off, on, gap, f"kv_tier {label} tier on vs off")
+        p50 = {k: float(np.median(r["ttft"])) * 1e3
+               for k, r in (("off", off), ("on", on))}
+        moved = (st["spilled"] + st["restored"]) * block_bytes
+        w_ms = [t * 1e3 for t in io["write_s"]]
+        r_ms = [t * 1e3 for t in io["read_s"]]
+        log(f"[kv_tier] {label}: pass 2 p50 TTFT tier off {p50['off']:.1f} "
+            f"ms, tier on {p50['on']:.1f} ms ({p50['off'] / p50['on']:.2f}x); "
+            f"prefix hit rate off {off['hit_rate']:.3f}, on "
+            f"{on['hit_rate']:.3f}; tier {json.dumps(st)}")
+        log(f"[kv_tier] {label}: {len(restore_s)} restored runs, restore "
+            f"median {np.median(restore_s) * 1e3:.2f} ms, max "
+            f"{max(restore_s) * 1e3:.2f} ms; {moved / 2**20:.0f} MiB moved "
+            f"(spilled + restored, {block_bytes / 2**20:.3f} MiB a block); "
+            f"disk write {np.median(w_ms):.3f} ms a block (median of "
+            f"{len(w_ms)}), read {np.median(r_ms):.3f} ms a block (median "
+            f"of {len(r_ms)}, {io['disk_hits']} disk hits); walls off "
+            f"{off['wall']:.1f} s, on {on['wall']:.1f} s")
+        log(f"[kv_tier] {label}: host seconds of the tier-on run: restored "
+            f"runs {sum(restore_s):.3f} ({len(restore_s)}), spills "
+            f"{sum(io['spill_s']):.3f} ({len(io['spill_s'])} evictions, "
+            f"{st['spilled']} blocks), of which disk writes "
+            f"{sum(io['write_s']):.3f}; disk reads {sum(io['read_s']):.3f}, "
+            f"host-tier gets {sum(io['host_get_s']):.4f}; the host tier "
+            f"{host_bytes / 2**20:.0f} MiB")
+        out = {"ttft_p50_ms": p50, "hit_rate": {"off": off["hit_rate"],
+                                                "on": on["hit_rate"]},
+               "stats": st, "restore_ms": [t * 1e3 for t in restore_s],
+               "spill_s": sum(io["spill_s"]), "restore_s": sum(restore_s),
+               "disk_write_ms": float(np.median(w_ms)),
+               "disk_read_ms": float(np.median(r_ms)),
+               "moved_mib": moved / 2**20}
+        if trace:
+            engine.configure_kv_tier(False)
+            reset_prefix_cache(engine)
+            engine.configure_kv_tier(True, host_bytes=host_bytes,
+                                     disk_path=tmp,
+                                     disk_bytes=TIER_DISK_BYTES)
+            tracer = Tracer(max_spans=1 << 16)
+            traced = tier_run(engine, prompts, f"{label} traced", passes=1,
+                              tracer=tracer)
+            n = len(prompts)
+            if traced["streams"] != on["streams"][:n]:
+                raise AssertionError(f"[kv_tier] {label}: the traced pass's "
+                                     "streams differ from the untraced one")
+            spans = tracer.export()
+            cov = []
+            for tid, (a, b) in traced["windows"].items():
+                mine = [s for s in spans if s["trace_id"] == tid]
+                cov.append(trace_coverage(mine, a, b))
+            if min(cov) < 0.95:
+                raise AssertionError(f"[kv_tier] {label}: span coverage of "
+                                     f"TTFT {min(cov):.3f} < 0.95")
+            fwd = [(s["t_end"] - s["t_start"]) * 1e3 for s in spans
+                   if s["name"] == "forward" and s["attrs"]["n_tokens"] == 1]
+            dec_put = [t * 1e3 for c, t in traced["puts"] if c == 1]
+            dec_step = float(np.median(traced["steps"])) * 1e3
+            log(f"[kv_tier] {label} traced pass: streams equal the untraced "
+                f"pass; spans cover {min(cov):.4f}-{max(cov):.4f} of each "
+                f"request's TTFT; decode forward span median "
+                f"{np.median(fwd):.2f} ms (of {len(fwd)}) against the decode "
+                f"put wall {np.median(dec_put):.2f} ms (synchronized) and "
+                f"the step median {dec_step:.2f} ms")
+            out["trace"] = {"coverage_min": min(cov),
+                            "forward_ms": float(np.median(fwd)),
+                            "decode_put_ms": float(np.median(dec_put))}
+            engine.configure_kv_tier(False)
+            reset_prefix_cache(engine)
+            again = tier_run(engine, prompts, f"{label} tier configured off",
+                             passes=1)
+            if again["streams"] != off["streams"][:n]:
+                raise AssertionError(f"[kv_tier] {label}: a tier configured "
+                                     "off changed the streams")
+            log(f"[kv_tier] {label}: a tier configured off gives the "
+                "tier-less streams byte for byte")
+            evacuate_failing_export(engine, prompts[0], label)
+    finally:
+        engine.configure_kv_tier(False)
+        engine.configure_prefix_cache(False)
+        engine.configure_admission(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if engine.free_blocks != TIER_KV_BLOCKS:
+        raise AssertionError(f"[kv_tier] {label}: {engine.free_blocks} of "
+                             f"{TIER_KV_BLOCKS} blocks free at the end")
+    log(f"[kv_tier] {label}: all {TIER_KV_BLOCKS} blocks free at the end")
+    set_pool(engine, FEATURE_KV_BLOCKS)
+    return out
+
+
+def evacuate_failing_export(engine, prompt, label):
+    """Evacuate a decoding sequence while its KV export raises: the
+    scheduler logs it, returns no payload, and the sequence leaves
+    ``running`` with its blocks and reservation freed."""
+    from deepspeed_tpu_torch.inference.v2 import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(engine)
+    sched.submit(60_000, prompt, max_new_tokens=TIER_NEW)
+    while not (60_000 in sched.running
+               and sched.running[60_000].generated):
+        sched.step()
+
+    def broken_export(uid, chunk_blocks=0):
+        raise RuntimeError("export failed")
+
+    engine.export_sequence = broken_export
+    try:
+        payload = sched.evacuate(60_000)
+    finally:
+        del engine.export_sequence
+    if (payload is not None or sched.has_work
+            or engine.state_manager.get_sequence(60_000) is not None
+            or engine.reserved_total_blocks() != 0):
+        raise AssertionError(f"[kv_tier] {label}: evacuate with a failing "
+                             "export left state behind")
+    log(f"[kv_tier] {label}: evacuate with a failing export: no payload, "
+        "the sequence left running, its blocks and reservation freed")
+
+
+def phase_kv_tier():
+    """The KV tier cell alone (``--only kv_tier``): MISTRAL_7B at full width
+    (32 layers, bf16 weights from a seed), bf16 then int8 weights + int8
+    KV."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    model = CausalLM(MISTRAL_7B)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator("cuda").manual_seed(7),
+                        device="cuda", dtype=torch.bfloat16)
+    engine = InferenceEngineV2(
+        model, params, RaggedInferenceEngineConfig(
+            kv_block_size=16, max_chunk_tokens=256,
+            max_ragged_sequence_count=32, kv_blocks=FEATURE_KV_BLOCKS),
+        device="cuda")
+    del params
+    engine.put([10_000], [list(range(16))])       # warm-up
+    engine.flush(10_000)
+    res = {}
+    gap = feature_gap(engine, "bf16", ("prefix hit",))
+    res["bf16"] = feature_kv_tier(engine, "bf16", gap, trace=True)
+    engine.configure_kv_quant(True, "int8")
+    engine.configure_weight_quant(True, "int8", block=128)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap_q = feature_gap(engine, "int8 weights + int8 KV", ("prefix hit",))
+    res["int8"] = feature_kv_tier(engine, "int8 weights + int8 KV", gap_q)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def small_feature_parity():
@@ -2684,6 +3156,7 @@ def phase_features(profile_puts=False):
     if profile_puts:
         profile_feature_puts(engine)
     feature_kv_roundtrip(engine, "bf16 pools")
+    res["kv_tier bf16"] = feature_kv_tier(engine, "bf16", gap, trace=True)
     engine.configure_kv_quant(True, "int8")
     gap_kv8 = feature_gap(engine, "bf16 weights + int8 KV", ())
     res["preempt int8 KV"] = feature_preempt(engine, "int8 KV", gap_kv8)
@@ -2698,6 +3171,8 @@ def phase_features(profile_puts=False):
     gap_q = feature_gap(engine, "int8 weights + int8 KV",
                         ("verify K=3", "verify K=4"))
     res["spec int8"] = feature_spec(engine, "int8 weights + int8 KV", gap_q)
+    res["kv_tier int8"] = feature_kv_tier(engine, "int8 weights + int8 KV",
+                                          gap_q)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3341,7 +3816,7 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
-                                       "features", "train"],
+                                       "features", "kv_tier", "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--compare", action="store_true",
@@ -3373,8 +3848,9 @@ def main(argv=None):
     if args.only:
         phase = {"timing": phase_timing, "main": phase_main,
                  "quant": phase_quant, "v1": phase_v1,
-                 "features": phase_features, "train": phase_train}[args.only]
-        kw = {} if args.only in ("timing", "v1") else {
+                 "features": phase_features, "kv_tier": phase_kv_tier,
+                 "train": phase_train}[args.only]
+        kw = {} if args.only in ("timing", "v1", "kv_tier") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -3421,7 +3897,12 @@ def main(argv=None):
         + f"; preemption bf16 {features['preempt bf16']}, int8 KV "
         f"{features['preempt int8 KV']}; checkpoint "
         f"{features['checkpoint']['gb']:.3f} GB loaded in "
-        f"{features['checkpoint']['load_s']:.2f} s")
+        f"{features['checkpoint']['load_s']:.2f} s; KV tier pass-2 p50 TTFT "
+        f"(off/on ms) bf16 "
+        f"{features['kv_tier bf16']['ttft_p50_ms']['off']:.1f}/"
+        f"{features['kv_tier bf16']['ttft_p50_ms']['on']:.1f}, int8 "
+        f"{features['kv_tier int8']['ttft_p50_ms']['off']:.1f}/"
+        f"{features['kv_tier int8']['ttft_p50_ms']['on']:.1f}")
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

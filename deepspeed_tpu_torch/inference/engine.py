@@ -20,11 +20,13 @@ lies in the top-k set, and one generator seed gives one stream.
 (``runtime/checkpointing.py``): a tag directory (with ``manifest.json``) or
 a save directory with ``latest`` through ``load_params_for_model``, any
 other directory read as the leaves' own directory, as the JAX engine reads
-it (its ``inference/engine.py:99-104``).
+it (its ``inference/engine.py:99-104``). ``load_checkpoint(path)`` reads
+the leaves' own directory into a built engine's params, as the JAX
+engine's does.
 
 Not ported (they raise): encoder models (``encode``/``mlm``/``classify``),
 a device mesh and tensor parallelism, HF checkpoints (``config.checkpoint``
-naming one), ``load_checkpoint``, ``profile_model_time``.
+naming one), ``profile_model_time``.
 """
 
 from __future__ import annotations
@@ -270,4 +272,19 @@ class InferenceEngine:
         raise not_ported("profile_model_time", "queue 1 item 17")
 
     def load_checkpoint(self, path):
-        raise not_ported("InferenceEngine.load_checkpoint", "queue 1 item 13")
+        """Replace the params with the leaves in ``path`` (one ``.npy`` or
+        shard files a leaf, named by their dotted path, as a universal
+        checkpoint's ``params`` directory holds them), each read into its
+        current leaf's shape and dtype on this engine's device. Returns
+        ``path``. A weight-quantized tree has no dense leaves to read into:
+        build such an engine with ``config.checkpoint`` instead."""
+        from ..runtime.checkpointing import _flatten, _load_tree
+
+        if any(isinstance(leaf, QuantTensor)
+               for _, leaf in _flatten(self.params)):
+            raise ValueError(
+                "load_checkpoint reads dense leaves and this engine's "
+                "weights are quantized; build the engine with "
+                "config={'checkpoint': ...} instead")
+        self.params = _load_tree(self.params, path, self.device)
+        return path

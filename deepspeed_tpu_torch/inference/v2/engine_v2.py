@@ -6,16 +6,15 @@ batch, ``query``/``can_schedule`` serve admission control, ``flush`` frees
 a sequence's KV blocks. The Dynamic SplitFuse loop on top lives in
 ``scheduler.py``.
 
-The config keeps every field of the JAX ``RaggedInferenceEngineConfig``.
-A feature the port has not ported yet raises ``NotImplementedError``
-naming its ROADMAP item when it is turned on; none is ignored. Ported:
-weight quantization (``weight_quant_*``: the params are quantized once at
-build, on the engine's device), KV quantization (``kv_quant_*``: int8/fp8
-pools with scale planes), the prefix cache, speculative verification
-(``put(verify_width=, defer_commit=)``, ``trim_sequence``,
-``commit_tokens``), KV export/import, and reservation admission with
-preemption (``admission_*``; the scheduler reads them). The KV tier
-(``kv_tier_*``, ``configure_kv_tier``) still raises.
+The config keeps every field of the JAX ``RaggedInferenceEngineConfig``,
+and every one is ported: weight quantization (``weight_quant_*``: the
+params are quantized once at build, on the engine's device), KV
+quantization (``kv_quant_*``: int8/fp8 pools with scale planes), the prefix
+cache, the KV tier behind it (``kv_tier_*``, ``configure_kv_tier``: evicted
+cache blocks spill to host RAM and disk and are restored on a match),
+speculative verification (``put(verify_width=, defer_commit=)``,
+``trim_sequence``, ``commit_tokens``), KV export/import, and reservation
+admission with preemption (``admission_*``; the scheduler reads them).
 """
 
 from __future__ import annotations
@@ -86,12 +85,6 @@ class RaggedInferenceEngineConfig:
         self.admission_max_preemptions_per_seq = \
             admission_max_preemptions_per_seq
 
-    def check_ported(self) -> None:
-        """Raise for every feature that is on but not ported yet."""
-        if self.kv_tier_enabled:
-            raise not_ported("RaggedInferenceEngineConfig.kv_tier_enabled",
-                             "queue 1 item 9")
-
 
 def _to_device(tree, device):
     if isinstance(tree, dict):
@@ -105,7 +98,6 @@ class InferenceEngineV2:
                  checkpoint_path: Optional[str] = None, mesh=None,
                  device=None):
         self.config = config or RaggedInferenceEngineConfig()
-        self.config.check_ported()
         if checkpoint_path is not None:
             raise not_ported("checkpoint loading (models/convert.py)",
                              "queue 1 item 16")
@@ -152,7 +144,11 @@ class InferenceEngineV2:
             enable_prefix_cache=self.config.enable_prefix_cache,
             prefix_cache_max_blocks=self.config.prefix_cache_max_blocks,
             kv_quant=self.config.kv_quant_enabled,
-            kv_quant_dtype=self.config.kv_quant_dtype)
+            kv_quant_dtype=self.config.kv_quant_dtype,
+            kv_tier_enabled=self.config.kv_tier_enabled,
+            kv_tier_host_bytes=self.config.kv_tier_host_bytes,
+            kv_tier_disk_path=self.config.kv_tier_disk_path,
+            kv_tier_disk_bytes=self.config.kv_tier_disk_bytes)
 
     # ----------------------------------------------------------- admission
     def can_schedule(self, uids: Sequence[int],
@@ -338,7 +334,7 @@ class InferenceEngineV2:
                                max_blocks: Optional[int] = None) -> None:
         """Turn the prefix cache on or off on a built engine. Enabling is
         safe at any time (sequences already in flight are not hashed);
-        disabling drops the whole index."""
+        disabling drops the whole index, and the KV tier with it."""
         self.config.enable_prefix_cache = bool(enabled)
         self.config.prefix_cache_max_blocks = max_blocks
         sm = self.state_manager
@@ -348,12 +344,44 @@ class InferenceEngineV2:
         else:
             sm.clear_prefix_cache()
             sm.prefix_cache_enabled = False
+            if sm.kv_tier_enabled:
+                # the tier cannot outlive the cache it spills for
+                self.configure_kv_tier(False)
 
-    def configure_kv_tier(self, enabled: bool, host_bytes=None,
-                          disk_path=None, disk_bytes=None) -> None:
-        """The KV tier is not ported: this raises."""
-        raise not_ported("configure_kv_tier (host and disk KV tier)",
-                         "queue 1 item 9")
+    # ------------------------------------------------------------- KV tier
+    def configure_kv_tier(self, enabled: bool,
+                          host_bytes: Optional[int] = None,
+                          disk_path: Optional[str] = None,
+                          disk_bytes: Optional[int] = None) -> None:
+        """Turn the KV tier on or off on a built engine. Enabling needs the
+        prefix cache and starts an empty tier; disabling drops every
+        spilled entry (host and disk). ``None`` keeps the config's value,
+        so re-tuning the host bound keeps a configured disk tier; pass
+        ``disk_bytes=0`` to drop one."""
+        host = (int(host_bytes) if host_bytes is not None
+                else self.config.kv_tier_host_bytes)
+        dpath = (disk_path if disk_path is not None
+                 else self.config.kv_tier_disk_path)
+        dbytes = (int(disk_bytes) if disk_bytes is not None
+                  else self.config.kv_tier_disk_bytes)
+        # build first, then commit the config: a refused configuration
+        # leaves no claim of a tier the manager never built
+        self.state_manager.configure_kv_tier(
+            enabled, host_bytes=host, disk_path=dpath, disk_bytes=dbytes)
+        self.config.kv_tier_enabled = bool(enabled)
+        self.config.kv_tier_host_bytes = host
+        self.config.kv_tier_disk_path = dpath
+        self.config.kv_tier_disk_bytes = dbytes
+
+    def tier_stats(self) -> Dict[str, int]:
+        """Monotonic KV-tier counters (spilled, restored, dropped, demoted,
+        hits, misses, corrupt) and the host and disk residency; all zeros
+        (the same keys) with no tier."""
+        return self.state_manager.tier_stats()
+
+    def drain_restore_times(self) -> List[float]:
+        """Host seconds of each restored run since the last drain."""
+        return self.state_manager.drain_restore_times()
 
     def occupancy(self) -> Dict[str, int]:
         """KV-pool occupancy snapshot (blocks, bytes, evictable and

@@ -19,9 +19,16 @@ those blocks (:meth:`DSStateManager.match_prefix`); shared blocks are never
 written (a sequence writes only at positions past its matched length, and
 the last token of a prompt is never served from the cache). The cache holds
 a reference of its own on each indexed block; blocks held only by it are
-evicted in LRU order when an allocation would otherwise fail, and dropped
-(there is no host or disk tier in this port yet: ROADMAP queue 1 item 9's
-remainder).
+evicted in LRU order when an allocation would otherwise fail.
+
+KV tier (``configure_kv_tier``, ``kv_tier.py``): with one configured, an
+evicted block's slabs are copied to a bounded host-RAM (and disk) store under
+its index key before the block is reused, and ``match_prefix`` restores a
+spilled run into fresh blocks on a device miss. The gather of the evicted
+blocks is enqueued on the pools' stream inside ``_evict``, before any write
+could reuse them (torch pools change in place); a restore writes through
+``_scatter`` from pageable host memory, a copy that has consumed its source
+when it returns. A preempted sequence's payload is parked in the tier too.
 
 Also here: ``trim_sequence`` (speculative-decoding rollback), KV
 ``export_sequence``/``import_sequence`` (whole or chunked, scale planes
@@ -34,6 +41,7 @@ of the pool's dtype (bf16 and fp8 stay torch tensors; nothing needs
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -43,6 +51,7 @@ import torch
 
 from .... import resolve_device
 from ..kv_quant import kv_bytes_per_block, pool_dtype
+from ..kv_tier import TieredKVStore, empty_tier_stats
 from .blocked_allocator import BlockedAllocator
 
 
@@ -94,7 +103,11 @@ class DSStateManager:
                  dtype: Optional[torch.dtype] = None, device=None,
                  enable_prefix_cache: bool = False,
                  prefix_cache_max_blocks: Optional[int] = None,
-                 kv_quant: bool = False, kv_quant_dtype: str = "int8"):
+                 kv_quant: bool = False, kv_quant_dtype: str = "int8",
+                 kv_tier_enabled: bool = False,
+                 kv_tier_host_bytes: int = 64 * 1024 * 1024,
+                 kv_tier_disk_path: Optional[str] = None,
+                 kv_tier_disk_bytes: int = 0):
         self.cfg = model_cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -110,7 +123,8 @@ class DSStateManager:
         # reservation ledger: per-sequence TOTAL projected block need,
         # recorded at admission (empty = passive)
         self._reserved: Dict[int, int] = {}
-        # preemption store: whole-sequence exports parked in host RAM
+        # preemption store: whole-sequence exports parked in the KV tier
+        # when one is configured, else in host RAM here
         self._preempt_store: Dict[int, dict] = {}
         # prefix cache: index key (parent_chain_hash, block_tokens) -> block
         self.prefix_cache_enabled = bool(enable_prefix_cache)
@@ -120,6 +134,13 @@ class DSStateManager:
         self._evictable = 0      # indexed blocks held by the cache alone
         self._stats = {"hits": 0, "misses": 0, "evictions": 0,
                        "tokens_saved": 0, "queries": 0}
+        # KV tier: None is the drop-on-evict prefix cache
+        self._tier = None
+        self._restore_times: List[float] = []
+        if kv_tier_enabled:
+            self.configure_kv_tier(True, host_bytes=kv_tier_host_bytes,
+                                   disk_path=kv_tier_disk_path,
+                                   disk_bytes=kv_tier_disk_bytes)
         shape = (model_cfg.num_layers, num_blocks, model_cfg.kv_heads,
                  block_size, model_cfg.head_dim)
         pool_dt = pool_dtype(self.kv_quant_dtype) if self.kv_quant else dt
@@ -425,23 +446,43 @@ class DSStateManager:
 
     # -- preemption store (host RAM) ------------------------------------------
     def preempt_stash(self, uid: int, payload: Dict[str, object]) -> None:
-        """Park an ``export_sequence`` payload for a later resume; its slabs
-        (scale planes included) stay in host RAM here."""
+        """Park an ``export_sequence`` payload for a later resume. Its slabs
+        (scale planes included) go into the KV tier under ``("__preempt__",
+        uid)`` when one is configured — where they may demote to disk or be
+        dropped — else they stay in host RAM here."""
         meta = {k: payload[k] for k in ("seen_tokens", "block_size",
                                         "kv_quant", "n_blocks")}
         meta["kv_quant_dtype"] = payload.get("kv_quant_dtype", "int8")
-        meta["slabs"] = payload["slabs"]
+        if self._tier is not None:
+            # not a prefix-cache spill: the tier's spill counter skips it
+            self._tier.put(("__preempt__", uid), payload["slabs"],
+                           _count_spill=False)
+            meta["in_tier"] = True
+        else:
+            meta["slabs"] = payload["slabs"]
         self._preempt_store[uid] = meta
 
     def preempt_restore_payload(self, uid: int) -> Optional[Dict[str, object]]:
         """Take a parked payload back (one-shot); ``None`` if nothing is
-        parked — the caller re-prefills."""
+        parked, or the tier dropped or failed to read it — the caller
+        re-prefills."""
         meta = self._preempt_store.pop(uid, None)
-        return dict(meta) if meta is not None else None
+        if meta is None:
+            return None
+        meta = dict(meta)
+        if meta.pop("in_tier", False):
+            slabs = (self._tier.get(("__preempt__", uid))
+                     if self._tier is not None else None)
+            if slabs is None:
+                return None
+            meta["slabs"] = slabs
+        return meta
 
     def preempt_discard(self, uid: int) -> None:
         """Drop a parked payload (cancel of a preempted sequence)."""
-        self._preempt_store.pop(uid, None)
+        meta = self._preempt_store.pop(uid, None)
+        if meta is not None and meta.get("in_tier") and self._tier is not None:
+            self._tier.discard(("__preempt__", uid))
 
     @property
     def preempted_parked(self) -> int:
@@ -461,14 +502,17 @@ class DSStateManager:
         return self.allocator.free_blocks + self.evictable_blocks
 
     def occupancy(self) -> Dict[str, int]:
-        """The allocator's block and byte counts plus the prefix-cache view;
-        the tier fields are 0 (no tier), so the schema is the JAX one."""
+        """The allocator's block and byte counts, the prefix-cache view and
+        the tier's residency (zeros with no tier: one schema either way)."""
         occ = self.allocator.occupancy()
         occ["evictable_blocks"] = self.evictable_blocks
         occ["available_blocks"] = occ["free_blocks"] + occ["evictable_blocks"]
-        for k in ("kv_blocks_host_tier", "kv_bytes_host_tier",
-                  "kv_blocks_disk_tier", "kv_bytes_disk_tier"):
-            occ[k] = 0
+        tier = (self._tier.occupancy() if self._tier is not None
+                else empty_tier_stats())
+        occ["kv_blocks_host_tier"] = tier["host_blocks"]
+        occ["kv_bytes_host_tier"] = tier["host_bytes"]
+        occ["kv_blocks_disk_tier"] = tier["disk_blocks"]
+        occ["kv_bytes_disk_tier"] = tier["disk_bytes"]
         return occ
 
     def prefix_stats(self) -> Dict[str, int]:
@@ -479,7 +523,9 @@ class DSStateManager:
         holds, seed the sequence at the matched length and return it. The
         walk stops at ``len(prompt) - 1``, so at least one token is left to
         prefill. Returns 0 and creates nothing with the cache off; returns
-        the seen count of a sequence that already has state."""
+        the seen count of a sequence that already has state. With a KV tier,
+        a device miss restores the spilled run that starts there and the
+        walk goes on."""
         if not self.prefix_cache_enabled:
             return 0
         seq = self.get_or_create_sequence(uid)
@@ -494,12 +540,17 @@ class DSStateManager:
             key = (h, tuple(int(t) for t in
                             prompt_tokens[n:n + self.block_size]))
             b = self._index.get(key)
+            if b is None and self._tier is not None:
+                if self._restore_chain(key, prompt_tokens, n, limit):
+                    b = self._index.get(key)
             if b is None:
                 self._stats["misses"] += 1
                 break
             self._index.move_to_end(key)     # LRU touch
             if self.allocator.ref_count(b) == 1:
                 self._evictable -= 1         # about to gain a sequence ref
+            # share now: a restore later in this walk may evict, and the
+            # sequence's reference pins what it already matched
             self.allocator.share([b])
             matched.append(b)
             h = hash(key)
@@ -547,8 +598,12 @@ class DSStateManager:
 
     def _evict(self, n: int) -> int:
         """Drop up to ``n`` LRU cached blocks held by the cache alone (their
-        cache reference released, so they go free); returns how many."""
+        cache reference released, so they go free); returns how many. With
+        a KV tier their slabs are gathered and copied to the host before
+        this returns, so no later write into a reused block can reach the
+        copy. Only unreferenced full indexed blocks get here."""
         evicted = 0
+        spill: List[tuple] = []          # (index key, block id)
         for key in list(self._index):
             if evicted >= n:
                 break
@@ -556,19 +611,147 @@ class DSStateManager:
             if self.allocator.ref_count(b) == 1:
                 del self._index[key]
                 del self._block_hash[b]
+                if self._tier is not None:
+                    spill.append((key, b))
                 self.allocator.release([b])
                 self._evictable -= 1
                 self._stats["evictions"] += 1
                 evicted += 1
+        if spill:
+            self._spill_blocks(spill)
         return evicted
+
+    # -- KV tier -------------------------------------------------------------
+    def configure_kv_tier(self, enabled: bool, host_bytes: int = 64 << 20,
+                          disk_path: Optional[str] = None,
+                          disk_bytes: int = 0) -> None:
+        """Build (or tear down) the host-RAM and disk tier behind the prefix
+        cache. Enabling needs the prefix cache (spill and restore happen at
+        its eviction and match); disabling drops every spilled entry and its
+        files; re-enabling starts empty."""
+        if self._tier is not None:
+            self._tier.close()
+            self._tier = None
+        self._restore_times.clear()
+        if not enabled:
+            return
+        if not self.prefix_cache_enabled:
+            raise ValueError(
+                "kv_tier requires the prefix cache: spill/restore happen "
+                "at prefix-cache eviction/match (enable prefix_cache "
+                "first)")
+        self._tier = TieredKVStore(host_bytes, disk_path=disk_path,
+                                   disk_max_bytes=disk_bytes)
+
+    @property
+    def kv_tier_enabled(self) -> bool:
+        return self._tier is not None
+
+    def _spill_blocks(self, spill: List[tuple]) -> None:
+        """Copy evicted blocks' slabs into the tier: one gather per pool,
+        every host copy started before the one wait, then one tier entry
+        per block (the store copies each slab out of the batch)."""
+        host = self._typed(_to_host(self._gather([b for _, b in spill])))
+        for i, (key, _) in enumerate(spill):
+            self._tier.put(key, {name: t[:, i] for name, t in host.items()})
+
+    def _restore_chain(self, first_key: tuple, prompt_tokens: Sequence[int],
+                       n: int, limit: int) -> int:
+        """Restore the contiguous spilled run that starts at ``first_key``:
+        each next key is computable from the prompt, so every consecutive
+        tier entry is popped (at most as many as the pool could take) and
+        written back in one scatter per pool. Each restored block is
+        indexed under its original key, held by the cache alone; entries
+        the pool has no room for go back to the tier and the match stops
+        there, as without a tier. Returns how many blocks were restored."""
+        bs = self.block_size
+        h, pos = first_key[0], n
+        # cap the lookahead at what the pool could hold before popping
+        # anything: a longer chain would be read, checked and written back
+        budget = self.allocator.free_blocks + self.evictable_blocks
+        if self.prefix_cache_max_blocks:
+            budget = min(budget,
+                         max(0, self.prefix_cache_max_blocks
+                             - len(self._index)) + self.evictable_blocks)
+        if budget <= 0:
+            if first_key in self._tier:
+                self._tier.stats["misses"] += 1
+            return 0
+        keys: List[tuple] = []
+        entries: List[Dict[str, torch.Tensor]] = []
+        while pos + bs <= limit and len(entries) < budget:
+            key = (h, tuple(int(t) for t in prompt_tokens[pos:pos + bs]))
+            if key in self._index:
+                break               # back on the device: the walk goes on
+            entry = self._tier.get(key)
+            if entry is None:
+                break
+            keys.append(key)
+            entries.append(entry)
+            h = hash(key)
+            pos += bs
+        if not entries:
+            return 0
+        t0 = time.perf_counter()
+        m = len(entries)
+        short = m - self.allocator.free_blocks
+        if short > 0:
+            self._evict(short)      # colder residents spill to make room
+        m = min(m, self.allocator.free_blocks)
+        if self.prefix_cache_max_blocks:
+            allowed = self.prefix_cache_max_blocks - len(self._index)
+            if allowed < m:
+                self._evict(m - allowed)
+                allowed = self.prefix_cache_max_blocks - len(self._index)
+            m = min(m, max(0, allowed), self.allocator.free_blocks)
+        for key, entry in zip(keys[m:], entries[m:]):
+            self._tier.readmit(key, entry)
+        if m <= 0:
+            return 0
+        blocks = self.allocator.allocate(m)
+        self._scatter(blocks, {
+            name: torch.stack([_raw(entries[i][name]) for i in range(m)],
+                              dim=1)
+            for name in self.kv_cache})
+        for key, b in zip(keys[:m], blocks):
+            self._index[key] = b
+            self._block_hash[b] = key
+            self._evictable += 1    # only the cache's reference so far
+        self._tier.stats["restored"] += m
+        self._restore_times.append(time.perf_counter() - t0)
+        if len(self._restore_times) > 4096:     # bounded when undrained
+            del self._restore_times[:2048]
+        return m
+
+    def tier_stats(self) -> Dict[str, int]:
+        """Monotonic spill, restore and drop counters plus the host and disk
+        residency; all zeros (the same keys) with no tier."""
+        if self._tier is None:
+            return empty_tier_stats()
+        out = dict(self._tier.stats)
+        out.update(self._tier.occupancy())
+        return out
+
+    def drain_restore_times(self) -> List[float]:
+        """Host seconds of each restored run since the last drain (the
+        gather from the tier and the scatter into the pools)."""
+        out, self._restore_times = self._restore_times, []
+        return out
 
     # -- fleet KV locality ---------------------------------------------------
     def prefix_digest(self, max_entries: int = 512) -> List[int]:
         """The chain hashes of the cached prefix content, most recently used
-        first, at most ``max_entries``; empty with the cache off."""
+        first, then the tier's keys (host, then disk, newest first; parked
+        preemption payloads skipped), at most ``max_entries``; empty with
+        the cache off."""
         if not self.prefix_cache_enabled or max_entries <= 0:
             return []
-        return [hash(key) for key in reversed(list(self._index))][:max_entries]
+        out = [hash(key) for key in reversed(list(self._index))]
+        if self._tier is not None:
+            for keys in self._tier.lru_keys():
+                out.extend(hash(key) for key in reversed(keys)
+                           if not (key and key[0] == "__preempt__"))
+        return out[:max_entries]
 
     def export_prefix_blocks(self, max_blocks: int = 64) -> List[tuple]:
         """Host copies of the hottest cached blocks, most recently used
@@ -617,9 +800,12 @@ class DSStateManager:
 
     def clear_prefix_cache(self) -> None:
         """Drop every index entry, releasing the cache's references; blocks
-        live sequences still share stay until those sequences flush."""
+        live sequences still share stay until those sequences flush. A KV
+        tier is emptied too."""
         for b in list(self._index.values()):
             self.allocator.release([b])
         self._index.clear()
         self._block_hash.clear()
         self._evictable = 0
+        if self._tier is not None:
+            self._tier.clear()

@@ -23,11 +23,16 @@ The features of the JAX scheduler, with its decisions step for step:
   re-imported, or re-prefilled if their payload is gone;
 - ``submit_prefilled`` (a sequence whose KV was imported), ``cancel``,
   ``evacuate``, the ``prefill_only`` and ``decode_reserve_tokens`` roles,
-  and the stats and drain methods.
+  and the stats and drain methods;
+- telemetry (``tracer``, ``telemetry/tracer.py``): a request submitted with
+  a ``trace_id`` carries a ``prefill`` span from submission to its first
+  token (with the prefix-cache and KV-tier outcome as attributes) and a
+  ``decode`` span to its end; each put is a ``forward`` span under
+  ``trace_label``, and the host verify of a speculative put a
+  ``spec_verify`` span. With no tracer the loop uses ``NOOP_TRACER`` and
+  allocates nothing for it.
 
-Telemetry is not ported (ROADMAP queue 1 item 10): ``tracer`` must be
-``None``; ``trace_label`` and ``trace_id`` are accepted and unused. A
-proposer's exception is not swallowed here, unlike the JAX loop, which
+A proposer's exception is not swallowed here, unlike the JAX loop, which
 degrades it to "no drafts": a draft model runs its own engine on the
 card, and a kernel's failure there must not pass silently.
 """
@@ -41,7 +46,7 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
-from ... import not_ported
+from ...telemetry import NOOP_TRACER
 from ...utils.logging import logger
 from .engine_v2 import InferenceEngineV2
 from .scheduling_utils import SchedulingResult
@@ -72,6 +77,10 @@ class Request:
     last_logits: Optional[np.ndarray] = None
     done: bool = False
     finish_reason: Optional[str] = None
+    # telemetry: set by submit() when the tracer is enabled and a trace id
+    # was given; the open prefill/decode stage spans
+    trace_id: Optional[str] = None
+    spans: Optional[Dict[str, object]] = None
 
     @property
     def prompt_remaining(self) -> int:
@@ -92,9 +101,6 @@ class ContinuousBatchingScheduler:
                  tracer=None, trace_label: str = "scheduler",
                  prefill_only: bool = False,
                  decode_reserve_tokens: int = 0):
-        if tracer is not None:
-            raise not_ported("the scheduler's tracer (telemetry spans)",
-                             "queue 1 item 10")
         self.engine = engine
         # disaggregated roles: a prefill-only scheduler finishes a request
         # whose prompt completes with reason "prefilled" and leaves its KV
@@ -102,6 +108,10 @@ class ContinuousBatchingScheduler:
         # step's budget back from prompt chunks
         self.prefill_only = bool(prefill_only)
         self.decode_reserve_tokens = int(decode_reserve_tokens)
+        # per-put spans under ``trace_label``'s trace and per-request stage
+        # spans; the NOOP tracer costs one ``enabled`` check a step
+        self.tracer = tracer if tracer is not None else NOOP_TRACER
+        self.trace_label = trace_label
         self.pending: Deque[Request] = deque()
         self.running: Dict[int, Request] = {}
         self.finished: Dict[int, Request] = {}
@@ -160,9 +170,17 @@ class ContinuousBatchingScheduler:
                on_token: Optional[Callable[[int, int], None]] = None,
                on_finish: Optional[Callable[[Request, str], None]] = None,
                trace_id: Optional[str] = None, shed_rank: int = 0):
-        self.pending.append(Request(uid, list(prompt_tokens), max_new_tokens,
-                                    eos_token_id, on_token, on_finish,
-                                    shed_rank=int(shed_rank)))
+        req = Request(uid, list(prompt_tokens), max_new_tokens,
+                      eos_token_id, on_token, on_finish,
+                      shed_rank=int(shed_rank))
+        if trace_id is not None and self.tracer.enabled:
+            # the prefill stage starts at submission: a wait for a packing
+            # slot is prefill time from the request's point of view
+            req.trace_id = trace_id
+            req.spans = {"prefill": self.tracer.begin(
+                "prefill", trace_id=trace_id,
+                attrs={"prompt_tokens": len(req.prompt_tokens)})}
+        self.pending.append(req)
 
     def submit_prefilled(self, uid: int, prompt_tokens: List[int],
                          last_logits, max_new_tokens: int = 64,
@@ -188,6 +206,10 @@ class ContinuousBatchingScheduler:
             req.total_blocks = self._total_blocks(req)
             if not self.engine.try_reserve(uid, req.total_blocks):
                 self.engine.force_reserve(uid, req.total_blocks)
+        if trace_id is not None and self.tracer.enabled:
+            # no prefill stage here; the decode span opens at the first token
+            req.trace_id = trace_id
+            req.spans = {}
         self.running[uid] = req
         return req
 
@@ -217,6 +239,7 @@ class ContinuousBatchingScheduler:
         self.engine.flush(uid)
         if self.proposer is not None:
             self.proposer.release(uid)
+        self._end_request_spans(req, "cancelled")
         req.done = True
         req.finish_reason = "cancelled"
         self.finished[uid] = req
@@ -226,22 +249,39 @@ class ContinuousBatchingScheduler:
 
     def evacuate(self, uid: int) -> Optional[Dict[str, object]]:
         """Detach a sequence for migration to another engine without
-        settling it. A fully prefilled running sequence's KV is exported
-        and returned (with ``last_logits``) for the destination to import;
-        anything else returns ``None`` and is re-prefilled there."""
+        settling it (no ``done`` mark, no ``on_finish``): it leaves this
+        scheduler and its blocks are freed. A fully prefilled running
+        sequence's KV is exported and returned (with ``last_logits``) for
+        the destination to import; anything else — pending, mid-prefill,
+        parked (its stash is dropped), or an export that fails — returns
+        ``None`` and is re-prefilled there. ``None`` also for unknown or
+        finished uids."""
         payload = None
-        req = self.running.get(uid)
-        if (req is not None and req.prompt_remaining == 0 and not req.done
-                and req.last_logits is not None):
-            payload = self.engine.export_sequence(uid)
-            if payload is not None:
-                payload["last_logits"] = req.last_logits
-        req = self._take(uid)
+        req = self.running.pop(uid, None)
+        if req is not None:
+            if (req.prompt_remaining == 0 and not req.done
+                    and req.last_logits is not None):
+                try:
+                    payload = self.engine.export_sequence(uid)
+                except Exception as e:
+                    logger.warning(f"evacuation KV export for sequence "
+                                   f"{uid} failed ({e!r}); falling back "
+                                   "to re-prefill")
+                    payload = None
+                if payload is not None:
+                    payload["last_logits"] = req.last_logits
+        else:
+            req = self._take(uid)
         if req is None or req.done:
             return None
-        self.engine.flush(uid)
+        try:
+            self.engine.flush(uid)     # frees blocks + releases reservation
+        except Exception as e:
+            logger.warning(f"evacuation flush of sequence {uid} failed "
+                           f"({e!r})")
         if self.proposer is not None:
             self.proposer.release(uid)
+        self._end_request_spans(req, "evacuated")
         return payload
 
     @property
@@ -332,13 +372,25 @@ class ContinuousBatchingScheduler:
 
     def _match_prefix_for(self, req: Request) -> None:
         """One-time prefix-cache lookup for a candidate; matched blocks stay
-        shared across deferral until finish or cancel flushes."""
+        shared across deferral until finish or cancel flushes. A traced
+        request's prefill span gets the matched tokens and how many of its
+        blocks came back from the KV tier."""
         if req.prefix_matched >= 0:
             return
+        # the tier's counters are read only when tracing
+        tier_fn = self.engine.tier_stats if req.spans is not None else None
+        restored0 = tier_fn()["restored"] if tier_fn else 0
         req.prefix_matched = self.engine.match_prefix(req.uid,
                                                       req.prompt_tokens)
         if req.prefix_matched > 0:
             req.prompt_fed = req.prefix_matched
+        if req.spans is not None:
+            req.spans["prefill"].set("prefix_matched_tokens",
+                                     req.prefix_matched)
+            if tier_fn:
+                req.spans["prefill"].set(
+                    "kv_tier_restored_blocks",
+                    tier_fn()["restored"] - restored0)
 
     # ------------------------------- reservation admission + preemption
     def _total_blocks(self, req: Request) -> int:
@@ -578,7 +630,31 @@ class ContinuousBatchingScheduler:
                        + gen + [tok])
         return self.proposer.propose(req.uid, ctx, k)
 
+    # ----------------------------------------------------------- telemetry
+    def _note_first_token(self, req: Request) -> None:
+        """At a traced request's first token the prefill span ends (the
+        TTFT endpoint) and the decode span opens."""
+        if req.spans is None:
+            return
+        sp = req.spans.pop("prefill", None)
+        if sp is not None:
+            sp.end()
+        req.spans["decode"] = self.tracer.begin("decode",
+                                                trace_id=req.trace_id)
+
+    def _end_request_spans(self, req: Request, reason: str) -> None:
+        if req.spans is None:
+            return
+        dec = req.spans.get("decode")
+        if dec is not None:
+            dec.set("generated", len(req.generated))
+            dec.set("finish_reason", reason)
+        for sp in req.spans.values():
+            sp.end()
+        req.spans = None
+
     def _finish(self, req: Request, reason: str, flush: bool) -> None:
+        self._end_request_spans(req, reason)
         req.done = True
         req.finish_reason = reason
         self.finished[req.uid] = req
@@ -600,20 +676,39 @@ class ContinuousBatchingScheduler:
         spec_w = max((len(c) for _, c, d in plan if d and len(c) > 1),
                      default=0)
         spec = self.proposer is not None and spec_w > 0
+        # the put's span brackets the forward and the logits' copy to host
+        traced = self.tracer.enabled
+        fspan = self.tracer.begin(
+            "forward", trace_id=self.trace_label,
+            attrs={"n_seqs": len(uids),
+                   "n_tokens": int(sum(len(c) for c in chunks))}) \
+            if traced else None
+        vspan = None
         if spec:
             W = self.engine.batch._bucket(spec_w, self._chunk)
+            if traced:
+                fspan.set("verify_width", W)
             # the prefix chain is committed per row below, once rejected
             # drafts are trimmed
             logits = _host(self.engine.put(uids, chunks, verify_width=W,
                                            defer_commit=True))
+            # the host verify, trim and commit of this step
+            vspan = self.tracer.begin("spec_verify",
+                                      trace_id=self.trace_label,
+                                      attrs={"verify_width": W}) \
+                if traced else None
         else:
             logits = _host(self.engine.put(uids, chunks))
+        if traced:
+            fspan.end()
         done_now = []
         # commit state only after the forward succeeded
         for i, (req, chunk, is_decode) in enumerate(plan):
             if not spec:
                 req.last_logits = logits[i]
                 if is_decode:
+                    if not req.generated:
+                        self._note_first_token(req)
                     self._emit(req, chunk[0])
                     self._spec_stats["decode_rows"] += 1
                 else:
@@ -640,6 +735,8 @@ class ContinuousBatchingScheduler:
             if len(req.generated) >= req.max_new_tokens or ended:
                 self._finish(req, "eos" if ended else "length", flush=True)
                 done_now.append(req.uid)
+        if vspan is not None:
+            vspan.end()
         return done_now
 
     def _emit(self, req: Request, token: int) -> None:
@@ -666,6 +763,15 @@ class ContinuousBatchingScheduler:
         self._spec_stats["decode_rows"] += 1
         self._spec_stats["proposed"] += len(chunk) - 1
         self._spec_stats["accepted"] += len(emitted) - 1
+        if not req.generated and emitted:
+            self._note_first_token(req)
+        if req.spans is not None:
+            # this request's speculation outcome, on its decode span
+            dec = req.spans.get("decode")
+            if dec is not None:
+                a = dec.attrs
+                a["spec_proposed"] = a.get("spec_proposed", 0) + len(chunk) - 1
+                a["spec_accepted"] = a.get("spec_accepted", 0) + len(emitted) - 1
         for t in emitted:
             self._emit(req, t)
 

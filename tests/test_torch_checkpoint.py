@@ -207,3 +207,38 @@ def test_missing_checkpoint_and_unported_paths_raise(tmp_path):
             "tiny", config={"checkpoint": str(hf)}, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         ckpt.save_checkpoint(None, str(tmp_path))
+
+
+def test_v1_load_checkpoint_matches_config_checkpoint(sharded):
+    """``load_checkpoint`` of the JAX-written leaves into a built v1 engine
+    gives the logits of an engine built with ``config={"checkpoint":
+    ...}`` and the JAX v1 engine's ``load_checkpoint`` output; it returns
+    its path. A weight-quantized engine has no dense leaves and refuses."""
+    _, tag_dir, _ = sharded
+    params_dir = os.path.join(tag_dir, "params")
+    toks = np.random.default_rng(2).integers(1, 256, (2, 9))
+    te = deepspeed_tpu_torch.init_inference(
+        ttf.CausalLM(ttf.TINY_TEST), config={"dtype": "fp32"}, device="cpu")
+    before = te.forward(toks)
+    assert te.load_checkpoint(params_dir) == params_dir
+    assert te.params["layers"]["wq"].dtype == torch.float32
+    got = te.forward(toks)
+    assert not torch.equal(got, before)
+    built = deepspeed_tpu_torch.init_inference(
+        ttf.CausalLM(ttf.TINY_TEST),
+        config={"dtype": "fp32", "checkpoint": params_dir}, device="cpu")
+    assert torch.equal(got, built.forward(toks))
+    topo.reset_topology()
+    je = deepspeed_tpu.init_inference(jtf.CausalLM(jtf.TINY_TEST),
+                                      config={"dtype": "fp32"})
+    assert je.load_checkpoint(params_dir) == params_dir
+    prompts = [t.tolist() for t in toks]
+    np.testing.assert_array_equal(
+        te.generate(prompts, max_new_tokens=6).numpy(),
+        np.asarray(je.generate(prompts, max_new_tokens=6)))
+    quant = deepspeed_tpu_torch.init_inference(
+        ttf.CausalLM(ttf.TINY_TEST), config={
+            "dtype": "fp32", "quant": {"enabled": True, "bits": 8}},
+        device="cpu")
+    with pytest.raises(ValueError, match="quantized"):
+        quant.load_checkpoint(params_dir)

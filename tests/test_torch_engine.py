@@ -104,8 +104,11 @@ from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.ops import quantizer
 quant = RaggedInferenceEngineConfig(kv_quant_enabled=True,
                                     weight_quant_enabled=True)
+tier = RaggedInferenceEngineConfig(enable_prefix_cache=True,
+                                   kv_tier_enabled=True)
 calls = [lambda: InferenceEngineV2(CausalLM(TINY_TEST)),
          lambda: InferenceEngineV2(CausalLM(TINY_TEST), config=quant),
+         lambda: InferenceEngineV2(CausalLM(TINY_TEST), config=tier),
          lambda: CausalLM(TINY_TEST).init(),
          lambda: DSStateManager(TINY_TEST, num_blocks=4),
          lambda: DSStateManager(TINY_TEST, num_blocks=4, kv_quant=True),
@@ -130,13 +133,23 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
 
 
 def test_unported_engine_options_raise():
-    cfg = RaggedInferenceEngineConfig(kv_tier_enabled=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), config=cfg,
-                          device="cpu")
+    """The KV tier options, which raised before the tier was ported, now
+    build a tier (the prefix cache it needs on); without the cache they
+    refuse as the JAX engine does."""
+    cfg = RaggedInferenceEngineConfig(kv_tier_enabled=True,
+                                      enable_prefix_cache=True,
+                                      kv_tier_host_bytes=1 << 20)
+    eng = InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), config=cfg,
+                            device="cpu")
+    assert eng.state_manager.kv_tier_enabled
+    assert eng.state_manager._tier.host_max_bytes == 1 << 20
     eng = InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+    with pytest.raises(ValueError, match="prefix cache"):
         eng.configure_kv_tier(True)
+    eng.configure_prefix_cache(True)
+    eng.configure_kv_tier(True, host_bytes=2 << 20)
+    assert eng.config.kv_tier_enabled and eng.state_manager.kv_tier_enabled
+    assert eng.tier_stats()["spilled"] == 0
 
 
 @pytest.mark.parametrize("field", [

@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.inference import quantization as tquant
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models import transformer as ttf
+from deepspeed_tpu_torch.runtime.checkpointing import _flatten as ckpt_flatten
 from deepspeed_tpu_torch.models.weights import (params_from_numpy,
                                                 params_to_numpy)
 
@@ -437,14 +438,22 @@ def test_unported_config_keys_raise(config, tmp_path):
                                            device="cpu")
 
 
-def test_unported_surfaces_raise():
+def test_unported_surfaces_raise(tmp_path):
     te = deepspeed_tpu_torch.init_inference("tiny", device="cpu")
     for call in (lambda: te.encode([[1]]), lambda: te.mlm([[1]]),
-                 lambda: te.classify([[1]]),
-                 lambda: te.load_checkpoint("/nowhere"),
-                 te.profile_model_time):
+                 lambda: te.classify([[1]]), te.profile_model_time):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # load_checkpoint is ported: it reads a leaves directory into the
+    # engine's params (a missing directory raises, as in the JAX engine)
+    with pytest.raises(FileNotFoundError):
+        te.load_checkpoint(str(tmp_path / "nowhere"))
+    for key, leaf in ckpt_flatten(te.params):
+        np.save(tmp_path / f"{key}.npy", leaf.numpy() * 2)
+    want = {k: v * 2 for k, v in ckpt_flatten(te.params)}
+    assert te.load_checkpoint(str(tmp_path)) == str(tmp_path)
+    for key, leaf in ckpt_flatten(te.params):
+        assert torch.equal(leaf, want[key]), key
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference("tiny", mesh=object(),
                                            device="cpu")

@@ -440,3 +440,56 @@ def test_chunked_export_import_is_byte_identical(weights, kv):
     with pytest.raises(ValueError, match="already has KV"):
         eng.import_sequence(2, whole, toks)
     assert eng.state_manager.get_sequence(3) is None
+
+
+def _evacuate_failing_export(eng, sched_cls, prompts):
+    """Three requests in flight (one parked by preemption), then evacuate
+    the running, fully prefilled one while its export raises, the parked
+    one, and an unknown uid: the scheduler's and engine's state after."""
+    sched = sched_cls(eng)
+    sched.submit(1, prompts[0], max_new_tokens=16, shed_rank=1)
+    for _ in range(4):
+        sched.step()
+    sched.submit(2, prompts[1], max_new_tokens=12, shed_rank=0)
+    sched.step()
+    assert 1 in sched.preempted
+    while not sched.running.get(2, Request(2, [])).generated:
+        sched.step()
+    sched.submit(3, prompts[2], max_new_tokens=4, shed_rank=1)
+
+    def broken_export(uid, chunk_blocks=0):
+        raise RuntimeError("export failed")
+
+    eng.export_sequence = broken_export
+    out = [sched.evacuate(2), sched.evacuate(1), sched.evacuate(99)]
+    del eng.export_sequence
+    state = {"returned": out, "running": sorted(sched.running),
+             "preempted": sorted(sched.preempted),
+             "pending": [r.uid for r in sched.pending],
+             "finished": sorted(sched.finished),
+             "free_blocks": eng.free_blocks,
+             "tracked": sorted(eng.state_manager.tracked_sequences),
+             "parked": eng.state_manager.preempted_parked,
+             "reserved": eng.reserved_total_blocks()}
+    fin = sched.run_to_completion(max_steps=2000)
+    state["after"] = (fin[3].generated, eng.free_blocks)
+    return state
+
+
+def test_evacuate_with_failing_export_matches_jax(weights):
+    """A failing export during evacuation is logged and dropped: the
+    sequence still leaves ``running`` and frees its blocks, and both
+    schedulers end in the same state."""
+    rng = np.random.default_rng(12)
+    prompts = [rand_prompt(rng, 60), rand_prompt(rng, 60),
+               rand_prompt(rng, 10)]
+    got = []
+    for eng, sched_cls in _both(weights, prefix=True, reservation=True,
+                                preempt=True, factor=3.0):
+        got.append(_evacuate_failing_export(eng, sched_cls, prompts))
+    port, ref = got
+    assert port == ref
+    assert port["returned"] == [None, None, None]
+    assert port["running"] == [] and port["preempted"] == []
+    assert port["tracked"] == [] and port["parked"] == 0
+    assert port["reserved"] == 0
