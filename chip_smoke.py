@@ -116,7 +116,31 @@ Phases, each of which raises on failure (nothing is caught):
              numpy (some leaves as shard files), loaded onto the card leaf
              for leaf, and served by v2 and v1 (built from it, and through
              ``load_checkpoint``) with the in-memory tree's streams.
-9. train   — the training path at full MISTRAL_7B width, 8 of its 32 layers
+9. serving — the serving stack through ServingFrontend (admission queue,
+             router, replica threads, supervisor, fault injection,
+             telemetry) at full MISTRAL_7B width (32 layers, bf16, blocks of
+             16, chunks of 256, random weights from a seed, one weight tree
+             shared by every engine, each engine with its own KV pool):
+             a burst of 48 requests at one replica with a queue of 16
+             (sheds, and submitted = completed + shed + expired, no
+             failure); 16 requests through one replica, two, and two with
+             replica 0 crashed at step 4 under fault_tolerance (the only
+             death the injected one, its requests failed over and finished,
+             the supervisor's restart logged, memory back after the cell);
+             int8 weights, int8 KV, the prefix cache and reservation
+             admission through ServingConfig with telemetry and an SLO on
+             (8 quantize launches at the build, 225 quantized-matmul
+             launches a put, prefix tokens saved, each request's span chain
+             covering its TTFT, a valid debug-dump trace, the Prometheus
+             text and health report, a cancel that frees every block).
+             Each run's counts are set to 0 just before it and read after:
+             32 paged launches a put; every stream holds to the same
+             prompts through a bare scheduler by the greedy-parity rule;
+             no replica dies outside the chaos run and no replica's params
+             require grad. Prints TTFT, TPOT and tokens/s beside the bare
+             scheduler's, recovery_s and two replicas' tokens/s against
+             one's.
+10. train  — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
              micro batch 1 x 2 accumulation steps, sequences of 8193 tokens:
@@ -125,8 +149,11 @@ Phases, each of which raises on failure (nothing is caught):
              its expectation, that the loss falls, the step counters, the
              launch counts (64 each of forward, delta, dq, dkv), one micro
              step against the plain attention, a remat run (forward
-             launches double), and that a small fp32 engine gives the same
-             losses on the card as on the CPU.
+             launches double), that a small fp32 engine gives the same
+             losses on the card as on the CPU, and one step with the
+             telemetry block on (fwd_bwd and optimizer_step spans summing
+             to the synchronized step wall within 5%, the loss equal to
+             the untraced run's).
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -135,7 +162,8 @@ power limit, and ``{"ok": true, "device": {...}}``.
 int8 main path, of a verify put and a prefix-hit put, and of one training
 step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
 later phase after it (a short call after an edit; no result lines;
-``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine).
+``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
+``--only serving`` runs the serving phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -1944,41 +1972,69 @@ def profile_steps(engine, prompts, label, top=8):
         engine.flush(u)
 
 
+class PutLog:
+    """Every put of the attached engines, from whichever thread makes it:
+    (tokens, has a prompt chunk, seconds). With ``sync`` each put is
+    synchronized and timed; without it (replicas sharing the card, whose
+    device-wide syncs would serialize each other) only counted."""
+
+    def __init__(self, sync=True):
+        self.puts, self.engines, self.sync = [], [], sync
+
+    def attach(self, engine):
+        real = engine.put
+
+        def timed(uids, chunks, **kw):
+            if self.sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(uids, chunks, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.puts.append((sum(len(c) for c in chunks),
+                              max(len(c) for c in chunks) > 1,
+                              time.perf_counter() - t))
+            return out
+
+        engine.put = timed
+        self.engines.append(engine)
+        return engine
+
+    def close(self):
+        # drop the instance attribute (no engine -> bound method -> engine
+        # cycle that would keep a dropped engine's memory alive)
+        for engine in self.engines:
+            del engine.put
+        self.engines = []
+
+    def decode_tps(self):
+        if not self.sync:
+            return float("nan")
+        dec = [(n, s) for n, pre, s in self.puts if not pre]
+        return sum(n for n, _ in dec) / sum(s for _, s in dec)
+
+
 def serve(engine, cfg, prompts, new_tokens, label):
     """Greedy generation through the scheduler with every put timed; the
     kernels' launch counts are set to 0 just before and read just after."""
     from deepspeed_tpu_torch.inference.v2.testing import greedy_generate
-
-    puts = []
-    real_put = engine.put
-
-    def timed_put(uids, chunks, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real_put(uids, chunks, **kw)
-        torch.cuda.synchronize()
-        puts.append((sum(len(c) for c in chunks),
-                     max(len(c) for c in chunks) > 1,
-                     time.perf_counter() - t))
-        return out
 
     def checked_argmax(logits):
         if logits.shape != (cfg.vocab_size,) or not np.isfinite(logits).all():
             raise AssertionError(f"[{label}] non-finite or mis-shaped logits")
         return int(np.argmax(logits))
 
-    engine.put = timed_put
-    pa.launches = 0
-    qz.launches["quantized_matmul"] = 0
+    put_log = PutLog()
+    put_log.attach(engine)
+    puts = put_log.puts
+    reset_launches()
     t0 = time.perf_counter()
     try:
         streams = greedy_generate(engine, prompts, max_new_tokens=new_tokens,
                                   sequential=False, sample_fn=checked_argmax)
         torch.cuda.synchronize()
     finally:
-        # drop the instance attribute (no engine -> bound method -> engine
-        # cycle that would keep a dropped engine's memory alive)
-        del engine.put
+        put_log.close()
     wall = time.perf_counter() - t0
     launches = {"paged_attention": pa.launches,
                 "quantized_matmul": qz.launches["quantized_matmul"]}
@@ -3182,6 +3238,570 @@ def phase_features(profile_puts=False):
     return res
 
 
+# ------------------------------------------------------------- serving
+
+# The serving stack at MISTRAL_7B width (32 layers, bf16, blocks of 16,
+# chunks of 256): ServingFrontend -> admission queue -> router -> replica
+# threads, over engines that share one bf16 weight tree (each engine has
+# its own KV pools and scheduler).
+SERVE_KV_BLOCKS = 1024              # 2 GiB of bf16 KV an engine
+SERVE_MAX_SEQS = 8                  # a replica's concurrent sequences
+BURST_REQUESTS, BURST_NEW, BURST_QUEUE = 48, 32, 16
+BURST_LENGTHS = 16                  # lognormal prompt lengths, cycled
+CHAOS_REQUESTS, CHAOS_PROMPT, CHAOS_NEW = 16, 128, 16
+CHAOS_CRASH_STEP = 4
+CHAOS_KV_BLOCKS = 256               # 16 x 9 blocks and room; 512 MiB
+QCFG_REQUESTS, QCFG_SYS, QCFG_TAIL, QCFG_NEW = 8, 1024, 64, 16
+KV_BLOCK_BYTES_BF16 = 32 * 2 * 8 * 16 * 128 * 2   # MISTRAL_7B, 2 MiB
+
+
+def serving_engine(model, params, kv_blocks, put_log=None):
+    """One engine over the shared ``params`` (never copied: the tree's
+    tensors are the engine's) with its own pool, attached to ``put_log``
+    when given, and warmed by one put."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+
+    engine = InferenceEngineV2(
+        model, params, RaggedInferenceEngineConfig(
+            kv_block_size=16, max_chunk_tokens=256,
+            max_ragged_sequence_count=SERVE_MAX_SEQS, kv_blocks=kv_blocks),
+        device="cuda")
+    for mine, shared in zip(tree_tensors(engine.params),
+                            tree_tensors(params)):
+        if mine.data_ptr() != shared.data_ptr():
+            raise AssertionError("[serving] an engine copied the shared "
+                                 "weight tensors")
+    if put_log is not None:
+        put_log.attach(engine)
+    engine.put([10_000], [list(range(16))])       # warm-up
+    engine.flush(10_000)
+    return engine
+
+
+def watch_deaths(fe):
+    """(where, exception type) of every replica death: each one reaches
+    the frontend's flight recorder (``dump_on_error``)."""
+    if fe._replica_recorder is not fe.recorder:
+        raise AssertionError("[serving] replicas report no errors")
+    deaths, real = [], fe.recorder.on_error
+
+    def on_error(where, exc):
+        deaths.append((where, type(exc).__name__))
+        return real(where, exc)
+
+    fe.recorder.on_error = on_error
+    return deaths
+
+
+def latency_stats(first, last, arrival, counts):
+    """p50/p95 TTFT and mean TPOT (ms) from per-request timestamps."""
+    ttft = [(f - a) * 1e3 for f, a in zip(first, arrival)]
+    tpot = [(l - f) * 1e3 / (n - 1)
+            for f, l, n in zip(first, last, counts) if n > 1]
+    return {"ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p95_ms": float(np.percentile(ttft, 95)),
+            "tpot_ms": float(np.mean(tpot))}
+
+
+def bare_run(engine, prompts, new_tokens, label, first_alone=False):
+    """The same prompts through a bare ContinuousBatchingScheduler (all
+    submitted at once, or the first alone and then the rest), recording
+    each request's top-2 logit margins (the parity rule's "off" run) and
+    its token times; the counts are set to 0 just before and read after."""
+    sched = margin_scheduler(engine)
+    log_ = PutLog()
+    log_.attach(engine)
+    base, times = 60_000, {}
+
+    def on_token(uid, tok):
+        times.setdefault(uid, []).append(time.perf_counter())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        waves = ([[0], list(range(1, len(prompts)))] if first_alone
+                 else [list(range(len(prompts)))])
+        arrival = {}
+        for wave in waves:
+            for i in wave:
+                arrival[base + i] = time.perf_counter()
+                sched.submit(base + i, prompts[i], max_new_tokens=new_tokens,
+                             on_token=on_token)
+            sched.run_to_completion()
+        torch.cuda.synchronize()
+    finally:
+        log_.close()
+    wall = time.perf_counter() - t0
+    L = engine.model.cfg.num_layers
+    if pa.launches != L * len(log_.puts):
+        raise AssertionError(f"[serving] {label} bare: {pa.launches} paged "
+                             f"launches for {len(log_.puts)} puts")
+    uids = [base + i for i in range(len(prompts))]
+    streams = [sched.finished[u].generated for u in uids]
+    if any(len(s) != new_tokens for s in streams):
+        raise AssertionError(f"[serving] {label} bare: stream lengths")
+    occ = engine.occupancy()
+    if occ["available_blocks"] != engine.config.kv_blocks:
+        raise AssertionError(f"[serving] {label} bare: {occ} after the run")
+    stats = latency_stats([times[u][0] for u in uids],
+                          [times[u][-1] for u in uids],
+                          [arrival[u] for u in uids],
+                          [len(times[u]) for u in uids])
+    stats.update(decode_tps=log_.decode_tps(), puts=len(log_.puts),
+                 tokens_per_s=sum(map(len, streams)) / wall, wall_s=wall)
+    return {"streams": streams, "stats": stats,
+            "margins": [sched.margins.get(u, {}) for u in uids]}
+
+
+def frontend_stats(handles, log_, wall):
+    reqs = [h._req for h in handles]
+    stats = latency_stats([r.first_token_t for r in reqs],
+                          [r.last_token_t for r in reqs],
+                          [r.arrival_t for r in reqs],
+                          [len(r.generated_tokens) for r in reqs])
+    stats.update(decode_tps=log_.decode_tps(), puts=len(log_.puts),
+                 tokens_per_s=sum(len(r.generated_tokens) for r in reqs)
+                 / wall, wall_s=wall)
+    return stats
+
+
+def check_replicas(fe, label):
+    """No replica's params require grad, and every replica is healthy."""
+    for rep in fe.router.replicas:
+        if any(t.requires_grad for t in tree_tensors(rep.engine.params)):
+            raise AssertionError(f"[serving] {label}: replica "
+                                 f"{rep.replica_id} params require grad")
+    states = [rep.state.value for rep in fe.router.replicas]
+    if any(s != "healthy" for s in states):
+        raise AssertionError(f"[serving] {label}: replica states {states}")
+
+
+def log_compare(label, fe_stats, bare_stats):
+    keys = ("ttft_p50_ms", "ttft_p95_ms", "tpot_ms", "decode_tps",
+            "tokens_per_s", "puts", "wall_s")
+    log(f"[serving] {label}, frontend | bare scheduler: "
+        + "; ".join(f"{k} {fe_stats[k]:.2f} | {bare_stats[k]:.2f}"
+                    for k in keys))
+
+
+def serving_burst(model, params):
+    """Cell 1: one bf16 replica, queue depth 16, 48 requests submitted at
+    once (lognormal lengths around 341, clipped to 64-1024, 32 new tokens,
+    priority i % 3, deadline 600 s)."""
+    from deepspeed_tpu_torch.serving import (Rejected, RequestState,
+                                             ServingConfig, ServingFrontend)
+
+    rng = np.random.default_rng(21)
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    lens = np.clip(np.exp(rng.normal(np.log(1024 / 3), 0.7, BURST_LENGTHS))
+                   .astype(int), 64, 1024).tolist()
+    prompts = [rng.integers(0, V, lens[i % len(lens)]).tolist()
+               for i in range(BURST_REQUESTS)]
+    engine = serving_engine(model, params, SERVE_KV_BLOCKS)
+    gap = feature_gap(engine, "serving burst", ())
+    fe = ServingFrontend([engine], ServingConfig(max_queue_depth=BURST_QUEUE))
+    deaths = watch_deaths(fe)
+    check_replicas(fe, "burst")
+    log_ = PutLog()
+    log_.attach(engine)
+    handles, shed = {}, 0
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            try:
+                handles[i] = fe.submit(p, max_new_tokens=BURST_NEW,
+                                       priority=i % 3,
+                                       deadline_ms=600_000.0)
+            except Rejected as e:
+                if e.reason != "overloaded":
+                    raise
+                shed += 1
+        done = fe.wait_all(list(handles.values()), timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"paged_attention": pa.launches,
+                    "quantized_matmul": qz.launches["quantized_matmul"]}
+        snap = fe.metrics_snapshot()
+        check_replicas(fe, "burst")
+    finally:
+        log_.close()
+        fe.shutdown(drain=False, timeout=5)
+    if not done or any(h.state != RequestState.FINISHED
+                       for h in handles.values()):
+        raise AssertionError("[serving] burst: not every admitted request "
+                             "finished")
+    if shed == 0 or snap["requests_shed"] != shed:
+        raise AssertionError(f"[serving] burst: {shed} shed, registry "
+                             f"{snap['requests_shed']}")
+    ends = (snap["requests_completed"] + snap["requests_shed"]
+            + snap["requests_expired"])
+    if ends != snap["requests_submitted"] or snap["requests_failed"] \
+            or deaths:
+        raise AssertionError(f"[serving] burst: submitted "
+                             f"{snap['requests_submitted']}, ended {ends}, "
+                             f"failed {snap['requests_failed']}, deaths "
+                             f"{deaths}")
+    if launches["paged_attention"] != L * len(log_.puts) \
+            or launches["quantized_matmul"]:
+        raise AssertionError(f"[serving] burst: launches {launches} for "
+                             f"{len(log_.puts)} puts")
+    occ = engine.occupancy()
+    if occ["available_blocks"] != engine.config.kv_blocks:
+        raise AssertionError(f"[serving] burst: {occ} after shutdown")
+    idx = sorted(handles)
+    on = {"streams": [[ev.token for ev in handles[i].drain()] for i in idx]}
+    fe_stats = frontend_stats([handles[i] for i in idx], log_, wall)
+    del handles
+    bare = bare_run(engine, [prompts[i] for i in idx], BURST_NEW,
+                    "burst")
+    diverged = parity_rule(bare, on, gap, "serving burst")
+    log(f"[serving] burst: {BURST_REQUESTS} submitted, {len(idx)} "
+        f"completed, {shed} shed (rate {snap['shed_rate']:.4f}), 0 "
+        f"expired, 0 failed, 0 replica deaths; launches "
+        f"{json.dumps(launches)} = {L} x {len(log_.puts)} puts; every block "
+        "free")
+    log_compare("burst", fe_stats, bare["stats"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"frontend": fe_stats, "bare": bare["stats"],
+            "shed_rate": snap["shed_rate"], "completed": len(idx),
+            "shed": shed, "diverged": len(diverged), "launches": launches,
+            "puts": len(log_.puts)}
+
+
+def serving_chaos(model, params):
+    """Cell 2: 16 requests of 128 tokens, 16 new, through one replica, two,
+    and two with replica 0 crashed at step 4 (``fault_tolerance`` on:
+    retries 3, backoff 0.05 s, poll 0.02 s; the supervisor restarts it on
+    a fresh engine from the same factory)."""
+    from deepspeed_tpu_torch.serving import (RequestState, ServingConfig,
+                                             ServingFrontend)
+
+    rng = np.random.default_rng(22)
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    prompts = [rng.integers(0, V, CHAOS_PROMPT).tolist()
+               for _ in range(CHAOS_REQUESTS)]
+    engine = serving_engine(model, params, CHAOS_KV_BLOCKS)
+    gap = feature_gap(engine, "serving chaos", ())
+    off = bare_run(engine, prompts, CHAOS_NEW, "chaos")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    def run(n_replicas, faulted):
+        log_ = PutLog(sync=False)
+
+        def factory(i):
+            # a restart builds (and warms) its engine mid-run: its puts
+            # are logged from the first, as its launches count
+            return serving_engine(model, params, CHAOS_KV_BLOCKS, log_)
+
+        scfg = ServingConfig(
+            max_queue_depth=64,
+            fault_tolerance={"enabled": True, "max_retries": 3,
+                             "restart_backoff_s": 0.05,
+                             "supervisor_poll_s": 0.02},
+            faults=({"enabled": True, "schedule": [
+                {"kind": "crash", "replica": 0,
+                 "at_step": CHAOS_CRASH_STEP}]} if faulted
+                else {"enabled": False}))
+        fe = ServingFrontend([factory(i) for i in range(n_replicas)], scfg,
+                             engine_factory=factory)
+        deaths = watch_deaths(fe)
+        check_replicas(fe, "chaos")
+        reset_launches()
+        log_.puts.clear()                   # the boot engines' warm-ups
+        t0 = time.perf_counter()
+        try:
+            handles = [fe.submit(p, max_new_tokens=CHAOS_NEW)
+                       for p in prompts]
+            done = fe.wait_all(handles, timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            deadline = time.monotonic() + 60
+            while faulted and not fe.supervisor.restart_log \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            deadline = time.monotonic() + 60
+            while any(r.state.value != "healthy"
+                      for r in fe.router.replicas) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            launches = pa.launches
+            snap = fe.metrics_snapshot()
+            check_replicas(fe, "chaos")
+            restarts = list(fe.supervisor.restart_log)
+            fired = [(k, r, i) for k, r, i, _ in
+                     (fe.injector.fired_events() if faulted else [])]
+        finally:
+            log_.close()
+            fe.shutdown(drain=False, timeout=5)
+        states = [h.state for h in handles]
+        attempts = [h.attempts for h in handles]
+        streams = [[ev.token for ev in h.drain()] for h in handles]
+        stats = frontend_stats(handles, log_, wall)
+        del handles, fe
+        if not done or any(s != RequestState.FINISHED for s in states):
+            raise AssertionError(f"[serving] chaos: states {states}")
+        if launches != L * len(log_.puts):
+            raise AssertionError(f"[serving] chaos: {launches} paged "
+                                 f"launches for {len(log_.puts)} puts")
+        return {"streams": streams, "snap": snap, "deaths": deaths,
+                "restarts": restarts, "fired": fired, "attempts": attempts,
+                "stats": stats}
+
+    one = run(1, False)
+    two = run(2, False)
+    chaos = run(2, True)
+    for name, r in (("one replica", one), ("two replicas", two)):
+        if r["deaths"] or r["restarts"] or r["snap"]["requests_failed"] \
+                or r["snap"]["requests_failed_over"]:
+            raise AssertionError(f"[serving] chaos {name}: deaths "
+                                 f"{r['deaths']}, restarts {r['restarts']}")
+        parity_rule(off, r, gap, f"serving chaos {name}")
+    snap = chaos["snap"]
+    retried = [i for i, a in enumerate(chaos["attempts"]) if a > 1]
+    if chaos["deaths"] != [("replica-0", "InjectedFault")] \
+            or chaos["fired"] != [("crash", 0, CHAOS_CRASH_STEP)] \
+            or len(chaos["restarts"]) != 1 or snap["requests_failed"] \
+            or snap["requests_failed_over"] < 1 or not retried:
+        raise AssertionError(
+            f"[serving] chaos: deaths {chaos['deaths']}, fired "
+            f"{chaos['fired']}, restarts {chaos['restarts']}, failed "
+            f"{snap['requests_failed']}, failed over "
+            f"{snap['requests_failed_over']}")
+    parity_rule(off, chaos, gap, "serving chaos faulted")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    pool = CHAOS_KV_BLOCKS * KV_BLOCK_BYTES_BF16
+    if mem1 - mem0 > pool:
+        raise AssertionError(f"[serving] chaos: {mem1 - mem0} bytes still "
+                             f"allocated after the cell (one pool is "
+                             f"{pool})")
+    recovery = chaos["restarts"][0]["recovery_s"]
+    ratio = two["stats"]["tokens_per_s"] / one["stats"]["tokens_per_s"]
+    log(f"[serving] chaos: the crash of replica 0 at step "
+        f"{CHAOS_CRASH_STEP} was the only death (InjectedFault); "
+        f"{int(snap['requests_failed_over'])} requests failed over, "
+        f"{len(retried)} retried, all finished (retry success 1.0); "
+        f"restarted in recovery_s {recovery:.4f}; memory after the cell "
+        f"{(mem1 - mem0) / 2**20:+.1f} MiB against before it")
+    log(f"[serving] chaos: tokens/s one replica "
+        f"{one['stats']['tokens_per_s']:.1f}, two "
+        f"{two['stats']['tokens_per_s']:.1f} ({ratio:.2f}x), two with the "
+        f"crash {chaos['stats']['tokens_per_s']:.1f}; puts "
+        f"{one['stats']['puts']} | {two['stats']['puts']} | "
+        f"{chaos['stats']['puts']}; p50 TTFT ms "
+        f"{one['stats']['ttft_p50_ms']:.1f} | "
+        f"{two['stats']['ttft_p50_ms']:.1f} | "
+        f"{chaos['stats']['ttft_p50_ms']:.1f}; TPOT ms "
+        f"{one['stats']['tpot_ms']:.2f} | {two['stats']['tpot_ms']:.2f} | "
+        f"{chaos['stats']['tpot_ms']:.2f} (puts not synchronized: the "
+        f"replicas share the card)")
+    return {"recovery_s": recovery, "two_over_one": ratio,
+            "failed_over": int(snap["requests_failed_over"]),
+            "one": one["stats"], "two": two["stats"],
+            "faulted": chaos["stats"], "mem_delta": mem1 - mem0}
+
+
+def serving_quant_obs(model, params):
+    """Cells 3 and 4: one replica with ``weight_quant`` (int8, block 128),
+    ``kv_quant`` int8, the prefix cache and reservation admission through
+    ``ServingConfig``, and telemetry and an SLO on: 8 requests on a
+    1024-token system prompt with 64-token tails, 16 new tokens (the first
+    alone, then the rest); then the observability checks and a cancel."""
+    from deepspeed_tpu_torch.serving import (RequestState, ServingConfig,
+                                             ServingFrontend)
+    from deepspeed_tpu_torch.telemetry import (trace_coverage,
+                                               validate_chrome_trace)
+
+    rng = np.random.default_rng(23)
+    cfg = model.cfg
+    V, L = cfg.vocab_size, cfg.num_layers
+    system = rng.integers(0, V, QCFG_SYS).tolist()
+    prompts = [system + rng.integers(0, V, QCFG_TAIL).tolist()
+               for _ in range(QCFG_REQUESTS)]
+    blocks = dict(weight_quant={"enabled": True, "dtype": "int8",
+                                "block": 128},
+                  kv_quant={"enabled": True, "dtype": "int8"},
+                  prefix_cache={"enabled": True},
+                  admission={"reservation": True})
+    scfg = ServingConfig(max_queue_depth=16, **blocks)
+    # the engine configured by hand with the calls the config makes
+    hand = serving_engine(model, params, SERVE_KV_BLOCKS)
+    wq = scfg.weight_quant
+    hand.configure_weight_quant(True, dtype=wq.dtype, block=wq.block,
+                                skip=list(wq.skip))
+    hand.configure_kv_quant(True, "int8", "block")
+    gap = feature_gap(hand, "serving int8", ())
+    hand.configure_prefix_cache(True, None)
+    hand.configure_admission(True)
+    off = bare_run(hand, prompts, QCFG_NEW, "int8 config", first_alone=True)
+    del hand
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dump_dir = tempfile.mkdtemp(prefix="serving_obs_")
+    engine = serving_engine(model, params, SERVE_KV_BLOCKS)
+    qz.launches["quantize"] = 0
+    fe = ServingFrontend([engine], ServingConfig(
+        max_queue_depth=16, **blocks,
+        telemetry={"enabled": True, "dump_dir": dump_dir},
+        slo={"enabled": True, "classes": {
+            "interactive": {"ttft_p95_ms": 2000.0}}}))
+    quantize_launches = qz.launches["quantize"]
+    want_q = 7 + (0 if cfg.tie_embeddings else 1)
+    qmm_per_put = 7 * L + (0 if cfg.tie_embeddings else 1)
+    try:
+        if quantize_launches != want_q or not engine.config.weight_quant_enabled:
+            raise AssertionError(f"[serving] int8 config: {quantize_launches} "
+                                 f"quantize launches at the build, want "
+                                 f"{want_q}")
+        deaths = watch_deaths(fe)
+        check_replicas(fe, "int8 config")
+        log_ = PutLog()
+        log_.attach(engine)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            handles = [fe.submit(prompts[0], max_new_tokens=QCFG_NEW)]
+            done = fe.wait_all(handles, timeout=600)
+            handles += [fe.submit(p, max_new_tokens=QCFG_NEW)
+                        for p in prompts[1:]]
+            done = done and fe.wait_all(handles, timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"paged_attention": pa.launches,
+                        "quantized_matmul": qz.launches["quantized_matmul"]}
+        finally:
+            log_.close()
+        if not done or any(h.state != RequestState.FINISHED for h in handles):
+            raise AssertionError("[serving] int8 config: not all finished")
+        n_puts = len(log_.puts)
+        if launches != {"paged_attention": L * n_puts,
+                        "quantized_matmul": qmm_per_put * n_puts}:
+            raise AssertionError(f"[serving] int8 config: launches "
+                                 f"{launches} for {n_puts} puts")
+        snap = fe.metrics_snapshot()
+        if snap["prefix_tokens_saved"] <= 0 or snap["requests_failed"] \
+                or deaths:
+            raise AssertionError(f"[serving] int8 config: prefix tokens "
+                                 f"saved {snap['prefix_tokens_saved']}, "
+                                 f"failed {snap['requests_failed']}, deaths "
+                                 f"{deaths}")
+        on = {"streams": [[ev.token for ev in h.drain()] for h in handles]}
+        fe_stats = frontend_stats(handles, log_, wall)
+        parity_rule(off, on, gap, "serving int8 config")
+
+        # observability: each request's span chain covers its TTFT
+        spans = fe.tracer.export()
+        covs = []
+        for h in handles:
+            req = h._req
+            chain = {s["name"]: s for s in spans
+                     if s["trace_id"] == req.trace_id}
+            stages = [chain[n] for n in ("queue", "route", "admit",
+                                         "prefill")]
+            covs.append(trace_coverage(stages, req.arrival_t,
+                                       req.first_token_t))
+        if min(covs) < 0.95:
+            raise AssertionError(f"[serving] span coverage of TTFT {covs}")
+        paths = fe.debug_dump()
+        with open(paths["chrome_trace"]) as fh:
+            problems = validate_chrome_trace(json.load(fh))
+        if problems:
+            raise AssertionError(f"[serving] debug dump trace: {problems}")
+        prom = fe.render_prometheus()
+        text = fe.health_report_text()
+        for want in ("serving_requests_completed", "serving_ttft_s_bucket",
+                     "serving_prefix_tokens_saved"):
+            if want not in prom:
+                raise AssertionError(f"[serving] {want} not in /metrics")
+        if "requests: submitted=" not in text or "slo " not in text:
+            raise AssertionError(f"[serving] health report:\n{text}")
+        # a request cancelled mid-stream gets its blocks back at once
+        long = fe.submit(system + rng.integers(0, V, QCFG_TAIL).tolist(),
+                         max_new_tokens=512)
+        deadline = time.monotonic() + 120
+        while len(long._req.generated_tokens) < 2 \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        t_cancel = time.perf_counter()
+        long.cancel()
+        if not long._req.wait(60) or long.state != RequestState.CANCELLED:
+            raise AssertionError(f"[serving] cancel: {long.state}")
+        deadline = time.monotonic() + 10
+        while engine.occupancy()["available_blocks"] \
+                != engine.config.kv_blocks and time.monotonic() < deadline:
+            time.sleep(0.001)
+        cancel_ms = (time.perf_counter() - t_cancel) * 1e3
+        occ = engine.occupancy()
+        if occ["available_blocks"] != engine.config.kv_blocks:
+            raise AssertionError(f"[serving] cancel left {occ}")
+        check_replicas(fe, "int8 config")
+        if deaths:
+            raise AssertionError(f"[serving] int8 config: deaths {deaths}")
+    finally:
+        fe.shutdown(drain=False, timeout=5)
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    log(f"[serving] int8 config: {quantize_launches} quantize launches at "
+        f"the build, launches {json.dumps(launches)} = ({L}, {qmm_per_put}) "
+        f"x {n_puts} puts; prefix tokens saved "
+        f"{int(snap['prefix_tokens_saved'])}; span coverage of TTFT "
+        f"min {min(covs):.4f}; debug-dump trace valid; /metrics "
+        f"{len(prom)} bytes, health report {len(text.splitlines())} lines; "
+        f"a cancel mid-stream freed every block in {cancel_ms:.1f} ms")
+    log_compare("int8 config", fe_stats, off["stats"])
+    del engine, handles, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"frontend": fe_stats, "bare": off["stats"],
+            "quantize_launches": quantize_launches, "launches": launches,
+            "puts": n_puts, "coverage_min": min(covs),
+            "cancel_ms": cancel_ms,
+            "prefix_tokens_saved": snap["prefix_tokens_saved"]}
+
+
+def phase_serving():
+    """The serving phase: ServingFrontend at full MISTRAL_7B width over
+    engines that share one bf16 weight tree — the burst cell, the chaos
+    cell, and the quantized-through-the-config cell with the observability
+    checks."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = MISTRAL_7B
+    log(f"[serving] MISTRAL_7B at full width, {cfg.num_layers} layers, "
+        "bf16, random weights from a seed, one tree shared by every engine")
+    model = CausalLM(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator("cuda").manual_seed(11),
+                        device="cuda", dtype=torch.bfloat16)
+    res = {}
+    t = time.perf_counter()
+    res["burst"] = serving_burst(model, params)
+    res["burst"]["cell_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["chaos"] = serving_chaos(model, params)
+    res["chaos"]["cell_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["quant"] = serving_quant_obs(model, params)
+    res["quant"]["cell_s"] = time.perf_counter() - t
+    log("[serving] cell seconds: "
+        + ", ".join(f"{k} {v['cell_s']:.1f}" for k, v in res.items()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------ v1 inference
 
 V1_NEW_TOKENS = 32
@@ -3781,11 +4401,64 @@ def tree_tensors(tree):
         yield tree
 
 
+def traced_train_step(first_loss):
+    """One ``train_batch`` of the train phase's configuration with the
+    ``telemetry`` block on: ``fwd_bwd`` spans (one a micro step) and an
+    ``optimizer_step`` span on the "train" trace, whose durations sum to
+    the synchronized step wall within 5%, and a loss equal to the untraced
+    run's first."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = {"input_ids": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, TRAIN_SEQ)).astype(np.int32)}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg),
+        config=dict(TRAIN_CONFIG, telemetry={"enabled": True}),
+        training_data=data)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = float(engine.train_batch())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    spans = engine.tracer.export()
+    names = sorted(s["name"] for s in spans)
+    total = sum(s["t_end"] - s["t_start"] for s in spans)
+    per = 2 * TRAIN_LAYERS
+    launches = dict(fa.launches)
+    if names != ["fwd_bwd", "fwd_bwd", "optimizer_step"] \
+            or {s["trace_id"] for s in spans} != {"train"}:
+        raise AssertionError(f"[train traced] spans {names}")
+    if abs(total - wall) > 0.05 * wall:
+        raise AssertionError(f"[train traced] spans sum to {total:.4f} s "
+                             f"of a {wall:.4f} s step")
+    if loss != first_loss:
+        raise AssertionError(f"[train traced] loss {loss} != the untraced "
+                             f"run's {first_loss}")
+    if launches != {"fwd": per, "delta": per, "dq": per, "dkv": per}:
+        raise AssertionError(f"[train traced] launches {launches}")
+    log(f"[train traced] one step with telemetry on: spans "
+        + ", ".join(f"{s['name']} {(s['t_end'] - s['t_start']) * 1e3:.1f} ms"
+                    for s in spans)
+        + f" sum to {total * 1e3:.1f} ms of a {wall * 1e3:.1f} ms "
+        f"synchronized step ({total / wall:.4f}); loss {loss:.6f} equals the "
+        f"untraced run's; launches {json.dumps(launches)}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"span_s": total, "step_s": wall, "loss": loss}
+
+
 def phase_train(profile_step=False):
     tiny_train_parity()
     res = run_training("train", TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS,
                        checks=True, profile_step=profile_step)
     run_training("train remat", 2, 2049, 1, remat=True)
+    res["traced"] = traced_train_step(res["losses"][0])
     return res
 
 
@@ -3816,7 +4489,8 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
-                                       "features", "kv_tier", "train"],
+                                       "features", "kv_tier", "serving",
+                                       "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--compare", action="store_true",
@@ -3849,8 +4523,8 @@ def main(argv=None):
         phase = {"timing": phase_timing, "main": phase_main,
                  "quant": phase_quant, "v1": phase_v1,
                  "features": phase_features, "kv_tier": phase_kv_tier,
-                 "train": phase_train}[args.only]
-        kw = {} if args.only in ("timing", "v1", "kv_tier") else {
+                 "serving": phase_serving, "train": phase_train}[args.only]
+        kw = {} if args.only in ("timing", "v1", "kv_tier", "serving") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -3861,6 +4535,7 @@ def main(argv=None):
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
     v1 = timed("v1", phase_v1)
     features = timed("features", phase_features, profile_puts=args.profile)
+    serving = timed("serving", phase_serving)
     train = timed("train", phase_train, profile_step=args.profile)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
@@ -3903,6 +4578,15 @@ def main(argv=None):
         f"{features['kv_tier bf16']['ttft_p50_ms']['on']:.1f}, int8 "
         f"{features['kv_tier int8']['ttft_p50_ms']['off']:.1f}/"
         f"{features['kv_tier int8']['ttft_p50_ms']['on']:.1f}")
+    b, c, q = serving["burst"], serving["chaos"], serving["quant"]
+    log(f"[serving] MISTRAL_7B through ServingFrontend: burst shed rate "
+        f"{b['shed_rate']:.4f}, p50/p95 TTFT {b['frontend']['ttft_p50_ms']:.1f}"
+        f"/{b['frontend']['ttft_p95_ms']:.1f} ms (bare scheduler "
+        f"{b['bare']['ttft_p50_ms']:.1f}/{b['bare']['ttft_p95_ms']:.1f}), "
+        f"tokens/s {b['frontend']['tokens_per_s']:.1f} (bare "
+        f"{b['bare']['tokens_per_s']:.1f}); chaos recovery_s "
+        f"{c['recovery_s']:.4f}, two replicas / one {c['two_over_one']:.2f}x; "
+        f"int8 config {q['puts']} puts, span coverage {q['coverage_min']:.4f}")
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

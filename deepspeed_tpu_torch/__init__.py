@@ -22,6 +22,12 @@ no CUDA and no explicit device they raise instead of dropping to the CPU.
                                                           "bits": 8}},
         params=params)
     out = engine.generate([[1, 2, 3], [4, 5]], max_new_tokens=32)
+
+``serving.ServingFrontend`` serves requests over v2 engines, one replica
+thread an engine::
+
+    fe = ServingFrontend([engine], ServingConfig(max_queue_depth=64))
+    tokens = [ev.token for ev in fe.submit(prompt).stream()]
 """
 
 from __future__ import annotations

@@ -44,6 +44,7 @@ callers' sake and are ignored: the CUDA kernels pick their own tiles.
 from __future__ import annotations
 
 import ctypes
+import threading
 import math
 
 import torch
@@ -54,6 +55,14 @@ NEG_INF = -1e30
 # run pins it; training never sets it).
 FORCE_REFERENCE = False
 launches = {"fwd": 0, "delta": 0, "dq": 0, "dkv": 0}
+_launch_lock = threading.Lock()
+
+
+def _count_launch(kernel: str) -> None:
+    """Add one to ``launches[kernel]`` under a lock, so the counts stay
+    exact when serving replica threads launch at once."""
+    with _launch_lock:
+        launches[kernel] += 1
 
 
 # ---------------------------------------------------------- plain versions
@@ -244,7 +253,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, window: int = 0, sm_scale=None):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), *_shape_args(q, k, causal, window, sm_scale))
     check(lib, err, "flash_attention_fwd")
-    launches["fwd"] += 1
+    _count_launch("fwd")
     return o, lse
 
 
@@ -264,7 +273,7 @@ def flash_delta_cuda(o, do):
              _DTYPE_CODE[o.dtype],
              torch.cuda.current_stream(o.device).cuda_stream)
     check(lib, err, "flash_attention_delta")
-    launches["delta"] += 1
+    _count_launch("delta")
     return delta
 
 
@@ -290,7 +299,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, window: int = 0,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              *_shape_args(q, k, causal, window, sm_scale))
     check(lib, err, "flash_attention_dq")
-    launches["dq"] += 1
+    _count_launch("dq")
     return dq
 
 
@@ -309,7 +318,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool, window: int = 0,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_shape_args(q, k, causal, window, sm_scale))
     check(lib, err, "flash_attention_dkv")
-    launches["dkv"] += 1
+    _count_launch("dkv")
     return dk, dv
 
 

@@ -24,13 +24,16 @@ Counterpart of ``deepspeed_tpu/ops/paged_attention.py``:
 
 ``launches`` counts the wrapper's kernel calls (a plain integer; set it to
 0 before a run and read it after): one a call, whichever route it takes
-(the split-KV route launches two kernels in that call).
+(the split-KV route launches two kernels in that call). The count is
+exact when serving replica threads launch at once: ``_count_launch``
+increments it under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -40,6 +43,15 @@ NEG_INF = -1e30
 # run pins it; serving never sets it).
 FORCE_REFERENCE = False
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to ``launches`` (a ``+=`` on a module global is not atomic
+    across threads)."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 # ----------------------------------------------------------- plain version
@@ -163,7 +175,6 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
     """Launch ``csrc/paged_attention.cu`` on CUDA tensors; raises on
     anything it does not take (no fallback). int8/float8_e4m3fn pools need
     their ``k_scale``/``v_scale`` [NB, KH] float32 planes."""
-    global launches
     N, C, H, D = q.shape
     NB, KH, bs, Dk = k_pool.shape
     MB = block_tables.shape[1]
@@ -246,7 +257,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, start_pos,
              _POOL_CODE[k_pool.dtype] if quant else 0, route,
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "paged_attention_fwd")
-    launches += 1
+    _count_launch()
     return out
 
 

@@ -36,6 +36,7 @@ only. ``launches`` counts each kernel's wrapper calls that launched it.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -47,6 +48,14 @@ FP8_MAX = 448.0
 # run pins it; serving never sets it).
 FORCE_REFERENCE = False
 launches = {"quantize": 0, "quantized_matmul": 0, "dequantize": 0}
+_launch_lock = threading.Lock()
+
+
+def _count_launch(kernel: str) -> None:
+    """Add one to ``launches[kernel]`` under a lock, so the counts stay
+    exact when serving replica threads launch at once."""
+    with _launch_lock:
+        launches[kernel] += 1
 
 _Q_DTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
@@ -216,7 +225,7 @@ def quantize_cuda(x, bits: int, block: int, dtype: str = "int8"):
              bits, _X_CODE[x.dtype], _Q_CODE[q.dtype], route,
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "quantize")
-    launches["quantize"] += 1
+    _count_launch("quantize")
     return q, s
 
 
@@ -256,7 +265,7 @@ def dequantize_cuda(q, scales, block: int, dtype=torch.float32):
     err = fn(q2.data_ptr(), s2.data_ptr(), out.data_ptr(), rows, n, block,
              _OUT_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "dequantize")
-    launches["dequantize"] += 1
+    _count_launch("dequantize")
     return out
 
 
@@ -345,7 +354,7 @@ def quantized_matmul_cuda(x, q, scales, block: int, out_dtype):
              _Q_CODE[q.dtype], _X_CODE[out_dtype],
              torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "quantized_matmul")
-    launches["quantized_matmul"] += 1
+    _count_launch("quantized_matmul")
     return out
 
 

@@ -9,9 +9,11 @@ models. Every block is parsed. The blocks whose feature the port does not
 run yet stay in the config, and ``DeepSpeedTpuConfig.raise_if_not_ported``
 (called by the engine) raises ``NotImplementedError`` naming the ROADMAP
 item when one of them is switched on: nothing is silently ignored. The
-serving-side blocks (``serving``, ``prefix_cache``, ``kv_quant``, ...) are
-kept as plain dicts here; the port's ragged engine takes its own
-``RaggedInferenceEngineConfig``.
+serving blocks (``serving`` and its flat aliases ``prefix_cache``,
+``speculative``, ``kv_quant``, ``weight_quant``, ``kv_tier``,
+``admission``) are the typed blocks of ``serving/config.py``, and
+``telemetry`` is ``telemetry/config.py``'s ``TelemetryConfig``: the
+training engine builds its tracer from it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ import torch
 
 from .. import not_ported
 from ..utils.logging import logger
+from ..serving.config import (AdmissionConfig, KVQuantConfig, KVTierConfig,
+                              PrefixCacheConfig, ServingConfig,
+                              SpeculativeConfig, WeightQuantConfig)
+from ..telemetry.config import TelemetryConfig
 from .config_utils import (AUTO, DSConfigModel,  # noqa: F401
                            dict_raise_error_on_duplicate_keys)
 
@@ -353,16 +359,19 @@ class DeepSpeedTpuConfig(DSConfigModel):
     autotuning: AutotuningConfig = field(default_factory=AutotuningConfig)
     hybrid_engine: HybridEngineConfig = field(
         default_factory=HybridEngineConfig)
-    # blocks of the serving stack, the telemetry and the training
-    # supervisor: parsed as plain dicts until their modules are ported
-    serving: Dict[str, Any] = field(default_factory=dict)
-    prefix_cache: Dict[str, Any] = field(default_factory=dict)
-    speculative: Dict[str, Any] = field(default_factory=dict)
-    kv_quant: Dict[str, Any] = field(default_factory=dict)
-    weight_quant: Dict[str, Any] = field(default_factory=dict)
-    kv_tier: Dict[str, Any] = field(default_factory=dict)
-    admission: Dict[str, Any] = field(default_factory=dict)
-    telemetry: Dict[str, Any] = field(default_factory=dict)
+    # request-serving layer (serving/, docs/SERVING.md)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    # the engine-level serving blocks, also reachable under ``serving``
+    prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
+    speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
+    kv_quant: KVQuantConfig = field(default_factory=KVQuantConfig)
+    weight_quant: WeightQuantConfig = field(default_factory=WeightQuantConfig)
+    kv_tier: KVTierConfig = field(default_factory=KVTierConfig)
+    admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+    # unified telemetry (docs/OBSERVABILITY.md): training step spans here;
+    # serving request tracing via ``serving.telemetry``
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    # the training supervisor: parsed as a plain dict until ported
     resilience: Dict[str, Any] = field(default_factory=dict)
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
@@ -481,16 +490,10 @@ class DeepSpeedTpuConfig(DSConfigModel):
              "queue 1 item 17"),
             (_dict_block_on(self.data_efficiency), "data_efficiency",
              "queue 1 item 17"),
-            (_dict_block_on(self.telemetry), "telemetry", "queue 1 item 10"),
             (_dict_block_on(self.resilience) or bool(
                 self.resilience.get("faults")), "resilience",
              "queue 1 item 13"),
         ]
-        for name in ("serving", "prefix_cache", "speculative", "kv_quant",
-                     "weight_quant", "kv_tier", "admission"):
-            checks.append((_dict_block_on(getattr(self, name)),
-                           f"the {name} block of the serving stack",
-                           "queue 1 item 10"))
         for on, what, item in checks:
             if on:
                 raise not_ported(what, item)

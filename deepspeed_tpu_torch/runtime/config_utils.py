@@ -7,7 +7,8 @@ the config system relies on: construction from keyword arguments, nested
 dicts turned into their typed sub-blocks, ``None`` replaced by the field's
 default, unknown keys kept as plain attributes (pydantic ``extra="allow"``),
 values checked against the annotated type, ``to_dict`` round-tripping, and
-``model_fields_set`` naming the keys the caller gave. A field may carry an
+``model_fields_set`` naming the keys the caller gave, and an ``_after``
+hook for the checks pydantic's validators make. A field may carry an
 alias (``field(..., metadata={"alias": "tp"})``): the block is populated by
 the field's name or by its alias, as pydantic's ``Field(alias=...)`` with
 ``populate_by_name`` does, and ``to_dict`` writes the name.
@@ -55,6 +56,14 @@ def _coerce(hint, value, where: str):
         if not isinstance(value, want):
             raise ValueError(f"{where}: expected {origin.__name__}, got "
                              f"{type(value).__name__}")
+        args = typing.get_args(hint)
+        if origin is dict and len(args) == 2:
+            return {_coerce(args[0], k, where): _coerce(args[1], v,
+                                                       f"{where}[{k!r}]")
+                    for k, v in value.items()}
+        if origin is list and len(args) == 1:
+            return [_coerce(args[0], v, f"{where}[{i}]")
+                    for i, v in enumerate(value)]
         return origin(value)
     if isinstance(hint, type):
         if issubclass(hint, DSConfigModel):
@@ -121,6 +130,12 @@ class DSConfigModel:
             object.__setattr__(self, k, v)
         object.__setattr__(self, "model_extra", extra)
         object.__setattr__(self, "model_fields_set", set(data))
+        self._after()
+
+    def _after(self) -> None:
+        """Hook run on the built block (pydantic's ``field_validator`` and
+        ``model_validator(mode="after")``): raise ``ValueError`` to refuse
+        the block, or normalise fields in place."""
 
     @classmethod
     def _before(cls, data: dict) -> dict:

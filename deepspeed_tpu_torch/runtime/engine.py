@@ -162,7 +162,14 @@ class DeepSpeedTpuEngine:
             steps_per_output=self.config.steps_per_print,
             monitor_memory=self.config.memory_breakdown)
         self.tput_timer.flops_per_sample = 0.0   # the flops profiler's job
-        self._profile_steps = bool(self.config.wall_clock_breakdown)
+        # step profiling (docs/OBSERVABILITY.md "Step profiling"):
+        # wall_clock_breakdown or an enabled telemetry block brackets
+        # fwd+bwd and the optimizer step with synchronized timers (a device
+        # sync per bracket, so real device time is measured) and records
+        # matching spans on the tracer ("train" trace)
+        self.tracer = self.config.telemetry.build_tracer()
+        self._profile_steps = bool(self.config.wall_clock_breakdown
+                                   or self.config.telemetry.enabled)
 
         log_dist(
             f"DeepSpeedTpuEngine ready: device={self.device} "
@@ -372,8 +379,11 @@ class DeepSpeedTpuEngine:
         if self._profile_steps:
             fwd_timer = self.timers(FORWARD_MICRO_TIMER)
             fwd_timer.start()
+            span = self.tracer.begin("fwd_bwd", trace_id="train",
+                                     attrs={"micro_step": self.micro_steps})
             loss = self._micro(batch)
             fwd_timer.stop(record=True)
+            span.end()
         else:
             loss = self._micro(batch)
         self._pending_loss = loss
@@ -411,9 +421,14 @@ class DeepSpeedTpuEngine:
         if self._profile_steps:
             step_timer = self.timers(STEP_GLOBAL_TIMER)
             step_timer.start()
+            opt_span = self.tracer.begin(
+                "optimizer_step", trace_id="train",
+                attrs={"global_step": self.global_steps})
         metrics = self._update()
         if self._profile_steps:
-            step_timer.stop(record=True)
+            step_timer.stop(record=True)   # synced: real update duration
+            opt_span.set("skipped",
+                         bool(metrics.get("overflow", False))).end()
         if pre_scan is not None \
                 and not np.isfinite(float(metrics["grad_norm"])):
             raise FloatingPointError(

@@ -294,14 +294,12 @@ def _leaf_items(d, prefix=""):
 
 
 def test_config_defaults_equal_the_jax_package():
-    """Every field the two configs share has the same default; the blocks
-    the port keeps as plain dicts (serving stack, telemetry, resilience)
-    default to empty."""
+    """Every field the two configs share has the same default, the typed
+    serving and telemetry blocks included; the block the port keeps as a
+    plain dict (resilience) defaults to empty."""
     from deepspeed_tpu.runtime import config as jconfig
 
-    as_dicts = ("serving", "prefix_cache", "speculative", "kv_quant",
-                "weight_quant", "kv_tier", "admission", "telemetry",
-                "resilience")
+    as_dicts = ("resilience",)
     jd = jconfig.DeepSpeedTpuConfig().model_dump(mode="json")
     td = tconfig.DeepSpeedTpuConfig().to_dict()
     assert set(td) == set(jd)
@@ -371,17 +369,61 @@ NOT_PORTED = {
     "monitor": ({"csv_monitor": {"enabled": True}}, "item 17"),
     "flops-profiler": ({"flops_profiler": {"enabled": True}}, "item 17"),
     "hybrid-engine": ({"hybrid_engine": {"enabled": True}}, "item 17"),
-    "telemetry": ({"telemetry": {"enabled": True}}, "item 10"),
     "resilience": ({"resilience": {"enabled": True}}, "item 13"),
-    "serving": ({"serving": {"prefix_cache": {"enabled": True}}}, "item 10"),
+}
+
+# blocks that parsed into a raise before the serving stack and the rest of
+# telemetry were ported; they now parse into their typed blocks
+PORTED_BLOCKS = {
+    "telemetry": {"telemetry": {"enabled": True}},
+    "serving": {"serving": {"prefix_cache": {"enabled": True}}},
 }
 
 
-@pytest.mark.parametrize("name", list(NOT_PORTED))
+@pytest.mark.parametrize("name", list(NOT_PORTED) + list(PORTED_BLOCKS))
 def test_not_ported_block_raises(name):
+    if name in PORTED_BLOCKS:
+        block = PORTED_BLOCKS[name]
+        eng = _port_engine({"train_batch_size": 2, **block})
+        ref = deepspeed_tpu.runtime.config.DeepSpeedTpuConfig(**block)
+        key = next(iter(block))
+        assert getattr(eng.config, key).to_dict() == \
+            getattr(ref, key).model_dump()
+        return
     block, item = NOT_PORTED[name]
     with pytest.raises(NotImplementedError, match=item):
         _port_engine({"train_batch_size": 2, **block})
+
+
+def _timeless_spans(spans):
+    return [{k: v for k, v in s.items() if k not in ("t_start", "t_end",
+                                                      "tid")}
+            for s in spans]
+
+
+def test_telemetry_step_spans_match_jax_engine():
+    """An enabled ``telemetry`` block records ``fwd_bwd`` spans a micro
+    step and ``optimizer_step`` spans a global step on the ``"train"``
+    trace, as the JAX engine does (names, ids, parents and attributes;
+    times left out), and leaves the losses as they are untraced."""
+    cfg = {**BASE, "gradient_accumulation_steps": 2,
+           "gradient_clipping": 1.0, "telemetry": {"enabled": True}}
+    je, te = _engines(cfg)
+    plain = _engines({**BASE, "gradient_accumulation_steps": 2,
+                      "gradient_clipping": 1.0})[1]
+    assert te.tracer.enabled and not plain.tracer.enabled
+    for _ in range(3):
+        jl, tl, pl = je.train_batch(), te.train_batch(), plain.train_batch()
+        np.testing.assert_allclose(float(tl), float(jl), atol=1e-5,
+                                   rtol=1e-5)
+        assert float(tl) == float(pl)
+    spans = te.tracer.export()
+    assert _timeless_spans(spans) == _timeless_spans(je.tracer.export())
+    names = [s["name"] for s in spans]
+    assert names.count("fwd_bwd") == 6 and names.count("optimizer_step") == 3
+    assert {s["trace_id"] for s in spans} == {"train"}
+    assert all(s["t_end"] >= s["t_start"] for s in spans)
+    assert plain.tracer.export() == []
 
 
 def test_not_ported_engine_surfaces_raise():
