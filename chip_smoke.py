@@ -132,14 +132,36 @@ Phases, each of which raises on failure (nothing is caught):
              (8 quantize launches at the build, 225 quantized-matmul
              launches a put, prefix tokens saved, each request's span chain
              covering its TTFT, a valid debug-dump trace, the Prometheus
-             text and health report, a cancel that frees every block).
+             text and health report, a cancel that frees every block);
+             then item 10b's cells: 16 requests (prompts of 64-2048
+             tokens, 32 new) through a prefill and a decode replica with
+             the KV handoff, bf16 and with int8 weights + int8 KV (16
+             handoffs, 0 fallbacks; the prefill replica feeds each prompt
+             token once, the decode replica only one-token rows over the
+             blocks it imported), beside one and two mixed replicas, and
+             with 2 staging slots (counted fallbacks); tenants gold and
+             silver (weights 2:1) flooding one replica with a capped
+             tenant over its token rate (submitted = completed + shed +
+             expired per tenant, tenant_throttled fires; the dispatched
+             token share while both floods were backlogged); 6 system
+             prompts of 1024 tokens sent 4 times to two replicas with
+             prefix affinity off and on, then add_replica() with warm-up
+             and a first shared-prefix request that matches the warmed
+             blocks; the autoscaler growing on a burst and shrinking near
+             its tail with evacuation (its decision log equal to the
+             journal, memory back within one pool), and an explicit
+             set_replica_role of a prefill replica mid-traffic.
              Each run's counts are set to 0 just before it and read after:
              32 paged launches a put; every stream holds to the same
              prompts through a bare scheduler by the greedy-parity rule;
              no replica dies outside the chaos run and no replica's params
              require grad. Prints TTFT, TPOT and tokens/s beside the bare
              scheduler's, recovery_s and two replicas' tokens/s against
-             one's.
+             one's, the split fleet's against one and two mixed replicas,
+             handoff_s and payload bytes, the tenants' shares and TTFTs,
+             prefix hit rates off and on, warm-up blocks and time, and the
+             autoscaler's grow-decision-to-serving time and
+             replica_seconds.
 10. train  — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
@@ -3769,11 +3791,677 @@ def serving_quant_obs(model, params):
             "prefix_tokens_saved": snap["prefix_tokens_saved"]}
 
 
+# The item 10b cells: disaggregated prefill/decode with the KV handoff,
+# multi-tenant fair share, prefix-affinity routing with warm-up, and the
+# elastic autoscaler, each over engines that share the one bf16 tree.
+DISAGG_REQUESTS, DISAGG_NEW = 16, 32
+DISAGG_KV_BLOCKS = 1536             # 8 x (2048 + 32) tokens at once; 3 GiB
+TENANT_PROMPT, TENANT_NEW = 256, 16
+TENANT_FLOOD, TENANT_CAPPED = 24, 8          # gold and silver; capped
+TENANT_RATE = 100.0                 # capped's tokens/s: 4 requests a window
+AFFINITY_SYS, AFFINITY_TAIL, AFFINITY_NEW = 1024, 32, 16
+AFFINITY_PREFIXES, AFFINITY_REPEATS = 6, 4
+SCALE_REQUESTS, SCALE_PROMPT, SCALE_NEW = 16, 512, 64
+
+
+def disagg_prompts(V):
+    """16 prompt lengths spread over 64-2048 (none one past a multiple of
+    the 256-token chunk, so every prompt put carries a chunk longer than
+    one token), shuffled."""
+    rng = np.random.default_rng(24)
+    lens = [int(n) + (1 if int(n) % 256 == 1 else 0)
+            for n in np.linspace(64, 2048, DISAGG_REQUESTS)]
+    rng.shuffle(lens)
+    return [rng.integers(0, V, n).tolist() for n in lens]
+
+
+def payload_bytes(payload):
+    """Host bytes of one staged handoff: every slab and scale plane (whole
+    or chunked form) and ``last_logits``."""
+    slabs = list((payload.get("slabs") or {}).values())
+    for chunk in payload.get("chunks") or ():
+        slabs += list(chunk.values())
+    total = sum(t.numel() * t.element_size() if torch.is_tensor(t)
+                else np.asarray(t).nbytes for t in slabs)
+    return total + np.asarray(payload["last_logits"]).nbytes
+
+
+def frontend_run(fe, prompts, new_tokens, label, logs, **submit_kw):
+    """Submit ``prompts`` at once through ``fe`` and wait; the launch
+    counts are set to 0 just before and read just after. ``logs`` maps a
+    name to the PutLog of each engine (unsynchronized: the replicas share
+    the card). Fails unless every request finished, none failed, no
+    replica died and the paged kernel ran once per layer and put."""
+    from deepspeed_tpu_torch.serving import RequestState
+
+    deaths = watch_deaths(fe)
+    for log_ in logs.values():
+        log_.puts.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = [fe.submit(p, max_new_tokens=new_tokens, **submit_kw)
+               for p in prompts]
+    done = fe.wait_all(handles, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pa.launches,
+                "quantized_matmul": qz.launches["quantized_matmul"]}
+    snap = fe.metrics_snapshot()
+    states = [h.state for h in handles]
+    if not done or any(s != RequestState.FINISHED for s in states) \
+            or snap["requests_failed"] or deaths:
+        raise AssertionError(f"[serving] {label}: states {states}, failed "
+                             f"{snap['requests_failed']}, deaths {deaths}")
+    L = fe.router.replicas[0].engine.model.cfg.num_layers
+    puts = {k: len(v.puts) for k, v in logs.items()}
+    if launches["paged_attention"] != L * sum(puts.values()):
+        raise AssertionError(f"[serving] {label}: launches {launches} for "
+                             f"puts {puts}")
+    stats = frontend_stats(handles, next(iter(logs.values())), wall)
+    stats["puts"] = sum(puts.values())
+    return {"streams": [[ev.token for ev in h.drain()] for h in handles],
+            "handles": handles, "snap": snap, "launches": launches,
+            "puts": puts, "stats": stats}
+
+
+def disagg_run(engines, prompts, label, quant=False,
+               max_staged=DISAGG_REQUESTS, decode_seqs=None):
+    """One disaggregated frontend, replica 0 prefill and replica 1 decode,
+    over ``engines`` (built fresh for the int8 run, whose config quantizes
+    them); ``decode_seqs`` caps the decode replica's concurrent sequences
+    for this run. Returns the run with each staged payload's bytes."""
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    seqs = engines[1].config.max_ragged_sequence_count
+    if decode_seqs is not None:
+        engines[1].config.max_ragged_sequence_count = decode_seqs
+    blocks = (dict(weight_quant={"enabled": True, "dtype": "int8",
+                                 "block": 128},
+                   kv_quant={"enabled": True, "dtype": "int8"})
+              if quant else {})
+    logs = {"prefill": PutLog(sync=False), "decode": PutLog(sync=False)}
+    qz.launches["quantize"] = 0
+    fe = ServingFrontend(engines, ServingConfig(
+        max_queue_depth=64, disaggregation={
+            "enabled": True, "roles": ["prefill", "decode"],
+            "handoff": {"enabled": True, "max_staged": max_staged}},
+        **blocks))
+    quantize_launches = qz.launches["quantize"]
+    sizes, copies = [], {"export": [], "import": []}
+    imported = {}
+    real_stage = fe._stager.try_stage
+
+    def stage(req, payload):
+        sizes.append(payload_bytes(payload))
+        return real_stage(req, payload)
+    fe._stager.try_stage = stage
+
+    def timed(engine, name):
+        real = getattr(engine, f"{name}_sequence")
+
+        def call(uid, *a, **kw):
+            t = time.monotonic()
+            out = real(uid, *a, **kw)
+            copies[name].append(time.monotonic() - t)
+            if name == "import":
+                imported[uid] = t
+            return out
+        setattr(engine, f"{name}_sequence", call)
+    timed(engines[0], "export")
+    timed(engines[1], "import")
+    try:
+        logs["prefill"].attach(engines[0])
+        logs["decode"].attach(engines[1])
+        check_replicas(fe, label)
+        if [r.role for r in fe.router.replicas] != ["prefill", "decode"]:
+            raise AssertionError(f"[serving] {label}: roles")
+        run = frontend_run(fe, prompts, DISAGG_NEW, label, logs)
+        check_replicas(fe, label)
+    finally:
+        for log_ in logs.values():
+            log_.close()
+        fe.shutdown(drain=False, timeout=5)
+        engines[1].config.max_ragged_sequence_count = seqs
+        del engines[0].export_sequence, engines[1].import_sequence
+    for eng in engines:
+        occ = eng.occupancy()
+        if occ["available_blocks"] != eng.config.kv_blocks:
+            raise AssertionError(f"[serving] {label}: {occ} after shutdown")
+    # staging to the start of the import: the wait for a decode slot
+    waits = [imported[h._req.uid] - h._req.handoff_t
+             for h in run["handles"] if h._req.uid in imported]
+    run.update(sizes=sizes, quantize_launches=quantize_launches,
+               journal=fe.journal.events(), copies=copies, waits=waits,
+               pre_puts=logs["prefill"].puts, dec_puts=logs["decode"].puts)
+    return run
+
+
+def check_handoff_split(run, prompts, label, quant, cfg):
+    """Every request handed off once with no fallback; the prefill replica
+    fed each prompt token once and nothing else, the decode replica only
+    one-token decode rows, one a new token (the scheduler feeds each token
+    in the put that samples it; the first is sampled from the handed-off
+    ``last_logits``); 32 paged launches a put on each, and with int8
+    weights 225 quantized-matmul launches a put."""
+    snap, n = run["snap"], len(prompts)
+    if not (snap["handoffs_started"] == snap["handoffs_completed"] == n
+            and snap["handoff_fallbacks"] == 0 and len(run["sizes"]) == n):
+        raise AssertionError(
+            f"[serving] {label}: handoffs started "
+            f"{snap['handoffs_started']}, completed "
+            f"{snap['handoffs_completed']}, fallbacks "
+            f"{snap['handoff_fallbacks']}, staged {len(run['sizes'])}")
+    pre_tokens = sum(t for t, _, _ in run["pre_puts"])
+    dec_rows = [(t, is_pre) for t, is_pre, _ in run["dec_puts"]]
+    if pre_tokens != sum(map(len, prompts)) \
+            or any(is_pre for _, is_pre in dec_rows) \
+            or sum(t for t, _ in dec_rows) != n * DISAGG_NEW:
+        raise AssertionError(
+            f"[serving] {label}: prefill replica fed {pre_tokens} tokens "
+            f"(prompts {sum(map(len, prompts))}); decode replica "
+            f"{sum(t for t, _ in dec_rows)} tokens in {len(dec_rows)} "
+            f"puts, {sum(1 for _, p in dec_rows if p)} with prompt chunks")
+    n_puts = run["stats"]["puts"]
+    want_qmm = ((7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1))
+                * n_puts if quant else 0)
+    if run["launches"]["quantized_matmul"] != want_qmm:
+        raise AssertionError(f"[serving] {label}: launches "
+                             f"{run['launches']}, want {want_qmm} qmm")
+
+
+def serving_disagg(model, params):
+    """Cell 5: 16 requests, prompts of 64-2048 tokens, 32 new tokens each,
+    through a prefill and a decode replica with the KV handoff (staging for
+    16), bf16 and again with int8 weights + int8 KV; beside one and two
+    mixed replicas on the same prompts; and 8 requests of 64 tokens, all
+    prefilled in one put, with 2 staging slots before a decode replica
+    that takes one sequence at a time, so that the finished prompts
+    overflow the buffer into counted fallbacks (re-prefilled on the decode
+    replica)."""
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    V = model.cfg.vocab_size
+    prompts = disagg_prompts(V)
+    e0 = serving_engine(model, params, DISAGG_KV_BLOCKS)
+    e1 = serving_engine(model, params, DISAGG_KV_BLOCKS)
+    gap = feature_gap(e0, "serving disagg", ())
+    off = bare_run(e0, prompts, DISAGG_NEW, "disagg")
+    mixed = {}
+    for n in (1, 2):
+        logs = {f"r{i}": PutLog(sync=False) for i in range(n)}
+        fe = ServingFrontend([e0, e1][:n], ServingConfig(max_queue_depth=64))
+        try:
+            for i, eng in enumerate([e0, e1][:n]):
+                logs[f"r{i}"].attach(eng)
+            mixed[n] = frontend_run(fe, prompts, DISAGG_NEW,
+                                    f"disagg mixed x{n}", logs)
+        finally:
+            for log_ in logs.values():
+                log_.close()
+            fe.shutdown(drain=False, timeout=5)
+        parity_rule(off, mixed[n], gap, f"serving disagg mixed x{n}")
+    bf16 = disagg_run([e0, e1], prompts, "disagg bf16")
+    check_handoff_split(bf16, prompts, "disagg bf16", False, model.cfg)
+    parity_rule(off, bf16, gap, "serving disagg bf16")
+    short = [p[:64] for p in prompts[:8]]
+    off_short = bare_run(e0, short, DISAGG_NEW, "disagg overflow")
+    over = disagg_run([e0, e1], short, "disagg overflow", max_staged=2,
+                      decode_seqs=1)
+    snap = over["snap"]
+    fallbacks = [e["detail"]["where"] for e in over["journal"]
+                 if e["kind"] == "handoff_fallback"]
+    if snap["handoff_fallbacks"] < 1 \
+            or snap["handoffs_started"] != snap["handoffs_completed"] \
+            or snap["handoffs_completed"] + snap["handoff_fallbacks"] != 8 \
+            or fallbacks != ["staging_full"] * len(fallbacks) \
+            or len(fallbacks) != snap["handoff_fallbacks"]:
+        raise AssertionError(f"[serving] disagg overflow: fallbacks "
+                             f"{fallbacks}, {snap}")
+    parity_rule(off_short, over, gap, "serving disagg overflow")
+    del e0, e1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hand = serving_engine(model, params, DISAGG_KV_BLOCKS)
+    hand.configure_weight_quant(True, dtype="int8", block=128, skip=[])
+    hand.configure_kv_quant(True, "int8", "block")
+    gap8 = feature_gap(hand, "serving disagg int8", ())
+    off8 = bare_run(hand, prompts, DISAGG_NEW, "disagg int8")
+    del hand
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = [serving_engine(model, params, DISAGG_KV_BLOCKS)
+               for _ in range(2)]
+    int8 = disagg_run(engines, prompts, "disagg int8", quant=True)
+    want_q = 2 * (7 + (0 if model.cfg.tie_embeddings else 1))
+    if int8["quantize_launches"] != want_q:
+        raise AssertionError(f"[serving] disagg int8: "
+                             f"{int8['quantize_launches']} quantize launches "
+                             "at the build of two engines")
+    check_handoff_split(int8, prompts, "disagg int8", True, model.cfg)
+    parity_rule(off8, int8, gap8, "serving disagg int8")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def row(r):
+        s = r["stats"]
+        return (f"p50/p95 TTFT {s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f}"
+                f" ms, TPOT {s['tpot_ms']:.2f} ms, {s['tokens_per_s']:.1f} "
+                f"tokens/s, {s['puts']} puts")
+    for name, r in (("one mixed replica", mixed[1]),
+                    ("two mixed replicas", mixed[2]),
+                    ("prefill + decode bf16", bf16),
+                    ("prefill + decode int8", int8)):
+        log(f"[serving] disagg {name}: {row(r)}")
+    res = {"bare": off["stats"], "mixed1": mixed[1]["stats"],
+           "mixed2": mixed[2]["stats"]}
+    for name, r in (("bf16", bf16), ("int8", int8)):
+        ms = {k: np.percentile(np.asarray(v) * 1e3, (50, 95)).tolist()
+              for k, v in (("export", r["copies"]["export"]),
+                           ("import", r["copies"]["import"]),
+                           ("wait", r["waits"]))}
+        res[name] = dict(r["stats"], handoff_ms=ms,
+                         payload_bytes_mean=float(np.mean(r["sizes"])),
+                         puts_prefill=len(r["pre_puts"]),
+                         puts_decode=len(r["dec_puts"]),
+                         launches=r["launches"])
+        log(f"[serving] disagg {name}: {DISAGG_REQUESTS} handoffs, 0 "
+            f"fallbacks; p50/p95 ms: export "
+            f"{ms['export'][0]:.2f}/{ms['export'][1]:.2f}, staged until the "
+            f"import {ms['wait'][0]:.2f}/{ms['wait'][1]:.2f}, import "
+            f"{ms['import'][0]:.2f}/{ms['import'][1]:.2f} (handoff_s, staged"
+            f" to imported, is their sum); payload bytes a request mean "
+            f"{np.mean(r['sizes']):.0f} (min {min(r['sizes'])}, max "
+            f"{max(r['sizes'])}); puts prefill replica "
+            f"{len(r['pre_puts'])}, decode replica {len(r['dec_puts'])}; "
+            f"launches {json.dumps(r['launches'])}")
+    res["overflow"] = {k: over["snap"][k] for k in (
+        "handoffs_started", "handoffs_completed", "handoff_fallbacks")}
+    log(f"[serving] disagg overflow (8 requests, 2 staging slots, one "
+        f"decode sequence at a time): "
+        f"{json.dumps(res['overflow'])}; every stream held")
+    return res
+
+
+def serving_tenancy(model, params):
+    """Cell 6: one replica, tenants gold (weight 2) and silver (weight 1)
+    flood 24 requests each (256-token prompts, 16 new tokens) at once,
+    then tenant capped (weight 1, 100 tokens/s, below what it offers)
+    sends 8."""
+    from deepspeed_tpu_torch.serving import (Rejected, RequestState,
+                                             ServingConfig, ServingFrontend)
+
+    rng = np.random.default_rng(25)
+    V = model.cfg.vocab_size
+    plan = (["gold"] * TENANT_FLOOD + ["silver"] * TENANT_FLOOD
+            + ["capped"] * TENANT_CAPPED)
+    prompts = [rng.integers(0, V, TENANT_PROMPT).tolist() for _ in plan]
+    engine = serving_engine(model, params, SERVE_KV_BLOCKS)
+    gap = feature_gap(engine, "serving tenancy", ())
+    off = bare_run(engine, prompts, TENANT_NEW, "tenancy")
+    tenants = {"gold": {"weight": 2.0}, "silver": {"weight": 1.0},
+               "capped": {"weight": 1.0, "token_rate": TENANT_RATE}}
+    fe = ServingFrontend([engine], ServingConfig(max_queue_depth=128,
+                                                 tenants=tenants))
+    logs = {"r0": PutLog(sync=False)}
+    logs["r0"].attach(engine)
+    deaths = watch_deaths(fe)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        handles, shed = [], {t: 0 for t in tenants}
+        for t, p in zip(plan, prompts):
+            try:
+                handles.append((t, fe.submit(p, max_new_tokens=TENANT_NEW,
+                                             tenant=t)))
+            except Rejected:
+                shed[t] += 1
+        done = fe.wait_all([h for _, h in handles], timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pa.launches
+        snap = fe.metrics_snapshot()
+        books = fe.health_report()["tenants"]
+        throttled = [e["detail"] for e in fe.journal.events()
+                     if e["kind"] == "tenant_throttled"]
+    finally:
+        logs["r0"].close()
+        fe.shutdown(drain=False, timeout=5)
+    L = model.cfg.num_layers
+    if not done or deaths or snap["requests_failed"] \
+            or launches != L * len(logs["r0"].puts):
+        raise AssertionError(f"[serving] tenancy: done {done}, deaths "
+                             f"{deaths}, launches {launches}")
+    per = {}
+    for t in tenants:
+        hs = [h for u, h in handles if u == t]
+        per[t] = {"submitted": plan.count(t),
+                  "completed": sum(h.state == RequestState.FINISHED
+                                   for h in hs),
+                  "expired": sum(h.state == RequestState.EXPIRED
+                                 for h in hs),
+                  "shed": shed[t]}
+        if per[t]["submitted"] != (per[t]["completed"] + per[t]["shed"]
+                                   + per[t]["expired"]) \
+                or snap[f"requests_submitted_tenant_{t}"] \
+                != per[t]["submitted"]:
+            raise AssertionError(f"[serving] tenancy {t}: {per[t]}")
+        ttft = [(h._req.first_token_t - h._req.arrival_t) * 1e3 for h in hs
+                if h.state == RequestState.FINISHED]
+        per[t]["ttft_p50_ms"] = float(np.percentile(ttft, 50))
+        per[t]["ttft_p95_ms"] = float(np.percentile(ttft, 95))
+    if not any(d["tenant"] == "capped" and d["reason"] == "token_rate"
+               for d in throttled):
+        raise AssertionError(f"[serving] tenancy: throttle events "
+                             f"{throttled}")
+    # the dispatched-token share while gold and silver both had work
+    # queued: requests admitted before the first of the two floods ran dry
+    admitted = sorted((h._req.admitted_t, t) for t, h in handles
+                      if t != "capped")
+    last = {t: max(a for a, u in admitted if u == t)
+            for t in ("gold", "silver")}
+    cut = min(last.values())
+    both = [t for a, t in admitted if a < cut]
+    share = both.count("gold") / max(1, len(both))
+    on = {"streams": [[ev.token for ev in h.drain()] for _, h in handles]}
+    parity_rule(off, on, gap, "serving tenancy")
+    log(f"[serving] tenancy: per tenant {json.dumps(per)}; while gold and "
+        f"silver were both backlogged ({len(both)} dispatches) gold took "
+        f"{share:.3f} of the dispatched tokens (weights 2:1 -> 0.667); "
+        f"capped throttled {len(throttled)} time(s) (token_rate "
+        f"{TENANT_RATE}); books "
+        + json.dumps({t: {k: b[k] for k in ("service", "window_tokens")}
+                      for t, b in books.items()})
+        + f"; {len(logs['r0'].puts)} puts in {wall:.2f} s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"per_tenant": per, "gold_share": share,
+            "both_backlogged": len(both), "throttle_events": len(throttled),
+            "wall_s": wall}
+
+
+def affinity_prompts(V):
+    """The first wave sends each system prompt once; the later waves send
+    each again, in a shuffled order (so that a cache-blind router, which
+    alternates between two idle replicas, does not repeat the first
+    wave's placement by accident)."""
+    rng = np.random.default_rng(26)
+    systems = [rng.integers(0, V, AFFINITY_SYS).tolist()
+               for _ in range(AFFINITY_PREFIXES)]
+    waves = [[s + rng.integers(0, V, AFFINITY_TAIL).tolist()
+              for s in systems] for _ in range(AFFINITY_REPEATS)]
+    rest = [p for w in waves[1:] for p in w]
+    order = rng.permutation(len(rest))
+    waves = [waves[0], [rest[i] for i in order]]
+    extra = systems[0] + rng.integers(0, V, AFFINITY_TAIL).tolist()
+    return waves, extra
+
+
+def serving_affinity(model, params):
+    """Cell 7: two mixed replicas with the prefix cache on; 6 system prompts
+    of 1024 tokens (+ 32-token tails, 16 new tokens) sent 4 times: one
+    wave with each prompt once, then the other three waves at once;
+    affinity off, then on. Then ``add_replica()`` with warm-up, the first
+    two replicas removed, and one more shared-prefix request, which must
+    land on the warmed replica and match its warmed blocks."""
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    V = model.cfg.vocab_size
+    waves, extra = affinity_prompts(V)
+    flat = [p for w in waves for p in w]
+    ref_engine = serving_engine(model, params, SERVE_KV_BLOCKS)
+    gap = feature_gap(ref_engine, "serving affinity", ())
+    off_ref = bare_run(ref_engine, flat + [extra], AFFINITY_NEW, "affinity")
+    del ref_engine
+    logs = {}
+
+    def factory(i):
+        eng = serving_engine(model, params, SERVE_KV_BLOCKS)
+        eng.configure_prefix_cache(True, None)
+        logs[f"r{i}"] = PutLog(sync=False)
+        logs[f"r{i}"].attach(eng)
+        return eng
+
+    res = {}
+    for name, enabled in (("off", False), ("on", True)):
+        logs.clear()
+        fe = ServingFrontend.from_engine_factory(factory, ServingConfig(
+            num_replicas=2, max_queue_depth=64,
+            prefix_cache={"enabled": True},
+            affinity={"enabled": enabled, "refresh_interval_s": 0.05,
+                      "warmup_max_blocks": 512}))
+        try:
+            check_replicas(fe, f"affinity {name}")
+            first = frontend_run(fe, waves[0], AFFINITY_NEW,
+                                 f"affinity {name} wave 1", dict(logs))
+            time.sleep(0.2)             # a router tick refreshes digests
+            before = [r.engine.prefix_stats() for r in fe.router.replicas]
+            rest = frontend_run(fe, waves[1], AFFINITY_NEW,
+                                f"affinity {name} waves 2-4", dict(logs))
+            after = [r.engine.prefix_stats() for r in fe.router.replicas]
+            saved = sum(a["tokens_saved"] - b["tokens_saved"]
+                        for a, b in zip(after, before))
+            # the share of the later waves' system-prompt tokens that
+            # came from a replica's prefix cache
+            offered = len(waves[1]) * AFFINITY_SYS
+            res[name] = {"hit_rate": saved / offered,
+                         "tokens_saved": saved,
+                         "affinity": (fe._affinity.stats()
+                                      if enabled else None),
+                         "stats": rest["stats"]}
+            on = {"streams": first["streams"] + rest["streams"]}
+            parity_rule({"streams": off_ref["streams"][:len(flat)],
+                         "margins": off_ref["margins"][:len(flat)]}, on,
+                        gap, f"serving affinity {name}")
+            if enabled:
+                t = time.perf_counter()
+                rid = fe.add_replica()
+                grow_s = time.perf_counter() - t
+                evs = [e["detail"] for e in fe.journal.events()
+                       if e["kind"] == "replica_warmup"]
+                if [e["replica"] for e in evs] != [rid] \
+                        or evs[0]["blocks"] <= 0:
+                    raise AssertionError(f"[serving] affinity warm-up: "
+                                         f"{evs}")
+                new = fe.router.replica_by_id(rid)
+                fe.remove_replica(0)
+                fe.remove_replica(1)
+                p0 = new.engine.prefix_stats()
+                last = frontend_run(fe, [extra], AFFINITY_NEW,
+                                    "affinity warmed replica", dict(logs))
+                p1 = new.engine.prefix_stats()
+                matched = p1["tokens_saved"] - p0["tokens_saved"]
+                if last["handles"][0]._req.replica_id != rid \
+                        or matched < AFFINITY_SYS:
+                    raise AssertionError(f"[serving] affinity: the warmed "
+                                         f"replica matched {matched} tokens")
+                parity_rule({"streams": off_ref["streams"][-1:],
+                             "margins": off_ref["margins"][-1:]}, last, gap,
+                            "serving affinity warmed replica")
+                res["warmup"] = {"blocks": evs[0]["blocks"],
+                                 "warmup_ms": evs[0]["warmup_s"] * 1e3,
+                                 "grow_s": grow_s, "first_matched": matched}
+        finally:
+            for log_ in logs.values():
+                log_.close()
+            fe.shutdown(drain=False, timeout=5)
+    del fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serving] affinity off | on (waves 2-4, 18 requests): prefix hit "
+        f"rate (system-prompt tokens served from a cache) "
+        f"{res['off']['hit_rate']:.3f} | {res['on']['hit_rate']:.3f}, "
+        f"tokens saved {res['off']['tokens_saved']} | "
+        f"{res['on']['tokens_saved']}; p50 TTFT "
+        f"{res['off']['stats']['ttft_p50_ms']:.1f} | "
+        f"{res['on']['stats']['ttft_p50_ms']:.1f} ms; router "
+        f"{json.dumps(res['on']['affinity'])}")
+    w = res["warmup"]
+    log(f"[serving] affinity warm-up: {w['blocks']} blocks in "
+        f"{w['warmup_ms']:.1f} ms (add_replica {w['grow_s']:.2f} s); the "
+        f"warmed replica's first shared-prefix request matched "
+        f"{w['first_matched']} tokens")
+    return res
+
+
+def serving_autoscale(model, params):
+    """Cell 8: the autoscaler on one replica (min 1, max 2, cooldowns
+    5 s up and 1 s down, ticks of 0.1 s): 16 requests of 512 tokens and
+    64 new tokens at once grow the fleet; near the tail (100 outstanding
+    tokens a replica) it shrinks, evacuating the resident sequences (the
+    5 s up-cooldown keeps their requeue from growing it again). Then a
+    prefill + decode fleet re-roles its prefill replica to mixed while it
+    serves 8 requests."""
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    rng = np.random.default_rng(27)
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    prompts = [rng.integers(0, V, SCALE_PROMPT).tolist()
+               for _ in range(SCALE_REQUESTS)]
+    ref = serving_engine(model, params, SERVE_KV_BLOCKS)
+    gap = feature_gap(ref, "serving autoscale", ())
+    off = bare_run(ref, prompts, SCALE_NEW, "autoscale")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    log_ = PutLog(sync=False)
+    first_put = {}
+
+    def factory(i):
+        eng = serving_engine(model, params, SERVE_KV_BLOCKS, log_)
+        real = eng.put
+
+        def put(uids, chunks, **kw):
+            first_put.setdefault(i, time.monotonic())
+            return real(uids, chunks, **kw)
+        eng.put = put
+        return eng
+
+    fe = ServingFrontend([factory(0)], ServingConfig(
+        max_queue_depth=64,
+        autoscaler={"enabled": True, "min_replicas": 1, "max_replicas": 2,
+                    "scale_up_queue_per_replica": 2.0,
+                    "scale_down_queue_per_replica": 0.25,
+                    "scale_down_tokens_per_replica": 100.0,
+                    "up_stable_ticks": 1, "down_stable_ticks": 2,
+                    "scale_up_cooldown_s": 5.0,
+                    "scale_down_cooldown_s": 1.0,
+                    "tick_interval_s": 0.1}), engine_factory=factory)
+    try:
+        run = frontend_run(fe, prompts, SCALE_NEW, "autoscale",
+                           {"all": log_})
+        deadline = time.monotonic() + 60
+        while len(fe.router.replicas) > 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        st = fe.autoscaler.stats()
+        log_rows = [d for d in fe.autoscaler.decision_log
+                    if d["action"] in ("scale_up", "scale_down",
+                                       "replica_reroled")]
+        evs = fe.journal.events(kinds=("scale_up", "scale_down",
+                                       "replica_reroled"))
+        snap = fe.metrics_snapshot()
+    finally:
+        log_.close()
+        fe.shutdown(drain=False, timeout=5)
+    if [(e["kind"], e["detail"]["replica"]) for e in evs] \
+            != [(d["action"], d["replica"]) for d in log_rows]:
+        raise AssertionError(f"[serving] autoscale: decision log {log_rows}"
+                             f" != journal {evs}")
+    ups = [d for d in log_rows if d["action"] == "scale_up"]
+    downs = [d for d in log_rows if d["action"] == "scale_down"]
+    if not ups or not downs or len(fe.router.replicas) != 1:
+        raise AssertionError(f"[serving] autoscale: {log_rows}")
+    grow_to_serving = first_put[ups[0]["replica"]] - ups[0]["t"]
+    parity_rule(off, run, gap, "serving autoscale")
+    stats = run["stats"]
+    del fe, run             # the handles hold the frontend and its engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    pool = SERVE_KV_BLOCKS * KV_BLOCK_BYTES_BF16
+    if mem1 - mem0 > pool:
+        raise AssertionError(f"[serving] autoscale: {mem1 - mem0} bytes "
+                             f"still allocated (one pool is {pool})")
+
+    # an explicit re-role under disaggregation, mid-traffic
+    rr_prompts = prompts[:8]
+    engines = [serving_engine(model, params, SERVE_KV_BLOCKS)
+               for _ in range(2)]
+    logs = {"r0": PutLog(sync=False), "r1": PutLog(sync=False)}
+    fe = ServingFrontend(engines, ServingConfig(
+        max_queue_depth=64, disaggregation={
+            "enabled": True, "roles": ["prefill", "decode"],
+            "handoff": {"enabled": True, "max_staged": 16}}),
+        engine_factory=lambda i: serving_engine(model, params,
+                                                SERVE_KV_BLOCKS))
+    deaths = watch_deaths(fe)
+    try:
+        logs["r0"].attach(engines[0])
+        logs["r1"].attach(engines[1])
+        reset_launches()
+        handles = [fe.submit(p, max_new_tokens=SCALE_NEW)
+                   for p in rr_prompts]
+        deadline = time.monotonic() + 120
+        while fe.metrics_snapshot()["handoffs_completed"] < 2 \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t = time.perf_counter()
+        changed = fe.set_replica_role(0, "mixed")
+        rerole_s = time.perf_counter() - t
+        done = fe.wait_all(handles, timeout=600)
+        torch.cuda.synchronize()
+        launches = pa.launches
+        census = fe.router.role_census()
+        rsnap = fe.metrics_snapshot()
+        streams = [[ev.token for ev in h.drain()] for h in handles]
+    finally:
+        for lg in logs.values():
+            lg.close()
+        fe.shutdown(drain=False, timeout=5)
+    n_puts = sum(len(lg.puts) for lg in logs.values())
+    if not changed or not done or deaths or rsnap["requests_failed"] \
+            or census != {"prefill": 0, "decode": 1, "mixed": 1} \
+            or launches != L * n_puts:
+        raise AssertionError(f"[serving] re-role: changed {changed}, done "
+                             f"{done}, deaths {deaths}, census {census}, "
+                             f"launches {launches} for {n_puts} puts")
+    parity_rule({"streams": off["streams"][:8],
+                 "margins": off["margins"][:8]}, {"streams": streams}, gap,
+                "serving re-role")
+    del engines, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"scale_ups": st["scale_ups"], "scale_downs": st["scale_downs"],
+           "peak_replicas": st["peak_replicas"],
+           "replica_seconds": st["replica_seconds"],
+           "grow_to_serving_s": grow_to_serving,
+           "evacuated": snap.get("requests_evacuated", 0.0),
+           "mem_delta": mem1 - mem0, "rerole_s": rerole_s,
+           "rerole_evacuated": rsnap.get("requests_evacuated", 0.0),
+           "stats": stats}
+    decisions = [(d["action"], d["replica"], d.get("reason"))
+                 for d in log_rows]
+    log(f"[serving] autoscale: decisions {decisions} (journal equal); grow decision to the new replica's first put "
+        f"{grow_to_serving:.3f} s; replica_seconds "
+        f"{st['replica_seconds']:.2f} (peak {st['peak_replicas']}); "
+        f"{int(res['evacuated'])} requests evacuated by the shrink; memory "
+        f"after the cell {(mem1 - mem0) / 2**20:+.1f} MiB against before it; "
+        f"re-role prefill -> mixed mid-traffic in {rerole_s:.3f} s "
+        f"({int(res['rerole_evacuated'])} evacuated), census {census}")
+    return res
+
+
 def phase_serving():
     """The serving phase: ServingFrontend at full MISTRAL_7B width over
     engines that share one bf16 weight tree — the burst cell, the chaos
-    cell, and the quantized-through-the-config cell with the observability
-    checks."""
+    cell, the quantized-through-the-config cell with the observability
+    checks, and the disaggregation, tenancy, affinity and autoscale
+    cells."""
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
     cfg = MISTRAL_7B
@@ -3791,9 +4479,14 @@ def phase_serving():
     t = time.perf_counter()
     res["chaos"] = serving_chaos(model, params)
     res["chaos"]["cell_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    res["quant"] = serving_quant_obs(model, params)
-    res["quant"]["cell_s"] = time.perf_counter() - t
+    for name, cell in (("quant", serving_quant_obs),
+                       ("disagg", serving_disagg),
+                       ("tenancy", serving_tenancy),
+                       ("affinity", serving_affinity),
+                       ("autoscale", serving_autoscale)):
+        t = time.perf_counter()
+        res[name] = cell(model, params)
+        res[name]["cell_s"] = time.perf_counter() - t
     log("[serving] cell seconds: "
         + ", ".join(f"{k} {v['cell_s']:.1f}" for k, v in res.items()))
     del params
@@ -4587,6 +5280,19 @@ def main(argv=None):
         f"{b['bare']['tokens_per_s']:.1f}); chaos recovery_s "
         f"{c['recovery_s']:.4f}, two replicas / one {c['two_over_one']:.2f}x; "
         f"int8 config {q['puts']} puts, span coverage {q['coverage_min']:.4f}")
+    d, tn = serving["disagg"], serving["tenancy"]
+    af, sc = serving["affinity"], serving["autoscale"]
+    log(f"[serving] item 10b: disagg tokens/s bf16 "
+        f"{d['bf16']['tokens_per_s']:.1f} | int8 {d['int8']['tokens_per_s']:.1f}"
+        f" against one mixed {d['mixed1']['tokens_per_s']:.1f} and two "
+        f"{d['mixed2']['tokens_per_s']:.1f}, export + import p50 "
+        f"{d['bf16']['handoff_ms']['export'][0]:.2f} + "
+        f"{d['bf16']['handoff_ms']['import'][0]:.2f} ms; gold share "
+        f"{tn['gold_share']:.3f}; prefix hit rate affinity off | on "
+        f"{af['off']['hit_rate']:.3f} | {af['on']['hit_rate']:.3f}, warm-up "
+        f"{af['warmup']['blocks']} blocks; autoscale grow to serving "
+        f"{sc['grow_to_serving_s']:.3f} s, replica_seconds "
+        f"{sc['replica_seconds']:.2f}")
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

@@ -5,13 +5,15 @@ submit/stream/cancel frontend, bounded SLO admission queue with load
 shedding, a least-outstanding-tokens replica router with health/drain
 states, thread-per-replica workers with a supervisor and deterministic
 fault injection, streaming token delivery with prompt KV reclamation on
-cancel, and a serving metrics registry.
+cancel, disaggregated prefill/decode with KV handoff, multi-tenant fair
+share, prefix-affinity routing, the elastic autoscaler, and a serving
+metrics registry.
 
 Light names import eagerly; ``ServingFrontend``/``Replica``/
-``ReplicaRouter``/``ReplicaSupervisor`` load lazily because they pull in
-the engine stack (torch). The autoscaler and the cross-process fabric are
-not ported yet: their names raise ``NotImplementedError`` naming the
-ROADMAP item on access.
+``ReplicaRouter``/``ReplicaSupervisor`` and the autoscaler's names load
+lazily because they pull in the engine stack (torch). The cross-process
+fabric is not ported yet: its names raise ``NotImplementedError`` naming
+the ROADMAP item on access.
 """
 
 from ..telemetry.journal import OpsJournal  # noqa: F401
@@ -34,6 +36,11 @@ from .request import (DoneEvent, FinishReason, Priority,  # noqa: F401
                       TokenEvent)
 
 _LAZY = {
+    "FleetController": ("deepspeed_tpu_torch.serving.autoscaler",
+                        "FleetController"),
+    "FleetSignals": ("deepspeed_tpu_torch.serving.autoscaler",
+                     "FleetSignals"),
+    "ReplicaInfo": ("deepspeed_tpu_torch.serving.autoscaler", "ReplicaInfo"),
     "ServingFrontend": ("deepspeed_tpu_torch.serving.frontend", "ServingFrontend"),
     "Replica": ("deepspeed_tpu_torch.serving.replica", "Replica"),
     "ReplicaState": ("deepspeed_tpu_torch.serving.replica", "ReplicaState"),
@@ -44,12 +51,6 @@ _LAZY = {
 
 # names of the JAX package's serving layer whose modules are not ported
 _NOT_PORTED = {
-    "FleetController": ("the elastic autoscaler (serving/autoscaler.py)",
-                        "queue 1 item 10b"),
-    "FleetSignals": ("the elastic autoscaler (serving/autoscaler.py)",
-                     "queue 1 item 10b"),
-    "ReplicaInfo": ("the elastic autoscaler (serving/autoscaler.py)",
-                    "queue 1 item 10b"),
     "LocalHandle": ("the serving fabric (serving/fabric/)", "queue 1 item 11"),
     "RemoteHandle": ("the serving fabric (serving/fabric/)",
                      "queue 1 item 11"),
@@ -75,7 +76,8 @@ def __getattr__(name):
 
 __all__ = ["ServingConfig", "PrefixCacheConfig", "KVQuantConfig",
            "WeightQuantConfig", "KVTierConfig", "AdmissionConfig",
-           "PreemptionConfig", "AutoscalerConfig", "SpeculativeConfig",
+           "PreemptionConfig", "AutoscalerConfig", "FleetController",
+           "FleetSignals", "ReplicaInfo", "SpeculativeConfig",
            "ClassPolicy", "DisaggregationConfig", "HandoffConfig",
            "HandoffStager", "FaultToleranceConfig", "FaultsConfig",
            "FaultInjector", "InjectedFault", "ReplicaSupervisor",

@@ -11,19 +11,28 @@ serving stack::
                        cancel → immediate KV free)
 
 with the supervisor (restart, failover, brownout, circuit breaker), the
-test-only fault injector, dynamic membership with evacuation, and the
-telemetry surface: one :class:`MetricsRegistry` (TTFT/TPOT/queue
-histograms, shed/cancel/complete counters) that fans out through any
-``monitor/``-style backend via :meth:`publish_metrics`, the ops journal,
-windowed metrics, SLO burn-rate alerts, the flight recorder and the health
-report.
+test-only fault injector, dynamic membership with evacuation, multi-tenant
+fair share and quotas (``serving/tenancy.py``), prefix-affinity routing
+with warm-up of grown replicas (``serving/affinity.py``), disaggregated
+prefill/decode roles with the host-RAM KV handoff, the elastic autoscaler
+(``serving/autoscaler.py``), and the telemetry surface: one
+:class:`MetricsRegistry` (TTFT/TPOT/queue histograms, shed/cancel/complete
+counters) that fans out through any ``monitor/``-style backend via
+:meth:`publish_metrics`, the ops journal, windowed metrics, SLO burn-rate
+alerts, the flight recorder and the health report.
 
 Replicas may share one card: each runs its own thread, KV pools and
-scheduler over its own engine (engines may share weight tensors). What the
-port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item when its config block is enabled: multi-tenancy, prefix affinity, the
-autoscaler and disaggregated prefill/decode (item 10b), the cross-process
-fabric, federation and network chaos (item 11).
+scheduler over its own engine (engines may share weight tensors). A KV
+handoff moves through host RAM: the prefill replica's worker copies the
+blocks out, the decode replica's worker copies them into its own pool. What
+the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP item when its config block is enabled: the cross-process fabric,
+federation and network chaos (item 11).
+
+Where the JAX frontend swallows every exception of a KV export or a
+warm-up, the port catches only ``ValueError`` and ``RuntimeError`` (a CUDA
+error is a ``RuntimeError``): anything else is a fault that must not be
+served around.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ..telemetry.journal import OpsJournal
 from ..telemetry.slo import AlertEngine
 from ..telemetry.windowed import WindowedMetrics
 from ..utils.locks import RankedLock
+from ..utils.logging import logger
 from .config import ServingConfig
 from .metrics import MetricsRegistry, serving_metrics
 from .queue import AdmissionQueue
@@ -48,7 +58,6 @@ from .request import (FinishReason, Rejected, RequestHandle,
                       RequestState, ServingRequest)
 from .router import ReplicaRouter
 
-_ITEM_10B = "queue 1 item 10b"
 _ITEM_11 = "queue 1 item 11"
 
 
@@ -57,14 +66,6 @@ def refuse_unported(config: ServingConfig) -> None:
     run yet. Every block parses (one config file drives both packages);
     enabling one of these is refused here, never ignored."""
     checks = [
-        (bool(config.tenants), "the tenants block (multi-tenant fair share "
-         "and quotas, serving/tenancy.py)", _ITEM_10B),
-        (config.affinity.enabled, "the affinity block (prefix-affinity "
-         "routing and warm-up, serving/affinity.py)", _ITEM_10B),
-        (config.autoscaler.enabled, "the autoscaler block "
-         "(serving/autoscaler.py)", _ITEM_10B),
-        (config.disaggregation.enabled, "the disaggregation block "
-         "(prefill/decode roles and KV handoff)", _ITEM_10B),
         (config.fabric.enabled or config.fabric.federation.enabled,
          "the fabric block (cross-process replicas and federation, "
          "serving/fabric/)", _ITEM_11),
@@ -149,13 +150,14 @@ def engine_from_model_spec(spec, device=None):
 
 class ServingFrontend:
     # lock discipline (docs/CONCURRENCY.md): membership admin state is
-    # written under the fleet lock. ``_closed`` and ``_replica_models``
-    # are writes-only guarded — their readers (submit's fast-path check,
-    # the supervisor's restart-time model lookup) take lock-free
-    # last-write-wins snapshots by design.
+    # written under the fleet lock. ``_closed``, ``_role_overrides``
+    # and ``_replica_models`` are writes-only guarded — their readers
+    # (submit's fast-path check, the supervisor's restart-time role /
+    # model lookup) take lock-free last-write-wins snapshots by design.
     _GUARDED_BY = {
         "_closed": "_fleet_lock:writes",
         "_next_replica_id": "_fleet_lock",
+        "_role_overrides": "_fleet_lock:writes",
         "_replica_models": "_fleet_lock:writes",
     }
 
@@ -229,12 +231,22 @@ class ServingFrontend:
         if self.config.ttft_buckets_s:
             self.metrics.histogram("ttft_s", self.config.ttft_buckets_s,
                                    reset=True)
+        # multi-tenant fair share / quotas: one ledger per frontend,
+        # consulted by the queue's DWF pop and the router's KV-budget
+        # filter. None when no ``tenants:`` block — every path as before.
+        self._tenancy = None
+        if self.config.tenants:
+            from .tenancy import TenantLedger
+
+            self._tenancy = TenantLedger(self.config.tenants,
+                                         metrics=self.metrics,
+                                         journal=self.journal)
         ft = self.config.fault_tolerance
         self.admission = AdmissionQueue(
             self.config.max_queue_depth, self.metrics,
             brownout_threshold=(ft.brownout_threshold if ft.enabled
                                 else 0.0),
-            journal=self.journal)
+            journal=self.journal, tenancy=self._tenancy)
         # dynamic membership: replica ids are allocated monotonically and
         # never reused; the fleet lock serializes membership mutations
         self._engine_factory = engine_factory
@@ -267,10 +279,14 @@ class ServingFrontend:
                 self._replica_models[next_rid] = name
                 next_rid += 1
         self._next_replica_id = next_rid
+        # role overrides (set by add_replica / set_replica_role) win over
+        # the static disaggregation.roles list
+        self._role_overrides: dict = {}
         self._fleet_lock = RankedLock("serving.frontend.fleet")
-        # evacuated KV rides a bounded host-RAM staging budget (built
-        # lazily) — a removal of a fully-loaded replica must not balloon
-        # host RAM; over-budget payloads drop to re-prefill
+        # evacuated KV rides the same bounded host-RAM staging budget as
+        # disagg handoffs (built lazily when no handoff stager exists) —
+        # a removal of a fully-loaded replica must not balloon host RAM;
+        # over-budget payloads drop to re-prefill
         self._evac_stager = None
         # speculative decoding is applied per replica: each Replica builds
         # its own proposer from the block (draft state is per-engine)
@@ -283,16 +299,41 @@ class ServingFrontend:
         # deterministic fault injection (test-only; serving/faults.py) —
         # None when the ``faults:`` block is off: no hooks, no proxies
         self.injector = self.config.faults.build_injector()
+        # disaggregated prefill/decode serving: role-split replicas +
+        # host-RAM KV handoff staging. None when disabled — no role
+        # enforcement, no handoff hooks, the single-role stack as before.
+        dis = self.config.disaggregation
+        self._disagg = dis if dis.enabled else None
+        self._stager = None
+        if self._disagg is not None:
+            self._validate_disaggregation(self._next_replica_id)
+            if dis.handoff.enabled:
+                from .handoff import HandoffStager
+
+                self._stager = HandoffStager(dis.handoff.max_staged,
+                                             self.metrics)
         replicas = [self._build_replica(i, eng)
                     for i, eng in enumerate(engines)]
         replicas += [self._build_replica(rid, self._model_factories[name]())
                      for rid, name in model_locals]
+        # prefix-affinity routing state: digests refresh on the router
+        # tick, pick(req) scores overlap as a prefill-token credit. None
+        # when disabled: the cache-blind pick path.
+        self._affinity = None
+        if self.config.affinity.enabled:
+            from .affinity import AffinityState
+
+            self._affinity = AffinityState(self.config.affinity,
+                                           metrics=self.metrics)
         # ~1/s observability tick on the router loop: windowed-metrics
         # snapshots always; SLO alert evaluation when enabled
         self.router = ReplicaRouter(replicas, self.admission, self.metrics,
                                     tracer=self.tracer,
                                     recorder=self.recorder,
-                                    tick_hooks=[self._observability_tick])
+                                    disaggregation=self._disagg,
+                                    tick_hooks=[self._observability_tick],
+                                    tenancy=self._tenancy,
+                                    affinity=self._affinity)
         self.supervisor = None
         if ft.enabled:
             from .supervisor import ReplicaSupervisor
@@ -307,6 +348,24 @@ class ServingFrontend:
                 recorder=self.recorder, journal=self.journal)
             self.router.supervisor = self.supervisor
         self.metrics.gauge("replicas_target").set(len(replicas))
+        # elastic autoscaling: the FleetController rides the router tick;
+        # its actuation (engine builds, evacuation waits) runs on its own
+        # worker thread
+        self.autoscaler = None
+        asc = self.config.autoscaler
+        if asc.enabled:
+            if engine_factory is None and not self._model_factories:
+                raise ValueError(
+                    "autoscaler.enabled requires an engine_factory — a "
+                    "fleet with no way to build engines cannot grow "
+                    "(use ServingFrontend.from_engine_factory, pass "
+                    "engine_factory=, or configure a models: registry "
+                    "whose specs are buildable)")
+            from .autoscaler import FleetController
+
+            self.autoscaler = FleetController(
+                asc, self, metrics=self.metrics, journal=self.journal)
+            self.router.tick_hooks.append(self.autoscaler.maybe_tick)
         self._closed = False
         self.router.start()
         if self.supervisor is not None:
@@ -322,6 +381,37 @@ class ServingFrontend:
             self._obs_endpoint = ObsEndpoint(self, listen=obs.listen)
             self.journal.emit("obs_listen",
                               address=self._obs_endpoint.address)
+
+    def _validate_disaggregation(self, n_engines: int) -> None:
+        """Reject role maps that cannot serve: unknown roles, a role list
+        that does not match the fleet, a fleet with no decode-capable
+        replica (prefill-only replicas can never emit a token), and
+        prefill roles without the handoff path (their finished prompts
+        would have nowhere to go)."""
+        dis = self.config.disaggregation
+        roles = list(dis.roles)
+        bad = [r for r in roles if r not in ("prefill", "decode", "mixed")]
+        if bad:
+            raise ValueError(f"disaggregation.roles has unknown roles "
+                             f"{bad} (expected prefill/decode/mixed)")
+        if roles and len(roles) != n_engines:
+            raise ValueError(
+                f"disaggregation.roles lists {len(roles)} roles for "
+                f"{n_engines} replicas — one role per replica")
+        if roles and not any(r in ("decode", "mixed") for r in roles):
+            raise ValueError("disaggregation.roles needs at least one "
+                             "decode-capable (decode/mixed) replica")
+        if "prefill" in roles and not dis.handoff.enabled:
+            raise ValueError("disaggregation with prefill-role replicas "
+                             "requires handoff.enabled")
+
+    def _role_of(self, replica_id: int) -> str:
+        override = self._role_overrides.get(replica_id)
+        if override is not None:
+            return override
+        if self._disagg is None:
+            return "mixed"
+        return self._disagg.role_of(replica_id)
 
     def _engine_source(self, replica_id: int):
         """Supervisor-facing engine factory when model pools exist:
@@ -344,14 +434,21 @@ class ServingFrontend:
         (engine blocks applied, proposer built, telemetry attached)."""
         apply_engine_serving_config(engine, self.config)
         ft = self.config.fault_tolerance
+        role = self._role_of(replica_id)
         return Replica(replica_id, engine, self.metrics, self._sample_fn,
                        wedge_timeout_s=self.config.wedge_timeout_s,
                        speculative=self._spec, tracer=self.tracer,
                        recorder=self._replica_recorder,
                        faults=self.injector,
                        on_failover=self._failover if ft.enabled else None,
+                       role=role,
                        model_id=self._replica_models.get(replica_id,
                                                          "default"),
+                       decode_reserve_tokens=(
+                           self._disagg.decode_reserve_tokens
+                           if self._disagg is not None else 0),
+                       on_handoff=(self._handoff if role == "prefill"
+                                   else None),
                        journal=self.journal)
 
     @property
@@ -393,9 +490,10 @@ class ServingFrontend:
         neither, labels the per-class TTFT/TPOT/queue metrics, and
         orders brownout shedding. ``model`` selects an entry of
         ``config.models`` (default ``config.resolve_default_model()``) —
-        the request only routes to replicas of that pool. ``tenant`` is
-        accepted so call sites are portable, and normalized to
-        ``"default"`` (multi-tenancy is not ported)."""
+        the request only routes to replicas of that pool; ``tenant``
+        selects an entry of ``config.tenants`` (default ``"default"``) for
+        fair-share / quota accounting. Both default so every call site
+        without them behaves as before."""
         cfg = self.config
         cls = request_class if request_class is not None else cfg.default_class
         policy = cfg.classes.get(cls)
@@ -404,20 +502,37 @@ class ServingFrontend:
             # so the submitted/admitted/shed balance stays honest
             raise ValueError(f"unknown request class {cls!r} "
                              f"(configured: {sorted(cfg.classes)})")
-        # an unknown model is a caller bug too, refused before any
+        # unknown model / tenant are caller bugs too, refused before any
         # counter moves for the same reason
         model_id = model if model is not None else self._default_model
         known_models = set(self._models) if self._models else {"default"}
         if model_id not in known_models:
             raise ValueError(f"unknown model {model_id!r} "
                              f"(configured: {sorted(known_models)})")
+        tenant_id = tenant if tenant is not None else "default"
+        if self._tenancy is not None and not self._tenancy.known(tenant_id):
+            raise ValueError(f"unknown tenant {tenant_id!r} "
+                             f"(configured: {self._tenancy.tenant_names})")
+        if self._tenancy is None:
+            # no tenants: config, no tenant namespace — a named tenant is
+            # accepted (call sites stay portable) but normalized to
+            # "default", or replicas would mint per-tenant series the
+            # registry never declared
+            tenant_id = "default"
         self.metrics.counter("requests_submitted").inc()
         # per-class submit counter: the denominator of the SLO engine's
-        # windowed availability burn rate
+        # windowed availability burn rate; the per-tenant twin is the
+        # denominator of the per-tenant availability rule
         self.metrics.counter(f"requests_submitted_class_{cls}").inc()
+        if self._tenancy is not None:
+            self.metrics.counter(
+                f"requests_submitted_tenant_{tenant_id}").inc()
         if self._closed:
             self.metrics.counter("requests_shed").inc()
             self.metrics.counter(f"requests_shed_class_{cls}").inc()
+            if self._tenancy is not None:
+                self.metrics.counter(
+                    f"requests_shed_tenant_{tenant_id}").inc()
             raise Rejected("draining", "frontend is shut down")
         if priority is None:
             priority = (policy.priority if policy.priority is not None
@@ -433,7 +548,7 @@ class ServingFrontend:
             priority, deadline_ms / 1e3 if deadline_ms is not None else None,
             eos_token_id,
             request_class=cls, shed_rank=policy.shed_rank,
-            tenant="default", model_id=model_id)
+            tenant=tenant_id, model_id=model_id)
         if self.tracer.enabled:
             # root of this request's trace + the first stage (queue wait).
             # Rejection paths below close both via req.finish.
@@ -455,12 +570,96 @@ class ServingFrontend:
         if len(req.prompt_tokens) + req.max_new_tokens > max_len:
             self.metrics.counter("requests_shed").inc()
             self.metrics.counter(f"requests_shed_class_{cls}").inc()
+            if self._tenancy is not None:
+                self.metrics.counter(
+                    f"requests_shed_tenant_{tenant_id}").inc()
             req.finish(RequestState.REJECTED, "too_long")
             raise Rejected("too_long",
                            f"{len(req.prompt_tokens)}+{req.max_new_tokens} "
                            f"tokens > max_seq_len {max_len}")
         self.admission.offer(req, block=cfg.shed_policy == "block")
         return RequestHandle(req, self)
+
+    # ------------------------------------------------------------ handoff
+    def _handoff(self, req: ServingRequest, sreq, engine,
+                 replica_id: int) -> None:
+        """Prefill-role completion hand-back. Runs on the prefill
+        replica's worker thread (race-free engine access): export the
+        finished prompt's KV blocks to host RAM, flush them from the
+        source engine, stage the payload on the request, and re-queue it
+        for a decode-role replica. An export that raises ``ValueError``
+        or ``RuntimeError`` (a CUDA error is one), or a full staging
+        buffer, degrades to the recompute fallback — the request
+        re-prefills on a decode-capable replica; any other exception
+        reaches the replica's worker, which dies. Cancel, deadline, and
+        shutdown races settle here before any staging."""
+        if (self._closed or req.cancel_requested.is_set()
+                or req.expired()):
+            engine.flush(req.uid)
+            if req.cancel_requested.is_set():
+                req.finish(RequestState.CANCELLED, FinishReason.CANCELLED)
+                self.metrics.counter("requests_cancelled").inc()
+            elif req.expired():
+                req.finish(RequestState.EXPIRED, FinishReason.DEADLINE)
+                self.metrics.counter("requests_expired").inc()
+            else:
+                req.finish(RequestState.REJECTED, "draining")
+                self.metrics.counter("requests_shed").inc()
+            return
+        payload = None
+        try:
+            # block-granularity export: chunk_blocks > 0 starts every
+            # chunk's host copy before any is read
+            payload = engine.export_sequence(
+                req.uid, chunk_blocks=self._disagg.handoff.chunk_blocks)
+        except (ValueError, RuntimeError) as e:
+            logger.warning(f"serving replica {replica_id}: KV export for "
+                           f"request {req.uid} failed ({e!r}); falling "
+                           "back to re-prefill on a decode-capable replica")
+        finally:
+            engine.flush(req.uid)
+        if payload is not None:
+            # last_logits rides the payload: the decode replica samples
+            # its first token from the source's final prompt position —
+            # the hinge of a lossless handoff
+            payload["last_logits"] = sreq.last_logits
+        self._stage_handoff(req, payload, replica_id)
+
+    def _stage_handoff(self, req: ServingRequest, payload,
+                       replica_id: int) -> None:
+        """Tail of the prefill→decode handoff: stage under the host-RAM
+        budget and requeue for a decode-capable replica, or degrade to
+        the recompute fallback."""
+        # the "handoff" span covers staging + queue wait + import; it is
+        # ended by the decode replica at import (or by req.finish)
+        req.begin_span(self.tracer, "handoff",
+                       attrs={"from_replica": replica_id,
+                              "blocks": (payload or {}).get("n_blocks", 0)})
+        if payload is not None and self._stager is not None \
+                and self._stager.try_stage(req, payload):
+            self.metrics.counter("handoffs_started").inc()
+            self.journal.emit("handoff_staged", uid=req.uid,
+                              from_replica=replica_id,
+                              blocks=payload.get("n_blocks", 0))
+            req.handoff_t = time.monotonic()
+        else:
+            # every degraded handoff counts — export failure AND a full
+            # staging buffer — or a fleet whose exports always fail
+            # would be indistinguishable from one that never handed off
+            self.metrics.counter("handoff_fallbacks").inc()
+            self.journal.emit(
+                "handoff_fallback", uid=req.uid,
+                where=("export" if payload is None else "staging_full"),
+                from_replica=replica_id)
+            # recompute fallback: must not land on a prefill-only
+            # replica (it would just hand off again)
+            req.no_prefill = True
+        req.state = RequestState.QUEUED
+        req.replica_id = None
+        if not self.admission.requeue(req):
+            # queue closed mid-handoff: shutdown — terminal, slot freed
+            req.finish(RequestState.REJECTED, "draining")
+            self.metrics.counter("requests_shed").inc()
 
     # ----------------------------------------------------------- failover
     def _failover(self, req: ServingRequest) -> bool:
@@ -510,8 +709,12 @@ class ServingFrontend:
         """Grow the fleet by one replica built from the stored
         ``engine_factory`` — or, with ``model_id``, from that model
         pool's factory, so a grown pool member hosts the right model.
-        Returns the new replica id (monotonic, never reused). Only the
-        ``"mixed"`` role exists without disaggregation."""
+        Returns the new replica id (monotonic, never reused). Specialized
+        roles require a role-split fleet: "prefill" additionally requires
+        the handoff path (a prefill-only replica with nowhere to send its
+        KV could never finish a request). With ``affinity.warmup_enabled``
+        the new replica's prefix cache is warmed from the fleet before the
+        router can route to it."""
         fac = (self._model_factories.get(model_id)
                if model_id is not None else None)
         if model_id is not None and fac is None:
@@ -522,28 +725,105 @@ class ServingFrontend:
         if role not in ("prefill", "decode", "mixed"):
             raise ValueError(f"unknown replica role {role!r} "
                              "(expected prefill/decode/mixed)")
-        if role != "mixed":
+        if role != "mixed" and self._disagg is None:
             raise ValueError(f"role {role!r} requires "
                              "disaggregation.enabled — a single-role "
                              "fleet routes every replica as mixed")
+        if role == "prefill" and not self._disagg.handoff.enabled:
+            raise ValueError("adding a prefill-role replica requires "
+                             "handoff.enabled")
         with self._fleet_lock:
             if self._closed:
                 raise RuntimeError("frontend is shut down")
             rid = self._next_replica_id
             self._next_replica_id += 1
+            self._role_overrides[rid] = role
             if model_id is not None:
                 self._replica_models[rid] = model_id
             try:
                 engine = (fac() if fac is not None
                           else self._engine_factory(rid))
                 replica = self._build_replica(rid, engine)
+                # restore-before-rotation: warm the new replica's prefix
+                # cache from the fleet BEFORE the router can route to it
+                self._warmup_replica(rid, replica)
                 self.router.add_replica(replica)
             except Exception:
+                self._role_overrides.pop(rid, None)
                 self._replica_models.pop(rid, None)
                 raise
             if self.supervisor is not None:
                 self.supervisor.register_slot(rid)
         return rid
+
+    def _warmup_replica(self, rid: int, replica) -> None:
+        """Pre-populate a grown replica's prefix cache with the
+        fleet-hottest blocks merged across all accepting donors of its
+        model pool: every donor exports its MRU-first blocks device→host,
+        the per-donor streams are interleaved by hotness rank (each
+        donor's warmest block before any donor's second-warmest),
+        deduplicated by chain key, capped at ``warmup_max_blocks``, and
+        scattered into the new engine before the router can route to it.
+        A ``replica_warmup`` journal event records each warm-up that ran.
+        Warm-up can delay a grow by at most ``warmup_timeout_s``; a
+        ``ValueError`` or ``RuntimeError`` on the way is logged and the
+        replica starts cold (no journal event), any other exception fails
+        the grow."""
+        aff = self.config.affinity
+        if not (aff.enabled and aff.warmup_enabled):
+            return
+        t0 = time.monotonic()
+        self.metrics.gauge("replicas_warming").inc()
+        try:
+            mid = self._replica_models.get(rid, "default")
+            donors = []                 # (warmth, replica) — all of them
+            for r in self.router.replicas:
+                if not r.accepting \
+                        or getattr(r, "model_id", "default") != mid:
+                    continue
+                w = len(r.prefix_digest(aff.digest_max_entries))
+                if w > 0:
+                    donors.append((w, r))
+            if not donors:
+                return                  # whole fleet cold: nothing to copy
+            # warmest donor first so rank ties resolve toward the
+            # busiest cache; each donor exports at most the full budget
+            # (dedup below may discard shared prefixes)
+            donors.sort(key=lambda p: (-p[0], p[1].replica_id))
+            exports = []                # (donor_id, MRU-first entries)
+            for _, donor in donors:
+                if time.monotonic() - t0 > aff.warmup_timeout_s:
+                    break               # donors too slow: ship what we have
+                got = donor.engine.export_prefix_blocks(
+                    aff.warmup_max_blocks)
+                if got:
+                    exports.append((donor.replica_id, got))
+            # merge hottest-first: rank i of every donor before rank i+1
+            # of any, first exporter of a duplicate chain key wins
+            seen, entries, sources = set(), [], set()
+            for i in range(max((len(e) for _, e in exports), default=0)):
+                for donor_id, got in exports:
+                    if len(entries) >= aff.warmup_max_blocks:
+                        break
+                    if i < len(got) and got[i][0] not in seen:
+                        seen.add(got[i][0])
+                        entries.append(got[i])
+                        sources.add(donor_id)
+                if len(entries) >= aff.warmup_max_blocks:
+                    break
+            if time.monotonic() - t0 > aff.warmup_timeout_s:
+                entries = []            # donors too slow: cold start
+            blocks = (replica.engine.import_prefix_blocks(entries)
+                      if entries else 0)
+            warmup_s = time.monotonic() - t0
+            self.metrics.histogram("replica_warmup_s").observe(warmup_s)
+            self.journal.emit("replica_warmup", replica=rid,
+                              blocks=blocks, source=sorted(sources),
+                              warmup_s=warmup_s)
+        except (ValueError, RuntimeError) as e:
+            logger.error(f"replica {rid} prefix warm-up failed: {e!r}")
+        finally:
+            self.metrics.gauge("replicas_warming").dec()
 
     def remove_replica(self, replica_id: int, reason: str = "scale_down",
                        timeout_s: float = 30.0) -> bool:
@@ -555,8 +835,8 @@ class ServingFrontend:
         elsewhere (or re-prefilled from prompt + delivered tokens),
         lossless under greedy decoding either way — and only then is it
         unlinked and stopped. Refuses to remove the last (or last
-        accepting) replica: all-replicas-removed is impossible by
-        construction."""
+        accepting, or last accepting decode-capable) replica:
+        all-replicas-removed is impossible by construction."""
         with self._fleet_lock:
             if self._closed:
                 raise RuntimeError("frontend is shut down")
@@ -572,9 +852,17 @@ class ServingFrontend:
                            for r in others):
                     raise ValueError("cannot remove the last replica of "
                                      f"model {mid!r}")
-            if target.accepting and not any(r.accepting for r in others):
-                raise ValueError("cannot remove the last accepting "
-                                 "replica")
+            if target.accepting:
+                if not any(r.accepting for r in others):
+                    raise ValueError("cannot remove the last accepting "
+                                     "replica")
+                if self._disagg is not None \
+                        and target.role in ("decode", "mixed") \
+                        and not any(r.accepting
+                                    and r.role in ("decode", "mixed")
+                                    for r in others):
+                    raise ValueError("cannot remove the last accepting "
+                                     "decode-capable replica")
             if self.supervisor is not None:
                 self.supervisor.retire_slot(replica_id)
             self._drain_out(target, timeout_s)
@@ -585,14 +873,77 @@ class ServingFrontend:
             removed.stop(timeout=1.0)
             if removed is not target:
                 target.stop(timeout=1.0)
+            self._role_overrides.pop(replica_id, None)
             self._replica_models.pop(replica_id, None)
         return True
 
     def set_replica_role(self, replica_id: int, role: str,
                          timeout_s: float = 30.0) -> bool:
-        """Re-role a replica (disaggregated serving, not ported)."""
-        raise not_ported("set_replica_role (disaggregated prefill/decode "
-                         "serving)", _ITEM_10B)
+        """Re-role one replica prefill<->decode(<->mixed) in place: drain
+        WITH evacuation (staged handoff keeps KV portable), rebuild the
+        Replica over the same engine (a fresh one only if the worker
+        wedged) with the new role's scheduler shape, and swap it into the
+        same slot. Supervision is suspended for the slot during the swap
+        and re-registered after. False when the replica already has the
+        role."""
+        if self._disagg is None:
+            raise ValueError("set_replica_role requires "
+                             "disaggregation.enabled")
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"unknown replica role {role!r}")
+        if role == "prefill" and not self._disagg.handoff.enabled:
+            raise ValueError("re-roling to prefill requires "
+                             "handoff.enabled")
+        with self._fleet_lock:
+            if self._closed:
+                raise RuntimeError("frontend is shut down")
+            target = self.router.replica_by_id(replica_id)
+            if target is None:
+                raise KeyError(f"no replica {replica_id}")
+            old_role = target.role
+            if old_role == role:
+                return False
+            if old_role in ("decode", "mixed") and role == "prefill" \
+                    and not any(r.accepting
+                                and r.role in ("decode", "mixed")
+                                for r in self.router.replicas
+                                if r is not target):
+                raise ValueError("re-role would leave no accepting "
+                                 "decode-capable replica")
+            suspended = (self.supervisor.retire_slot(replica_id)
+                         if self.supervisor is not None else False)
+            self._role_overrides[replica_id] = role
+            try:
+                self._drain_out(target, timeout_s)
+                if target.thread.is_alive():
+                    # wedged mid-drain: the stuck thread owns the old
+                    # engine — only a fresh one is safe
+                    if self._engine_factory is None:
+                        raise RuntimeError(
+                            f"replica {replica_id} wedged during re-role "
+                            "drain and no engine_factory exists")
+                    engine = self._engine_factory(replica_id)
+                else:
+                    engine = getattr(target.engine, "_ft_inner",
+                                     target.engine)
+                replacement = self._build_replica(replica_id, engine)
+                displaced = self.router.replace_replica(replica_id,
+                                                        replacement)
+                # the slot is retired during the swap, so nothing else
+                # can have removed it; stop whatever was displaced (and
+                # the drained target, if a racing swap displaced it
+                # first)
+                if displaced is not None:
+                    displaced.stop(timeout=1.0)
+                if displaced is not target:
+                    target.stop(timeout=1.0)
+            except Exception:
+                self._role_overrides[replica_id] = old_role
+                raise
+            finally:
+                if suspended:
+                    self.supervisor.register_slot(replica_id)
+        return True
 
     def _drain_out(self, replica, timeout_s: float) -> None:
         """Evacuate + wait for a replica's worker to exit (no-op for a
@@ -645,8 +996,12 @@ class ServingFrontend:
             self.metrics.counter("requests_shed").inc()
 
     def _evacuation_stager(self):
-        """Staging budget for evacuated KV: a lazily-built stager with
-        ``disaggregation.handoff.max_staged`` entries."""
+        """Staging budget for evacuated KV: the disagg handoff stager
+        when one exists (one shared host-RAM bound + the
+        ``handoff_staged`` gauge), else a lazily-built stager with the
+        same configured budget."""
+        if self._stager is not None:
+            return self._stager
         if self._evac_stager is None:
             from .handoff import HandoffStager
 
@@ -656,14 +1011,68 @@ class ServingFrontend:
         return self._evac_stager
 
     def fleet_signals(self):
-        """The autoscaler's signal snapshot (not ported)."""
-        raise not_ported("the elastic autoscaler (serving/autoscaler.py)",
-                         _ITEM_10B)
+        """One consistent elasticity-signal snapshot for the
+        :class:`~deepspeed_tpu_torch.serving.autoscaler.FleetController`."""
+        from .autoscaler import FleetSignals, ReplicaInfo
+
+        parked = (set(self.supervisor.parked_ids())
+                  if self.supervisor is not None else set())
+        infos = tuple(
+            ReplicaInfo(r.replica_id, getattr(r, "role", "mixed"),
+                        r.accepting, r.replica_id in parked,
+                        r.outstanding_prefill_tokens,
+                        r.outstanding_decode_tokens,
+                        model_id=getattr(r, "model_id", "default"))
+            for r in self.router.replicas)
+        burn = 0.0
+        if self.alerts is not None:
+            for st in self.alerts.status().values():
+                burn = max(burn, st["burn_slow"])
+        dis = self._disagg
+        # per-model pool bounds, a ModelSpec's None ends resolved
+        # against the global autoscaler min/max
+        asc = self.config.autoscaler
+        bounds = tuple(
+            (name,
+             spec.min_replicas if spec.min_replicas is not None
+             else asc.min_replicas,
+             spec.max_replicas if spec.max_replicas is not None
+             else asc.max_replicas)
+            for name, spec in sorted(self._models.items()))
+        depth = len(self.admission)
+        # predictive scaling: project the queue depth predict_horizon_s
+        # ahead from the windowed submit-minus-completion rate.
+        # window_rate is None until the ring has history — the controller
+        # then runs pure watermarks (and predicted_load stays 0).
+        predicted = None
+        aff = self.config.affinity
+        if aff.enabled and aff.predictive:
+            w = aff.predict_window_s
+            sub = self.windowed.window_rate("requests_submitted", w)
+            if sub is not None:
+                done = 0.0
+                for name in ("requests_completed", "requests_failed",
+                             "requests_shed", "requests_expired",
+                             "requests_cancelled"):
+                    done += self.windowed.window_rate(name, w) or 0.0
+                predicted = (depth + aff.predict_horizon_s
+                             * max(0.0, sub - done))
+                self.metrics.gauge("predicted_load").set(predicted)
+        return FleetSignals(
+            queue_depth=depth, replicas=infos,
+            burn_slow_max=burn,
+            prefill_token_cost=(dis.prefill_token_cost
+                                if dis is not None else 1.0),
+            decode_token_cost=(dis.decode_token_cost
+                               if dis is not None else 1.0),
+            disaggregated=dis is not None,
+            model_bounds=bounds,
+            predicted_queue_depth=predicted)
 
     def set_proactive_brownout(self, fraction: Optional[float]) -> None:
-        """The autoscaler's brownout actuator (not ported)."""
-        raise not_ported("the elastic autoscaler (serving/autoscaler.py)",
-                         _ITEM_10B)
+        """Autoscaler brownout actuator: degrade (or restore, with
+        ``None``) the admission queue's effective capacity fraction."""
+        self.admission.set_proactive_fraction(fraction)
 
     # ---------------------------------------------------------- lifecycle
     def stream(self, handle: RequestHandle, timeout: Optional[float] = None):
@@ -929,12 +1338,21 @@ class ServingFrontend:
                 "sequences_preempted", "sequences_resumed")},
             "window_s": window_s,
             "window": self.windowed.summary(hist_names, window_s),
-            "tenants": None,
+            # per-tenant fair-share/quota books; None = tenancy off
+            "tenants": (self._tenancy.snapshot()
+                        if self._tenancy is not None else None),
             "slo": (self.alerts.status() if self.alerts is not None
                     else None),
             "alerts_firing": (self.alerts.firing()
                               if self.alerts is not None else []),
-            "autoscaler": None,
+            # what the autoscaler wants vs has, its action tally and cost
+            # ledger; None on static fleets
+            "autoscaler": (dict(self.autoscaler.stats(),
+                                replicas_target=snap.get("replicas_target",
+                                                         0.0),
+                                brownout_proactive=bool(snap.get(
+                                    "brownout_proactive_active", 0.0)))
+                           if self.autoscaler is not None else None),
             "events": self.journal.events(limit=recent_events),
         }
         # the cross-process sections keep the report's shape; an
@@ -972,11 +1390,28 @@ class ServingFrontend:
             f"shed={c['requests_shed']:.0f} "
             f"failed={c['requests_failed']:.0f} "
             f"failed_over={c['requests_failed_over']:.0f}")
+        if r.get("tenants"):
+            for name, t in sorted(r["tenants"].items()):
+                lines.append(
+                    f"tenant {name}: w={t['weight']:g} "
+                    f"service={t['service']:.1f} "
+                    f"window_tokens={t['window_tokens']:.0f}"
+                    + (f"  THROTTLED({t['throttled']})"
+                       if t["throttled"] else ""))
         for name, w in sorted(r["window"].items()):
             if w.get("count"):
                 lines.append(
                     f"window[{window_s:.0f}s] {name}: n={w['count']} "
                     f"p50={w['p50'] * 1e3:.1f}ms p95={w['p95'] * 1e3:.1f}ms")
+        if r["autoscaler"] is not None:
+            a = r["autoscaler"]
+            lines.append(
+                f"autoscaler: target={a['replicas_target']:.0f} "
+                f"ups={a['scale_ups']} downs={a['scale_downs']} "
+                f"reroles={a['reroles']} "
+                f"replica_s={a['replica_seconds']:.1f}"
+                + ("  PROACTIVE-BROWNOUT" if a["brownout_proactive"]
+                   else ""))
         if r["slo"] is not None:
             for name, s in sorted(r["slo"].items()):
                 state = "FIRING" if s["firing"] else "ok"
@@ -1022,6 +1457,9 @@ class ServingFrontend:
         # on) a half-torn frontend
         if self._obs_endpoint is not None:
             self._obs_endpoint.stop()
+        if self.autoscaler is not None:
+            # no membership changes may race the teardown below
+            self.autoscaler.stop()
         timeout = timeout if timeout is not None else self.config.drain_timeout_s
         deadline = time.monotonic() + timeout
         if drain:

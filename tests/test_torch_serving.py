@@ -957,7 +957,8 @@ def test_plain_paths_in_threads_count_no_launch():
 
 # ----------------------------------------------------------- import hygiene
 def test_serving_modules_import_no_jax_no_pydantic():
-    """The serving stack and telemetry import neither jax nor pydantic nor
+    """The serving stack (tenancy, affinity and the autoscaler included),
+    telemetry and the concurrency lint import neither jax nor pydantic nor
     the JAX package, and a frontend over a CPU engine serves with no
     CUDA."""
     import subprocess
@@ -972,6 +973,10 @@ def test_serving_modules_import_no_jax_no_pydantic():
         "import deepspeed_tpu_torch.serving.supervisor\n"
         "import deepspeed_tpu_torch.telemetry.fleet\n"
         "import deepspeed_tpu_torch.utils.restart\n"
+        "import deepspeed_tpu_torch.serving.tenancy\n"
+        "import deepspeed_tpu_torch.serving.affinity\n"
+        "import deepspeed_tpu_torch.serving.autoscaler\n"
+        "import deepspeed_tpu_torch.analysis.__main__\n"
         "from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,\n"
         "    RaggedInferenceEngineConfig)\n"
         "from deepspeed_tpu_torch.models.transformer import (CausalLM,\n"

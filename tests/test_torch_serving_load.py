@@ -17,8 +17,9 @@ breaker, retry bound, all parked, brownout wiring), the frontend cases of
 ``tests/test_spec_decode.py``; plus dynamic membership with evacuation,
 the ``ServingConfig`` mounts of the prefix cache, KV quant and weight
 quant, one JAX-written universal checkpoint served through both packages'
-``engine_from_model_spec``, the device rule, and the raise of every block
-whose feature the port does not run yet.
+``engine_from_model_spec``, the device rule, the raise of every block
+whose feature the port does not run yet (item 11), and that the blocks of
+item 10b now build and serve.
 """
 
 import json
@@ -1263,12 +1264,14 @@ def test_no_cuda_and_no_device_raises(params):
 
 
 # ------------------------------------------------------------ not ported
+# The item 10b blocks are served now; their cases (same ids) check that the
+# feature runs. The item 11 blocks still raise.
 NOT_PORTED = {
-    "tenants": ({"tenants": {"a": {"weight": 2.0}}}, "item 10b"),
-    "affinity": ({"affinity": {"enabled": True}}, "item 10b"),
-    "autoscaler": ({"autoscaler": {"enabled": True}}, "item 10b"),
+    "tenants": ({"tenants": {"a": {"weight": 2.0}}}, None),
+    "affinity": ({"affinity": {"enabled": True}}, None),
+    "autoscaler": ({"autoscaler": {"enabled": True}}, None),
     "disaggregation": ({"disaggregation": {
-        "enabled": True, "roles": ["prefill", "decode"]}}, "item 10b"),
+        "enabled": True, "roles": ["prefill", "decode"]}}, None),
     "fabric": ({"fabric": {"enabled": True, "peers": ["127.0.0.1:1"]}},
                "item 11"),
     "federation": ({"fabric": {"enabled": True, "federation": {
@@ -1279,10 +1282,36 @@ NOT_PORTED = {
     "chaos": ({"chaos": {"enabled": True}}, "item 11"),
 }
 
+# what each served block builds on the frontend
+PORTED_PART = {"tenants": "_tenancy", "affinity": "_affinity",
+               "autoscaler": "autoscaler", "disaggregation": "_stager"}
+
 
 @pytest.mark.parametrize("name", list(NOT_PORTED))
-def test_unported_block_raises(params, name):
+def test_unported_block_raises(params, oracle, name):
+    """An item 11 block raises naming its item, through both build paths;
+    an item 10b block builds its part through both and serves a request
+    with the JAX engine's stream."""
     block, item = NOT_PORTED[name]
+    if item is None:
+        n = 2 if name == "disaggregation" else 1
+        cfg = ServingConfig(num_replicas=n, **block)
+        p = prompts(1, 71)[0]
+        for fe in (ServingFrontend([tiny_engine(params) for _ in range(n)],
+                                   cfg,
+                                   engine_factory=lambda i: tiny_engine(
+                                       params)),
+                   ServingFrontend.from_engine_factory(
+                       lambda i: tiny_engine(params), cfg)):
+            try:
+                assert getattr(fe, PORTED_PART[name]) is not None
+                h = fe.submit(p, max_new_tokens=4,
+                              tenant="a" if name == "tenants" else None)
+                assert fe.wait_all([h], timeout=60)
+                assert tokens([h]) == oracle([p], 4)
+            finally:
+                shut(fe)
+        return
     cfg = ServingConfig(**block)            # parses, as in the JAX package
     with pytest.raises(NotImplementedError, match=item):
         ServingFrontend([tiny_engine(params)], cfg)
@@ -1292,19 +1321,36 @@ def test_unported_block_raises(params, name):
 
 
 def test_unported_names_and_methods_raise(params):
+    """The fabric's names and ``federation_address`` raise naming item 11;
+    the autoscaler's names load, ``set_replica_role`` refuses a fleet
+    without disaggregation with the JAX message, and ``fleet_signals`` /
+    ``set_proactive_brownout`` work on a static fleet."""
     import deepspeed_tpu_torch.serving as tserving
+    from deepspeed_tpu_torch.serving.autoscaler import (FleetController,
+                                                        FleetSignals,
+                                                        ReplicaInfo)
 
-    for name, item in (("FleetController", "item 10b"),
-                       ("RemoteHandle", "item 11"),
-                       ("LocalHandle", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    assert (tserving.FleetController, tserving.FleetSignals,
+            tserving.ReplicaInfo) == (FleetController, FleetSignals,
+                                      ReplicaInfo)
+    for name in ("RemoteHandle", "LocalHandle", "ReplicaServer",
+                 "HANDLE_SURFACE"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             getattr(tserving, name)
     fe = ServingFrontend([tiny_engine(params)], ServingConfig())
     try:
-        with pytest.raises(NotImplementedError, match="item 10b"):
+        with pytest.raises(ValueError, match="set_replica_role requires "
+                           "disaggregation.enabled"):
             fe.set_replica_role(0, "decode")
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            fe.fleet_signals()
+        sig = fe.fleet_signals()
+        assert [(r.replica_id, r.role, r.accepting) for r in sig.replicas] \
+            == [(0, "mixed", True)]
+        assert not sig.disaggregated and sig.predicted_queue_depth is None
+        fe.set_proactive_brownout(0.5)
+        assert fe.admission._proactive_frac == 0.5
+        fe.set_proactive_brownout(None)
+        assert fe.admission._proactive_frac == 1.0
+        assert fe.health_report()["autoscaler"] is None
         with pytest.raises(NotImplementedError, match="item 11"):
             fe.federation_address
     finally:
