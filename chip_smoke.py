@@ -162,7 +162,31 @@ Phases, each of which raises on failure (nothing is caught):
              prefix hit rates off and on, warm-up blocks and time, and the
              autoscaler's grow-decision-to-serving time and
              replica_seconds.
-10. train  — the training path at full MISTRAL_7B width, 8 of its 32 layers
+10. fabric — the cross-process serving fabric: MISTRAL_7B replicas (32
+             layers, bf16, seeded weights) each in its own
+             ``python -m deepspeed_tpu_torch.scripts.serve_replica``
+             process on the card, the frontend in this one. The reference
+             streams come first, from a bare scheduler over an engine built
+             from the servers' own spec here (dropped before any server
+             starts). (a) the serving chaos cell's traffic (16 x 128
+             tokens, 32 new) through one replica process and two, and two
+             of its prompts one at a time (byte-identical to the
+             reference); (b) the disagg cell's traffic through a prefill
+             and a decode process, bf16 and int8 weights + KV, the KV in
+             chunk frames (16 handoffs, 0 fallbacks; export, wire, queue
+             and import times on one clock); (c) a SIGKILL of one of two
+             servers mid-decode (requests fail over, replica_disconnected),
+             its respawn on the same port re-dialed with reset
+             (replica_reconnected), and a seeded drop_conn on the live link
+             to it; (d) a ``serve_frontend`` process exporting its replica,
+             adopted here beside a replica process, then SIGKILLed
+             mid-decode (its requests fail over); (e) every server's stop
+             line: 32 paged launches a put, and with int8 225
+             quantized-matmul launches a put and 8 quantize launches. Every
+             stream holds to the reference by the greedy-parity rule;
+             every wait has a timeout, and every process is stopped in a
+             ``finally``.
+11. train  — the training path at full MISTRAL_7B width, 8 of its 32 layers
              (fp32 master weights, two moments and an accumulator cost 16
              bytes a parameter), bf16, AdamW with WarmupLR, clipping,
              micro batch 1 x 2 accumulation steps, sequences of 8193 tokens:
@@ -185,7 +209,8 @@ int8 main path, of a verify put and a prefix-hit put, and of one training
 step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel phase; ``--only PHASE`` runs one
 later phase after it (a short call after an edit; no result lines;
 ``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
-``--only serving`` runs the serving phase).
+``--only serving`` runs the serving phase, ``--only fabric`` the fabric
+phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -195,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -203,8 +229,11 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
+import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4495,6 +4524,645 @@ def phase_serving():
     return res
 
 
+# ---------------------------------------------------------------- fabric
+
+FABRIC_SEED = 11
+FABRIC_NEW = 32                     # new tokens a request in every run
+FABRIC_ALONE = 2                    # chaos prompts served one at a time
+FABRIC_CHUNK_BLOCKS = 16            # a handoff chunk frame: 32 MiB at bf16
+FABRIC_START_S = 300.0              # a server's start: import, weights
+FABRIC_WAIT_S = 600.0               # a run's requests
+FABRIC_INT8 = {"weight_quant": {"enabled": True, "dtype": "int8",
+                                "block": 128},
+               "kv_quant": {"enabled": True, "dtype": "int8"}}
+FABRIC_DISAGG = {"enabled": True, "roles": ["prefill", "decode"],
+                 "handoff": {"enabled": True,
+                             "max_staged": DISAGG_REQUESTS,
+                             "chunk_blocks": FABRIC_CHUNK_BLOCKS}}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def fabric_model_kw():
+    """MISTRAL_7B's TransformerConfig as a JSON spec writes it."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    kw = dataclasses.asdict(MISTRAL_7B)
+    kw["dtype"] = "bfloat16"
+    return kw
+
+
+def fabric_spec(kv_blocks, serving=None, **extra):
+    spec = {"model": fabric_model_kw(), "seed": FABRIC_SEED,
+            "engine": {"kv_block_size": 16, "max_chunk_tokens": 256,
+                       "max_ragged_sequence_count": SERVE_MAX_SEQS,
+                       "kv_blocks": kv_blocks},
+            "serving": dict(serving or {})}
+    spec.update(extra)
+    return spec
+
+
+class FabricProc:
+    """One ``python -m deepspeed_tpu_torch.scripts.<module>`` process on the
+    card; a reader thread collects its output lines. Every wait has a
+    timeout, and a process that exits early fails the wait with its last
+    lines. ``started`` holds every process made, so that the phase's
+    ``finally`` kills whatever still runs."""
+
+    started = []
+
+    def __init__(self, module, spec, label, tmp, listen="127.0.0.1:0"):
+        path = os.path.join(tmp, f"{label}.json")
+        with open(path, "w") as fh:
+            json.dump(spec, fh)
+        cmd = [sys.executable, "-m", f"deepspeed_tpu_torch.scripts.{module}",
+               "--spec", path]
+        if module == "serve_replica":
+            cmd += ["--listen", listen, "--loopback-ok"]
+        self.label, self.lines = label, []
+        self.proc = subprocess.Popen(
+            cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, PYTHONPATH=REPO))
+        FabricProc.started.append(self)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        self.address = None
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def tagged(self, tag):
+        return [ln.split(" ", 1)[1] for ln in list(self.lines)
+                if ln.startswith(tag + " ")]
+
+    def wait_tag(self, tag, timeout):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            got = self.tagged(tag)
+            if got:
+                return got[0]
+            if self.proc.poll() is not None:
+                self._reader.join(5)
+                got = self.tagged(tag)
+                if got:
+                    return got[0]
+                break
+            time.sleep(0.05)
+        raise AssertionError(
+            f"[fabric] {self.label}: no {tag} line (exit "
+            f"{self.proc.poll()}); last lines:\n" + "\n".join(self.lines[-30:]))
+
+    def listening(self, tag="FABRIC_LISTENING"):
+        self.address = self.wait_tag(tag, FABRIC_START_S)
+        return self.address
+
+    def stop(self, timeout=120.0):
+        """SIGTERM and wait: a server that does not stop in ``timeout``
+        fails the phase. Returns its output lines."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"[fabric] {self.label}: did not stop in "
+                                 f"{timeout} s (killed)")
+        self._reader.join(10)
+        if self.proc.returncode != 0:
+            raise AssertionError(
+                f"[fabric] {self.label}: exit {self.proc.returncode}; last "
+                "lines:\n" + "\n".join(self.lines[-30:]))
+        return self.lines
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(30)
+
+
+def fabric_frontend(peers, **extra):
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    fab = {"enabled": True, "peers": list(peers), "heartbeat_s": 1.0,
+           "rpc_timeout_s": 300.0}
+    fab.update(extra.pop("fabric", {}))
+    return ServingFrontend([], ServingConfig(max_queue_depth=64, fabric=fab,
+                                             **extra))
+
+
+def status_clock(fe):
+    """Record the arrival time of every status event on each remote
+    handle (the ~4/s stream that is also the server's liveness signal)."""
+    ticks = {}
+    for rep in fe.router.replicas:
+        real = rep._ev_status
+        got = ticks.setdefault(rep.replica_id, [])
+
+        def on_status(msg, _real=real, _got=got):
+            _got.append(time.monotonic())
+            return _real(msg)
+
+        rep._ev_status = on_status
+    return ticks
+
+
+def fabric_run(fe, prompts, label, alone=False, during=None):
+    """Submit ``prompts`` (at once, or one at a time with ``alone``) and
+    wait; ``during(handles)`` runs while they stream. Fails unless every
+    request finished with ``FABRIC_NEW`` tokens and none failed."""
+    from deepspeed_tpu_torch.serving import RequestState
+
+    t0 = time.perf_counter()
+    handles = []
+    if alone:
+        for p in prompts:
+            h = fe.submit(p, max_new_tokens=FABRIC_NEW)
+            if not fe.wait_all([h], timeout=FABRIC_WAIT_S):
+                raise AssertionError(f"[fabric] {label}: request timed out")
+            handles.append(h)
+    else:
+        handles = [fe.submit(p, max_new_tokens=FABRIC_NEW) for p in prompts]
+        if during is not None:
+            during(handles)
+        if not fe.wait_all(handles, timeout=FABRIC_WAIT_S):
+            raise AssertionError(f"[fabric] {label}: requests timed out: "
+                                 f"{[h.state for h in handles]}")
+    wall = time.perf_counter() - t0
+    snap = fe.metrics_snapshot()
+    states = [h.state for h in handles]
+    streams = [[ev.token for ev in h.drain()] for h in handles]
+    if any(s != RequestState.FINISHED for s in states) \
+            or snap["requests_failed"] \
+            or any(len(s) != FABRIC_NEW for s in streams):
+        raise AssertionError(f"[fabric] {label}: states {states}, failed "
+                             f"{snap['requests_failed']}, lengths "
+                             f"{[len(s) for s in streams]}")
+    reqs = [h._req for h in handles]
+    stats = latency_stats([r.first_token_t for r in reqs],
+                          [r.last_token_t for r in reqs],
+                          [r.arrival_t for r in reqs],
+                          [len(r.generated_tokens) for r in reqs])
+    stats.update(tokens_per_s=sum(map(len, streams)) / wall, wall_s=wall)
+    hist = fe.metrics.histogram("rpc_call_s")
+    stats.update(rpc_p50_ms=hist.percentile(50) * 1e3,
+                 rpc_mean_ms=hist.mean * 1e3, rpc_calls=hist.count)
+    return {"streams": streams, "snap": snap, "stats": stats,
+            "handles": handles, "attempts": [h.attempts for h in handles]}
+
+
+def fabric_row(label, r):
+    s = r["stats"]
+    log(f"[fabric] {label}: {s['tokens_per_s']:.1f} tokens/s, p50/p95 TTFT "
+        f"{s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f} ms, TPOT "
+        f"{s['tpot_ms']:.2f} ms, wall {s['wall_s']:.2f} s"
+        + (f"; rpc_call_s p50 {s['rpc_p50_ms']:.2f} ms (bucket estimate), "
+           f"mean {s['rpc_mean_ms']:.2f} ms over {s['rpc_calls']} calls"
+           if s["rpc_calls"] else ""))
+
+
+def wait_for(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return time.monotonic()
+        time.sleep(0.02)
+    raise AssertionError(f"[fabric] timed out waiting for {what}")
+
+
+def live_on(handles, rid, n=2):
+    """True once a request on replica ``rid`` has ``n`` tokens."""
+    return any(h._req.replica_id == rid and h._req.n_generated >= n
+               and not h._req.done for h in handles)
+
+
+def fabric_threads(engine, prompts, ref):
+    """The same traffic through in-process replica threads in this call:
+    one replica over ``engine``, then two (a second engine over the same
+    weight tensors, its own pool) — what (a)'s processes are held
+    against."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    other = InferenceEngineV2(engine.model, engine.params,
+                              copy.copy(engine.config), device=engine.device)
+    out = {}
+    for n in (1, 2):
+        fe = ServingFrontend([engine, other][:n],
+                             ServingConfig(max_queue_depth=64))
+        try:
+            run = fabric_run(fe, prompts, f"threads x{n}")
+        finally:
+            fe.shutdown(drain=False, timeout=10)
+        parity_rule(ref["chaos"], run, ref["gap bf16"],
+                    f"fabric threads x{n}")
+        out[n] = run["stats"]
+        fabric_row(f"(a) {n} replica thread{'s' if n > 1 else ''} in this "
+                   "process", run)
+    for eng in (engine, other):
+        occ = eng.occupancy()
+        if occ["available_blocks"] != occ["total_blocks"]:
+            raise AssertionError(f"[fabric] threads: {occ} after the runs")
+    return out
+
+
+def fabric_reference(prompts, disagg):
+    """The reference streams, computed in this process before any server
+    starts: a bare scheduler over an engine built from the servers' own
+    spec (one seed on one card gives one set of weights) — the chaos
+    traffic at once and its first ``FABRIC_ALONE`` prompts one at a time,
+    the disagg traffic at bf16 and with int8 weights + KV. Each engine is
+    dropped before the next is built, the last before the servers start."""
+    from deepspeed_tpu_torch.serving import ServingConfig
+    from deepspeed_tpu_torch.serving.config import ModelSpec
+    from deepspeed_tpu_torch.serving.frontend import (
+        apply_engine_serving_config, engine_from_model_spec)
+
+    spec = fabric_spec(DISAGG_KV_BLOCKS)
+    mspec = ModelSpec(model=spec["model"], engine=spec["engine"],
+                      seed=spec["seed"])
+    ref = {}
+    for name, blocks in (("bf16", {}), ("int8", FABRIC_INT8)):
+        engine = engine_from_model_spec(mspec, device="cuda")
+        apply_engine_serving_config(engine, ServingConfig(**blocks))
+        engine.put([10_000], [list(range(16))])     # warm-up
+        engine.flush(10_000)
+        ref[f"gap {name}"] = feature_gap(engine, f"fabric {name}", ())
+        if name == "bf16":
+            ref["chaos"] = bare_run(engine, prompts, FABRIC_NEW,
+                                    "fabric chaos")
+            ref["alone"] = [bare_run(engine, [p], FABRIC_NEW,
+                                     f"fabric alone {i}")["streams"][0]
+                            for i, p in enumerate(prompts[:FABRIC_ALONE])]
+            ref["threads"] = fabric_threads(engine, prompts, ref)
+        ref[f"disagg {name}"] = bare_run(engine, disagg, FABRIC_NEW,
+                                         f"fabric disagg {name}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return ref
+
+
+def fabric_processes_vs_threads(ref, procs, prompts):
+    """(a) the chaos traffic through one remote replica, then two, and its
+    first prompts one at a time through one: the one-at-a-time streams are
+    byte-identical to the reference's (the same puts run on both sides),
+    the concurrent ones hold by the greedy-parity rule."""
+    res = {}
+    for n in (1, 2):
+        fe = fabric_frontend([p.address for p in procs[:n]])
+        try:
+            ticks = status_clock(fe)
+            run = fabric_run(fe, prompts, f"processes x{n}")
+            if n == 1:
+                alone = fabric_run(fe, prompts[:FABRIC_ALONE],
+                                   "processes x1 one at a time", alone=True)
+                if alone["streams"] != ref["alone"]:
+                    raise AssertionError(
+                        "[fabric] one request at a time through a replica "
+                        "process: streams differ from the reference's")
+                res["alone_identical"] = len(alone["streams"])
+        finally:
+            fe.shutdown(drain=False, timeout=10)
+        gaps = [b - a for t in ticks.values() for a, b in zip(t, t[1:])]
+        if not gaps:
+            raise AssertionError("[fabric] no status events arrived")
+        run["stats"]["status_per_s"] = 1.0 / float(np.mean(gaps))
+        run["stats"]["status_gap_p50_ms"] = float(np.percentile(gaps, 50)) \
+            * 1e3
+        run["diverged"] = parity_rule(ref["chaos"], run, ref["gap bf16"],
+                                      f"fabric processes x{n}")
+        res[n] = run
+        fabric_row(f"(a) {n} replica process{'es' if n > 1 else ''}", run)
+    one, two = res[1]["stats"], res[2]["stats"]
+    th = ref["threads"]
+    res["two_over_one"] = two["tokens_per_s"] / one["tokens_per_s"]
+    res["threads_two_over_one"] = th[2]["tokens_per_s"] / th[1]["tokens_per_s"]
+    res["threads"] = th
+    log(f"[fabric] (a) tokens/s one | two replica processes "
+        f"{one['tokens_per_s']:.1f} | {two['tokens_per_s']:.1f} "
+        f"({res['two_over_one']:.2f}x); one | two replica threads in this "
+        f"process {th[1]['tokens_per_s']:.1f} | {th[2]['tokens_per_s']:.1f} "
+        f"({res['threads_two_over_one']:.2f}x); "
+        f"status events "
+        f"{one['status_per_s']:.2f}/s a replica, p50 gap "
+        f"{one['status_gap_p50_ms']:.1f} ms; {res['alone_identical']} "
+        f"requests one at a time byte-identical to the reference")
+    return res
+
+
+def fabric_disagg(ref, procs, prompts, name):
+    """(b) the serving phase's disagg traffic through a prefill and a
+    decode replica process: every prompt's KV crosses the wire twice (prefill server to
+    this process, then to the decode server) in chunk frames; 16 handoffs,
+    0 fallbacks, streams by the greedy-parity rule against the mixed
+    reference. Times each handoff's export and import (in the servers,
+    read from their stop lines later) against this process's staging and
+    assign times on one monotonic clock."""
+    fe = fabric_frontend([p.address for p in procs],
+                         disaggregation=FABRIC_DISAGG)
+    sizes, staged, assigned = {}, {}, {}
+    real_stage = fe._stager.try_stage
+
+    def stage(req, payload):
+        sizes[req.uid] = payload_bytes(payload)
+        staged[req.uid] = time.monotonic()
+        return real_stage(req, payload)
+
+    fe._stager.try_stage = stage
+    dec = fe.router.replicas[1]
+    real_assign = dec.assign
+
+    def assign(req):
+        assigned.setdefault(req.uid, time.monotonic())
+        return real_assign(req)
+
+    dec.assign = assign
+    try:
+        if [r.role for r in fe.router.replicas] != ["prefill", "decode"]:
+            raise AssertionError("[fabric] disagg roles")
+        run = fabric_run(fe, prompts, f"disagg {name}")
+        wait_for(lambda: fe.metrics_snapshot()["handoffs_completed"]
+                 >= len(prompts), 30, "the decode server's import count")
+        snap = fe.metrics_snapshot()
+    finally:
+        fe.shutdown(drain=False, timeout=10)
+    if not (snap["handoffs_started"] == snap["handoffs_completed"]
+            == len(prompts) and snap["handoff_fallbacks"] == 0
+            and len(sizes) == len(prompts)):
+        raise AssertionError(
+            f"[fabric] disagg {name}: started {snap['handoffs_started']}, "
+            f"completed {snap['handoffs_completed']}, fallbacks "
+            f"{snap['handoff_fallbacks']}, staged {len(sizes)}")
+    run["diverged"] = parity_rule(ref[f"disagg {name}"], run,
+                                  ref[f"gap {name}"],
+                                  f"fabric disagg {name}")
+    run.update(sizes=sizes, staged=staged, assigned=assigned,
+               uids=[h._req.uid for h in run["handles"]])
+    fabric_row(f"(b) disagg {name}, prefill + decode processes", run)
+    return run
+
+
+def handoff_split(run, pre_lines, dec_lines, name):
+    """Per request, on one monotonic clock: export (prefill server), wire
+    in (export end to staged here), queue (staged to assign), wire out
+    (assign to the decode server's import start: the chunk frames, the
+    assign RPC and the worker's pick-up) and import (decode server)."""
+    exp = json.loads(pre_lines[0])["export"]
+    imp = json.loads(dec_lines[0])["import"]
+    parts = {k: [] for k in ("export", "wire_in", "queue", "wire_out",
+                             "import")}
+    for uid in run["uids"]:
+        e, i = exp.get(str(uid)), imp.get(str(uid))
+        if e is None or i is None:
+            raise AssertionError(f"[fabric] disagg {name}: request {uid} "
+                                 "has no export or import span")
+        parts["export"].append(e[1] - e[0])
+        parts["wire_in"].append(run["staged"][uid] - e[1])
+        parts["queue"].append(run["assigned"][uid] - run["staged"][uid])
+        parts["wire_out"].append(i[0] - run["assigned"][uid])
+        parts["import"].append(i[1] - i[0])
+    ms = {k: np.percentile(np.asarray(v) * 1e3, (50, 95)).tolist()
+          for k, v in parts.items()}
+    mb = np.mean(list(run["sizes"].values())) / 1e6
+    log(f"[fabric] (b) disagg {name}: {len(run['uids'])} handoffs, 0 "
+        f"fallbacks, payload {mb:.1f} MB a request on the wire twice; "
+        "handoff p50/p95 ms: "
+        + ", ".join(f"{k} {v[0]:.2f}/{v[1]:.2f}" for k, v in ms.items()))
+    return {"ms": ms, "payload_mb": mb}
+
+
+def fabric_failover(ref, procs, prompts, tmp, spec):
+    """(c) SIGKILL the second of two servers mid-decode: its requests fail
+    over to the first (transport loss: ``replica_disconnected``), streams
+    by the greedy-parity rule; a server respawned on the same port is
+    re-dialed with ``reset`` by the supervisor (``replica_reconnected``).
+    Then one seeded ``drop_conn`` on the live link to it fails over the
+    same way. Returns the respawned process in ``procs``' place."""
+    ft = {"enabled": True, "max_retries": 3, "restart_backoff_s": 0.2,
+          "restart_backoff_max_s": 2.0, "supervisor_poll_s": 0.05,
+          "restart_window_s": 600.0, "max_restarts_in_window": 100}
+    out = {}
+    fe = fabric_frontend([p.address for p in procs], fault_tolerance=ft)
+    killed = {}
+
+    def kill_b(handles):
+        wait_for(lambda: live_on(handles, 1), 120,
+                 "a stream on the second server")
+        killed["t"] = time.monotonic()
+        procs[1].kill()
+        port = procs[1].address.rsplit(":", 1)[1]
+        procs[1] = FabricProc("serve_replica", spec, "server-b2", tmp,
+                              listen=f"127.0.0.1:{port}")
+
+    try:
+        run = fabric_run(fe, prompts, "failover (SIGKILL)", during=kill_b)
+        t_done = time.monotonic()
+        procs[1].listening()
+        t_rec = wait_for(lambda: fe.journal.count("replica_reconnected") > 0,
+                         FABRIC_START_S, "replica_reconnected")
+        kinds = [e["kind"] for e in fe.journal.events()]
+        check = fabric_run(fe, prompts[:8], "after the reconnect")
+    finally:
+        fe.shutdown(drain=False, timeout=10)
+    if "replica_disconnected" not in kinds \
+            or run["snap"]["requests_failed_over"] < 1 \
+            or not any(a > 1 for a in run["attempts"]):
+        raise AssertionError(
+            f"[fabric] failover: journal {sorted(set(kinds))}, failed over "
+            f"{run['snap']['requests_failed_over']}")
+    out["kill"] = run
+    out["kill_diverged"] = parity_rule(ref["chaos"], run, ref["gap bf16"],
+                                       "fabric failover (SIGKILL)")
+    parity_rule({k: v[:8] for k, v in ref["chaos"].items()
+                 if k in ("streams", "margins")}, check, ref["gap bf16"],
+                "fabric after the reconnect")
+    out["failover_s"] = t_done - killed["t"]
+    out["recovery_s"] = t_rec - killed["t"]
+    fabric_row("(c) two processes, the second SIGKILLed mid-decode", run)
+    log(f"[fabric] (c) SIGKILL: {int(run['snap']['requests_failed_over'])} "
+        f"requests failed over, every stream finished "
+        f"{out['failover_s']:.2f} s after the kill; the respawned server "
+        f"re-dialed (replica_reconnected) recovery_s {out['recovery_s']:.2f}"
+        " (the respawn's start included)")
+
+    fe = fabric_frontend([p.address for p in procs], fault_tolerance=ft,
+                         chaos={"enabled": True, "seed": 7, "schedule": [
+                             {"kind": "drop_conn", "link": "fabric-r1",
+                              "dir": "rx", "at_frame_range": [60, 140],
+                              "count": 1}]})
+    try:
+        run = fabric_run(fe, prompts, "failover (drop_conn)")
+        fired = fe.net_chaos.fired()
+        t_rec = wait_for(lambda: fe.journal.count("replica_reconnected") > 0,
+                         120, "replica_reconnected after the drop")
+        kinds = [e["kind"] for e in fe.journal.events()]
+    finally:
+        fe.shutdown(drain=False, timeout=10)
+    if [f[:2] for f in fired] != [("drop_conn", "fabric-r1")] \
+            or "replica_disconnected" not in kinds \
+            or run["snap"]["requests_failed_over"] < 1:
+        raise AssertionError(f"[fabric] drop_conn: fired {fired}, journal "
+                             f"{sorted(set(kinds))}, failed over "
+                             f"{run['snap']['requests_failed_over']}")
+    out["drop"] = run
+    out["drop_diverged"] = parity_rule(ref["chaos"], run, ref["gap bf16"],
+                                       "fabric failover (drop_conn)")
+    log(f"[fabric] (c) drop_conn {fired}: "
+        f"{int(run['snap']['requests_failed_over'])} requests failed over, "
+        f"every stream finished; reconnected")
+    return out
+
+
+def fabric_federation(ref, server, exporter, prompts):
+    """(d) a serve_frontend process exports its one local replica; this
+    process's frontend adopts it beside one replica server. Streams by the
+    greedy-parity rule; then the exporter is SIGKILLed while federated
+    streams run and they fail back to the replica server, none lost."""
+    ft = {"enabled": True, "max_retries": 3, "restart_backoff_s": 0.2,
+          "restart_backoff_max_s": 2.0, "supervisor_poll_s": 0.05}
+    fe = fabric_frontend([server.address], fault_tolerance=ft, fabric={
+        "listen": "127.0.0.1:0",
+        "federation": {"enabled": True, "peers": [exporter.address]}})
+    try:
+        fed = [r.replica_id for r in fe.router.replicas
+               if getattr(r, "is_federated", False)]
+        if len(fed) != 1:
+            raise AssertionError(f"[fabric] federation: adopted {fed}")
+        run = fabric_run(fe, prompts, "federation")
+        if run["snap"]["requests_federated"] < 1:
+            raise AssertionError("[fabric] federation: no request ran on "
+                                 "the adopted replica")
+
+        def kill_exporter(handles):
+            wait_for(lambda: live_on(handles, fed[0]), 120,
+                     "a stream on the adopted replica")
+            exporter.kill()
+
+        lost = fabric_run(fe, prompts, "federation, exporter SIGKILLed",
+                          during=kill_exporter)
+    finally:
+        fe.shutdown(drain=False, timeout=10)
+    if lost["snap"]["requests_failed_over"] < 1:
+        raise AssertionError("[fabric] federation: the exporter's death "
+                             "failed nothing over")
+    out = {"run": run, "lost": lost}
+    out["diverged"] = parity_rule(ref["chaos"], run, ref["gap bf16"],
+                                  "fabric federation")
+    out["lost_diverged"] = parity_rule(ref["chaos"], lost, ref["gap bf16"],
+                                       "fabric federation, exporter killed")
+    fabric_row("(d) adopted export + one replica process", run)
+    log(f"[fabric] (d) {int(run['snap']['requests_federated'])} requests "
+        f"ran on the adopted replica; the exporter's SIGKILL failed "
+        f"{int(lost['snap']['requests_failed_over'])} over, none lost")
+    return out
+
+
+def fabric_kernel_lines(lines, label, quant):
+    """(e) a server's stop line: 32 paged launches a put, and with int8
+    weights 225 quantized-matmul launches a put and 8 quantize launches
+    (its one engine build)."""
+    got = [ln.split(" ", 1)[1] for ln in lines
+           if ln.startswith("FABRIC_KERNELS ")]
+    if len(got) != 1:
+        raise AssertionError(f"[fabric] {label}: stop lines {got}")
+    k = json.loads(got[0])
+    want = {"paged_attention": 32 * k["puts"],
+            "quantized_matmul": 225 * k["puts"] if quant else 0,
+            "quantize": 8 if quant else 0, "dequantize": 0}
+    if k["puts"] < 1 or any(k[n] != v for n, v in want.items()):
+        raise AssertionError(f"[fabric] {label}: launches {k}, want {want}")
+    log(f"[fabric] (e) {label}: {json.dumps(k)} (32 paged"
+        + (", 225 qmm" if quant else "") + " a put)")
+    return k
+
+
+def handoff_lines(lines):
+    return [ln.split(" ", 1)[1] for ln in lines
+            if ln.startswith("FABRIC_HANDOFF ")]
+
+
+def phase_fabric():
+    """The cross-process serving fabric: MISTRAL_7B replicas at 32 layers,
+    bf16, seeded weights, each in its own ``serve_replica`` process on the
+    card, this process holding the frontend. Sub-phases (a)-(e), each
+    timed; every process is stopped (or killed, on a failure) in a
+    ``finally``, and a dead or hung server fails the phase."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    V = MISTRAL_7B.vocab_size
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, V, CHAOS_PROMPT).tolist()
+               for _ in range(CHAOS_REQUESTS)]
+    disagg = disagg_prompts(V)
+    secs, res, stopped = {}, {}, {}
+    t = time.perf_counter()
+    ref = fabric_reference(prompts, disagg)
+    secs["reference"] = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="fabric_")
+    spec = fabric_spec(DISAGG_KV_BLOCKS, {"disaggregation": FABRIC_DISAGG})
+    FabricProc.started = []
+    try:
+        t = time.perf_counter()
+        servers = [FabricProc("serve_replica", spec, f"server-{n}", tmp)
+                   for n in ("a", "b")]
+        exporter = FabricProc("serve_frontend", fabric_spec(
+            CHAOS_KV_BLOCKS, {"max_queue_depth": 64, "fabric": {
+                "enabled": True, "listen": "127.0.0.1:0", "heartbeat_s": 1.0,
+                "federation": {"enabled": True}}}, n_replicas=1),
+            "exporter", tmp)
+        for p in servers:
+            p.listening()
+        exporter.listening("FEDERATION_LISTENING")
+        secs["start"] = time.perf_counter() - t
+        log(f"[fabric] servers {[p.address for p in servers]}, exporter "
+            f"{exporter.address}: up in {secs['start']:.1f} s")
+        for key, fn in (
+                ("a", lambda: fabric_processes_vs_threads(ref, servers,
+                                                          prompts)),
+                ("c", lambda: fabric_failover(ref, servers, prompts, tmp,
+                                              spec)),
+                ("b bf16", lambda: fabric_disagg(ref, servers, disagg,
+                                                 "bf16")),
+                ("d", lambda: fabric_federation(ref, servers[0], exporter,
+                                                prompts))):
+            t = time.perf_counter()
+            res[key] = fn()
+            secs[key] = time.perf_counter() - t
+            log(f"[fabric] ({key}) {secs[key]:.1f} s")
+        t = time.perf_counter()
+        for p in servers:
+            stopped[p.label] = p.stop()
+        spec8 = fabric_spec(DISAGG_KV_BLOCKS, dict(
+            FABRIC_INT8, disaggregation=FABRIC_DISAGG))
+        servers8 = [FabricProc("serve_replica", spec8, f"server-{n}8", tmp)
+                    for n in ("a", "b")]
+        for p in servers8:
+            p.listening()
+        res["b int8"] = fabric_disagg(ref, servers8, disagg, "int8")
+        for p in servers8:
+            stopped[p.label] = p.stop()
+        secs["b int8"] = time.perf_counter() - t
+        log(f"[fabric] (b int8) {secs['b int8']:.1f} s (the servers' stop "
+            "and start included)")
+    finally:
+        for p in FabricProc.started:
+            p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["e"] = {label: fabric_kernel_lines(lines, label, label.endswith("8"))
+                for label, lines in stopped.items()}
+    res["split bf16"] = handoff_split(
+        res["b bf16"], handoff_lines(stopped["server-a"]),
+        handoff_lines(stopped["server-b2"]), "bf16")
+    res["split int8"] = handoff_split(
+        res["b int8"], handoff_lines(stopped["server-a8"]),
+        handoff_lines(stopped["server-b8"]), "int8")
+    log("[fabric] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    res["secs"] = secs
+    return res
+
+
 # ------------------------------------------------------------ v1 inference
 
 V1_NEW_TOKENS = 32
@@ -5183,7 +5851,7 @@ def main(argv=None):
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
                                        "features", "kv_tier", "serving",
-                                       "train"],
+                                       "fabric", "train"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--compare", action="store_true",
@@ -5216,8 +5884,10 @@ def main(argv=None):
         phase = {"timing": phase_timing, "main": phase_main,
                  "quant": phase_quant, "v1": phase_v1,
                  "features": phase_features, "kv_tier": phase_kv_tier,
-                 "serving": phase_serving, "train": phase_train}[args.only]
-        kw = {} if args.only in ("timing", "v1", "kv_tier", "serving") else {
+                 "serving": phase_serving, "fabric": phase_fabric,
+                 "train": phase_train}[args.only]
+        kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
+                                 "fabric") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -5229,6 +5899,7 @@ def main(argv=None):
     v1 = timed("v1", phase_v1)
     features = timed("features", phase_features, profile_puts=args.profile)
     serving = timed("serving", phase_serving)
+    fabric = timed("fabric", phase_fabric)
     train = timed("train", phase_train, profile_step=args.profile)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
@@ -5293,6 +5964,19 @@ def main(argv=None):
         f"{af['warmup']['blocks']} blocks; autoscale grow to serving "
         f"{sc['grow_to_serving_s']:.3f} s, replica_seconds "
         f"{sc['replica_seconds']:.2f}")
+    fa_, fc, fd = fabric["a"], fabric["c"], fabric["d"]
+    log(f"[fabric] MISTRAL_7B replicas as processes: tokens/s one "
+        f"{fa_[1]['stats']['tokens_per_s']:.1f}, two "
+        f"{fa_[2]['stats']['tokens_per_s']:.1f} ({fa_['two_over_one']:.2f}x; "
+        f"threads 0.60-0.70x); disagg tokens/s bf16 "
+        f"{fabric['b bf16']['stats']['tokens_per_s']:.1f} | int8 "
+        f"{fabric['b int8']['stats']['tokens_per_s']:.1f}, payload "
+        f"{fabric['split bf16']['payload_mb']:.1f} | "
+        f"{fabric['split int8']['payload_mb']:.1f} MB; SIGKILL failover "
+        f"{fc['failover_s']:.2f} s, recovery_s {fc['recovery_s']:.2f}; "
+        f"federation {int(fd['run']['snap']['requests_federated'])} "
+        f"adopted requests, the exporter's death failed "
+        f"{int(fd['lost']['snap']['requests_failed_over'])} over")
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")

@@ -6,14 +6,14 @@ shedding, a least-outstanding-tokens replica router with health/drain
 states, thread-per-replica workers with a supervisor and deterministic
 fault injection, streaming token delivery with prompt KV reclamation on
 cancel, disaggregated prefill/decode with KV handoff, multi-tenant fair
-share, prefix-affinity routing, the elastic autoscaler, and a serving
-metrics registry.
+share, prefix-affinity routing, the elastic autoscaler, the cross-process
+serving fabric (``serving/fabric/``: replica servers, remote handles,
+frontend federation, network chaos), and a serving metrics registry.
 
 Light names import eagerly; ``ServingFrontend``/``Replica``/
-``ReplicaRouter``/``ReplicaSupervisor`` and the autoscaler's names load
-lazily because they pull in the engine stack (torch). The cross-process
-fabric is not ported yet: its names raise ``NotImplementedError`` naming
-the ROADMAP item on access.
+``ReplicaRouter``/``ReplicaSupervisor``, the autoscaler's and the fabric's
+handle/server names load lazily because they pull in the engine stack
+(torch).
 """
 
 from ..telemetry.journal import OpsJournal  # noqa: F401
@@ -47,17 +47,15 @@ _LAZY = {
     "ReplicaRouter": ("deepspeed_tpu_torch.serving.router", "ReplicaRouter"),
     "ReplicaSupervisor": ("deepspeed_tpu_torch.serving.supervisor",
                           "ReplicaSupervisor"),
-}
-
-# names of the JAX package's serving layer whose modules are not ported
-_NOT_PORTED = {
-    "LocalHandle": ("the serving fabric (serving/fabric/)", "queue 1 item 11"),
-    "RemoteHandle": ("the serving fabric (serving/fabric/)",
-                     "queue 1 item 11"),
-    "ReplicaServer": ("the serving fabric (serving/fabric/)",
-                      "queue 1 item 11"),
-    "HANDLE_SURFACE": ("the serving fabric (serving/fabric/)",
-                       "queue 1 item 11"),
+    # cross-process serving fabric (docs/SERVING.md "Multi-host serving")
+    "LocalHandle": ("deepspeed_tpu_torch.serving.fabric.handle",
+                    "LocalHandle"),
+    "RemoteHandle": ("deepspeed_tpu_torch.serving.fabric.remote",
+                     "RemoteHandle"),
+    "ReplicaServer": ("deepspeed_tpu_torch.serving.fabric.server",
+                      "ReplicaServer"),
+    "HANDLE_SURFACE": ("deepspeed_tpu_torch.serving.fabric.handle",
+                       "HANDLE_SURFACE"),
 }
 
 
@@ -67,10 +65,6 @@ def __getattr__(name):
 
         mod, attr = _LAZY[name]
         return getattr(importlib.import_module(mod), attr)
-    if name in _NOT_PORTED:
-        from .. import not_ported
-
-        raise not_ported(*_NOT_PORTED[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -86,4 +80,5 @@ __all__ = ["ServingConfig", "PrefixCacheConfig", "KVQuantConfig",
            "RequestHandle", "RequestState", "ServingRequest", "TokenEvent",
            "DoneEvent", "FinishReason", "ServingFrontend", "Replica",
            "ReplicaState", "ReplicaRouter", "SLOConfig", "SLOClassTarget",
-           "AlertEngine", "OpsJournal", "WindowedMetrics", "FabricConfig"]
+           "AlertEngine", "OpsJournal", "WindowedMetrics", "FabricConfig",
+           "LocalHandle", "RemoteHandle", "ReplicaServer", "HANDLE_SURFACE"]

@@ -7,9 +7,7 @@ the same keys, defaults and checks, on the port's pydantic-free
 on the same inputs. Lives here (not runtime/config.py) so the serving layer
 can be configured standalone; it is mounted on :class:`DeepSpeedTpuConfig`
 as the ``serving`` block. Every block parses, so one config file drives
-both packages; the frontend raises when a block of a feature the port does
-not run yet (tenants, affinity, autoscaler, disaggregation, fabric,
-chaos) is enabled.
+both packages, and every block's feature runs in the port.
 """
 
 from __future__ import annotations
@@ -593,8 +591,8 @@ class FabricConfig(DSConfigModel):
     """``fabric: {...}`` block (docs/CONFIG.md, docs/SERVING.md
     "Multi-host serving"): the cross-process serving fabric. With
     ``enabled`` and a ``peers`` list, the frontend adopts each peer —
-    a replica server process (``scripts/serve_replica.py``) hosting a
-    (possibly TP-sharded, multi-chip) engine — as a
+    a replica server process (``python -m
+    deepspeed_tpu_torch.scripts.serve_replica``) hosting an engine — as a
     :class:`~deepspeed_tpu_torch.serving.fabric.remote.RemoteHandle` replica:
     routing, KV handoff, kv_tier restore, preemption resume and
     autoscaler evacuation all work across the process boundary, and a
@@ -697,7 +695,7 @@ class ObservabilityConfig(DSConfigModel):
     the frontend serving ``/metrics`` (Prometheus text), ``/health``
     (the fleet health report as JSON), ``/trace`` (the merged
     cross-process Chrome trace), and ``/dump`` (the fleet debug dump) —
-    the surface ``scripts/fleetctl.py`` drives. Disabled (the default)
+    the surface ``python -m deepspeed_tpu_torch.scripts.fleetctl`` drives. Disabled (the default)
     binds nothing and builds nothing: byte-for-byte the endpoint-less
     stack."""
 
@@ -776,7 +774,7 @@ class ModelSpec(DSConfigModel):
     docs/SERVING.md "Multi-model & multi-tenant serving"): a named model
     family the frontend serves as its own replica pool. ``model`` /
     ``engine`` / ``seed`` / ``checkpoint`` mirror the
-    ``scripts/serve_replica.py`` spec exactly — the same dict describes
+    ``serve_replica`` spec exactly — the same dict describes
     the model whether the pool is built in-process or adopted from a
     replica server, which is what makes cross-process parity testable.
     Programmatic callers (tests) may instead hand the frontend an

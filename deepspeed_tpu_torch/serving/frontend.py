@@ -24,10 +24,15 @@ alerts, the flight recorder and the health report.
 Replicas may share one card: each runs its own thread, KV pools and
 scheduler over its own engine (engines may share weight tensors). A KV
 handoff moves through host RAM: the prefill replica's worker copies the
-blocks out, the decode replica's worker copies them into its own pool. What
-the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item when its config block is enabled: the cross-process fabric,
-federation and network chaos (item 11).
+blocks out, the decode replica's worker copies them into its own pool.
+
+Replicas may also live in other processes (the serving fabric,
+``serving/fabric/``): ``fabric.peers`` and ``models.<name>.peers`` adopt
+replica servers as :class:`~deepspeed_tpu_torch.serving.fabric.remote.
+RemoteHandle` members, ``fabric.federation`` exports a slice of this
+frontend's pool and adopts peer frontends' exports, and ``chaos`` installs
+the network fault injector. A remote handoff's KV crosses the wire in
+chunk frames.
 
 Where the JAX frontend swallows every exception of a KV export or a
 warm-up, the port catches only ``ValueError`` and ``RuntimeError`` (a CUDA
@@ -37,12 +42,13 @@ served around.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..telemetry import FlightRecorder  # noqa: F401  (re-export surface)
 from ..telemetry.fleet import FleetJournal
 from ..telemetry.journal import OpsJournal
@@ -58,26 +64,16 @@ from .request import (FinishReason, Rejected, RequestHandle,
                       RequestState, ServingRequest)
 from .router import ReplicaRouter
 
-_ITEM_11 = "queue 1 item 11"
 
+class _PeerRef:
+    """Engine-factory sentinel for a fabric peer slot: the supervisor's
+    restart path calls ``engine_factory(rid)`` then
+    ``replica_factory(rid, engine)`` — for a remote slot the "engine"
+    is the peer address, and the replica factory builds a fresh
+    RemoteHandle (dial + server-side engine reset) instead."""
 
-def refuse_unported(config: ServingConfig) -> None:
-    """Raise for the first enabled block whose feature the port does not
-    run yet. Every block parses (one config file drives both packages);
-    enabling one of these is refused here, never ignored."""
-    checks = [
-        (config.fabric.enabled or config.fabric.federation.enabled,
-         "the fabric block (cross-process replicas and federation, "
-         "serving/fabric/)", _ITEM_11),
-        (any(spec.peers for spec in config.models.values()),
-         "models.<name>.peers (replicas behind the serving fabric)",
-         _ITEM_11),
-        (config.chaos.enabled, "the chaos block (network fault injection, "
-         "serving/fabric/chaos.py)", _ITEM_11),
-    ]
-    for on, what, item in checks:
-        if on:
-            raise not_ported(what, item)
+    def __init__(self, address: str):
+        self.address = address
 
 
 def apply_engine_serving_config(engine, config: ServingConfig) -> None:
@@ -119,30 +115,52 @@ def apply_engine_serving_config(engine, config: ServingConfig) -> None:
             max_preemptions_per_seq=adm.preemption.max_preemptions_per_seq)
 
 
-def engine_from_model_spec(spec, device=None):
-    """Build one InferenceEngineV2 from a
+def model_from_spec(spec, device=None):
+    """``(model, params, device)`` for a
     :class:`~deepspeed_tpu_torch.serving.config.ModelSpec` (``{model,
     engine, seed, checkpoint}``) on ``device`` (``cuda`` unless ``"cpu"``
     is passed). A spec with a checkpoint loads the universal checkpoint
     (``runtime/checkpointing.py``), so a JAX-written checkpoint serves the
     same weights in both packages. A spec without one draws weights from
     ``torch.Generator(device).manual_seed(seed)``: one seed gives one set
-    of weights across the port's replicas and restarts, but not the JAX
-    package's weights (torch cannot reproduce ``jax.random``)."""
-    from ..inference.v2.engine_v2 import (InferenceEngineV2,
-                                          RaggedInferenceEngineConfig)
+    of weights across the port's replicas, restarts and replica server
+    processes on one device type, but not the JAX package's weights (torch
+    cannot reproduce ``jax.random``). A ``dtype`` given by name
+    (``"bfloat16"``, as a JSON spec writes it) is the torch dtype of that
+    name; seeded weights of a 16-bit model are stored in that dtype (the
+    compute casts to it either way), fp32 otherwise."""
     from ..models.transformer import CausalLM, TransformerConfig
 
     dev = resolve_device(device)
-    model = CausalLM(TransformerConfig(**dict(spec.model)))
+    kw = dict(spec.model)
+    if isinstance(kw.get("dtype"), str):
+        dt = getattr(torch, kw["dtype"], None)
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(f"model dtype {kw['dtype']!r} is not a torch "
+                             "dtype")
+        kw["dtype"] = dt
+    model = CausalLM(TransformerConfig(**kw))
     if spec.checkpoint:
         from ..runtime.checkpointing import load_params_for_model
 
         params = load_params_for_model(model, spec.checkpoint, device=dev)
     else:
+        store = (model.cfg.dtype
+                 if model.cfg.dtype in (torch.bfloat16, torch.float16)
+                 else None)
         params = model.init(
             torch.Generator(device=dev).manual_seed(int(spec.seed)),
-            device=dev)
+            device=dev, dtype=store)
+    return model, params, dev
+
+
+def engine_from_model_spec(spec, device=None):
+    """Build one InferenceEngineV2 from a ModelSpec (weights as
+    :func:`model_from_spec` gives them)."""
+    from ..inference.v2.engine_v2 import (InferenceEngineV2,
+                                          RaggedInferenceEngineConfig)
+
+    model, params, dev = model_from_spec(spec, device)
     return InferenceEngineV2(
         model, params=params,
         config=RaggedInferenceEngineConfig(**dict(spec.engine)), device=dev)
@@ -177,8 +195,15 @@ class ServingFrontend:
         the engines of a ``models:`` registry are built (``cuda`` unless
         ``"cpu"`` is passed); caller-built engines keep their own."""
         self.config = config or ServingConfig()
-        refuse_unported(self.config)
         self._device = device
+        # cross-process serving fabric (docs/SERVING.md "Multi-host
+        # serving"): peers are replica server processes adopted as
+        # RemoteHandle replicas, ids allocated after the local engines.
+        # None when disabled — no handles, no transport, the in-process
+        # stack as before.
+        fab = self.config.fabric
+        self._fabric = fab if fab.enabled else None
+        peer_addrs = list(fab.peers) if self._fabric is not None else []
         # multi-model registry (docs/SERVING.md "Multi-model & multi-tenant
         # serving"): named ModelSpecs add replica pools — local engines
         # built from each spec (or a caller-supplied
@@ -186,9 +211,28 @@ class ServingFrontend:
         # single-pool stack, every replica model_id "default".
         self._models = dict(self.config.models)
         self._default_model = self.config.resolve_default_model()
-        if not engines and not self._models:
+        model_peer_count = sum(len(s.peers) for s in self._models.values())
+        fed_peer_count = (len(fab.federation.peers)
+                          if self._fabric is not None
+                          and fab.federation.enabled else 0)
+        if not engines and not peer_addrs and not self._models \
+                and not fed_peer_count:
+            # an edge frontend with NO local engines is a legitimate
+            # federation topology: it serves entirely off peers' exports
             raise ValueError("ServingFrontend needs at least one engine "
-                             "(or a models: registry)")
+                             "(or fabric.peers, fabric.federation.peers, "
+                             "or a models: registry)")
+        if (peer_addrs or model_peer_count or fed_peer_count) \
+                and sample_fn is not None:
+            # a frontend-level callable cannot cross the wire: remote
+            # replicas would silently fall back to greedy sampling while
+            # local ones use the custom sampler — same request, different
+            # tokens depending on routing. Refuse loudly.
+            raise ValueError(
+                "fabric.peers is incompatible with a custom sample_fn — "
+                "a sampler callable cannot cross the process boundary "
+                "(configure sampling in the replica servers' specs "
+                "instead)")
         # the registry pre-declares every per-class series for the
         # CONFIGURED classes, so custom classes expose zero-valued
         # Prometheus series before first traffic too
@@ -250,15 +294,19 @@ class ServingFrontend:
         # dynamic membership: replica ids are allocated monotonically and
         # never reused; the fleet lock serializes membership mutations
         self._engine_factory = engine_factory
+        # replica-id layout: caller engines, global fabric peers, then
+        # each named model pool (locals before peers) in sorted-name order
+        # — ids stay monotonic and are never reused either way
+        self._peer_addrs = {len(engines) + i: addr
+                            for i, addr in enumerate(peer_addrs)}
         # rid -> model_id for every slot outside the unnamed-default pool
         # (absent = "default"); with a models: registry the caller's plain
-        # engines serve the default model's pool. Ids: caller engines,
-        # then each named pool in sorted-name order.
+        # engines serve the default model's pool
         self._replica_models: Dict[int, str] = {}
         if self._models:
-            for rid in range(len(engines)):
+            for rid in range(len(engines) + len(peer_addrs)):
                 self._replica_models[rid] = self._default_model
-        next_rid = len(engines)
+        next_rid = len(engines) + len(peer_addrs)
         self._model_factories: Dict[str, Callable] = {}
         model_locals = []                       # (rid, model name)
         for name in sorted(self._models):
@@ -278,11 +326,38 @@ class ServingFrontend:
                 model_locals.append((next_rid, name))
                 self._replica_models[next_rid] = name
                 next_rid += 1
+            for addr in spec.peers:
+                self._peer_addrs[next_rid] = addr
+                self._replica_models[next_rid] = name
+                next_rid += 1
         self._next_replica_id = next_rid
         # role overrides (set by add_replica / set_replica_role) win over
         # the static disaggregation.roles list
         self._role_overrides: dict = {}
         self._fleet_lock = RankedLock("serving.frontend.fleet")
+        # frontend federation (docs/SERVING.md "Frontend federation"): a
+        # two-tier fleet — this frontend EXPORTS a slice of its local pool
+        # on fabric.listen and ADOPTS peers' exports as routable members.
+        # All None/empty when disabled: no identity derived, no listener
+        # bound, no peers dialed. The server starts BEFORE peer adoption so
+        # a misconfigured self-peer gets the typed refusal, not a
+        # connection error.
+        self._federation = None
+        self._federation_server = None
+        self._federation_peers: list = []
+        self._federated_refs: dict = {}
+        if self._fabric is not None and fab.federation.enabled:
+            from .fabric.federation import (FederationServer, derive_epoch,
+                                            derive_frontend_id)
+
+            self._federation = fab.federation
+            self._federation_id = (fab.federation.frontend_id
+                                   or derive_frontend_id())
+            self._federation_epoch = derive_epoch()
+            self._federation_server = FederationServer(
+                self, listen=fab.listen, frontend_id=self._federation_id,
+                epoch=self._federation_epoch)
+            self._federation_server.start()
         # evacuated KV rides the same bounded host-RAM staging budget as
         # disagg handoffs (built lazily when no handoff stager exists) —
         # a removal of a fully-loaded replica must not balloon host RAM;
@@ -299,6 +374,16 @@ class ServingFrontend:
         # deterministic fault injection (test-only; serving/faults.py) —
         # None when the ``faults:`` block is off: no hooks, no proxies
         self.injector = self.config.faults.build_injector()
+        # deterministic NETWORK fault injection (test-only;
+        # serving/fabric/chaos.py) — installed process-wide so every
+        # connection dialed or accepted from here on interposes its
+        # matching schedule; None when the ``chaos:`` block is off: the
+        # transport never sees a shim
+        self.net_chaos = self.config.chaos.build_injector()
+        if self.net_chaos is not None:
+            from .fabric import chaos as _net_chaos
+
+            _net_chaos.install(self.net_chaos)
         # disaggregated prefill/decode serving: role-split replicas +
         # host-RAM KV handoff staging. None when disabled — no role
         # enforcement, no handoff hooks, the single-role stack as before.
@@ -316,6 +401,9 @@ class ServingFrontend:
                     for i, eng in enumerate(engines)]
         replicas += [self._build_replica(rid, self._model_factories[name]())
                      for rid, name in model_locals]
+        replicas += [self._build_remote(rid, addr)
+                     for rid, addr in sorted(self._peer_addrs.items())]
+        replicas += self._adopt_federation_peers()
         # prefix-affinity routing state: digests refresh on the router
         # tick, pick(req) scores overlap as a prefill-token credit. None
         # when disabled: the cache-blind pick path.
@@ -338,11 +426,16 @@ class ServingFrontend:
         if ft.enabled:
             from .supervisor import ReplicaSupervisor
 
-            # named-model slots restart from their pool's factory, the
-            # rest from the caller's (None: the supervisor's salvage path)
+            # peer slots restart through _PeerRef sentinels (a fresh
+            # handle + server-side engine reset), federated slots through
+            # their _ExportRef (re-adoption over the same export),
+            # named-model slots from their pool's factory, the rest from
+            # the caller's (None: the supervisor's salvage path)
             self.supervisor = ReplicaSupervisor(
                 self.router, self._build_replica,
-                (self._engine_source if self._model_factories
+                (self._engine_source
+                 if (self._peer_addrs or self._model_factories
+                     or self._federated_refs)
                  else engine_factory),
                 config=ft, metrics=self.metrics, tracer=self.tracer,
                 recorder=self.recorder, journal=self.journal)
@@ -414,11 +507,22 @@ class ServingFrontend:
         return self._disagg.role_of(replica_id)
 
     def _engine_source(self, replica_id: int):
-        """Supervisor-facing engine factory when model pools exist:
-        named-model slots resolve to that model's factory (a restarted
-        pool member must host ITS model), default slots to the caller's
-        factory — or ``None`` when there is none, which tells the
-        supervisor to take its salvage-engine path."""
+        """Supervisor-facing engine factory when fabric peers or model
+        pools exist: peer slots resolve to :class:`_PeerRef` sentinels
+        (the restart builds a fresh RemoteHandle against the same server),
+        federated slots to their export reference, named-model slots to
+        that model's factory (a restarted pool member must host ITS
+        model), default slots to the caller's factory — or ``None`` when
+        there is none, which tells the supervisor to take its
+        salvage-engine path."""
+        ref = self._federated_refs.get(replica_id)
+        if ref is not None:
+            # federated slot: restart = a fresh mirror over the SAME export
+            # on the SAME peer (the exporter owns the replica)
+            return ref
+        addr = self._peer_addrs.get(replica_id)
+        if addr is not None:
+            return _PeerRef(addr)
         fac = self._model_factories.get(
             self._replica_models.get(replica_id, "default"))
         if fac is not None:
@@ -427,15 +531,132 @@ class ServingFrontend:
             return None
         return self._engine_factory(replica_id)
 
+    def _build_remote(self, replica_id: int, address: str,
+                      reset: bool = False):
+        """One RemoteHandle over a fabric peer with this frontend's full
+        wiring — the boot path AND the supervisor's restart path
+        (``reset=True`` additionally rebuilds the server-side engine, so a
+        restarted remote replica is as fresh as a restarted local one).
+        The server applies the engine-level config blocks itself
+        (``apply_engine_serving_config`` from ITS spec) — the role is the
+        one thing the frontend dictates."""
+        from .fabric.remote import RemoteHandle
+
+        ft = self.config.fault_tolerance
+        handle = RemoteHandle(
+            replica_id, address, self.config.fabric,
+            role=self._role_of(replica_id), metrics=self.metrics,
+            tracer=self.tracer, recorder=self._replica_recorder,
+            journal=self.journal, fleet=self.fleet,
+            model_id=self._replica_models.get(replica_id, "default"),
+            on_failover=self._failover if ft.enabled else None,
+            on_handoff=self._handoff_remote)
+        handle.connect(reset=reset)
+        return handle
+
+    def _adopt_federation_peers(self) -> list:
+        """Dial each ``fabric.federation.peers`` frontend, run the
+        bootstrap hello (identity exchange + export discovery) and build a
+        :class:`FederatedHandle` router member per adopted export. Typed
+        peering refusals (self-peering, stale epoch) raise — they are
+        config bugs; an unreachable peer is logged and skipped — edge
+        frontends boot independently. Exports of models this frontend does
+        not serve are skipped: a request can only route to pools its
+        submit() validates."""
+        fed = self._federation
+        if fed is None or not fed.peers:
+            return []
+        from .fabric.federation import (FederationPeer, FederationRefused,
+                                        _ExportRef)
+        from .fabric.transport import FabricError
+
+        handles = []
+        known = set(self._models) if self._models else {"default"}
+        for addr in fed.peers:
+            peer = FederationPeer(addr, self.config.fabric,
+                                  frontend_id=self._federation_id,
+                                  epoch=self._federation_epoch)
+            try:
+                peer.connect()
+            except FederationRefused:
+                raise               # config/topology bug: loud
+            except (OSError, FabricError) as e:
+                logger.warning(f"federation peer {addr} unreachable at "
+                               f"boot ({e!r}); continuing without it")
+                continue
+            self._federation_peers.append(peer)
+            for exp in peer.exports:
+                mid = str(exp.get("model_id", "default"))
+                if mid not in known:
+                    logger.warning(
+                        f"federation peer {addr} exports replica "
+                        f"{exp.get('export')} of unknown model {mid!r}; "
+                        "skipping")
+                    continue
+                with self._fleet_lock:
+                    rid = self._next_replica_id
+                    self._next_replica_id += 1
+                    if self._models:
+                        self._replica_models[rid] = mid
+                ref = _ExportRef(addr, exp, peer)
+                self._federated_refs[rid] = ref
+                handles.append(self._build_federated(rid, ref))
+        return handles
+
+    def _build_federated(self, replica_id: int, ref, reset: bool = False):
+        """One FederatedHandle over a peer frontend's exported replica —
+        the boot path AND the supervisor's restart path. The evacuate
+        hand-back is ALWAYS wired (unlike plain remotes, where removal sets
+        it): the exporter's autoscaler can spontaneously evacuate the
+        shared replica, and those hand-backs must land in this frontend's
+        requeue path, not drop."""
+        from .fabric.federation import FederatedHandle
+
+        ft = self.config.fault_tolerance
+        handle = FederatedHandle(
+            replica_id, ref.address, self.config.fabric,
+            export=ref.export, frontend_id=self._federation_id,
+            epoch=self._federation_epoch, peer=ref.peer,
+            metrics=self.metrics, tracer=self.tracer,
+            recorder=self._replica_recorder, journal=self.journal,
+            fleet=self.fleet,
+            on_failover=self._failover if ft.enabled else None,
+            on_handoff=self._handoff_remote)
+        handle._evac_handback = self._evacuate_handback
+        handle.connect(reset=reset)
+        if ref.peer is not None:
+            ref.peer.register(handle)
+        return handle
+
     def _build_replica(self, replica_id: int, engine) -> Replica:
         """One replica over ``engine`` with this frontend's full wiring —
         the constructor path AND the supervisor's restart path, so a
         restarted replica is indistinguishable from a first-boot one
-        (engine blocks applied, proposer built, telemetry attached)."""
+        (engine blocks applied, proposer built, telemetry attached). A
+        :class:`_PeerRef` "engine" builds a RemoteHandle instead, an
+        export reference a FederatedHandle — the supervisor's restart
+        path for fabric slots."""
+        if isinstance(engine, _PeerRef):
+            return self._build_remote(replica_id, engine.address,
+                                      reset=True)
+        from .fabric.federation import _ExportRef
+
+        if isinstance(engine, _ExportRef):
+            # federated slot restart: fresh mirror, same export (the peer
+            # ignores the reset bit — it owns the engine)
+            return self._build_federated(replica_id, engine, reset=True)
         apply_engine_serving_config(engine, self.config)
         ft = self.config.fault_tolerance
         role = self._role_of(replica_id)
-        return Replica(replica_id, engine, self.metrics, self._sample_fn,
+        cls = Replica
+        if self._fabric is not None:
+            # fabric fleets name their in-process workers LocalHandle — an
+            # EMPTY Replica subclass (fabric/handle.py), so behavior is
+            # identical by construction
+            from .fabric.handle import LocalHandle
+
+            cls = LocalHandle
+        return cls(replica_id, engine, self.metrics, self._sample_fn,
                        wedge_timeout_s=self.config.wedge_timeout_s,
                        speculative=self._spec, tracer=self.tracer,
                        recorder=self._replica_recorder,
@@ -453,8 +674,11 @@ class ServingFrontend:
 
     @property
     def federation_address(self) -> Optional[str]:
-        """The federation listener (the serving fabric, not ported)."""
-        raise not_ported("frontend federation (serving/fabric/)", _ITEM_11)
+        """host:port of this frontend's federation listener (None when
+        federation is disabled) — what peers put in
+        ``fabric.federation.peers``."""
+        srv = self._federation_server
+        return srv.address if srv is not None else None
 
     @classmethod
     def from_engine_factory(cls, engine_factory: Callable[[int], object],
@@ -464,7 +688,6 @@ class ServingFrontend:
         ``engine_factory(replica_id)`` is called ``config.num_replicas``
         times (the config-driven path for the ``serving: {...}`` block)."""
         config = config or ServingConfig()
-        refuse_unported(config)
         engines = [engine_factory(i)
                    for i in range(max(1, config.num_replicas))]
         # the factory doubles as the supervisor's fresh-engine source for
@@ -625,11 +848,33 @@ class ServingFrontend:
             payload["last_logits"] = sreq.last_logits
         self._stage_handoff(req, payload, replica_id)
 
+    def _handoff_remote(self, req: ServingRequest, payload,
+                        replica_id: int) -> None:
+        """Remote-prefill completion (docs/SERVING.md "Multi-host
+        serving"): the export and flush already ran in the replica server
+        process; settle the cancel/deadline/shutdown races here and
+        stage/requeue exactly like the local path (``payload`` None =
+        server-side export failed or broke the frame bound → the same
+        recompute fallback)."""
+        if (self._closed or req.cancel_requested.is_set()
+                or req.expired()):
+            if req.cancel_requested.is_set():
+                req.finish(RequestState.CANCELLED, FinishReason.CANCELLED)
+                self.metrics.counter("requests_cancelled").inc()
+            elif req.expired():
+                req.finish(RequestState.EXPIRED, FinishReason.DEADLINE)
+                self.metrics.counter("requests_expired").inc()
+            else:
+                req.finish(RequestState.REJECTED, "draining")
+                self.metrics.counter("requests_shed").inc()
+            return
+        self._stage_handoff(req, payload, replica_id)
+
     def _stage_handoff(self, req: ServingRequest, payload,
                        replica_id: int) -> None:
-        """Tail of the prefill→decode handoff: stage under the host-RAM
-        budget and requeue for a decode-capable replica, or degrade to
-        the recompute fallback."""
+        """Tail of the prefill→decode handoff (local export and remote
+        payload alike): stage under the host-RAM budget and requeue for a
+        decode-capable replica, or degrade to the recompute fallback."""
         # the "handoff" span covers staging + queue wait + import; it is
         # ended by the decode replica at import (or by req.finish)
         req.begin_span(self.tracer, "handoff",
@@ -670,6 +915,14 @@ class ServingFrontend:
         decoding) or completed because nothing more was owed. False →
         the caller fails it terminally (retries exhausted, deadline
         passed, cancellation, or shutdown)."""
+        if getattr(req, "_federated", False) \
+                and self._federation_server is not None:
+            # federated mirror (docs/SERVING.md "Frontend federation"): the
+            # real stream and the retry budget live on the ADOPTING
+            # frontend — send the ordered failover marker back over the
+            # federation channel instead of requeueing into THIS
+            # frontend's admission queue
+            return self._federation_server.detach_failover(req)
         ft = self.config.fault_tolerance
         if self._closed or req.cancel_requested.is_set() or req.expired():
             return False
@@ -770,15 +1023,18 @@ class ServingFrontend:
         replica starts cold (no journal event), any other exception fails
         the grow."""
         aff = self.config.affinity
-        if not (aff.enabled and aff.warmup_enabled):
-            return
+        if not (aff.enabled and aff.warmup_enabled) \
+                or getattr(replica, "is_remote", False):
+            return                      # a remote engine lives server-side
         t0 = time.monotonic()
         self.metrics.gauge("replicas_warming").inc()
         try:
             mid = self._replica_models.get(rid, "default")
             donors = []                 # (warmth, replica) — all of them
             for r in self.router.replicas:
-                if not r.accepting \
+                # a remote donor's KV would need a new RPC (its status
+                # digest is advisory only)
+                if getattr(r, "is_remote", False) or not r.accepting \
                         or getattr(r, "model_id", "default") != mid:
                     continue
                 w = len(r.prefix_digest(aff.digest_max_entries))
@@ -915,18 +1171,26 @@ class ServingFrontend:
             self._role_overrides[replica_id] = role
             try:
                 self._drain_out(target, timeout_s)
-                if target.thread.is_alive():
-                    # wedged mid-drain: the stuck thread owns the old
-                    # engine — only a fresh one is safe
-                    if self._engine_factory is None:
-                        raise RuntimeError(
-                            f"replica {replica_id} wedged during re-role "
-                            "drain and no engine_factory exists")
-                    engine = self._engine_factory(replica_id)
+                if getattr(target, "is_remote", False):
+                    # fabric peer: the engine lives server-side — a fresh
+                    # handle re-attaches with the new role (the server
+                    # rebuilds its replica on the role change)
+                    replacement = self._build_remote(
+                        replica_id, self._peer_addrs[replica_id])
                 else:
-                    engine = getattr(target.engine, "_ft_inner",
-                                     target.engine)
-                replacement = self._build_replica(replica_id, engine)
+                    if target.thread.is_alive():
+                        # wedged mid-drain: the stuck thread owns the old
+                        # engine — only a fresh one is safe
+                        if self._engine_factory is None:
+                            raise RuntimeError(
+                                f"replica {replica_id} wedged during "
+                                "re-role drain and no engine_factory "
+                                "exists")
+                        engine = self._engine_factory(replica_id)
+                    else:
+                        engine = getattr(target.engine, "_ft_inner",
+                                         target.engine)
+                    replacement = self._build_replica(replica_id, engine)
                 displaced = self.router.replace_replica(replica_id,
                                                         replacement)
                 # the slot is retired during the swap, so nothing else
@@ -965,6 +1229,13 @@ class ServingFrontend:
         import on the destination when available, marked so the import
         side keeps it out of the disagg handoff counters — or settle it
         if cancel/deadline/shutdown already claimed it."""
+        if getattr(req, "_federated", False) \
+                and self._federation_server is not None:
+            # federated mirror: stream the exported KV back to the
+            # adopting frontend (its requeue path stages or re-prefills —
+            # lossless either way), never into this one's queue
+            self._federation_server.return_evacuated(req, payload)
+            return
         if (self._closed or req.cancel_requested.is_set()
                 or req.expired()):
             if req.cancel_requested.is_set():
@@ -1022,6 +1293,8 @@ class ServingFrontend:
                         r.accepting, r.replica_id in parked,
                         r.outstanding_prefill_tokens,
                         r.outstanding_decode_tokens,
+                        remote=bool(getattr(r, "is_remote", False)),
+                        federated=bool(getattr(r, "is_federated", False)),
                         model_id=getattr(r, "model_id", "default"))
             for r in self.router.replicas)
         burn = 0.0
@@ -1089,6 +1362,16 @@ class ServingFrontend:
             req.finish(RequestState.CANCELLED, FinishReason.CANCELLED)
             self.metrics.counter("requests_cancelled").inc()
             return
+        # cross-process cancel (docs/SERVING.md "Multi-host serving"): a
+        # local replica polls the flag between scheduler steps, but a
+        # remote replica's worker reads ITS copy of the request — the flag
+        # must cross the wire. No-op for local replicas (no notify_cancel
+        # attribute).
+        rep = (self.router.replica_by_id(req.replica_id)
+               if req.replica_id is not None else None)
+        notify = getattr(rep, "notify_cancel", None)
+        if notify is not None:
+            notify(req)
 
     def wait_all(self, handles: Sequence[RequestHandle],
                  timeout: Optional[float] = None) -> bool:
@@ -1111,8 +1394,17 @@ class ServingFrontend:
             self.alerts.maybe_evaluate()
         self._maybe_journal_tier_pressure()
         self._refresh_admission_gauges()
-        # distinct remote journal sources currently held (0 on an
-        # in-process fleet — the gauge exists either way)
+        if self._federation is not None:
+            # distinct live peer frontends, both directions (adopted FROM +
+            # connected TO this exporter) — identity-deduped so mutual
+            # peering counts each peer once
+            ids = {p.peer_id for p in self._federation_peers
+                   if p.alive and p.peer_id}
+            if self._federation_server is not None:
+                ids |= self._federation_server.live_peer_ids()
+            self.metrics.gauge("federation_peers").set(len(ids))
+        # distinct remote journal sources currently held (0 on fleets with
+        # no remote members — the gauge exists either way)
         self.metrics.gauge("fleet_telemetry_sources").set(
             len(self.fleet.sources()))
 
@@ -1355,10 +1647,39 @@ class ServingFrontend:
                            if self.autoscaler is not None else None),
             "events": self.journal.events(limit=recent_events),
         }
-        # the cross-process sections keep the report's shape; an
-        # in-process fleet has no remotes and no federation
-        report["remotes"] = []
-        report["federation"] = None
+        # fleet observability (docs/OBSERVABILITY.md "Fleet
+        # observability"): per-remote-replica transport/clock/recency
+        # status, federation peer books, and the FleetJournal's per-source
+        # tallies. All empty/None on a purely local fleet — the report
+        # shape is stable either way.
+        report["remotes"] = [r.ops_status() for r in self.router.replicas
+                             if hasattr(r, "ops_status")]
+        fed = None
+        if self._federation is not None:
+            peers = []
+            now = time.monotonic()
+            for p in self._federation_peers:
+                ages = [now - h._last_status_t
+                        for h in p._handles.values() if h._last_status_t]
+                peers.append({
+                    "address": p.address,
+                    "peer_id": p.peer_id,
+                    "alive": p.alive,
+                    "inflight": p.inflight(),
+                    "exports_adopted": sum(
+                        1 for rid in self._federated_refs
+                        if self._federated_refs[rid].peer is p),
+                    "last_status_age_s": min(ages) if ages else None})
+            srv = self._federation_server
+            fed = {
+                "frontend_id": self._federation_id,
+                "epoch": self._federation_epoch,
+                "listen": srv.address if srv is not None else None,
+                "peers": peers,
+                "peers_live": sorted(srv.live_peer_ids()
+                                     if srv is not None else []),
+            }
+        report["federation"] = fed
         report["fleet_journal"] = self.fleet.sources()
         report["observability_address"] = self.observability_address
         return report
@@ -1390,6 +1711,33 @@ class ServingFrontend:
             f"shed={c['requests_shed']:.0f} "
             f"failed={c['requests_failed']:.0f} "
             f"failed_over={c['requests_failed_over']:.0f}")
+        for rem in r.get("remotes") or []:
+            age = rem.get("last_status_age_s")
+            lines.append(
+                f"remote {rem['replica']} ({rem['source']}): "
+                + ("up" if rem["connected"] else "DOWN")
+                + f" rpc={rem['rpc_calls']}"
+                f"@{rem['rpc_avg_s'] * 1e3:.1f}ms "
+                f"clk={rem['clock_offset_s'] * 1e3:+.1f}ms "
+                f"active={rem['active']} "
+                + (f"status_age={age:.1f}s" if age is not None
+                   else "status_age=-"))
+        if r.get("federation") is not None:
+            f = r["federation"]
+            lines.append(
+                f"federation {f['frontend_id']}: "
+                f"peers_connected={len(f['peers_live'])} "
+                f"adopted_from={sum(1 for p in f['peers'] if p['alive'])}"
+                f"/{len(f['peers'])}")
+            for p in f["peers"]:
+                age = p.get("last_status_age_s")
+                lines.append(
+                    f"  peer {p['peer_id'] or p['address']}: "
+                    + ("up" if p["alive"] else "DOWN")
+                    + f" exports={p['exports_adopted']} "
+                    f"seats_in_use={p['inflight']} "
+                    + (f"status_age={age:.1f}s" if age is not None
+                       else "status_age=-"))
         if r.get("tenants"):
             for name, t in sorted(r["tenants"].items()):
                 lines.append(
@@ -1426,13 +1774,41 @@ class ServingFrontend:
 
     # ------------------------------------------------------------ telemetry
     def debug_dump(self, dump_dir: Optional[str] = None) -> dict:
-        """On-demand flight-recorder dump (docs/OBSERVABILITY.md): recent
-        spans, open ones included, + metric snapshots, as raw JSON and
-        Chrome ``trace_event`` JSON. Returns ``{"json": path,
-        "chrome_trace": path}``. Works with telemetry disabled too
-        (metrics only; the span lists are empty)."""
+        """On-demand FLEET flight-recorder dump (docs/OBSERVABILITY.md
+        "Fleet observability"): the local recorder dump (recent spans,
+        open ones included, + metric snapshots, as raw JSON and Chrome
+        ``trace_event`` JSON) plus one bounded ``dump`` RPC per remote
+        replica, each written alongside as ``fleet_<source>_<pid>.json``.
+        Returns ``{"json": path, "chrome_trace": path, "remotes": {source:
+        path | None}}`` (``remotes`` only with remote members; ``None``
+        marks a remote whose dump RPC failed — the local dump never blocks
+        on a sick peer). Works with telemetry disabled too (metrics only;
+        the span lists are empty)."""
+        import json as _json
+
         self.recorder.snapshot_metrics()
-        return self.recorder.dump(dump_dir=dump_dir, reason="debug")
+        out = self.recorder.dump(dump_dir=dump_dir, reason="debug")
+        d = self.recorder._resolve_dir(dump_dir)
+        remotes: Dict[str, Optional[str]] = {}
+        for rep in self.router.replicas:
+            fn = getattr(rep, "pull_dump", None)
+            if fn is None:
+                continue
+            dump = fn()
+            src = (dump or {}).get("source") or getattr(
+                rep, "_source", f"replica-{rep.replica_id}")
+            if dump is None:
+                remotes[str(src)] = None
+                continue
+            safe = str(src).replace("/", "_").replace(":", "_")
+            path = os.path.join(d, f"fleet_{safe}_{dump.get('pid')}.json")
+            with open(path, "w") as f:
+                _json.dump(dump, f)
+            remotes[str(src)] = path
+        if remotes:
+            out = dict(out, remotes=remotes)
+            self.journal.emit("fleet_dump", sources=sorted(remotes), dir=d)
+        return out
 
     # ------------------------------------------------------------ shutdown
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None) -> None:
@@ -1470,3 +1846,19 @@ class ServingFrontend:
             self.metrics.counter("requests_shed").inc()
         self.router.stop(drain=drain,
                          timeout=max(1.0, deadline - time.monotonic()))
+        # federation teardown LAST: in-flight federated mirrors on the
+        # exported replicas were settled by the router stop above, and
+        # closing the bootstrap connections is what signals peer_lost to
+        # the adopters
+        if self._federation_server is not None:
+            self._federation_server.stop()
+        for peer in self._federation_peers:
+            peer.close()
+        if self.net_chaos is not None:
+            # uninstall only OUR injector: a test running two frontends
+            # must not have the survivor's schedule torn down by the first
+            # shutdown
+            from .fabric import chaos as _net_chaos
+
+            if _net_chaos.installed() is self.net_chaos:
+                _net_chaos.uninstall()

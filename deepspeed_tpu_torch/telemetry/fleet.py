@@ -20,7 +20,7 @@ become one pane of glass:
   Perfetto as one timeline with a named track per process.
 - :class:`ObsEndpoint` is the stdlib ``http.server`` scrape surface
   (``/metrics``, ``/health``, ``/trace``, ``/dump``) that
-  ``scripts/fleetctl.py`` and Prometheus talk to.
+  ``python -m deepspeed_tpu_torch.scripts.fleetctl`` and Prometheus talk to.
 """
 
 from __future__ import annotations

@@ -102,6 +102,36 @@ def test_rank_tables_and_lock_names_agree():
         assert name in named, name
 
 
+def test_fabric_modules_linted_and_clean():
+    """The serving fabric's threaded modules lie under the lint's default
+    roots, their locks are named in the rank table, and their raw findings
+    are the JAX fabric's (none) or baselined like them."""
+    from deepspeed_tpu_torch.analysis.concurrency import iter_py_files
+
+    files = iter_py_files(REPO, T.DEFAULT_PATHS)
+    fabric = [f for f in files
+              if f.startswith("deepspeed_tpu_torch/serving/fabric/")]
+    assert sorted(os.path.basename(f) for f in fabric) == [
+        "__init__.py", "chaos.py", "codec.py", "federation.py",
+        "handle.py", "remote.py", "server.py", "transport.py"]
+    model = T.build_model(REPO)
+    named = {d.rank_name for cm in model.classes
+             for d in cm.locks.values() if d.rank_name}
+    for name in ("serving.fabric.remote", "serving.fabric.federation",
+                 "serving.fabric.server", "serving.fabric.transport",
+                 "serving.fabric.chaos"):
+        assert name in named, name
+    raw = [f for f in T.analyze(REPO)
+           if f.path.startswith("deepspeed_tpu_torch/serving/fabric/")]
+    j_raw = [f for f in J.analyze(REPO)
+             if f.path.startswith("deepspeed_tpu/serving/fabric/")]
+    assert renders(raw) == sorted(
+        r.replace("deepspeed_tpu/", "deepspeed_tpu_torch/")
+        for r in renders(j_raw))
+    active, _ = T.run_repo(REPO, paths=["deepspeed_tpu_torch/serving/fabric"])
+    assert active == [], "\n".join(f.render() for f in active)
+
+
 # ---------------------------------------------------------------- fixtures
 FIXTURES = {
     "guarded": '''

@@ -17,9 +17,9 @@ breaker, retry bound, all parked, brownout wiring), the frontend cases of
 ``tests/test_spec_decode.py``; plus dynamic membership with evacuation,
 the ``ServingConfig`` mounts of the prefix cache, KV quant and weight
 quant, one JAX-written universal checkpoint served through both packages'
-``engine_from_model_spec``, the device rule, the raise of every block
-whose feature the port does not run yet (item 11), and that the blocks of
-item 10b now build and serve.
+``engine_from_model_spec``, the device rule, and that the blocks of items
+10b and 11 (the fabric, federation, model peers and chaos) build and
+serve.
 """
 
 import json
@@ -1264,36 +1264,57 @@ def test_no_cuda_and_no_device_raises(params):
 
 
 # ------------------------------------------------------------ not ported
-# The item 10b blocks are served now; their cases (same ids) check that the
-# feature runs. The item 11 blocks still raise.
+# The blocks of items 10b and 11 are served now; their cases (same ids)
+# check that each builds its part and serves. "PEER" stands for the address
+# of a port replica server started for the case (model id "m" for the
+# models.<name>.peers case).
 NOT_PORTED = {
     "tenants": ({"tenants": {"a": {"weight": 2.0}}}, None),
     "affinity": ({"affinity": {"enabled": True}}, None),
     "autoscaler": ({"autoscaler": {"enabled": True}}, None),
     "disaggregation": ({"disaggregation": {
         "enabled": True, "roles": ["prefill", "decode"]}}, None),
-    "fabric": ({"fabric": {"enabled": True, "peers": ["127.0.0.1:1"]}},
-               "item 11"),
-    "federation": ({"fabric": {"enabled": True, "federation": {
-        "enabled": True}}}, "item 11"),
-    "model-peers": ({"models": {"m": {"model": {"vocab_size": 8},
-                                      "peers": ["127.0.0.1:1"]}}},
-                    "item 11"),
-    "chaos": ({"chaos": {"enabled": True}}, "item 11"),
+    "fabric": ({"fabric": {"enabled": True, "peers": ["PEER"],
+                           "heartbeat_s": 0.3}}, None),
+    "federation": ({"fabric": {"enabled": True, "listen": "127.0.0.1:0",
+                               "federation": {"enabled": True}}}, None),
+    "model-peers": ({"fabric": {"enabled": True, "heartbeat_s": 0.3},
+                     "models": {"m": {"model": {"vocab_size": 8},
+                                      "replicas": 0,
+                                      "peers": ["PEER"]}}}, None),
+    "chaos": ({"chaos": {"enabled": True}}, None),
 }
 
 # what each served block builds on the frontend
 PORTED_PART = {"tenants": "_tenancy", "affinity": "_affinity",
-               "autoscaler": "autoscaler", "disaggregation": "_stager"}
+               "autoscaler": "autoscaler", "disaggregation": "_stager",
+               "fabric": "_fabric", "federation": "_federation_server",
+               "model-peers": "_peer_addrs", "chaos": "net_chaos"}
+
+
+def _with_peer(block, addr):
+    """``block`` with every "PEER" placeholder replaced by ``addr``."""
+    return json.loads(json.dumps(block).replace('"PEER"', json.dumps(addr)))
 
 
 @pytest.mark.parametrize("name", list(NOT_PORTED))
 def test_unported_block_raises(params, oracle, name):
-    """An item 11 block raises naming its item, through both build paths;
-    an item 10b block builds its part through both and serves a request
-    with the JAX engine's stream."""
-    block, item = NOT_PORTED[name]
-    if item is None:
+    """Every block builds its part through both build paths and serves a
+    request with the JAX engine's stream: the item 10b blocks over local
+    engines, the item 11 blocks with a port replica server (on a thread,
+    over the same weights) where they adopt one."""
+    from deepspeed_tpu_torch.serving.fabric.server import ReplicaServer
+
+    block, _ = NOT_PORTED[name]
+    server = None
+    if "PEER" in json.dumps(block):
+        server = ReplicaServer(lambda: tiny_engine(params), ServingConfig(),
+                               listen="127.0.0.1:0", heartbeat_s=0.3,
+                               model_id="m" if name == "model-peers"
+                               else "default")
+        server.start()
+        block = _with_peer(block, f"127.0.0.1:{server.port}")
+    try:
         n = 2 if name == "disaggregation" else 1
         cfg = ServingConfig(num_replicas=n, **block)
         p = prompts(1, 71)[0]
@@ -1304,39 +1325,52 @@ def test_unported_block_raises(params, oracle, name):
                    ServingFrontend.from_engine_factory(
                        lambda i: tiny_engine(params), cfg)):
             try:
-                assert getattr(fe, PORTED_PART[name]) is not None
+                part = getattr(fe, PORTED_PART[name])
+                assert part is not None
+                if isinstance(part, dict):          # the peer slots
+                    assert part
+                if name == "federation":
+                    assert fe.federation_address.startswith("127.0.0.1:")
                 h = fe.submit(p, max_new_tokens=4,
-                              tenant="a" if name == "tenants" else None)
+                              tenant="a" if name == "tenants" else None,
+                              model="m" if name == "model-peers" else None)
                 assert fe.wait_all([h], timeout=60)
                 assert tokens([h]) == oracle([p], 4)
+                if server is not None:
+                    assert any(getattr(r, "is_remote", False)
+                               for r in fe.router.replicas)
             finally:
-                shut(fe)
-        return
-    cfg = ServingConfig(**block)            # parses, as in the JAX package
-    with pytest.raises(NotImplementedError, match=item):
-        ServingFrontend([tiny_engine(params)], cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        ServingFrontend.from_engine_factory(lambda i: tiny_engine(params),
-                                            cfg)
+                fe.shutdown(drain=False, timeout=5)
+                for rep in fe.router.replicas:
+                    if not getattr(rep, "is_remote", False):
+                        occ = rep.engine.occupancy()
+                        assert occ["available_blocks"] \
+                            == occ["total_blocks"], occ
+    finally:
+        if server is not None:
+            server.stop()
 
 
 def test_unported_names_and_methods_raise(params):
-    """The fabric's names and ``federation_address`` raise naming item 11;
-    the autoscaler's names load, ``set_replica_role`` refuses a fleet
-    without disaggregation with the JAX message, and ``fleet_signals`` /
+    """The fabric's names load (the fabric modules' own objects) and
+    ``federation_address`` is None without federation; the autoscaler's
+    names load, ``set_replica_role`` refuses a fleet without
+    disaggregation with the JAX message, and ``fleet_signals`` /
     ``set_proactive_brownout`` work on a static fleet."""
     import deepspeed_tpu_torch.serving as tserving
     from deepspeed_tpu_torch.serving.autoscaler import (FleetController,
                                                         FleetSignals,
                                                         ReplicaInfo)
+    from deepspeed_tpu_torch.serving.fabric import handle, remote, server
 
     assert (tserving.FleetController, tserving.FleetSignals,
             tserving.ReplicaInfo) == (FleetController, FleetSignals,
                                       ReplicaInfo)
-    for name in ("RemoteHandle", "LocalHandle", "ReplicaServer",
-                 "HANDLE_SURFACE"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            getattr(tserving, name)
+    assert (tserving.RemoteHandle, tserving.LocalHandle,
+            tserving.ReplicaServer, tserving.HANDLE_SURFACE) == (
+        remote.RemoteHandle, handle.LocalHandle, server.ReplicaServer,
+        handle.HANDLE_SURFACE)
+    assert issubclass(tserving.LocalHandle, Replica)
     fe = ServingFrontend([tiny_engine(params)], ServingConfig())
     try:
         with pytest.raises(ValueError, match="set_replica_role requires "
@@ -1351,7 +1385,6 @@ def test_unported_names_and_methods_raise(params):
         fe.set_proactive_brownout(None)
         assert fe.admission._proactive_frac == 1.0
         assert fe.health_report()["autoscaler"] is None
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fe.federation_address
+        assert fe.federation_address is None
     finally:
         shut(fe)
