@@ -200,6 +200,28 @@ Phases, each of which raises on failure (nothing is caught):
              telemetry block on (fwd_bwd and optimizer_step spans summing
              to the synchronized step wall within 5%, the loss equal to
              the untraced run's).
+12. train_state — training state at MISTRAL_7B widths, bf16, the train
+             phase's configuration, checkpoints under build/ (the free disk
+             checked and printed first, every tag removed in a
+             ``finally``): (a) 2 layers, 4 steps unbroken against 2 steps,
+             a sync and an async save (``latest`` committed only after
+             the wait, after the tag's leaves), a fresh engine's load and
+             steps 3-4: losses, counters, lr and every param leaf
+             bit-identical, 2 x 2 launches of each flash kernel a step;
+             (e) on that tag, zero_to_fp32 rebuilds every master bit for
+             bit and save_16bit_model's bf16 members ('<V2' headers) equal
+             the masters cast to bf16; (b) TrainingSupervisor at 2 layers
+             over a seeded crash, SIGTERM (run() again), three NaN-gradient
+             steps (a rollback) and a wedged step (a fresh engine from the
+             factory): losses_by_step equal to the unbroken run's bit for
+             bit, the journal's events, the urgent save against the grace;
+             (c) 8 layers: 2 steps, an urgent save, step 3, and a fresh
+             engine's load whose step 3 loss is bit-identical (save and load
+             seconds, the snapshot's host RAM); (d) one micro step with
+             remat off, nothing_saveable and dots_saveable at 2 layers:
+             the loss and every gradient leaf bit-identical, the forward
+             launched twice a layer under both policies, peak memory and
+             seconds.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -210,7 +232,7 @@ step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel p
 later phase after it (a short call after an edit; no result lines;
 ``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
 ``--only serving`` runs the serving phase, ``--only fabric`` the fabric
-phase).
+phase, ``--only train_state`` the training-state phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -224,6 +246,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -5823,6 +5846,476 @@ def phase_train(profile_step=False):
     return res
 
 
+# ------------------------------------------------------------ training state
+
+STATE_LAYERS = 2        # (a), (b), (d): 698 M parameters, 8.4 GB a tag
+URGENT_GRACE_S = 30.0   # ResilienceConfig.preempt_grace_s's default
+
+
+def state_data(n=2):
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    return {"input_ids": np.random.default_rng(0).integers(
+        0, MISTRAL_7B.vocab_size, (n, TRAIN_SEQ)).astype(np.int32)}
+
+
+def state_engine(layers, data, **config):
+    """MISTRAL_7B at full width and ``layers`` layers through
+    ``initialize`` with the train phase's configuration (seed 0, so every
+    engine starts from the same bits)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=layers)
+    return deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg), config=dict(TRAIN_CONFIG, **config),
+        training_data=data)[0]
+
+
+def free_engine():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_bytes(engine):
+    """Bytes of a tag: fp32 masters and every moment, 12 a parameter with
+    AdamW."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in
+               tree_leaves(engine.state.params)
+               + tree_leaves(engine.state.opt_state.moments))
+
+
+def ckpt_root(label, need_bytes):
+    """A fresh directory under build/ (listed in .gitignore) with
+    ``need_bytes`` free on its disk, else the phase fails with both."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(here, "build"))
+    free = shutil.disk_usage(root).free
+    log(f"[{label}] disk: {free / 1e9:.1f} GB free under build/, "
+        f"{need_bytes / 1e9:.1f} GB needed")
+    if free < need_bytes:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"[{label}] {need_bytes} bytes needed for the "
+                             f"checkpoints, {free} free")
+    return root
+
+
+def loader_state(engine):
+    return {"dataloader": engine.training_dataloader.state_dict()}
+
+
+def resume_loader(engine, cs):
+    engine.training_dataloader.load_state_dict(cs["dataloader"])
+    engine.reset_data_iterator()
+
+
+def timed_s(fn, *a, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def check_launches(label, micro_steps, layers, remat=False):
+    per = micro_steps * layers
+    want = {"fwd": per * (2 if remat else 1), "delta": per, "dq": per,
+            "dkv": per}
+    if dict(fa.launches) != want:
+        raise AssertionError(f"[{label}] launches {dict(fa.launches)}, "
+                             f"want {want}")
+    return want
+
+
+def params_equal(a_leaves, engine):
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    b_leaves = tree_leaves(engine.state.params)
+    return [i for i, (a, b) in enumerate(zip(a_leaves, b_leaves, strict=True))
+            if not torch.equal(a, b)]
+
+
+def offline_readers(engine, tag_dir, root):
+    """(e) zero_to_fp32 rebuilds every master bit for bit, and
+    save_16bit_model writes bf16 members (header ``'<V2'``) whose bits are
+    the masters cast to bf16."""
+    import zipfile
+
+    from deepspeed_tpu_torch.runtime.checkpointing import _flatten
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        get_fp32_state_dict_from_zero_checkpoint
+
+    t0 = time.perf_counter()
+    save_dir, tag = os.path.split(tag_dir)
+    state = get_fp32_state_dict_from_zero_checkpoint(save_dir, tag)
+    flat = dict(_flatten(engine.state.params))
+    if list(state) != list(flat):
+        raise AssertionError(f"[train_state e] zero_to_fp32 keys {list(state)}")
+    for key, p in flat.items():
+        if not torch.equal(torch.from_numpy(state[key]).to(p.device), p):
+            raise AssertionError(f"[train_state e] zero_to_fp32 {key} differs")
+    del state
+    path = engine.save_16bit_model(os.path.join(root, "fp16_export"))
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+        if names != [k + ".npy" for k in flat]:
+            raise AssertionError(f"[train_state e] npz members {names}")
+        for key, p in flat.items():
+            member = io.BytesIO(zf.read(key + ".npy"))
+            np.lib.format.read_magic(member)
+            shape, _, _ = np.lib.format.read_array_header_1_0(member)
+            head = member.getvalue()[:member.tell()]
+            want = p.detach().to(torch.bfloat16).view(torch.int16).cpu()
+            if b"'descr': '<V2'" not in head \
+                    or tuple(shape) != tuple(p.shape) \
+                    or member.read() != want.numpy().tobytes():
+                raise AssertionError(f"[train_state e] 16-bit member {key}: "
+                                     f"{head!r}")
+    gb = os.path.getsize(path) / 1e9
+    log(f"[train_state e] zero_to_fp32 rebuilt {len(flat)} leaves bit for bit "
+        f"from {tag}; save_16bit_model wrote {gb:.3f} GB of bf16 members "
+        f"('<V2' headers) equal to the masters cast to bf16; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def state_resume():
+    """(a) 4 steps unbroken; 2 steps, a sync and an async save, a fresh
+    engine's load and steps 3-4: losses, counters, lr and every param leaf
+    bit-identical. (e) runs on the saved tag."""
+    label = "train_state a"
+    data = state_data()
+    reset_launches()
+    a = state_engine(STATE_LAYERS, data)
+    want_losses = [float(a.train_batch()) for _ in range(4)]
+    want = {"global_steps": a.global_steps, "skipped": a.skipped_steps,
+            "lr": a.get_lr(), "device_step": int(a.state.global_step)}
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    want_params = [p.detach().clone() for p in tree_leaves(a.state.params)]
+    nbytes = state_bytes(a)
+    del a
+    free_engine()
+    root = ckpt_root(label, 2 * nbytes + nbytes // 6)
+    out = {"bytes": nbytes}
+    try:
+        b = state_engine(STATE_LAYERS, data)
+        losses = [float(b.train_batch()) for _ in range(2)]
+        _, out["save_s"] = timed_s(b.save_checkpoint, root, tag="sync",
+                                   client_state=loader_state(b))
+        tag_dir, out["async_return_s"] = timed_s(
+            b.save_checkpoint, root, tag="async", async_save=True,
+            client_state=loader_state(b))
+        with open(os.path.join(root, "latest")) as fh:
+            before = fh.read()
+        if before != "sync" or os.path.exists(os.path.join(tag_dir,
+                                                           "manifest.json")):
+            raise AssertionError(f"[{label}] the async tag committed before "
+                                 f"its wait: latest {before!r}")
+        _, out["async_wait_s"] = timed_s(b.wait_pending_checkpoint)
+        leaf_mtime = max(os.path.getmtime(os.path.join(d, f))
+                         for d, _, fs in os.walk(tag_dir) for f in fs
+                         if f.endswith(".npy"))
+        latest = os.path.join(root, "latest")
+        if open(latest).read() != "async" \
+                or os.path.getmtime(latest) < leaf_mtime:
+            raise AssertionError(f"[{label}] latest not written after the "
+                                 "async tag's leaves")
+        t = time.perf_counter()
+        offline_readers(b, tag_dir, root)
+        out["offline_s"] = time.perf_counter() - t
+        del b
+        free_engine()
+        c = state_engine(STATE_LAYERS, data)
+        (_, cs), out["load_s"] = timed_s(c.load_checkpoint, root)
+        resume_loader(c, cs)
+        losses += [float(c.train_batch()) for _ in range(2)]
+        got = {"global_steps": c.global_steps, "skipped": c.skipped_steps,
+               "lr": c.get_lr(), "device_step": int(c.state.global_step)}
+        bad = params_equal(want_params, c)
+        if losses != want_losses or got != want or bad:
+            raise AssertionError(
+                f"[{label}] resumed run {losses} {got} vs unbroken "
+                f"{want_losses} {want}; param leaves differing: {bad}")
+        launches = check_launches(label, 8 * 2, STATE_LAYERS)
+        del c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_engine()
+    gb = nbytes / 1e9
+    log(f"[{label}] MISTRAL_7B widths, {STATE_LAYERS} layers, bf16: losses "
+        f"{[round(x, 6) for x in losses]} after a save at step 2 and a "
+        f"fresh engine's load are bit-identical to the unbroken run's, as "
+        f"are global_steps {got['global_steps']}, skipped "
+        f"{got['skipped']}, lr {got['lr'][0]:.6g} and all "
+        f"{len(want_params)} param leaves; a tag holds {gb:.3f} GB; sync "
+        f"save {out['save_s']:.2f} s ({gb / out['save_s']:.2f} GB/s), "
+        f"async save returned in {out['async_return_s']:.2f} s and "
+        f"committed {out['async_wait_s']:.2f} s later, load "
+        f"{out['load_s']:.2f} s ({gb / out['load_s']:.2f} GB/s); latest "
+        f"written after the tag's leaves; launches {json.dumps(launches)} "
+        f"for 8 steps")
+    return out
+
+
+def join_abandoned_workers(timeout=120.0):
+    """A wedged step's worker wakes after its slow step, finds itself
+    superseded and exits: wait for it, so that no training thread runs
+    into a later phase."""
+    for t in threading.enumerate():
+        if t.name == "train-supervised-loop":
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError("[train_state b] an abandoned training "
+                                     f"worker still runs after {timeout} s")
+
+
+# A fault fires at the first step boundary at or past its at_step: the
+# three poisoned steps follow the boundaries at 6, 7 and 8, so the wedge
+# sits at 9, which is reached only after the rollback to global_step6.
+STATE_FAULTS = [
+    {"kind": "crash", "at_step": 3},
+    {"kind": "sigterm", "at_step": 5},
+    {"kind": "nan_grads", "at_step": 6, "count": 3},
+    {"kind": "slow_step", "at_step": 9, "duration_s": 10.0},
+]
+STATE_STEPS = 10
+
+
+def latest_only_journal(save_dir):
+    """An ops journal that, once a checkpoint is published, deletes every
+    other tag under ``save_dir``: a restart or rollback reads only
+    ``latest``, and a 2-layer tag holds 8.4 GB."""
+    from deepspeed_tpu_torch.telemetry.journal import OpsJournal
+
+    class LatestOnly(OpsJournal):
+        def emit(self, kind, **detail):
+            event = super().emit(kind, **detail)
+            if kind == "checkpoint_saved":
+                with open(os.path.join(save_dir, "latest")) as fh:
+                    keep = fh.read().strip()
+                for name in os.listdir(save_dir):
+                    path = os.path.join(save_dir, name)
+                    if name != keep and os.path.isdir(path):
+                        shutil.rmtree(path)
+            return event
+
+    return LatestOnly(capacity=512, source="training")
+
+
+def state_supervisor():
+    """(b) TrainingSupervisor over a seeded fault schedule at 2 layers:
+    a crash, a SIGTERM (then run() again), three NaN-gradient steps in a
+    row (a rollback) and a wedged step (a fresh engine from the factory);
+    the loss curve equals the unbroken run's bit for bit."""
+    from deepspeed_tpu_torch.runtime.resilience import TrainingSupervisor
+
+    label = "train_state b"
+    data = state_data()
+    reset_launches()
+    ref = state_engine(STATE_LAYERS, data)
+    ref_losses = {}
+    while ref.global_steps < STATE_STEPS:
+        loss = float(ref.train_batch())
+        ref_losses[ref.global_steps] = loss
+    nbytes = state_bytes(ref)
+    del ref
+    free_engine()
+    root = ckpt_root(label, 2 * nbytes + nbytes // 6)
+    res = {"enabled": True, "save_dir": root, "save_interval_steps": 2,
+           "restart_backoff_s": 0.05, "restart_backoff_jitter": 0.0,
+           "max_consecutive_anomalies": 3, "max_restarts_in_window": 8,
+           "watchdog_enabled": True, "step_timeout_s": 6.0,
+           "watchdog_poll_s": 0.1,
+           "faults": {"enabled": True, "seed": 0, "schedule": STATE_FAULTS}}
+
+    def factory():
+        return state_engine(STATE_LAYERS, data, resilience=res)
+
+    t0 = time.perf_counter()
+    try:
+        sup = TrainingSupervisor(engine=factory(), engine_factory=factory,
+                                 journal=latest_only_journal(root))
+        grace = sup.config.preempt_grace_s
+        first = sup.run(STATE_STEPS)
+        if first["status"] != "preempted" or first["completed_steps"] != 5:
+            raise AssertionError(f"[{label}] first run {first}")
+        r = sup.run(STATE_STEPS)
+        join_abandoned_workers()
+        wall = time.perf_counter() - t0
+        got = sup.losses_by_step()
+        kinds = [e["kind"] for e in sup.journal.events()]
+        reasons = [x["reason"] for x in r["restart_log"]]
+        if r["status"] != "completed" or got != ref_losses:
+            raise AssertionError(f"[{label}] {r['status']}: losses {got} vs "
+                                 f"the unbroken run's {ref_losses}")
+        if reasons != ["crash", "anomaly", "wedge"] or r["wedges"] != 1 \
+                or r["anomaly_rollbacks"] != 1 or r["preemptions"] != 1:
+            raise AssertionError(f"[{label}] restarts {reasons}, {r}")
+        for kind in ("checkpoint_saved", "train_preempt_save", "train_wedge",
+                     "train_restart", "train_anomaly_rollback"):
+            if kind not in kinds:
+                raise AssertionError(f"[{label}] no {kind} in {kinds}")
+        calls = STATE_STEPS + len(sup.loss_log) + 1   # + the wedged worker's
+        launches = check_launches(label, calls * 2, STATE_LAYERS)
+        urgent = first["urgent_save_s"]
+        del sup
+    finally:
+        join_abandoned_workers()
+        shutil.rmtree(root, ignore_errors=True)
+        free_engine()
+    log(f"[{label}] supervisor over crash@3, sigterm@5 (then run() again), "
+        f"nan_grads@6 x3, slow_step@9 (wedged past 6 s): losses_by_step "
+        f"equal the unbroken run's bit for bit over {STATE_STEPS} steps; "
+        f"restarts {reasons}, train_restarts {r['train_restarts']}, "
+        f"steps_lost {r['steps_lost']}, anomaly_rollbacks "
+        f"{r['anomaly_rollbacks']}, wedges {r['wedges']}; urgent_save_s "
+        f"{urgent:.2f} against preempt_grace_s {grace:.0f}; journal {kinds.count('checkpoint_saved')} "
+        f"checkpoint_saved, {kinds.count('train_restart')} train_restart; "
+        f"launches {json.dumps(launches)} ({calls} train_batch calls); "
+        f"{wall:.1f} s")
+    return {"urgent_save_s": urgent, "restarts": r["train_restarts"],
+            "steps_lost": r["steps_lost"], "wall_s": wall}
+
+
+def rss_bytes():
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def peak_rss_during(fn, *a, **kw):
+    """(fn's result, the highest resident set seen while it ran less the
+    one before, sampled every 5 ms)."""
+    base = rss_bytes()
+    peak = [base]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], rss_bytes())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = fn(*a, **kw)
+    finally:
+        done.set()
+        t.join(5.0)
+    return out, max(peak[0], rss_bytes()) - base
+
+
+def state_urgent():
+    """(c) The train phase's configuration at 8 layers: 2 steps, an urgent
+    save, step 3; a fresh engine loads the save and its step 3 loss is
+    bit-identical."""
+    label = "train_state c"
+    data = state_data()
+    reset_launches()
+    e = state_engine(TRAIN_LAYERS, data)
+    for _ in range(2):
+        e.train_batch()
+    nbytes = state_bytes(e)
+    root = ckpt_root(label, nbytes + nbytes // 6)
+    try:
+        _, rss = peak_rss_during(e.save_checkpoint, root, urgent=True,
+                                 client_state=loader_state(e))
+        urgent_s = e.last_urgent_save_s
+        want = float(e.train_batch())
+        del e
+        free_engine()
+        f = state_engine(TRAIN_LAYERS, data)
+        (_, cs), load_s = timed_s(f.load_checkpoint, root)
+        resume_loader(f, cs)
+        got = float(f.train_batch())
+        if got != want:
+            raise AssertionError(f"[{label}] step 3 after the load: loss "
+                                 f"{got} vs {want}")
+        launches = check_launches(label, 4 * 2, TRAIN_LAYERS)
+        del f
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_engine()
+    gb = nbytes / 1e9
+    log(f"[{label}] {TRAIN_LAYERS} layers: urgent save of {gb:.3f} GB in "
+        f"{urgent_s:.2f} s ({gb / urgent_s:.2f} GB/s) against the "
+        f"{URGENT_GRACE_S:.0f} s default grace "
+        f"({'within' if urgent_s <= URGENT_GRACE_S else 'OVER'}); host RAM "
+        f"of the snapshot (peak resident set above the start) "
+        f"{rss / 1e9:.3f} GB; load {load_s:.2f} s ({gb / load_s:.2f} GB/s); "
+        f"step 3's loss {got:.6f} equals the uninterrupted engine's; "
+        f"launches {json.dumps(launches)}")
+    return {"urgent_save_s": urgent_s, "load_s": load_s, "rss": rss,
+            "bytes": nbytes}
+
+
+def state_remat():
+    """(d) One micro step (forward and backward from a zero accumulator)
+    with remat off, nothing_saveable and dots_saveable at 2 layers, twice
+    each: the loss and every gradient leaf bit-identical to remat off's
+    first, the forward launched twice a layer under both policies."""
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    label = "train_state d"
+    data = state_data(1)
+    engine = state_engine(STATE_LAYERS, data)
+    batch = {"input_ids": data["input_ids"]}
+    base_cfg = engine.module.cfg
+    ref = None
+    out = {}
+    # two rounds: the first call of a policy pays its one-time set-up, so
+    # the second round's seconds are the ones reported
+    for rnd in range(2):
+        for mode in (None, "nothing_saveable", "dots_saveable"):
+            engine.module = CausalLM(dataclasses.replace(
+                base_cfg, remat=mode is not None, remat_policy=mode))
+            for g in tree_leaves(engine.state.grad_acc):
+                g.zero_()
+            reset_launches()
+            free_engine()
+            torch.cuda.reset_peak_memory_stats()
+            loss, secs = timed_s(engine.forward, batch)
+            grads = tree_leaves(engine.state.grad_acc)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check_launches(f"{label} {mode}", 1, STATE_LAYERS,
+                           remat=mode is not None)
+            if ref is None:
+                ref = (float(loss), [g.clone() for g in grads])
+            else:
+                bad = [i for i, (a, b) in enumerate(zip(ref[1], grads))
+                       if not torch.equal(a, b)]
+                if float(loss) != ref[0] or bad:
+                    raise AssertionError(
+                        f"[{label}] {mode}: loss {float(loss)} vs {ref[0]}, "
+                        f"gradient leaves differing {bad}")
+            row = out.setdefault(str(mode), {"first_s": secs})
+            row.update(peak_gb=peak, step_s=secs)
+    del engine, ref
+    free_engine()
+    log(f"[{label}] one micro step at {STATE_LAYERS} layers, T = "
+        f"{TRAIN_SEQ - 1}: loss and every gradient leaf bit-identical under "
+        f"nothing_saveable and dots_saveable; forward launched 2 x "
+        f"{STATE_LAYERS} under both; peak GB / seconds (first call's): "
+        + ", ".join(f"{k} {v['peak_gb']:.2f} / {v['step_s']:.3f} "
+                    f"({v['first_s']:.3f})" for k, v in out.items()))
+    return out
+
+
+def phase_train_state():
+    secs = {}
+    out = {}
+    for name, fn in (("a+e", state_resume), ("b", state_supervisor),
+                     ("c", state_urgent), ("d", state_remat)):
+        t = time.perf_counter()
+        out[name] = fn()
+        secs[name] = round(time.perf_counter() - t, 1)
+        log(f"[train_state] sub-phase {name}: {secs[name]} s")
+    out["secs"] = secs
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -5851,7 +6344,7 @@ def main(argv=None):
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
                                        "features", "kv_tier", "serving",
-                                       "fabric", "train"],
+                                       "fabric", "train", "train_state"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--compare", action="store_true",
@@ -5885,9 +6378,10 @@ def main(argv=None):
                  "quant": phase_quant, "v1": phase_v1,
                  "features": phase_features, "kv_tier": phase_kv_tier,
                  "serving": phase_serving, "fabric": phase_fabric,
-                 "train": phase_train}[args.only]
+                 "train": phase_train,
+                 "train_state": phase_train_state}[args.only]
         kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
-                                 "fabric") else {
+                                 "fabric", "train_state") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -5901,6 +6395,7 @@ def main(argv=None):
     serving = timed("serving", phase_serving)
     fabric = timed("fabric", phase_fabric)
     train = timed("train", phase_train, profile_step=args.profile)
+    state = timed("train_state", phase_train_state)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
         f"{main_res['prefill_tps']:.1f} | {int8['prefill_tps']:.1f} | "

@@ -64,6 +64,7 @@ DEFAULT_PATHS = (
     "deepspeed_tpu_torch/telemetry",
     "deepspeed_tpu_torch/utils/locks.py",
     "deepspeed_tpu_torch/utils/restart.py",
+    "deepspeed_tpu_torch/runtime/resilience.py",
 )
 
 #: method names never resolved by the unique-name fallback: they collide

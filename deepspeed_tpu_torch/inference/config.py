@@ -67,10 +67,15 @@ class InferenceConfig(DSConfigModel):
              "queue 1 item 14"),
             (bool(self.moe), "the moe block (MoE inference)",
              "queue 1 item 14"),
-            (self.save_mp_checkpoint_path is not None,
-             "save_mp_checkpoint_path (sharded checkpoint save)",
-             "queue 1 item 13"),
         ]
         for on, feature, item in checks:
             if on:
                 raise not_ported(feature, item)
+        if self.save_mp_checkpoint_path is not None:
+            # refused rather than dropped: a requested save that silently
+            # writes nothing is worse than an error
+            raise NotImplementedError(
+                "save_mp_checkpoint_path: the JAX package declares this key "
+                "and writes nothing there either, so the port refuses it "
+                "rather than drop a requested save (ROADMAP.md queue 3, a "
+                "deliberate divergence)")

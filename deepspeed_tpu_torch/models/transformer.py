@@ -531,10 +531,11 @@ class CausalLM:
         """tokens [B, T] integers → logits [B, T, V] (in compute dtype).
         With ``return_aux``, returns (logits, moe_aux_loss); the aux loss is
         0 for the dense models the port runs. ``cfg.remat`` recomputes each
-        block in the backward (``torch.utils.checkpoint``; the
-        ``remat_policy`` names of ``jax.checkpoint`` have no counterpart and
-        every policy recomputes the whole block). Differentiable in the
-        param tree's leaves."""
+        block in the backward (``torch.utils.checkpoint``) under
+        ``cfg.remat_policy``: ``None`` and ``"nothing_saveable"`` recompute
+        the whole block, ``"dots_saveable"`` keeps the matrix products'
+        outputs (``runtime/activation_checkpointing.py``); another name
+        raises ``ValueError``. Differentiable in the param tree's leaves."""
         cfg = self.cfg
         if cfg.moe_num_experts > 0:
             raise not_ported("MoE layers", "queue 1 item 14")
@@ -561,13 +562,19 @@ class CausalLM:
                 else torch.arange(T, device=dev)
             x = x + params["embed"]["wpe"][pos].to(cfg.dtype)
 
+        remat_kw = None
+        if cfg.remat:
+            from ..runtime.activation_checkpointing import checkpoint_kwargs
+
+            remat_kw = checkpoint_kwargs(cfg.remat_policy)
+
         def block_for(window):
             def block(x, lp, layer):
-                if cfg.remat and torch.is_grad_enabled():
+                if remat_kw is not None and torch.is_grad_enabled():
                     from torch.utils.checkpoint import checkpoint
 
                     return checkpoint(self._block, x, lp, cos, sin, window,
-                                      use_reentrant=False)
+                                      **remat_kw)
                 return self._block(x, lp, cos, sin, window)
             return block
 

@@ -13,7 +13,11 @@ serving blocks (``serving`` and its flat aliases ``prefix_cache``,
 ``speculative``, ``kv_quant``, ``weight_quant``, ``kv_tier``,
 ``admission``) are the typed blocks of ``serving/config.py``, and
 ``telemetry`` is ``telemetry/config.py``'s ``TelemetryConfig``: the
-training engine builds its tracer from it.
+training engine builds its tracer from it. ``resilience`` is the training
+supervisor's ``ResilienceConfig`` (``runtime/resilience.py``), and the
+``activation_checkpointing`` block is recorded, as the JAX package records
+it, without changing the step (the model config's ``remat`` and
+``remat_policy`` choose the recomputation).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..serving.config import (AdmissionConfig, KVQuantConfig, KVTierConfig,
 from ..telemetry.config import TelemetryConfig
 from .config_utils import (AUTO, DSConfigModel,  # noqa: F401
                            dict_raise_error_on_duplicate_keys)
+from .resilience import ResilienceConfig
 
 TRAIN_BATCH_SIZE_DEFAULT = None
 GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
@@ -371,8 +376,8 @@ class DeepSpeedTpuConfig(DSConfigModel):
     # unified telemetry (docs/OBSERVABILITY.md): training step spans here;
     # serving request tracing via ``serving.telemetry``
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
-    # the training supervisor: parsed as a plain dict until ported
-    resilience: Dict[str, Any] = field(default_factory=dict)
+    # the training supervisor's block (runtime/resilience.py)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
     seed: int = 1234
@@ -444,7 +449,6 @@ class DeepSpeedTpuConfig(DSConfigModel):
         on and whose feature the port does not run yet."""
         z = self.zero_optimization
         mesh = self.mesh
-        ac = self.activation_checkpointing
         offload = [o for o in (z.offload_optimizer, z.offload_param)
                    if o is not None and o.device != OffloadDeviceEnum.none]
         checks = [
@@ -466,12 +470,6 @@ class DeepSpeedTpuConfig(DSConfigModel):
              "a mesh with more than one device", "queue 1 item 14"),
             (self.pipeline.stages > 1 or bool(self.pipeline.micro_batches),
              "pipeline parallelism", "queue 1 item 14"),
-            (ac.partition_activations or ac.cpu_checkpointing
-             or ac.contiguous_memory_optimization
-             or ac.number_checkpoints is not None
-             or ac.synchronize_checkpoint_boundary or ac.profile,
-             "the activation_checkpointing block (use the model config's "
-             "remat for whole-block recomputation)", "queue 1 item 13"),
             (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
             (self.sparse_gradients, "sparse_gradients", "queue 1 item 14"),
             (self.communication_data_type is not None,
@@ -490,9 +488,6 @@ class DeepSpeedTpuConfig(DSConfigModel):
              "queue 1 item 17"),
             (_dict_block_on(self.data_efficiency), "data_efficiency",
              "queue 1 item 17"),
-            (_dict_block_on(self.resilience) or bool(
-                self.resilience.get("faults")), "resilience",
-             "queue 1 item 13"),
         ]
         for on, what, item in checks:
             if on:

@@ -28,10 +28,16 @@ and wall-clock timers) on one device:
   would not fit beside the first. The optimizer is still called through
   ``opt.step(params, grads, state, lr)``, on one-leaf trees.
 
+Checkpoints are the JAX package's universal layout
+(``save_checkpoint``/``load_checkpoint``, ``runtime/checkpointing.py``):
+either package resumes the other's. ``runtime/resilience.py``'s
+``TrainingSupervisor`` drives ``train_batch`` under crashes, preemption,
+wedged steps and anomaly storms.
+
 Single device only: a mesh, ZeRO stage > 0, MiCS, hpZ, ZeRO++, offload,
 1-bit optimizers, pipeline and sequence parallelism, MoE, curriculum,
-compression, elasticity, monitors, the flops profiler, telemetry and
-checkpoint save/load raise ``NotImplementedError`` naming their ROADMAP item.
+compression, elasticity, monitors and the flops profiler raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -530,10 +536,39 @@ class DeepSpeedTpuEngine:
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
-                        **kwargs):
-        raise not_ported("save_checkpoint (runtime/checkpointing.py)",
-                         "queue 1 item 13")
+                        save_latest=True, exclude_frozen_parameters=False,
+                        async_save=False, urgent=False):
+        """Write the train state as a universal checkpoint (the JAX
+        package's layout; ``runtime/checkpointing.py``); returns the tag
+        directory."""
+        from .checkpointing import save_checkpoint as _save
 
-    def load_checkpoint(self, load_dir, tag=None, **kwargs):
-        raise not_ported("load_checkpoint (runtime/checkpointing.py)",
-                         "queue 1 item 13")
+        return _save(self, save_dir, tag=tag, client_state=client_state or {},
+                     save_latest=save_latest, async_save=async_save,
+                     urgent=urgent)
+
+    def wait_pending_checkpoint(self):
+        """Join an ``async_save``'s background writes and commit it."""
+        from .checkpointing import wait_pending_save
+
+        wait_pending_save(self)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Load a universal checkpoint in place; returns ``(path,
+        client_state)``, or ``(None, {})`` when ``load_dir`` has no
+        ``latest``."""
+        from .checkpointing import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag,
+                     load_optimizer_states=load_optimizer_states,
+                     load_module_only=load_module_only)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         exclude_frozen_parameters=False):
+        """The params in the compute precision as one ``.npz``."""
+        from .checkpointing import save_16bit_model as _save16
+
+        return _save16(self, save_dir, save_filename)

@@ -12,8 +12,9 @@
   ``generate`` output, both byte for byte.
 - A missing shard raises ``IOError``, a model that does not match raises
   ``ValueError`` naming the leaves, a directory without a checkpoint raises
-  ``FileNotFoundError`` naming the manifest, and an HF directory and saving
-  still raise ``NotImplementedError``.
+  ``FileNotFoundError`` naming the manifest, and an HF directory still
+  raises ``NotImplementedError``; a training engine's load from a directory
+  without ``latest`` loads nothing.
 """
 
 import glob
@@ -205,8 +206,12 @@ def test_missing_checkpoint_and_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
         deepspeed_tpu_torch.init_inference(
             "tiny", config={"checkpoint": str(hf)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        ckpt.save_checkpoint(None, str(tmp_path))
+    # saving is ported (tests/test_torch_train_checkpoint.py): an engine's
+    # load from a directory without 'latest' loads nothing
+    eng = deepspeed_tpu_torch.initialize(
+        model=ttf.CausalLM(ttf.TINY_TEST), config={"train_batch_size": 2},
+        device="cpu")[0]
+    assert ckpt.load_checkpoint(eng, str(tmp_path)) == (None, {})
 
 
 def test_v1_load_checkpoint_matches_config_checkpoint(sharded):

@@ -82,10 +82,11 @@ def test_port_sources_clean_against_port_baseline():
     for e in entries:
         assert counterpart.get(e.id) == e.justification, e.id
     assert {f.baseline_id for f in suppressed} == {e.id for e in entries}
-    assert T.DEFAULT_PATHS == ("deepspeed_tpu_torch/serving",
-                               "deepspeed_tpu_torch/telemetry",
-                               "deepspeed_tpu_torch/utils/locks.py",
-                               "deepspeed_tpu_torch/utils/restart.py")
+    # the JAX package's scope, the training supervisor included
+    assert T.DEFAULT_PATHS == tuple(
+        path.replace("deepspeed_tpu/", "deepspeed_tpu_torch/")
+        for path in J.DEFAULT_PATHS)
+    assert "deepspeed_tpu_torch/runtime/resilience.py" in T.DEFAULT_PATHS
 
 
 def test_rank_tables_and_lock_names_agree():

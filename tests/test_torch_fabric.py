@@ -476,7 +476,7 @@ class TestRemoteParity:
 
 # ==================================================== cross-process handoff
 class TestCrossProcessHandoff:
-    @pytest.mark.parametrize("quant", [None, "int8"])
+    @pytest.mark.parametrize("quant", [None, "int8", "fp8_e4m3"])
     def test_disagg_handoff_parity(self, quant):
         ps = prompts(4, 18, lo=12, hi=20)
         ref = local_reference(ps, 5, kv_quant=quant)

@@ -295,18 +295,22 @@ def _leaf_items(d, prefix=""):
 
 def test_config_defaults_equal_the_jax_package():
     """Every field the two configs share has the same default, the typed
-    serving and telemetry blocks included; the block the port keeps as a
-    plain dict (resilience) defaults to empty."""
+    serving, telemetry and resilience blocks included; the mounted
+    ``ResilienceConfig`` is compared field by field."""
     from deepspeed_tpu.runtime import config as jconfig
 
-    as_dicts = ("resilience",)
     jd = jconfig.DeepSpeedTpuConfig().model_dump(mode="json")
     td = tconfig.DeepSpeedTpuConfig().to_dict()
     assert set(td) == set(jd)
-    for k in as_dicts:
-        assert td.pop(k) == {}
-        jd.pop(k)
     assert dict(_leaf_items(td)) == dict(_leaf_items(jd))
+    jr = jconfig.DeepSpeedTpuConfig().resilience
+    tr = tconfig.DeepSpeedTpuConfig().resilience
+    assert set(type(jr).model_fields) == set(tr.to_dict())
+    for name in type(jr).model_fields:
+        want, got = getattr(jr, name), getattr(tr, name)
+        if name == "faults":
+            want, got = want.model_dump(), got.to_dict()
+        assert got == want, name
 
 
 def test_config_unknown_keys_none_and_types(tmp_path):
@@ -360,8 +364,6 @@ NOT_PORTED = {
     "pipeline": ({"pipeline": {"stages": 2}}, "item 14"),
     "onebit": ({"optimizer": {"type": "OneBitAdam", "params": {}}},
                "item 14"),
-    "activation-checkpointing": ({"activation_checkpointing": {
-        "partition_activations": True}}, "item 13"),
     "curriculum": ({"curriculum_learning": {"enabled": True}}, "item 17"),
     "compression": ({"compression_training": {"weight_quantization": {}}},
                     "item 17"),
@@ -369,14 +371,17 @@ NOT_PORTED = {
     "monitor": ({"csv_monitor": {"enabled": True}}, "item 17"),
     "flops-profiler": ({"flops_profiler": {"enabled": True}}, "item 17"),
     "hybrid-engine": ({"hybrid_engine": {"enabled": True}}, "item 17"),
-    "resilience": ({"resilience": {"enabled": True}}, "item 13"),
 }
 
-# blocks that parsed into a raise before the serving stack and the rest of
-# telemetry were ported; they now parse into their typed blocks
+# blocks that parsed into a raise before the serving stack, the rest of
+# telemetry and the training state were ported; they now parse into their
+# typed blocks, equal to the JAX package's
 PORTED_BLOCKS = {
     "telemetry": {"telemetry": {"enabled": True}},
     "serving": {"serving": {"prefix_cache": {"enabled": True}}},
+    "activation-checkpointing": {"activation_checkpointing": {
+        "partition_activations": True}},
+    "resilience": {"resilience": {"enabled": True}},
 }
 
 
@@ -426,7 +431,7 @@ def test_telemetry_step_spans_match_jax_engine():
     assert plain.tracer.export() == []
 
 
-def test_not_ported_engine_surfaces_raise():
+def test_not_ported_engine_surfaces_raise(tmp_path):
     model = ttf.CausalLM(ttf.TINY_TEST)
     with pytest.raises(NotImplementedError, match="item 14"):
         DeepSpeedTpuEngine(model=model, config={"train_batch_size": 2},
@@ -439,10 +444,11 @@ def test_not_ported_engine_surfaces_raise():
         deepspeed_tpu_torch.initialize(model=moe, device="cpu",
                                        config={"train_batch_size": 2})
     eng = _port_engine({"train_batch_size": 2})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.save_checkpoint("/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.load_checkpoint("/nonexistent")
+    # checkpoints are ported: a directory without 'latest' loads nothing,
+    # and a save writes the tag and commits it
+    assert eng.load_checkpoint(str(tmp_path)) == (None, {})
+    assert eng.save_checkpoint(str(tmp_path)) == str(tmp_path / "global_step0")
+    assert (tmp_path / "latest").read_text() == "global_step0"
     with pytest.raises(ValueError, match="training_data"):
         eng.train_batch()
 
@@ -501,6 +507,10 @@ def test_training_modules_import_no_jax_no_pydantic():
         "import deepspeed_tpu_torch.ops.flash_attention\n"
         "import deepspeed_tpu_torch.ops.optimizers\n"
         "import deepspeed_tpu_torch.utils.timer\n"
+        "import deepspeed_tpu_torch.runtime.checkpointing\n"
+        "import deepspeed_tpu_torch.runtime.resilience\n"
+        "import deepspeed_tpu_torch.runtime.activation_checkpointing\n"
+        "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pydantic', 'deepspeed_tpu', 'triton')]\n"
         "assert not bad, bad\n"
