@@ -89,9 +89,9 @@ Phases, each of which raises on failure (nothing is caught):
 8. features — the v2 serving features: small fp32 engines give the same
              greedy streams and counters on the card as on the CPU with the
              prefix cache, speculation at K = 3 and 4, and preemption (dense,
-             int8 and fp8); then one MISTRAL_7B engine at full width (32
-             layers, bf16): the kernels' logits against the plain versions'
-             on a verify put and a prefix-hit chunk (the gap the greedy-
+             int8 and fp8); then one MISTRAL_7B engine at full width (8
+             of its 32 layers, bf16): the kernels' logits against the plain
+             versions' on a verify put and a prefix-hit chunk (the gap the greedy-
              parity rule allows), the prefix cache off, cold and warm over a
              2048-token system prompt (the warm pass matches 8 x 2048
              tokens; every block free after clearing), n-gram and draft-
@@ -102,7 +102,7 @@ Phases, each of which raises on failure (nothing is caught):
              with int8 KV and speculation with int8 weights + int8 KV; each
              run's streams equal the feature-off run's or diverge only at a
              margin within that gap, with one paged launch per layer and put
-             (and 225 quantized-matmul launches with int8 weights); the KV
+             (and 57 quantized-matmul launches with int8 weights); the KV
              tier cell, bf16 and again with int8 weights + int8 KV: 6
              system prompts of 1024 tokens (+ 32) twice a pass, two passes,
              one request at a time, in a 260-block pool with reservation
@@ -118,7 +118,7 @@ Phases, each of which raises on failure (nothing is caught):
              ``load_checkpoint``) with the in-memory tree's streams.
 9. serving — the serving stack through ServingFrontend (admission queue,
              router, replica threads, supervisor, fault injection,
-             telemetry) at full MISTRAL_7B width (32 layers, bf16, blocks of
+             telemetry) at full MISTRAL_7B width (8 layers, bf16, blocks of
              16, chunks of 256, random weights from a seed, one weight tree
              shared by every engine, each engine with its own KV pool):
              a burst of 48 requests at one replica with a queue of 16
@@ -129,7 +129,7 @@ Phases, each of which raises on failure (nothing is caught):
              the supervisor's restart logged, memory back after the cell);
              int8 weights, int8 KV, the prefix cache and reservation
              admission through ServingConfig with telemetry and an SLO on
-             (8 quantize launches at the build, 225 quantized-matmul
+             (8 quantize launches at the build, 57 quantized-matmul
              launches a put, prefix tokens saved, each request's span chain
              covering its TTFT, a valid debug-dump trace, the Prometheus
              text and health report, a cancel that frees every block);
@@ -152,7 +152,7 @@ Phases, each of which raises on failure (nothing is caught):
              journal, memory back within one pool), and an explicit
              set_replica_role of a prefill replica mid-traffic.
              Each run's counts are set to 0 just before it and read after:
-             32 paged launches a put; every stream holds to the same
+             8 paged launches a put; every stream holds to the same
              prompts through a bare scheduler by the greedy-parity rule;
              no replica dies outside the chaos run and no replica's params
              require grad. Prints TTFT, TPOT and tokens/s beside the bare
@@ -162,7 +162,7 @@ Phases, each of which raises on failure (nothing is caught):
              prefix hit rates off and on, warm-up blocks and time, and the
              autoscaler's grow-decision-to-serving time and
              replica_seconds.
-10. fabric — the cross-process serving fabric: MISTRAL_7B replicas (32
+10. fabric — the cross-process serving fabric: MISTRAL_7B replicas (8
              layers, bf16, seeded weights) each in its own
              ``python -m deepspeed_tpu_torch.scripts.serve_replica``
              process on the card, the frontend in this one. The reference
@@ -181,7 +181,7 @@ Phases, each of which raises on failure (nothing is caught):
              to it; (d) a ``serve_frontend`` process exporting its replica,
              adopted here beside a replica process, then SIGKILLed
              mid-decode (its requests fail over); (e) every server's stop
-             line: 32 paged launches a put, and with int8 225
+             line: 8 paged launches a put, and with int8 57
              quantized-matmul launches a put and 8 quantize launches. Every
              stream holds to the reference by the greedy-parity rule;
              every wait has a timeout, and every process is stopped in a
@@ -203,14 +203,14 @@ Phases, each of which raises on failure (nothing is caught):
 12. train_state — training state at MISTRAL_7B widths, bf16, the train
              phase's configuration, checkpoints under build/ (the free disk
              checked and printed first, every tag removed in a
-             ``finally``): (a) 2 layers, 4 steps unbroken against 2 steps,
+             ``finally``): (a) 1 layer, 4 steps unbroken against 2 steps,
              a sync and an async save (``latest`` committed only after
              the wait, after the tag's leaves), a fresh engine's load and
              steps 3-4: losses, counters, lr and every param leaf
-             bit-identical, 2 x 2 launches of each flash kernel a step;
+             bit-identical, 2 x 1 launches of each flash kernel a step;
              (e) on that tag, zero_to_fp32 rebuilds every master bit for
              bit and save_16bit_model's bf16 members ('<V2' headers) equal
-             the masters cast to bf16; (b) TrainingSupervisor at 2 layers
+             the masters cast to bf16; (b) TrainingSupervisor at 1 layer
              over a seeded crash, SIGTERM (run() again), three NaN-gradient
              steps (a rollback) and a wedged step (a fresh engine from the
              factory): losses_by_step equal to the unbroken run's bit for
@@ -218,10 +218,36 @@ Phases, each of which raises on failure (nothing is caught):
              (c) 8 layers: 2 steps, an urgent save, step 3, and a fresh
              engine's load whose step 3 loss is bit-identical (save and load
              seconds, the snapshot's host RAM); (d) one micro step with
-             remat off, nothing_saveable and dots_saveable at 2 layers:
+             remat off, nothing_saveable and dots_saveable at 1 layer:
              the loss and every gradient leaf bit-identical, the forward
              launched twice a layer under both policies, peak memory and
              seconds.
+13. offload — ZeRO-Offload and ZeRO-Infinity at MISTRAL_7B widths, bf16,
+             AdamW, one 4096-token sequence a step, page-locked host
+             masters, the C++ host optimizer asserted loaded: (a) 2 layers,
+             4 steps with the moments in host RAM at ratio 1.0 against the
+             on-device engine from the same seed (losses within 2e-4, the
+             device params equal to the host masters bit for bit after
+             each copy-back; the host's cores, OpenMP threads and RAM
+             logged); (b) all 32 layers (7.24 B parameters) with
+             nothing_saveable remat, 3 steps: host RAM or NVMe moments and
+             the ratio chosen from MemAvailable and the card's 80 GB, the
+             losses finite and falling, peak device memory, host RSS, each
+             step split into forward + backward, grads to host, host AdamW
+             and masters back (seconds and GB/s), 64 forward, 32 dq and 32
+             dkv launches a step; (c) Twin-Flow at ratio 0.5 with the
+             moments on NVMe, 2 layers, 3 steps: the kept leaves, the
+             moment files' bytes, step seconds, losses within 2e-4 of
+             (a)'s on-device engine; (d) ZeRO-Infinity, 8 layers in 4
+             groups of 2, the store in host RAM (2 steps, the loss
+             falling) and then in files (1 step): the first streamed loss
+             against the whole-model CausalLM.loss of the gathered params
+             (1e-4 relative), the bytes read a step equal to the expected,
+             the peak device memory against two groups + edges +
+             boundaries, step seconds, 16 forward, 8 dq and 8 dkv launches
+             a step. This phase runs right after the timing phase, in a
+             child process of this script (``--offload-result``), which
+             hands the host memory back when it exits.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -232,7 +258,8 @@ step (the breakdowns in PERF.md section 5). ``--quick`` stops after the kernel p
 later phase after it (a short call after an edit; no result lines;
 ``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
 ``--only serving`` runs the serving phase, ``--only fabric`` the fabric
-phase, ``--only train_state`` the training-state phase).
+phase, ``--only train_state`` the training-state phase, ``--only offload``
+the offload phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -2250,8 +2277,23 @@ def phase_quant(profile_puts=False):
 
 # ------------------------------------------------------------- features
 
+# The serving paths after main, quant and v1 (features with its KV tier
+# cell, serving and fabric) run MISTRAL_7B at full width and SERVE_LAYERS
+# of its 32 layers: at all 32 the whole smoke came within 10% of its time
+# limit. Every count they check follows the depth (one paged launch a layer
+# and put; 7 quantized matmuls a layer and lm_head's a put).
+SERVE_LAYERS = 8
+
+
+def serve_cfg():
+    """MISTRAL_7B at full width, SERVE_LAYERS layers."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    return dataclasses.replace(MISTRAL_7B, num_layers=SERVE_LAYERS)
+
+
 # The serving features at MISTRAL_7B width, on one bf16 engine built once
-# (32 layers, blocks of 16, chunks of 256). The features are switched
+# (SERVE_LAYERS layers, blocks of 16, chunks of 256). The features are switched
 # between runs with configure_prefix_cache, configure_admission and
 # configure_kv_quant; the pool is re-sized for the preemption runs
 # (``set_pool``); the int8 speculative runs quantize the same engine's
@@ -2307,7 +2349,7 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
     launches recorded. The kernels' launch counts are set to 0 just before
     and read just after. Checks stream lengths, one paged launch per layer
     and put, 7 quantized-matmul launches per layer and put plus lm_head's
-    (225 at MISTRAL_7B) with quantized weights (else 0), and that every
+    (57 at SERVE_LAYERS) with quantized weights (else 0), and that every
     block is free or held by the prefix cache alone. ``record_margins``
     keeps each request's top-2 logit margin at each sampled position (for
     the greedy-parity rule); the puts of a ``draft_engine`` (a draft-model
@@ -2376,7 +2418,7 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
         raise AssertionError(f"[features] {label}: "
                              f"{launches['paged_attention']} paged launches "
                              f"for {n_puts} puts x {L} layers")
-    # 7 projections a layer and lm_head (225 at MISTRAL_7B); a draft
+    # 7 projections a layer and lm_head (57 at SERVE_LAYERS); a draft
     # engine shares the target's (quantized) tree
     want_qmm = ((7 * L + (0 if mcfg.tie_embeddings else 1)) * n_puts
                 if engine.config.weight_quant_enabled else 0)
@@ -2792,12 +2834,12 @@ def feature_checkpoint():
         shutil.rmtree(root, ignore_errors=True)
 
 
-# The KV tier cell: 6 system prompts of 1024 tokens (64 blocks of 16, 128 MiB
-# of bf16 KV each), each followed by a 32-token random tail, 8 new tokens a
+# The KV tier cell: 6 system prompts of 1024 tokens (64 blocks of 16, 32 MiB
+# of bf16 KV each at 8 layers), each followed by a 32-token random tail, 8 new tokens a
 # request; two passes of 12 requests (each prompt twice), one at a time. The
 # pool holds about half the prefixes' 384 blocks, so prefixes are evicted
 # between repeats: tier off re-prefills them, tier on restores them from host
-# RAM (two prefixes' blocks: 256 MiB of bf16 KV, half that of int8) or disk.
+# RAM (two prefixes' blocks: 64 MiB of bf16 KV, half that of int8) or disk.
 TIER_PROMPTS = 6
 TIER_SYS = 1024
 TIER_TAIL = 32
@@ -2936,7 +2978,8 @@ def reset_prefix_cache(engine):
 def feature_kv_tier(engine, label, gap, trace=False):
     """The KV tier cell on ``engine`` (MISTRAL_7B at full width; its weights
     and KV representation as configured): tier off, then tier on (host RAM
-    256 MiB, disk 1 GiB in a temporary directory), the same two passes.
+    of two prefixes' blocks, disk 1 GiB in a temporary directory), the same
+    two passes.
     Checks that the tier restored blocks, from host and from disk, with no
     corrupt read, through the native aio library; that the tier-on streams
     obey the greedy-parity rule against the tier-off ones; and that every
@@ -3094,13 +3137,13 @@ def evacuate_failing_export(engine, prompt, label):
 
 def phase_kv_tier():
     """The KV tier cell alone (``--only kv_tier``): MISTRAL_7B at full width
-    (32 layers, bf16 weights from a seed), bf16 then int8 weights + int8
-    KV."""
+    (SERVE_LAYERS layers, bf16 weights from a seed), bf16 then int8 weights
+    + int8 KV."""
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
-    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+    from deepspeed_tpu_torch.models.transformer import CausalLM
 
-    model = CausalLM(MISTRAL_7B)
+    model = CausalLM(serve_cfg())
     torch.cuda.empty_cache()
     params = model.init(torch.Generator("cuda").manual_seed(7),
                         device="cuda", dtype=torch.bfloat16)
@@ -3252,7 +3295,8 @@ def profile_feature_puts(engine):
 
 def phase_features(profile_puts=False):
     """The features phase: small fp32 card == CPU parity with each feature,
-    then MISTRAL_7B at full width (32 layers, bf16): the prefix cache, n-gram
+    then MISTRAL_7B at full width (SERVE_LAYERS layers, bf16): the prefix
+    cache, n-gram
     speculative decoding at K = 3 and 4, reservation admission with
     preemption, KV export/import (bf16, int8 and fp8 pools), preemption
     again with int8 KV, speculative decoding again with int8 weights and
@@ -3262,9 +3306,9 @@ def phase_features(profile_puts=False):
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
     small_feature_parity()
-    cfg = MISTRAL_7B
-    log(f"[features] MISTRAL_7B at full width, {cfg.num_layers} layers "
-        "(no depth cut), bf16, random weights from a seed")
+    cfg = serve_cfg()
+    log(f"[features] MISTRAL_7B at full width, {cfg.num_layers} of "
+        f"{MISTRAL_7B.num_layers} layers, bf16, random weights from a seed")
     model = CausalLM(cfg)
     torch.cuda.empty_cache()
     params = model.init(torch.Generator("cuda").manual_seed(7),
@@ -3314,19 +3358,20 @@ def phase_features(profile_puts=False):
 
 # ------------------------------------------------------------- serving
 
-# The serving stack at MISTRAL_7B width (32 layers, bf16, blocks of 16,
+# The serving stack at MISTRAL_7B width (SERVE_LAYERS layers, bf16, blocks of 16,
 # chunks of 256): ServingFrontend -> admission queue -> router -> replica
 # threads, over engines that share one bf16 weight tree (each engine has
 # its own KV pools and scheduler).
-SERVE_KV_BLOCKS = 1024              # 2 GiB of bf16 KV an engine
+SERVE_KV_BLOCKS = 1024              # 512 MiB of bf16 KV an engine
 SERVE_MAX_SEQS = 8                  # a replica's concurrent sequences
 BURST_REQUESTS, BURST_NEW, BURST_QUEUE = 48, 32, 16
 BURST_LENGTHS = 16                  # lognormal prompt lengths, cycled
 CHAOS_REQUESTS, CHAOS_PROMPT, CHAOS_NEW = 16, 128, 16
 CHAOS_CRASH_STEP = 4
-CHAOS_KV_BLOCKS = 256               # 16 x 9 blocks and room; 512 MiB
+CHAOS_KV_BLOCKS = 256               # 16 x 9 blocks and room; 128 MiB
 QCFG_REQUESTS, QCFG_SYS, QCFG_TAIL, QCFG_NEW = 8, 1024, 64, 16
-KV_BLOCK_BYTES_BF16 = 32 * 2 * 8 * 16 * 128 * 2   # MISTRAL_7B, 2 MiB
+# a bf16 block of 16 tokens: K and V, 8 KV heads of 128, 512 KiB
+KV_BLOCK_BYTES_BF16 = SERVE_LAYERS * 2 * 8 * 16 * 128 * 2
 
 
 def serving_engine(model, params, kv_blocks, put_log=None):
@@ -3847,7 +3892,7 @@ def serving_quant_obs(model, params):
 # multi-tenant fair share, prefix-affinity routing with warm-up, and the
 # elastic autoscaler, each over engines that share the one bf16 tree.
 DISAGG_REQUESTS, DISAGG_NEW = 16, 32
-DISAGG_KV_BLOCKS = 1536             # 8 x (2048 + 32) tokens at once; 3 GiB
+DISAGG_KV_BLOCKS = 1536             # 8 x (2048 + 32) tokens at once
 TENANT_PROMPT, TENANT_NEW = 256, 16
 TENANT_FLOOD, TENANT_CAPPED = 24, 8          # gold and silver; capped
 TENANT_RATE = 100.0                 # capped's tokens/s: 4 requests a window
@@ -3993,8 +4038,8 @@ def check_handoff_split(run, prompts, label, quant, cfg):
     fed each prompt token once and nothing else, the decode replica only
     one-token decode rows, one a new token (the scheduler feeds each token
     in the put that samples it; the first is sampled from the handed-off
-    ``last_logits``); 32 paged launches a put on each, and with int8
-    weights 225 quantized-matmul launches a put."""
+    ``last_logits``); one paged launch a layer and put on each, and with
+    int8 weights 7 quantized-matmul launches a layer and lm_head's a put."""
     snap, n = run["snap"], len(prompts)
     if not (snap["handoffs_started"] == snap["handoffs_completed"] == n
             and snap["handoff_fallbacks"] == 0 and len(run["sizes"]) == n):
@@ -4514,9 +4559,9 @@ def phase_serving():
     cell, the quantized-through-the-config cell with the observability
     checks, and the disaggregation, tenancy, affinity and autoscale
     cells."""
-    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+    from deepspeed_tpu_torch.models.transformer import CausalLM
 
-    cfg = MISTRAL_7B
+    cfg = serve_cfg()
     log(f"[serving] MISTRAL_7B at full width, {cfg.num_layers} layers, "
         "bf16, random weights from a seed, one tree shared by every engine")
     model = CausalLM(cfg)
@@ -4566,10 +4611,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def fabric_model_kw():
-    """MISTRAL_7B's TransformerConfig as a JSON spec writes it."""
-    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
-
-    kw = dataclasses.asdict(MISTRAL_7B)
+    """The serving paths' TransformerConfig (MISTRAL_7B at SERVE_LAYERS
+    layers) as a JSON spec writes it."""
+    kw = dataclasses.asdict(serve_cfg())
     kw["dtype"] = "bfloat16"
     return kw
 
@@ -5082,21 +5126,22 @@ def fabric_federation(ref, server, exporter, prompts):
 
 
 def fabric_kernel_lines(lines, label, quant):
-    """(e) a server's stop line: 32 paged launches a put, and with int8
-    weights 225 quantized-matmul launches a put and 8 quantize launches
-    (its one engine build)."""
+    """(e) a server's stop line: one paged launch a layer and put, and with
+    int8 weights 7 quantized-matmul launches a layer and lm_head's a put
+    and 8 quantize launches (its one engine build)."""
     got = [ln.split(" ", 1)[1] for ln in lines
            if ln.startswith("FABRIC_KERNELS ")]
     if len(got) != 1:
         raise AssertionError(f"[fabric] {label}: stop lines {got}")
     k = json.loads(got[0])
-    want = {"paged_attention": 32 * k["puts"],
-            "quantized_matmul": 225 * k["puts"] if quant else 0,
+    qmm = 7 * SERVE_LAYERS + 1
+    want = {"paged_attention": SERVE_LAYERS * k["puts"],
+            "quantized_matmul": qmm * k["puts"] if quant else 0,
             "quantize": 8 if quant else 0, "dequantize": 0}
     if k["puts"] < 1 or any(k[n] != v for n, v in want.items()):
         raise AssertionError(f"[fabric] {label}: launches {k}, want {want}")
-    log(f"[fabric] (e) {label}: {json.dumps(k)} (32 paged"
-        + (", 225 qmm" if quant else "") + " a put)")
+    log(f"[fabric] (e) {label}: {json.dumps(k)} ({SERVE_LAYERS} paged"
+        + (f", {qmm} qmm" if quant else "") + " a put)")
     return k
 
 
@@ -5106,7 +5151,8 @@ def handoff_lines(lines):
 
 
 def phase_fabric():
-    """The cross-process serving fabric: MISTRAL_7B replicas at 32 layers,
+    """The cross-process serving fabric: MISTRAL_7B replicas at SERVE_LAYERS
+    layers,
     bf16, seeded weights, each in its own ``serve_replica`` process on the
     card, this process holding the frontend. Sub-phases (a)-(e), each
     timed; every process is stopped (or killed, on a failure) in a
@@ -5848,7 +5894,7 @@ def phase_train(profile_step=False):
 
 # ------------------------------------------------------------ training state
 
-STATE_LAYERS = 2        # (a), (b), (d): 698 M parameters, 8.4 GB a tag
+STATE_LAYERS = 1        # (a), (b), (d): 480 M parameters, 5.8 GB a tag
 URGENT_GRACE_S = 30.0   # ResilienceConfig.preempt_grace_s's default
 
 
@@ -6087,7 +6133,7 @@ STATE_STEPS = 10
 def latest_only_journal(save_dir):
     """An ops journal that, once a checkpoint is published, deletes every
     other tag under ``save_dir``: a restart or rollback reads only
-    ``latest``, and a 2-layer tag holds 8.4 GB."""
+    ``latest``, and a one-layer tag holds 5.8 GB."""
     from deepspeed_tpu_torch.telemetry.journal import OpsJournal
 
     class LatestOnly(OpsJournal):
@@ -6106,7 +6152,7 @@ def latest_only_journal(save_dir):
 
 
 def state_supervisor():
-    """(b) TrainingSupervisor over a seeded fault schedule at 2 layers:
+    """(b) TrainingSupervisor over a seeded fault schedule at one layer:
     a crash, a SIGTERM (then run() again), three NaN-gradient steps in a
     row (a rollback) and a wedged step (a fresh engine from the factory);
     the loss curve equals the unbroken run's bit for bit."""
@@ -6252,7 +6298,7 @@ def state_urgent():
 
 def state_remat():
     """(d) One micro step (forward and backward from a zero accumulator)
-    with remat off, nothing_saveable and dots_saveable at 2 layers, twice
+    with remat off, nothing_saveable and dots_saveable at one layer, twice
     each: the loss and every gradient leaf bit-identical to remat off's
     first, the forward launched twice a layer under both policies."""
     from deepspeed_tpu_torch.models.transformer import CausalLM
@@ -6316,6 +6362,516 @@ def phase_train_state():
     return out
 
 
+# ------------------------------------------------------------------ offload
+
+OFFLOAD_SEQ = 4097          # 1 x 4096 tokens after the shift
+OFFLOAD_LAYERS = 32         # the headline: all of MISTRAL_7B
+OFFLOAD_STEPS = 3
+# JAX's test_offload_matches_device_update holds the offloaded AdamW to the
+# device update within this (relative and absolute)
+OFFLOAD_TOL = 2e-4
+# the streamed loss against the whole-model loss, relative: the same ops in
+# the same order, so equal up to a reduction's order
+INFINITY_TOL = 1e-4
+ADAM_BYTES = 28             # an AdamW element: grad, master, m, v read;
+#                             master, m, v written (fp32)
+HOST_MARGIN = 8e9           # host RAM left free beside the offloaded state
+DEVICE_BUDGET = 76e9        # of the card's 80 GB
+OFFLOAD_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                              "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 1e-5,
+                                                 "warmup_max_lr": 1e-4,
+                                                 "warmup_num_steps": 2}},
+    "gradient_clipping": 1.0,
+    "steps_per_print": 1000,
+    "seed": 0,
+}
+
+
+def meminfo():
+    out = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, value = line.split(":", 1)
+            out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def omp_threads():
+    """The OpenMP team size the host optimizer's loops get."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL("libgomp.so.1").omp_get_max_threads()
+    except OSError:
+        return None
+
+
+def offload_batches(n):
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    ids = np.random.default_rng(0).integers(
+        0, MISTRAL_7B.vocab_size, (n, OFFLOAD_SEQ)).astype(np.int32)
+    return [{"input_ids": torch.from_numpy(ids[j:j + 1])} for j in range(n)]
+
+
+def offload_engine(layers, offload=None, remat=None):
+    """MISTRAL_7B at full width and ``layers`` layers through
+    ``initialize``, seed 0; ZeRO-Offload (stage 2, page-locked masters)
+    when ``offload`` is given."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=layers,
+                              remat=remat is not None, remat_policy=remat)
+    config = copy.deepcopy(OFFLOAD_CONFIG)
+    if offload is not None:
+        config["zero_optimization"] = {
+            "stage": 2, "offload_optimizer": dict(offload, pin_memory=True)}
+    return deepspeed_tpu_torch.initialize(model=CausalLM(cfg),
+                                          config=config)[0]
+
+
+def offload_step(engine, batch):
+    """One optimizer step through forward / backward / step, synchronized:
+    (loss, forward + backward seconds, update seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = engine.forward(batch)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    return float(loss), t1 - t0, time.perf_counter() - t1
+
+
+def masters_off_device(engine):
+    """Offloaded leaves whose device params differ in any bit from the
+    host masters, compared a piece at a time on the card."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.runtime.engine import PIECE_ELEMS
+
+    plan = engine._offload_plan
+    leaves = tree_leaves(engine.state.params)
+    bad = []
+    for i in plan.offloaded:
+        dev = leaves[i].detach().view(-1)
+        host = plan.master_tensors[i].view(-1)
+        for lo in range(0, dev.numel(), PIECE_ELEMS):
+            hi = min(lo + PIECE_ELEMS, dev.numel())
+            if not torch.equal(dev[lo:hi], host[lo:hi].to(dev.device)):
+                bad.append(i)
+                break
+    return bad
+
+
+def split_line(t, fb, up):
+    """A step's seconds and rates from ``engine.offload_timings``."""
+    n = t["elements"]
+    swap = (f", moment files read and written {t['swap_s']:.3f} s"
+            if t["swap_s"] > 0.01 else "")
+    return (f"fwd+bwd {fb:.3f} s, update {up:.3f} s (host part "
+            f"{t['wall_s']:.3f} s: grads to host {t['d2h_s']:.3f} s = "
+            f"{4 * n / t['d2h_s'] / 1e9:.1f} GB/s, host AdamW "
+            f"{t['adam_s']:.3f} s = {ADAM_BYTES * n / t['adam_s'] / 1e9:.1f} "
+            f"GB/s of state touched{swap}, masters to device "
+            f"{t['h2d_s']:.3f} s = {4 * n / t['h2d_s'] / 1e9:.1f} GB/s)")
+
+
+def close_engine(engine):
+    engine.close()
+    del engine
+    free_engine()
+
+
+def host_adam_rate(opt):
+    """GB/s of state touched by the host AdamW alone on one staging
+    piece (the main thread, no transfers), the best of 3."""
+    from deepspeed_tpu_torch.runtime.engine import PIECE_ELEMS
+
+    rng = np.random.default_rng(0)
+    p = rng.standard_normal(PIECE_ELEMS, dtype=np.float32)
+    g = rng.standard_normal(PIECE_ELEMS, dtype=np.float32)
+    state = opt.init_state(p)
+    for arr in state.values():
+        arr[...] = 0.0          # first touch outside the timing
+    best = math.inf
+    for _ in range(3):
+        t = time.perf_counter()
+        opt.step(p, g, state)
+        best = min(best, time.perf_counter() - t)
+    return ADAM_BYTES * PIECE_ELEMS / best / 1e9
+
+
+def offload_parity():
+    """(a) 2 layers, 4 steps of one 4096-token sequence each: offload_optimizer
+    cpu at ratio 1.0 against the on-device engine from the same seed."""
+    label = "offload a"
+    batches = offload_batches(4)
+    dev = offload_engine(2)
+    dev_losses = [offload_step(dev, b)[0] for b in batches]
+    del dev
+    free_engine()
+    eng = offload_engine(2, offload={"device": "cpu", "ratio": 1.0})
+    plan = eng._offload_plan
+    if not plan.cpu_opt.has_native:
+        raise AssertionError(f"[{label}] the C++ host optimizer is not loaded")
+    mem = meminfo()
+    rate = host_adam_rate(plan.cpu_opt)
+    log(f"[{label}] host: has_native {plan.cpu_opt.has_native}, "
+        f"os.cpu_count() {os.cpu_count()}, OpenMP threads {omp_threads()}, "
+        f"MemTotal {mem['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+        f"{mem['MemAvailable'] / 1e9:.1f} GB; the host AdamW alone "
+        f"{rate:.1f} GB/s of state touched; {len(plan.offloaded)} of "
+        f"{len(plan.offloaded) + len(plan.kept)} leaves offloaded")
+    reset_launches()
+    losses = []
+    for step, b in enumerate(batches):
+        loss, fb, up = offload_step(eng, b)
+        bad = masters_off_device(eng)
+        if bad:
+            raise AssertionError(f"[{label}] step {step + 1}: device params "
+                                 f"of leaves {bad} differ from the masters")
+        losses.append(loss)
+        log(f"[{label}] step {step + 1}: loss {loss:.6f} (on-device engine "
+            f"{dev_losses[step]:.6f}); {split_line(eng.offload_timings, fb, up)}")
+    check_launches(label, len(batches), 2)
+    gaps = [abs(a - b) for a, b in zip(losses, dev_losses)]
+    if any(g > OFFLOAD_TOL * (1 + abs(b)) for g, b in zip(gaps, dev_losses)):
+        raise AssertionError(f"[{label}] losses {losses} vs the on-device "
+                             f"engine's {dev_losses}")
+    log(f"[{label}] losses agree with the on-device engine's to "
+        f"{max(gaps):.3g} ({OFFLOAD_TOL} relative and absolute allowed); "
+        f"device params equal the host masters bit for bit after each "
+        f"copy-back")
+    close_engine(eng)
+    return {"losses": losses, "device_losses": dev_losses, "gap": max(gaps),
+            "adam_alone_gbs": rate}
+
+
+def twin_flow_bytes(layers, ratio):
+    """(offloaded fp32 bytes, all fp32 bytes, the largest kept leaf's
+    bytes) of the plan's largest-first pick at ``ratio``."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+    from deepspeed_tpu_torch.runtime.checkpointing import param_template
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    sizes = sorted((4 * t.numel() for t in tree_leaves(param_template(
+        CausalLM(dataclasses.replace(MISTRAL_7B, num_layers=layers))))),
+        reverse=True)
+    total, acc, n = sum(sizes), 0, 0
+    for s in sizes:
+        if acc >= ratio * total:
+            break
+        acc += s
+        n += 1
+    return acc, total, sizes[n] if n < len(sizes) else 0
+
+
+def release_host_memory():
+    """Hand the host memory this process has freed back to the system:
+    torch's cache of page-locked blocks and glibc's free heap."""
+    import ctypes
+
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def offload_choice(layers):
+    """Host RAM moments at the largest ``ratio`` whose offloaded masters
+    and moments leave HOST_MARGIN of MemAvailable and whose kept leaves
+    fit the card (their moments, and the device AdamW's temporaries: six
+    copies of the largest kept leaf); else the moments on NVMe at ratio
+    1.0."""
+    from deepspeed_tpu_torch.runtime.engine import PIECE_ELEMS
+
+    avail = meminfo()["MemAvailable"]
+    staging = 2 * 4 * PIECE_ELEMS
+    for ratio in (1.0, 0.9, 0.8):
+        off, total, largest_kept = twin_flow_bytes(layers, ratio)
+        host = 3 * off + staging
+        device = 2 * total + 2 * (total - off) + 6 * largest_kept + 5e9
+        log(f"[offload b] ratio {ratio}: host RAM moments need {host / 1e9:.1f}"
+            f" GB + {HOST_MARGIN / 1e9:.0f} GB margin of {avail / 1e9:.1f} GB "
+            f"available; the card {device / 1e9:.1f} GB (params, "
+            f"accumulator, kept moments, the kept leaves' update, ~5 GB of "
+            f"activations)")
+        if host + HOST_MARGIN <= avail and device <= DEVICE_BUDGET:
+            return {"device": "cpu", "ratio": ratio}
+    return {"device": "nvme", "ratio": 1.0}
+
+
+def offload_headline():
+    """(b) MISTRAL_7B at all 32 layers under ZeRO-Offload: AdamW,
+    nothing_saveable remat, 1 x 4096 tokens, OFFLOAD_STEPS steps."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    label = "offload b"
+    n = dataclasses.replace(MISTRAL_7B, num_layers=OFFLOAD_LAYERS).num_params()
+    log(f"[{label}] reckoning: {n / 1e9:.3f} B parameters; the card holds "
+        f"fp32 params {4 * n / 1e9:.2f} GB + the fp32 accumulator "
+        f"{4 * n / 1e9:.2f} GB + activations under remat (~5 GB at T = "
+        f"{OFFLOAD_SEQ - 1}); the host fp32 masters {4 * n / 1e9:.2f} GB + "
+        f"two moments {8 * n / 1e9:.2f} GB")
+    release_host_memory()
+    choice = offload_choice(OFFLOAD_LAYERS)
+    root = None
+    if choice["device"] == "nvme":
+        root = ckpt_root(label, int(8.4 * n))
+        choice["nvme_path"] = root
+    log(f"[{label}] chosen: moments on {choice['device']}, ratio "
+        f"{choice['ratio']}")
+    batch = offload_batches(1)[0]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = offload_engine(OFFLOAD_LAYERS, offload=choice,
+                             remat="nothing_saveable")
+        plan = eng._offload_plan
+        log(f"[{label}] built in {time.perf_counter() - t0:.1f} s: "
+            f"{len(plan.offloaded)} of {len(plan.offloaded) + len(plan.kept)}"
+            f" leaves offloaded, host RSS {rss_bytes() / 1e9:.1f} GB, device "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        reset_launches()
+        losses, steps, rss_peak = [], [], rss_bytes()
+        for step in range(OFFLOAD_STEPS):
+            before = rss_bytes()
+            (loss, fb, up), grew = peak_rss_during(offload_step, eng, batch)
+            rss_peak = max(rss_peak, before + grew)
+            t = dict(eng.offload_timings)
+            losses.append(loss)
+            steps.append({"loss": loss, "fwd_bwd_s": fb, "update_s": up,
+                          "step_s": fb + up, **t, "rss_gb": rss_bytes() / 1e9})
+            log(f"[{label}] step {step + 1}: loss {loss:.6f}, "
+                f"{fb + up:.2f} s: {split_line(t, fb, up)}; host RSS "
+                f"{rss_bytes() / 1e9:.1f} GB")
+        launches = dict(fa.launches)
+        check_launches(label, OFFLOAD_STEPS, OFFLOAD_LAYERS, remat=True)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bad = masters_off_device(eng)
+        first = math.log(MISTRAL_7B.vocab_size) \
+            + MISTRAL_7B.hidden_size * 0.02 ** 2 / 2
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+                or abs(losses[0] - first) > 0.05:
+            raise AssertionError(f"[{label}] losses {losses} (the first within "
+                                 f"0.05 of {first:.3f}, then falling)")
+        if bad or eng.skipped_steps or int(eng.state.global_step) != \
+                OFFLOAD_STEPS:
+            raise AssertionError(f"[{label}] leaves {bad} differ from the "
+                                 f"masters; {eng.skipped_steps} skipped")
+        log(f"[{label}] MISTRAL_7B, 32 layers, {n / 1e9:.3f} B parameters: "
+            f"losses {[round(x, 6) for x in losses]}, peak device memory "
+            f"{peak:.2f} GB, host RSS at most {rss_peak / 1e9:.1f} GB; "
+            f"launches {json.dumps(launches)} (asserted: 64 forward, 32 dq "
+            f"and 32 dkv a micro step under remat)")
+        close_engine(eng)
+    finally:
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+    return {"choice": {k: v for k, v in choice.items() if k != "nvme_path"},
+            "losses": losses, "steps": steps, "peak_gb": peak,
+            "peak_rss_gb": rss_peak / 1e9, "launches": launches,
+            "params": n}
+
+
+def offload_twin_flow(device_losses):
+    """(c) Twin-Flow at ratio 0.5 with the moments on NVMe, 2 layers, the
+    first 3 of (a)'s batches: the losses within OFFLOAD_TOL of (a)'s
+    on-device engine."""
+    from deepspeed_tpu_torch.runtime.engine import _paths
+
+    label = "offload c"
+    off = twin_flow_bytes(2, 0.5)[0]
+    root = ckpt_root(label, int(2.2 * off))
+    try:
+        eng = offload_engine(2, offload={"device": "nvme", "ratio": 0.5,
+                                         "nvme_path": root})
+        plan = eng._offload_plan
+        names = [".".join(p) for p, _ in _paths(eng.state.params)]
+        reset_launches()
+        losses, secs = [], []
+        for b in offload_batches(3):
+            loss, fb, up = offload_step(eng, b)
+            losses.append(loss)
+            secs.append(fb + up)
+            log(f"[{label}] loss {loss:.6f}: {split_line(eng.offload_timings, fb, up)}")
+        check_launches(label, 3, 2)
+        disk = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root))
+        bad = masters_off_device(eng)
+        gaps = [abs(a - b) for a, b in zip(losses, device_losses)]
+        if bad or any(g > OFFLOAD_TOL * (1 + abs(b))
+                      for g, b in zip(gaps, device_losses)):
+            raise AssertionError(f"[{label}] losses {losses} vs the on-device"
+                                 f" engine's {device_losses[:3]}; leaves "
+                                 f"{bad} differ from the masters")
+        kept = [names[i] for i in plan.kept]
+        log(f"[{label}] ratio 0.5, moments on NVMe: offloaded "
+            f"{[names[i] for i in plan.offloaded]}, kept on the device "
+            f"{kept}; {disk / 1e9:.3f} GB of moment files; step seconds "
+            f"{[round(s, 3) for s in secs]}; losses within {max(gaps):.3g} "
+            f"of the on-device engine's")
+        close_engine(eng)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"kept": kept, "disk_gb": disk / 1e9, "step_s": secs,
+            "losses": losses}
+
+
+INFINITY_LAYERS = 8
+INFINITY_GROUP = 2
+
+
+def offload_infinity(device, steps, whole=None):
+    """(d) ZeRO-Infinity: MISTRAL_7B at 8 layers in 4 groups of 2, the
+    params, moments and accumulators in host RAM or in files, ``steps``
+    steps on one sequence. The first streamed loss is held to the whole
+    model's ``CausalLM.loss`` on the gathered params, computed here unless
+    ``whole`` hands it over (the store is drawn from the same seed, so
+    every cell's params are the same bits)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+    from deepspeed_tpu_torch.models.weights import params_from_numpy
+    from deepspeed_tpu_torch.runtime import zero_infinity
+
+    label = f"offload d {device}"
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=INFINITY_LAYERS)
+    n = cfg.num_params()
+    root = ckpt_root(label, int(12.5 * n)) if device == "nvme" else None
+    config = {"train_micro_batch_size_per_gpu": 1,
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": 1e-4, "weight_decay": 0.01}},
+              "zero_optimization": {"stage": 3, "offload_param": {
+                  "device": device, "nvme_path": root}},
+              "seed": 0}
+    batch = {"input_ids": offload_batches(1)[0]["input_ids"].numpy()}
+    try:
+        t0 = time.perf_counter()
+        eng, *rest = deepspeed_tpu_torch.initialize(model=CausalLM(cfg),
+                                                    config=config)
+        if not isinstance(eng, zero_infinity.ZeroInfinityEngine) or any(rest):
+            raise AssertionError(f"[{label}] initialize built {eng}")
+        init_s = time.perf_counter() - t0
+        if eng.group_layers != INFINITY_GROUP:
+            raise AssertionError(f"[{label}] groups of {eng.group_layers}")
+        if whole is None:
+            params = params_from_numpy(eng.gather_params(), "cuda")
+            with torch.no_grad():
+                whole = float(CausalLM(cfg).loss(params, {
+                    "input_ids": torch.as_tensor(batch["input_ids"]).cuda()}))
+            del params
+            free_engine()
+        read0 = eng.store.bytes_read
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, secs = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(eng.train_batch(dict(batch)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        per = steps * INFINITY_LAYERS
+        want = {"fwd": 2 * per, "delta": per, "dq": per, "dkv": per}
+        launches = dict(fa.launches)
+        rep = eng.streaming_report()
+        read = (eng.store.bytes_read - read0) // steps
+        groups = rep["groups"]
+        group_bytes = (rep["param_bytes"] - rep["edge_bytes"]) // groups
+        budget = 2 * group_bytes + rep["edge_bytes"] + (groups + 1) * (
+            OFFLOAD_SEQ - 1) * cfg.hidden_size * 2
+        gap = abs(losses[0] - whole)
+        if launches != want:
+            raise AssertionError(f"[{label}] launches {launches}, want {want}")
+        if gap > INFINITY_TOL * abs(whole) or not all(np.isfinite(losses)) \
+                or (steps > 1 and not losses[-1] < losses[0]):
+            raise AssertionError(f"[{label}] streamed losses {losses}, the "
+                                 f"whole model's {whole}")
+        if read != rep["expected_bytes_per_step"]:
+            raise AssertionError(f"[{label}] {read} bytes read a step, "
+                                 f"{rep['expected_bytes_per_step']} expected")
+        log(f"[{label}] {INFINITY_LAYERS} layers in {groups} groups of "
+            f"{INFINITY_GROUP}, {rep['param_bytes'] / 1e9:.2f} GB of fp32 "
+            f"params on {device}: built in {init_s:.1f} s; streamed losses "
+            f"{[round(x, 6) for x in losses]}, the first against the whole "
+            f"model's {whole:.6f} (|diff| {gap:.3g}, {INFINITY_TOL} relative "
+            f"allowed); {read / 1e9:.2f} GB read a step = expected "
+            f"{rep['expected_bytes_per_step'] / 1e9:.2f} GB; peak device "
+            f"memory {peak / 1e9:.2f} GB against the budget of two groups + "
+            f"edges + boundaries {budget / 1e9:.2f} GB (the whole model "
+            f"{rep['param_bytes'] / 1e9:.2f} GB); step seconds "
+            f"{[round(s, 2) for s in secs]}; launches {json.dumps(launches)}")
+        eng.close()
+        del eng
+        free_engine()
+    finally:
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+    return {"losses": losses, "whole": whole, "step_s": secs,
+            "read_per_step": read, "expected": rep["expected_bytes_per_step"],
+            "peak_gb": peak / 1e9, "budget_gb": budget / 1e9,
+            "init_s": init_s, "launches": launches}
+
+
+def phase_offload():
+    secs = {}
+    out = {}
+    for name, fn in (("a", offload_parity), ("b", offload_headline),
+                     ("c", lambda: offload_twin_flow(
+                         out["a"]["device_losses"])),
+                     ("d cpu", lambda: offload_infinity("cpu", 2)),
+                     # one step: a file-store step costs 3x a host-RAM one
+                     ("d nvme", lambda: offload_infinity(
+                         "nvme", 1, out["d cpu"]["whole"]))):
+        t = time.perf_counter()
+        out[name] = fn()
+        secs[name] = round(time.perf_counter() - t, 1)
+        log(f"[offload] sub-phase {name}: {secs[name]} s")
+    out["secs"] = secs
+    return out
+
+
+OFFLOAD_CHILD_S = 900       # the phase took 188-283 s on the card
+
+
+def phase_offload_apart():
+    """The offload phase in a child process of this script
+    (``--offload-result PATH``), which inherits stdout and writes the
+    phase's result as JSON. The 32-layer cell holds most of the host's RAM
+    and registers it page-locked; a process that exits hands all of it
+    back, so the phases after this one start from the host as it was."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    fd, path = tempfile.mkstemp(prefix="offload_", suffix=".json")
+    os.close(fd)
+    try:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--offload-result", path], cwd=REPO, check=True,
+                       timeout=OFFLOAD_CHILD_S)
+        with open(path) as fh:
+            return json.load(fh)
+    finally:
+        os.unlink(path)
+
+
+def json_scalar(x):
+    if isinstance(x, np.generic):
+        return x.item()
+    raise TypeError(f"{type(x).__name__} is not JSON serializable")
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -6344,9 +6900,14 @@ def main(argv=None):
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
                                        "features", "kv_tier", "serving",
-                                       "fabric", "train", "train_state"],
+                                       "fabric", "train", "train_state",
+                                       "offload"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
+    ap.add_argument("--offload-result", metavar="PATH",
+                    help="run the offload phase alone, without the build "
+                         "and kernel phases, and write its result to PATH "
+                         "as JSON (the whole run calls itself so)")
     ap.add_argument("--compare", action="store_true",
                     help="after device and build, time the kernels at the "
                          "main path's shapes through their entry points "
@@ -6364,6 +6925,11 @@ def main(argv=None):
         return out
 
     card = timed("device", phase_device)
+    if args.offload_result:
+        out = timed("offload", phase_offload)
+        with open(args.offload_result, "w") as fh:
+            json.dump(out, fh, default=json_scalar)
+        return
     timed("build", phase_build)
     if args.compare:
         timed("compare", phase_compare)
@@ -6379,15 +6945,19 @@ def main(argv=None):
                  "features": phase_features, "kv_tier": phase_kv_tier,
                  "serving": phase_serving, "fabric": phase_fabric,
                  "train": phase_train,
-                 "train_state": phase_train_state}[args.only]
+                 "train_state": phase_train_state,
+                 "offload": phase_offload}[args.only]
         kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
-                                 "fabric", "train_state") else {
+                                 "fabric", "train_state", "offload") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
         log(f"[done] --only {args.only}: {json.dumps(secs)}")
         return
     times = timed("timing", phase_timing)
+    # first of the paths, in a process of its own: the 32-layer cell needs
+    # the most of the host's RAM
+    offload = timed("offload", phase_offload_apart)
     main_res = timed("main", phase_main, profile_puts=args.profile)
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
     v1 = timed("v1", phase_v1)
@@ -6420,7 +6990,7 @@ def main(argv=None):
         + "; weights GB "
         + " | ".join(f"{r['weights_gb']:.3f}" for r in v1.values())
         + "; peak GB " + " | ".join(f"{r['peak_gb']:.2f}" for r in v1.values()))
-    log(f"[features] MISTRAL_7B, 32 layers: prefix cache warm pass "
+    log(f"[features] MISTRAL_7B, {SERVE_LAYERS} layers: prefix cache warm pass "
         f"{features['prefix']['warm']}; spec (proposed/accepted/decode "
         f"puts) bf16 "
         + ", ".join(f"{k} {v['proposed']}/{v['accepted']}/{v['puts']}"
@@ -6475,6 +7045,20 @@ def main(argv=None):
     log(f"[train] MISTRAL_7B widths, {TRAIN_LAYERS} layers, bf16, AdamW: "
         f"tokens/s per step {[round(t, 1) for t in train['tokens_per_s']]}, "
         f"peak memory {train['peak_gb']:.2f} GB")
+    ob = offload["b"]
+    log(f"[offload] MISTRAL_7B, 32 layers under ZeRO-Offload (moments on "
+        f"{ob['choice']['device']}, ratio {ob['choice']['ratio']}): step "
+        f"seconds {[round(x['step_s'], 2) for x in ob['steps']]}, losses "
+        f"{[round(x, 4) for x in ob['losses']]}, peak device memory "
+        f"{ob['peak_gb']:.2f} GB, host RSS at most {ob['peak_rss_gb']:.1f} GB; "
+        f"parity gap {offload['a']['gap']:.3g}; ZeRO-Infinity step seconds "
+        f"cpu {offload['d cpu']['step_s']}, nvme {offload['d nvme']['step_s']}")
+    # the flash kernels run on two paths, each counted from 0: the train
+    # phase's and the offload headline's
+    by_path = {name: {"train": launches[name],
+                      "offload": ob["launches"][key]}
+               for name, key in (("flash_fwd", "fwd"), ("flash_dq", "dq"),
+                                 ("flash_dkv", "dkv"))}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         t = times[name]
@@ -6486,6 +7070,8 @@ def main(argv=None):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["case"]})
+        if name in by_path:
+            kernels[-1]["launches_by_path"] = by_path[name]
     log(f"[done] {time.perf_counter() - t_start:.1f} s {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

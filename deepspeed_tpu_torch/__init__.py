@@ -88,6 +88,13 @@ def initialize(args=None,
     ``torch.Generator`` seeded from ``config.seed`` (or ``rng``, an int).
     Returns ``(engine, optimizer, dataloader, lr_scheduler)``; the engine
     owns all four. Runs on ``cuda`` unless ``device="cpu"`` is passed.
+
+    An ``offload_param`` block on ``cpu`` or ``nvme`` (with
+    ``zero_optimization.stage`` 3) builds the ZeRO-Infinity streaming engine
+    (``runtime/zero_infinity.py``) instead and returns ``(engine, None,
+    None, None)``: it owns its optimizer and takes its batches in
+    ``train_batch``, so ``optimizer``, ``training_data``, ``lr_scheduler``
+    and ``model_parameters`` raise ``ValueError`` there.
     """
     from .runtime.config import OffloadDeviceEnum, load_config
     from .runtime.engine import DeepSpeedTpuEngine
@@ -95,9 +102,31 @@ def initialize(args=None,
     config = config if config is not None else config_params
     cfg_obj = load_config(config)
     op = cfg_obj.zero_optimization.offload_param
-    if op is not None and op.device != OffloadDeviceEnum.none:
-        raise not_ported("offload_param (ZeRO-Infinity parameter streaming)",
-                         "queue 1 item 15")
+    if op is not None and op.device in (OffloadDeviceEnum.cpu,
+                                        OffloadDeviceEnum.nvme):
+        from .runtime.zero_infinity import ZeroInfinityEngine
+
+        if cfg_obj.hybrid_engine.enabled:
+            raise ValueError(
+                "hybrid_engine is not supported with offload_param "
+                "(ZeRO-Infinity streaming owns the parameter lifecycle)")
+        unsupported = {"optimizer": optimizer, "training_data": training_data,
+                       "lr_scheduler": lr_scheduler,
+                       "model_parameters": model_parameters}
+        bad = [k for k, v in unsupported.items() if v is not None]
+        if bad:
+            raise ValueError(
+                f"offload_param (ZeRO-Infinity streaming) does not accept "
+                f"{bad}; the streaming engine owns its optimizer and data "
+                "path (runtime/zero_infinity.py)")
+        if cfg_obj.zero_optimization.stage < 3:
+            raise ValueError("offload_param requires zero_optimization.stage=3")
+        if isinstance(model, str):
+            raise not_ported("a model given by name (models.build_model)",
+                             "queue 1 item 16")
+        engine = ZeroInfinityEngine(model, cfg_obj, rng=rng, mesh=mesh,
+                                    device=device)
+        return engine, None, None, None
     if cfg_obj.hybrid_engine.enabled:
         raise not_ported("hybrid_engine", "queue 1 item 17")
     engine = DeepSpeedTpuEngine(args=args,

@@ -29,8 +29,10 @@ dequantizes only them, and ``_scan_layers`` slices one QuantTensor a layer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -225,6 +227,42 @@ TINY_TEST = TransformerConfig(vocab_size=256, hidden_size=64,
 
 
 # ------------------------------------------------------------------ primitives
+
+_IN_PLACE = threading.local()
+
+
+@contextlib.contextmanager
+def layer_grads_in_place():
+    """Within this block (in this thread), ``_scan_layers`` hands layer
+    ``i`` its slice of a stacked leaf that has a ``.grad`` accumulator
+    through :class:`_GradIntoSlice`, whose backward adds the slice's
+    gradient into ``leaf.grad[i]`` at once. Without it the stacked leaf's
+    gradient is one ``stack`` of every layer's slice gradient, which holds
+    a second copy of all of them until the backward reaches layer 0. The
+    sums are the same elementwise additions, so the bits are too."""
+    prev = getattr(_IN_PLACE, "on", False)
+    _IN_PLACE.on = True
+    try:
+        yield
+    finally:
+        _IN_PLACE.on = prev
+
+
+class _GradIntoSlice(torch.autograd.Function):
+    """Layer ``i`` of a stacked leaf, with its gradient added into the
+    leaf's accumulator ``grad[i]`` in place (nothing flows back to the
+    leaf itself)."""
+
+    @staticmethod
+    def forward(ctx, stacked, i):
+        ctx.acc, ctx.i = stacked.grad, i
+        return stacked[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.acc[ctx.i].add_(g)
+        return None, None
+
 
 def _weight(w, dtype=None) -> torch.Tensor:
     """A param leaf as a tensor in ``dtype`` (``None``: its own dtype) — the
@@ -633,18 +671,27 @@ class CausalLM:
         ``out_dtype``), its index, and the body built for its static window.
         Returns the final carry. Each stacked leaf is unbound once (views,
         no copies), so that under autograd its gradient is assembled by one
-        ``stack`` instead of one full-size scatter per layer."""
-        def unbound(v):
-            return {k: t.unbind(0) for k, t in v.items()} \
-                if isinstance(v, dict) else v.unbind(0)
+        ``stack`` instead of one full-size scatter per layer; inside
+        :func:`layer_grads_in_place` a leaf with an accumulator is sliced
+        through :class:`_GradIntoSlice` instead."""
+        in_place = getattr(_IN_PLACE, "on", False) and torch.is_grad_enabled()
 
-        def at(v, i):
-            return {k: t[i] for k, t in v.items()} if isinstance(v, dict) \
-                else v[i]
+        def slicer(v):
+            """Layer i's piece of one leaf, by index."""
+            if isinstance(v, dict):
+                parts = {k: t.unbind(0) for k, t in v.items()}
+                return lambda i: {k: p[i] for k, p in parts.items()}
+            if in_place and torch.is_tensor(v) and v.is_leaf \
+                    and v.requires_grad and v.grad is not None:
+                # made as layer i starts, so that the backward runs this
+                # node right after layer i's own (autograd runs the
+                # latest-made ready node first), not after layer 0's
+                return lambda i: _GradIntoSlice.apply(v, i)
+            return v.unbind(0).__getitem__
 
-        layers = {k: unbound(v) for k, v in layer_params.items()}
+        layers = {k: slicer(v) for k, v in layer_params.items()}
         for i, win in enumerate(self.cfg.layer_windows()):
-            lp = {k: at(v, i) for k, v in layers.items()}
+            lp = {k: piece(i) for k, piece in layers.items()}
             carry = body_for_window(win)(carry, lp, i)
         return carry
 

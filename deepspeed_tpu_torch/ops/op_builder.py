@@ -2,11 +2,13 @@
 loads them through ctypes.
 
 Counterpart of ``deepspeed_tpu/ops/op_builder.py`` (``OpBuilder``,
-``AsyncIOBuilder``). The sources are the port's own (``csrc/*.cpp`` beside
-this package's ``ops/``; the CUDA kernels under ``ops/csrc/`` are
-``_build.py``'s). A library is built at first use into ``build/host_ops/``
-under the repository root, beside ``_build.BUILD_DIR``, and its file name
-carries a digest of its sources and flags, so an edited source is rebuilt.
+``CPUAdamBuilder``, ``AsyncIOBuilder``). The sources are the port's own
+(``csrc/*.cpp`` beside this package's ``ops/``; the CUDA kernels under
+``ops/csrc/`` are ``_build.py``'s). A library is built at first use into
+``build/host_ops/`` under the repository root, beside ``_build.BUILD_DIR``,
+and its file name carries a digest of its sources and flags (``CXX_FLAGS``
+and the builder's ``extra_flags``), so an edited source or a changed flag
+is rebuilt.
 
 ``load()`` returns ``None`` only when g++ or a source is absent: the caller
 then takes its numpy fallback. A build that fails raises with g++'s output.
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..utils.logging import logger
 
@@ -32,6 +34,7 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 class OpBuilder:
     name = "base"
     sources: List[str] = []
+    extra_flags: Tuple[str, ...] = ()
 
     _lib_cache: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -49,7 +52,7 @@ class OpBuilder:
         h = hashlib.sha256()
         for p in self.source_paths():
             h.update(p.read_bytes())
-        h.update(" ".join(CXX_FLAGS).encode())
+        h.update(" ".join(CXX_FLAGS + self.extra_flags).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
@@ -61,7 +64,7 @@ class OpBuilder:
             return so
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = ([self.compiler(), *CXX_FLAGS]
+        cmd = ([self.compiler(), *CXX_FLAGS, *self.extra_flags]
                + [str(p) for p in self.source_paths()] + ["-o", str(tmp)])
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
@@ -85,6 +88,26 @@ class OpBuilder:
 
     def bind(self, lib: ctypes.CDLL) -> None:
         """Declare the C entry points' argument and result types."""
+
+
+class CPUAdamBuilder(OpBuilder):
+    """reference op_builder/cpu_adam.py (CPUAdamBuilder): the host Adam,
+    Adagrad and Lion of ZeRO-Offload, vectorized by the compiler for the
+    host's own SIMD width and split over its cores by OpenMP."""
+    name = "cpu_adam"
+    sources = ["cpu_adam.cpp"]
+    extra_flags = ("-march=native", "-fopenmp", "-fno-math-errno")
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        i64, f32 = ctypes.c_int64, ctypes.c_float
+        fp = ctypes.POINTER(ctypes.c_float)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.ds_adam_step.argtypes = [fp, fp, fp, fp, i64, f32, f32, f32, f32,
+                                     f32, ctypes.c_int, ctypes.c_int, i64]
+        lib.ds_adagrad_step.argtypes = [fp, fp, fp, i64, f32, f32, f32]
+        lib.ds_lion_step.argtypes = [fp, fp, fp, i64, f32, f32, f32, f32]
+        lib.ds_fp32_to_bf16.argtypes = [fp, u16p, i64]
+        lib.ds_bf16_to_fp32.argtypes = [u16p, fp, i64]
 
 
 class AsyncIOBuilder(OpBuilder):

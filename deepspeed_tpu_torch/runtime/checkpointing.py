@@ -7,10 +7,18 @@ package writes resumes in the other::
     <save_dir>/<tag>/manifest.json       # counters, config, client state
     <save_dir>/<tag>/params/<key>.npy    # or <key>.shard_<s0>-<s1>...npy
     <save_dir>/<tag>/opt/<m|v>.<key>.npy # optimizer moments
+    <save_dir>/<tag>/offload/master_<i>.npy, state_<i>_<m|v|step>.npy
+                                          # ZeRO-Offload's host state
     <save_dir>/latest                     # tag pointer, the commit marker
 
 Each leaf is keyed by its dotted pytree path (``embed.wte``,
-``layers.wq``, ...). The port runs as one process on one device, so it
+``layers.wq``, ...). Under ZeRO-Offload the ``opt/`` tree holds the device
+optimizer's kept leaves, keyed by leaf index (``m.3``) as the JAX package
+keys them, and ``offload/`` the host masters and moments of the offloaded
+leaves, ``<i>`` the leaf's index in the JAX flatten order. The JAX package
+writes no ``state_*`` files when its moments live on NVMe; the port writes
+them either way, and each package's loader reads whatever files are
+there. The port runs as one process on one device, so it
 writes each leaf whole as ``<key>.npy``; the reader also reassembles the
 shard files that the JAX package writes from a mesh, whatever mesh wrote
 them.
@@ -317,6 +325,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             except IOError:
                 pass
         raise
+    plan = getattr(engine, "_offload_plan", None)
+    if plan is not None:
+        _save_offload(plan, os.path.join(ckpt_dir, "offload"), writer)
     engine._pending_ckpt_writer = writer
     # the manifest is taken now (the state may advance during async
     # writes) and written, with 'latest', only once every leaf is on disk
@@ -357,6 +368,45 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         logger.info(f"Saved checkpoint {ckpt_dir}"
                     + (" (async writes in flight)" if async_save else ""))
     return ckpt_dir
+
+
+def _save_offload(plan, off_dir: str,
+                  writer: Optional[CheckpointWriter]) -> None:
+    """The offloaded leaves' host masters and optimizer state (paged in
+    from their files under NVMe). An async save snapshots each array,
+    since the next step updates them in place."""
+    os.makedirs(off_dir, exist_ok=True)
+
+    def put(name, arr):
+        fname = os.path.join(off_dir, name)
+        if writer is not None:
+            writer.submit(fname, np.array(arr, copy=True))
+        else:
+            np.save(fname, arr)
+
+    for i in plan.offloaded:
+        put(f"master_{i}.npy", plan.masters[i])
+        for mk, arr in plan.leaf_state(i).items():
+            put(f"state_{i}_{mk}.npy", arr)
+
+
+def _load_offload(plan, off_dir: str) -> None:
+    """Read the masters and optimizer state that ``off_dir`` holds into
+    the plan, in place (a missing file leaves its array as it is, as the
+    JAX loader does)."""
+    for i in plan.offloaded:
+        mpath = os.path.join(off_dir, f"master_{i}.npy")
+        if os.path.exists(mpath):
+            plan.masters[i][...] = np.load(mpath)
+        state = plan.leaf_state(i)
+        found = False
+        for mk, arr in state.items():
+            spath = os.path.join(off_dir, f"state_{i}_{mk}.npy")
+            if os.path.exists(spath):
+                arr[...] = np.load(spath).reshape(arr.shape)
+                found = True
+        if found:
+            plan.store_leaf_state(i, state)
 
 
 def wait_pending_save(engine) -> None:
@@ -430,6 +480,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                                            manifest["global_step"])
         engine.micro_steps = manifest.get("micro_steps", 0)
         engine.lr_scheduler.load_state_dict(manifest["lr_scheduler"])
+    plan = getattr(engine, "_offload_plan", None)
+    off_dir = os.path.join(ckpt_dir, "offload")
+    if plan is not None and os.path.isdir(off_dir) and not load_module_only:
+        _load_offload(plan, off_dir)
     logger.info(f"Loaded checkpoint {ckpt_dir} (step {manifest['global_step']})")
     return ckpt_dir, manifest.get("client_state", {})
 

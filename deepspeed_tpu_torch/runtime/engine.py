@@ -28,36 +28,60 @@ and wall-clock timers) on one device:
   would not fit beside the first. The optimizer is still called through
   ``opt.step(params, grads, state, lr)``, on one-leaf trees.
 
+- The stacked layer leaves' gradients are added into the accumulator a
+  layer slice at a time as the backward reaches each layer
+  (``models/transformer.layer_grads_in_place``), so no second copy of the
+  layer gradients waits for the whole backward.
+- ZeRO-Offload (``zero_optimization.offload_optimizer`` on ``cpu`` or
+  ``nvme``, ``runtime/zero_offload.py``): the plan's offloaded leaves keep
+  their fp32 masters and moments in host RAM (the moments on NVMe under
+  ``nvme``) and are updated there by the C++ optimizer; the device keeps
+  every fp32 param and the accumulator, and moments only for the kept
+  leaves (Twin-Flow ``ratio`` < 1), keyed by leaf index as in the JAX
+  package.
+
 Checkpoints are the JAX package's universal layout
 (``save_checkpoint``/``load_checkpoint``, ``runtime/checkpointing.py``):
 either package resumes the other's. ``runtime/resilience.py``'s
 ``TrainingSupervisor`` drives ``train_batch`` under crashes, preemption,
 wedged steps and anomaly storms.
 
-Single device only: a mesh, ZeRO stage > 0, MiCS, hpZ, ZeRO++, offload,
-1-bit optimizers, pipeline and sequence parallelism, MoE, curriculum,
-compression, elasticity, monitors and the flops profiler raise
-``NotImplementedError`` naming their ROADMAP item.
+Single device only. ZeRO stages 1-3 are accepted, as the JAX engine runs
+them on a one-device mesh: nothing is sharded. A mesh of more than one
+device, MiCS, hpZ, ZeRO++, 1-bit optimizers, pipeline and sequence
+parallelism, MoE, curriculum, compression, elasticity, monitors and the
+flops profiler raise ``NotImplementedError`` naming their ROADMAP item.
+ZeRO-Infinity's parameter streaming is its own engine
+(``runtime/zero_infinity.py``), which ``initialize`` builds for an
+``offload_param`` block.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import not_ported, resolve_device
-from ..models.transformer import CausalLM
+from ..models.transformer import CausalLM, layer_grads_in_place
 from ..models.weights import params_from_numpy
 from ..ops.optimizers import OptimizerState, build_optimizer, tree_leaves
 from ..utils.logging import log_dist
 from ..utils.timer import (FORWARD_MICRO_TIMER, STEP_GLOBAL_TIMER,
                            SynchronizedWallClockTimer, ThroughputTimer)
-from .config import DeepSpeedTpuConfig, DtypeEnum, load_config
+from .config import (DeepSpeedTpuConfig, DtypeEnum, OffloadDeviceEnum,
+                     load_config)
 from .dataloader import DeepSpeedTpuDataLoader, RepeatingLoader
 from .lr_schedules import LRSchedulerShim, build_schedule
+from .zero_offload import OffloadOptimizerPlan
+
+# the largest piece of a leaf that the gradient norm squares at once and
+# that one offload staging buffer holds (256 MB of fp32)
+PIECE_ELEMS = 1 << 26
 
 
 class ScaleState(NamedTuple):
@@ -212,6 +236,22 @@ class DeepSpeedTpuEngine:
     def _scalar(self, value, dtype):
         return torch.tensor(value, dtype=dtype, device=self.device)
 
+    def _offload_config(self):
+        oc = self.config.zero_optimization.offload_optimizer
+        if oc is None or oc.device == OffloadDeviceEnum.none:
+            return None
+        return oc
+
+    def _init_opt_state(self, tree) -> OptimizerState:
+        """The device optimizer's state of ``tree``; for a tree with no
+        leaves (everything offloaded) a step counter and empty moment
+        trees, the kinds read off a one-element probe."""
+        if tree_leaves(tree):
+            return self.opt.init(tree)
+        probe = self.opt.init({"_": torch.zeros(1, device=self.device)})
+        return OptimizerState(step=probe.step,
+                              moments={mk: {} for mk in probe.moments})
+
     def _init_state(self, model_parameters=None) -> TrainState:
         self._model_dtype_override()
         if model_parameters is not None:
@@ -233,8 +273,34 @@ class DeepSpeedTpuEngine:
             for k in path[:-1]:
                 node = node.setdefault(k, {})
             node[path[-1]] = p.grad
+        # ZeRO-Offload: the host owns the offloaded leaves' update, and the
+        # device optimizer covers the kept ones under the keys str(i)
+        oc = self._offload_config()
+        self._offload_plan = None
+        kept = params
+        if oc is not None:
+            opt_cfg = self.config.optimizer
+            self._offload_plan = plan = OffloadOptimizerPlan(
+                params, opt_cfg.type if opt_cfg else "Adam",
+                opt_cfg.params if opt_cfg else {},
+                device=oc.device.value, ratio=oc.ratio,
+                nvme_path=oc.nvme_path,
+                aio_threads=self.config.aio.thread_count,
+                pin_memory=oc.pin_memory)
+            leaves = tree_leaves(params)
+            kept = {str(i): leaves[i] for i in plan.kept}
+            # two staging buffers, allocated once: the gradient piece the
+            # host optimizer reads while the next piece transfers
+            n = min(PIECE_ELEMS, max((leaves[i].numel()
+                                      for i in plan.offloaded), default=1))
+            self._stages = [torch.empty(n, dtype=torch.float32,
+                                        pin_memory=plan.pinned)
+                            for _ in range(2)]
+            self._offload_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="offload-host-step")
+            self.offload_timings: Dict[str, float] = {}
         with torch.no_grad():
-            opt_state = self.opt.init(params)
+            opt_state = self._init_opt_state(kept)
         scale0 = (2.0 ** self.config.fp16.initial_scale_power
                   if self.dynamic_loss_scale else self._static_scale)
         scale_state = ScaleState(
@@ -256,7 +322,8 @@ class DeepSpeedTpuEngine:
         scaled by ``scale / (dp_size if predivide else 1)`` before the
         gradient."""
         state = self.state
-        loss = self.module.loss(state.params, batch, None)
+        with layer_grads_in_place():
+            loss = self.module.loss(state.params, batch, None)
         scaled = (loss * state.scale_state.scale
                   / self._predivide()).to(torch.float32)
         scaled.backward()
@@ -272,7 +339,11 @@ class DeepSpeedTpuEngine:
         clipping), and whether it is non-finite."""
         sumsq = 0
         for acc in tree_leaves(self.state.grad_acc):
-            sumsq = sumsq + torch.sum(torch.square(acc / denom))
+            # a large leaf a piece at a time: its temporaries stay small
+            pieces = (acc.view(-1).split(PIECE_ELEMS)
+                      if acc.numel() > PIECE_ELEMS else (acc,))
+            for piece in pieces:
+                sumsq = sumsq + torch.sum(torch.square(piece / denom))
         gnorm = torch.sqrt(sumsq)
         return gnorm, ~torch.isfinite(gnorm)
 
@@ -313,12 +384,15 @@ class DeepSpeedTpuEngine:
         if clip > 0:
             coeff = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
         lr = self.schedule(state.global_step)
+        plan = self._offload_plan
+        # the host lr follows the device counter, which an overflow-skipped
+        # step does not advance (the host mirror does)
+        lr_host = (float(self.schedule(int(state.global_step)))
+                   if plan is not None else None)
         opt_state = state.opt_state
-        new_step = opt_state.step
-        for path, p in _paths(state.params):
-            acc = _at(state.grad_acc, path)
-            moments = {mk: {"p": _at(tree, path)}
-                       for mk, tree in opt_state.moments.items()}
+        new_step = opt_state.step + 1
+        for p, acc, leaf_moments in self._device_leaves():
+            moments = {mk: {"p": m} for mk, m in leaf_moments.items()}
             grad = acc / denom
             if coeff is not None:
                 grad = grad * coeff
@@ -332,6 +406,12 @@ class DeepSpeedTpuEngine:
                 old.copy_(torch.where(overflow, old, sub["p"]))
             acc.zero_()
             new_step = new_os.step
+        if plan is not None:
+            if not bool(overflow):
+                self._offload_update(denom, coeff, lr_host)
+            accs = tree_leaves(state.grad_acc)
+            for i in plan.offloaded:
+                accs[i].zero_()
         one = torch.ones_like(state.global_step)
         zero = torch.zeros_like(state.global_step)
         self.state = state._replace(
@@ -344,6 +424,84 @@ class DeepSpeedTpuEngine:
             + torch.where(overflow, one, zero))
         return {"grad_norm": gnorm, "lr": lr, "overflow": overflow,
                 "loss_scale": scale}
+
+    def _device_leaves(self):
+        """(param, accumulator, {moment kind: moment}) for each leaf that
+        the device optimizer updates: every leaf, or under offload the
+        plan's kept leaves."""
+        st = self.state
+        moments = st.opt_state.moments
+        plan = self._offload_plan
+        if plan is None:
+            return [(p, _at(st.grad_acc, path),
+                     {mk: _at(tree, path) for mk, tree in moments.items()})
+                    for path, p in _paths(st.params)]
+        params, accs = tree_leaves(st.params), tree_leaves(st.grad_acc)
+        return [(params[i], accs[i],
+                 {mk: tree[str(i)] for mk, tree in moments.items()})
+                for i in plan.kept]
+
+    @torch.no_grad()
+    def _offload_update(self, denom, coeff, lr: float):
+        """The host step of the offloaded leaves, a piece of at most
+        ``PIECE_ELEMS`` elements at a time: the piece's unscaled, clipped
+        gradient goes to a staging buffer, the C++ optimizer updates the
+        piece's masters and moments on the one worker thread while the
+        next piece transfers, and each updated piece of masters is copied
+        back into the device's param leaf in place. ``offload_timings``
+        keeps the step's seconds in each part (the transfers on this
+        thread; the optimizer, and under NVMe the moments' file reads and
+        writes, on the worker) and its element count."""
+        plan = self._offload_plan
+        params = tree_leaves(self.state.params)
+        units = [(i, lo, hi) for i in plan.offloaded
+                 for lo, hi in plan.pieces(i, self._stages[0].numel())]
+        states: Dict[int, dict] = {}
+        times = {"d2h_s": 0.0, "adam_s": 0.0, "swap_s": 0.0, "h2d_s": 0.0,
+                 "elements": sum(plan.masters[i].size
+                                 for i in plan.offloaded)}
+        cuda = self.device.type == "cuda"
+
+        def host_step(i, lo, hi, grad):
+            t0 = time.perf_counter()
+            if lo == 0:
+                states[i] = plan.leaf_state(i)
+            t1 = time.perf_counter()
+            plan.update_piece(i, states[i], lo, grad, lr)
+            t2 = time.perf_counter()
+            if hi == plan.masters[i].size:
+                plan.finish_leaf(i, states.pop(i))
+            times["adam_s"] += t2 - t1
+            times["swap_s"] += t1 - t0 + time.perf_counter() - t2
+
+        def copy_back(i, lo, hi):
+            t = time.perf_counter()
+            params[i].view(-1)[lo:hi].copy_(
+                plan.master_tensors[i].view(-1)[lo:hi])
+            times["h2d_s"] += time.perf_counter() - t
+
+        t_all = time.perf_counter()
+        futures = []
+        for u, (i, lo, hi) in enumerate(units):
+            if u >= 2:      # the piece that last used this staging buffer
+                futures[u - 2].result()
+                copy_back(*units[u - 2])
+            t = time.perf_counter()
+            grad = params[i].grad.view(-1)[lo:hi] / denom
+            if coeff is not None:
+                grad = grad * coeff
+            stage = self._stages[u % 2][:hi - lo]
+            stage.copy_(grad, non_blocking=plan.pinned)
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+            times["d2h_s"] += time.perf_counter() - t
+            futures.append(self._offload_pool.submit(
+                host_step, i, lo, hi, stage.numpy()))
+        for u in range(max(0, len(units) - 2), len(units)):
+            futures[u].result()
+            copy_back(*units[u])
+        times["wall_s"] = time.perf_counter() - t_all
+        self.offload_timings = times
 
     # ------------------------------------------------------------- data plumbing
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None,
@@ -533,6 +691,14 @@ class DeepSpeedTpuEngine:
 
     def zero_optimization_stage(self) -> int:
         return self.zero_stage
+
+    def close(self):
+        """Release ZeRO-Offload's host resources (the host-step thread, the
+        page-locked masters, the moment files' handles); the engine takes
+        no step after it. A no-op without offload."""
+        if self._offload_plan is not None:
+            self._offload_pool.shutdown(wait=True)
+            self._offload_plan.close()
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, save_dir, tag=None, client_state=None,

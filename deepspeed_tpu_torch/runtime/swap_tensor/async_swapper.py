@@ -127,8 +127,18 @@ class OptimizerStateSwapper:
             self._buffers[key] = np.empty(shape, dtype)
         return self._buffers[key]
 
-    def load(self, key: str) -> np.ndarray:
-        buf = self._buffer(key)
+    def load(self, key: str, out: np.ndarray = None) -> np.ndarray:
+        """The file's array, read into ``out`` when given (a buffer the
+        caller reuses across keys, so host RAM holds no copy a key), else
+        into this swapper's own buffer for ``key``."""
+        if out is None:
+            buf = self._buffer(key)
+        else:
+            shape, dtype = self._shapes[key]
+            if out.shape != shape or out.dtype != dtype:
+                raise ValueError(f"{key}: buffer {out.shape} {out.dtype}, "
+                                 f"file {shape} {dtype}")
+            buf = out
         self.swapper.swap_in(key, buf)
         self.swapper.wait()
         return buf
