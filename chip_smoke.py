@@ -74,14 +74,14 @@ Phases, each of which raises on failure (nothing is caught):
              launches) and dropped; 225 quantized-matmul and 32 paged
              launches per put; the steps held against the plain versions;
              then fp8 weights and fp8 KV on three of the prompts.
-7. v1      — v1 inference at full MISTRAL_7B width (32 layers, bf16
+7. v1      — v1 inference at full MISTRAL_7B width (8 layers, bf16
              compute, random bf16 weights from a seeded generator) through
              init_inference and generate: the main path's 8 prompts as one
              ragged batch, 32 greedy new tokens, with bf16 weights, then
              int8 and int4 weight-only quantization (quantized at the build,
              11 quantize launches, and the dense tree dropped). Checks the
              output's shape and placement, finite logits, the launch counts
-             ((1 + 32) x 290 dequantize, 32 flash forward, 32 x 32 paged at
+             ((1 + 32) x 74 dequantize, 8 flash forward, 32 x 8 paged at
              bs = 128), an EOS run, one prefill and one decode step against
              the plain versions, and that small fp32 v1 engines (quant off,
              8 and 4; tied and untied) give the same greedy streams on the
@@ -89,7 +89,7 @@ Phases, each of which raises on failure (nothing is caught):
 8. features — the v2 serving features: small fp32 engines give the same
              greedy streams and counters on the card as on the CPU with the
              prefix cache, speculation at K = 3 and 4, and preemption (dense,
-             int8 and fp8); then one MISTRAL_7B engine at full width (8
+             int8 and fp8); then one MISTRAL_7B engine at full width (2
              of its 32 layers, bf16): the kernels' logits against the plain
              versions' on a verify put and a prefix-hit chunk (the gap the greedy-
              parity rule allows), the prefix cache off, cold and warm over a
@@ -215,7 +215,7 @@ Phases, each of which raises on failure (nothing is caught):
              steps (a rollback) and a wedged step (a fresh engine from the
              factory): losses_by_step equal to the unbroken run's bit for
              bit, the journal's events, the urgent save against the grace;
-             (c) 8 layers: 2 steps, an urgent save, step 3, and a fresh
+             (c) 2 layers: 2 steps, an urgent save, step 3, and a fresh
              engine's load whose step 3 loss is bit-identical (save and load
              seconds, the snapshot's host RAM); (d) one micro step with
              remat off, nothing_saveable and dots_saveable at 1 layer:
@@ -230,24 +230,63 @@ Phases, each of which raises on failure (nothing is caught):
              device params equal to the host masters bit for bit after
              each copy-back; the host's cores, OpenMP threads and RAM
              logged); (b) all 32 layers (7.24 B parameters) with
-             nothing_saveable remat, 3 steps: host RAM or NVMe moments and
+             nothing_saveable remat, 2 steps: host RAM or NVMe moments and
              the ratio chosen from MemAvailable and the card's 80 GB, the
              losses finite and falling, peak device memory, host RSS, each
              step split into forward + backward, grads to host, host AdamW
              and masters back (seconds and GB/s), 64 forward, 32 dq and 32
              dkv launches a step; (c) Twin-Flow at ratio 0.5 with the
-             moments on NVMe, 2 layers, 3 steps: the kept leaves, the
+             moments on NVMe, 2 layers, 2 steps: the kept leaves, the
              moment files' bytes, step seconds, losses within 2e-4 of
-             (a)'s on-device engine; (d) ZeRO-Infinity, 8 layers in 4
-             groups of 2, the store in host RAM (2 steps, the loss
+             (a)'s on-device engine; (d) ZeRO-Infinity, 2 layers in 2
+             groups of 1, the store in host RAM (2 steps, the loss
              falling) and then in files (1 step): the first streamed loss
              against the whole-model CausalLM.loss of the gathered params
              (1e-4 relative), the bytes read a step equal to the expected,
              the peak device memory against two groups + edges +
-             boundaries, step seconds, 16 forward, 8 dq and 8 dkv launches
+             boundaries, step seconds, 4 forward, 2 dq and 2 dkv launches
              a step. This phase runs right after the timing phase, in a
              child process of this script (``--offload-result``), which
              hands the host memory back when it exits.
+14. distributed — the distributed spine at MISTRAL_7B widths, 2 layers,
+             bf16, the train phase's AdamW, schedule and clipping, two
+             4096-token rows a step, 3 steps: (a) the one-process engine at
+             2 micro steps a step (saving after step 2); (b) ZeRO stages
+             0, 1, 2 and 3 on fsdp = 2: two ranks as child processes of
+             this script (``--dist-rank``) in a gloo world on the one card
+             (NCCL refuses two ranks on one GPU), each rank its own row, its
+             losses within 2e-4 of (a)'s and the params after step 3 within
+             three AdamW steps of (a)'s on a strided sample of every leaf
+             (the sums of squares within 1e-4), stage 3 holding about half
+             of (a)'s param and moment bytes; (c) stage 3 with qwZ + qgZ:
+             the losses within 2e-2 of stage 3's, 62 quantize and 62
+             dequantize launches a rank a step (21 gathers, 20 re-gathers
+             for the backward, 21 gradient reduces; asserted); (d) the
+             ranks' stage-3 save (each rank its shard files) resumed by
+             the one-process engine, and (a)'s save resumed by two stage-3
+             ranks: step 3's loss within 2e-4 of the unbroken run's; (e) a
+             one-rank nccl world in this process: every collective once on
+             the card, ZeRO++'s quantized gather through the kernels, one
+             stage-3 ZeRO++ step. Every rank run asserts one flash forward,
+             delta, dq and dkv launch a layer a micro step and prints its
+             step seconds, peak memory, param and moment bytes held, and
+             the comms logger's calls, bytes, seconds and busbw per op with
+             the bytes and seconds staged through host memory. A failed
+             rank fails the phase; checkpoints under build/, removed in a
+             ``finally``.
+
+Depth and step cuts of PR 18, which made room for phase 14 (seconds on
+one H100, 700 W, before: PR 17's two whole runs; after: this PR's, in
+PERF.md section 6, PR 18): the features phase at 2 layers
+(``FEATURE_LAYERS``, 8 before: 80.7-108.6 s; serving and fabric stay at
+``SERVE_LAYERS`` = 8: the serving chaos cell's memory bound is one KV
+pool, less than its replicas' fixed 64 MiB below 8 layers, and fabric at
+2 layers took 64.3 s, as long as at 8); v1 at 8 layers (``V1_LAYERS``, 32 before: 23.0-32.1 s); the
+offload headline (b) at 2 steps (3 before: 71.6-73.9 s), Twin-Flow (c) at
+2 (3: 13.8-14.9 s), ZeRO-Infinity (d) at 2 layers in 2 groups of 1 (8 in
+4 groups of 2: 46.6-48.5 s in host RAM, 45.7-53.2 in files; the engine's
+default group is ceil(L / 4) layers); train_state (c)'s urgent save at 2
+layers (8: 46.8-59.7 s).
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -259,7 +298,7 @@ later phase after it (a short call after an edit; no result lines;
 ``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
 ``--only serving`` runs the serving phase, ``--only fabric`` the fabric
 phase, ``--only train_state`` the training-state phase, ``--only offload``
-the offload phase).
+the offload phase, ``--only distributed`` the distributed phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -2280,16 +2319,21 @@ def phase_quant(profile_puts=False):
 # The serving paths after main, quant and v1 (features with its KV tier
 # cell, serving and fabric) run MISTRAL_7B at full width and SERVE_LAYERS
 # of its 32 layers: at all 32 the whole smoke came within 10% of its time
-# limit. Every count they check follows the depth (one paged launch a layer
-# and put; 7 quantized matmuls a layer and lm_head's a put).
+# limit; the features phase at FEATURE_LAYERS. Every count they check
+# follows the depth (one paged launch a layer and put; 7 quantized matmuls
+# a layer and lm_head's a put). Serving and fabric stay at 8: the serving
+# chaos cell wants the memory back within one KV pool, and its replica
+# threads' fixed 64 MiB of library workspace is more than a pool below 8
+# layers; the fabric phase's time is its server processes', not depth's.
 SERVE_LAYERS = 8
+FEATURE_LAYERS = 2          # SERVE_LAYERS until PR 18
 
 
-def serve_cfg():
-    """MISTRAL_7B at full width, SERVE_LAYERS layers."""
+def serve_cfg(layers=None):
+    """MISTRAL_7B at full width, ``layers`` (default SERVE_LAYERS) layers."""
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
 
-    return dataclasses.replace(MISTRAL_7B, num_layers=SERVE_LAYERS)
+    return dataclasses.replace(MISTRAL_7B, num_layers=layers or SERVE_LAYERS)
 
 
 # The serving features at MISTRAL_7B width, on one bf16 engine built once
@@ -2349,7 +2393,7 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
     launches recorded. The kernels' launch counts are set to 0 just before
     and read just after. Checks stream lengths, one paged launch per layer
     and put, 7 quantized-matmul launches per layer and put plus lm_head's
-    (57 at SERVE_LAYERS) with quantized weights (else 0), and that every
+    (15 at FEATURE_LAYERS) with quantized weights (else 0), and that every
     block is free or held by the prefix cache alone. ``record_margins``
     keeps each request's top-2 logit margin at each sampled position (for
     the greedy-parity rule); the puts of a ``draft_engine`` (a draft-model
@@ -2418,7 +2462,7 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
         raise AssertionError(f"[features] {label}: "
                              f"{launches['paged_attention']} paged launches "
                              f"for {n_puts} puts x {L} layers")
-    # 7 projections a layer and lm_head (57 at SERVE_LAYERS); a draft
+    # 7 projections a layer and lm_head (15 at FEATURE_LAYERS); a draft
     # engine shares the target's (quantized) tree
     want_qmm = ((7 * L + (0 if mcfg.tie_embeddings else 1)) * n_puts
                 if engine.config.weight_quant_enabled else 0)
@@ -3137,13 +3181,13 @@ def evacuate_failing_export(engine, prompt, label):
 
 def phase_kv_tier():
     """The KV tier cell alone (``--only kv_tier``): MISTRAL_7B at full width
-    (SERVE_LAYERS layers, bf16 weights from a seed), bf16 then int8 weights
+    (FEATURE_LAYERS layers, bf16 weights from a seed), bf16 then int8 weights
     + int8 KV."""
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.models.transformer import CausalLM
 
-    model = CausalLM(serve_cfg())
+    model = CausalLM(serve_cfg(FEATURE_LAYERS))
     torch.cuda.empty_cache()
     params = model.init(torch.Generator("cuda").manual_seed(7),
                         device="cuda", dtype=torch.bfloat16)
@@ -3295,7 +3339,7 @@ def profile_feature_puts(engine):
 
 def phase_features(profile_puts=False):
     """The features phase: small fp32 card == CPU parity with each feature,
-    then MISTRAL_7B at full width (SERVE_LAYERS layers, bf16): the prefix
+    then MISTRAL_7B at full width (FEATURE_LAYERS layers, bf16): the prefix
     cache, n-gram
     speculative decoding at K = 3 and 4, reservation admission with
     preemption, KV export/import (bf16, int8 and fp8 pools), preemption
@@ -3306,7 +3350,7 @@ def phase_features(profile_puts=False):
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
     small_feature_parity()
-    cfg = serve_cfg()
+    cfg = serve_cfg(FEATURE_LAYERS)
     log(f"[features] MISTRAL_7B at full width, {cfg.num_layers} of "
         f"{MISTRAL_7B.num_layers} layers, bf16, random weights from a seed")
     model = CausalLM(cfg)
@@ -5236,11 +5280,12 @@ def phase_fabric():
 
 V1_NEW_TOKENS = 32
 V1_WAYS = (("v1 bf16", None), ("v1 int8", 8), ("v1 int4", 4))
+V1_LAYERS = 8               # of MISTRAL_7B's 32 (all 32 until PR 18)
 # dequantize launches of one forward at MISTRAL_7B: per layer wq, wk, wv,
 # wo, w_gate, w_in, w_out and the attention and MLP norm stacks (which the
 # quantizer's size rule takes at full width), then lm_head and the gathered
 # embedding rows
-V1_DEQUANT_PER_FORWARD = 9 * 32 + 2
+V1_DEQUANT_PER_FORWARD = 9 * V1_LAYERS + 2
 V1_QUANT_LEAVES = 11        # the QuantTensor leaves: the build's quantize launches
 
 
@@ -5433,7 +5478,7 @@ def run_v1(label, bits, prompts, eos_run=False):
     from deepspeed_tpu_torch.inference.quantization import tree_nbytes
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
-    cfg = MISTRAL_7B
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=V1_LAYERS)
     model = CausalLM(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6252,14 +6297,17 @@ def peak_rss_during(fn, *a, **kw):
     return out, max(peak[0], rss_bytes()) - base
 
 
+URGENT_LAYERS = 2       # 8 (TRAIN_LAYERS) until PR 18
+
+
 def state_urgent():
-    """(c) The train phase's configuration at 8 layers: 2 steps, an urgent
-    save, step 3; a fresh engine loads the save and its step 3 loss is
-    bit-identical."""
+    """(c) The train phase's configuration at URGENT_LAYERS layers: 2 steps,
+    an urgent save, step 3; a fresh engine loads the save and its step 3
+    loss is bit-identical."""
     label = "train_state c"
     data = state_data()
     reset_launches()
-    e = state_engine(TRAIN_LAYERS, data)
+    e = state_engine(URGENT_LAYERS, data)
     for _ in range(2):
         e.train_batch()
     nbytes = state_bytes(e)
@@ -6271,20 +6319,20 @@ def state_urgent():
         want = float(e.train_batch())
         del e
         free_engine()
-        f = state_engine(TRAIN_LAYERS, data)
+        f = state_engine(URGENT_LAYERS, data)
         (_, cs), load_s = timed_s(f.load_checkpoint, root)
         resume_loader(f, cs)
         got = float(f.train_batch())
         if got != want:
             raise AssertionError(f"[{label}] step 3 after the load: loss "
                                  f"{got} vs {want}")
-        launches = check_launches(label, 4 * 2, TRAIN_LAYERS)
+        launches = check_launches(label, 4 * 2, URGENT_LAYERS)
         del f
     finally:
         shutil.rmtree(root, ignore_errors=True)
         free_engine()
     gb = nbytes / 1e9
-    log(f"[{label}] {TRAIN_LAYERS} layers: urgent save of {gb:.3f} GB in "
+    log(f"[{label}] {URGENT_LAYERS} layers: urgent save of {gb:.3f} GB in "
         f"{urgent_s:.2f} s ({gb / urgent_s:.2f} GB/s) against the "
         f"{URGENT_GRACE_S:.0f} s default grace "
         f"({'within' if urgent_s <= URGENT_GRACE_S else 'OVER'}); host RAM "
@@ -6366,7 +6414,7 @@ def phase_train_state():
 
 OFFLOAD_SEQ = 4097          # 1 x 4096 tokens after the shift
 OFFLOAD_LAYERS = 32         # the headline: all of MISTRAL_7B
-OFFLOAD_STEPS = 3
+OFFLOAD_STEPS = 2
 # JAX's test_offload_matches_device_update holds the offloaded AdamW to the
 # device update within this (relative and absolute)
 OFFLOAD_TOL = 2e-4
@@ -6685,10 +6733,13 @@ def offload_headline():
             "params": n}
 
 
+TWIN_FLOW_STEPS = 2    # 3 until PR 18
+
+
 def offload_twin_flow(device_losses):
     """(c) Twin-Flow at ratio 0.5 with the moments on NVMe, 2 layers, the
-    first 3 of (a)'s batches: the losses within OFFLOAD_TOL of (a)'s
-    on-device engine."""
+    first TWIN_FLOW_STEPS of (a)'s batches: the losses within OFFLOAD_TOL
+    of (a)'s on-device engine."""
     from deepspeed_tpu_torch.runtime.engine import _paths
 
     label = "offload c"
@@ -6701,12 +6752,12 @@ def offload_twin_flow(device_losses):
         names = [".".join(p) for p, _ in _paths(eng.state.params)]
         reset_launches()
         losses, secs = [], []
-        for b in offload_batches(3):
+        for b in offload_batches(TWIN_FLOW_STEPS):
             loss, fb, up = offload_step(eng, b)
             losses.append(loss)
             secs.append(fb + up)
             log(f"[{label}] loss {loss:.6f}: {split_line(eng.offload_timings, fb, up)}")
-        check_launches(label, 3, 2)
+        check_launches(label, TWIN_FLOW_STEPS, 2)
         disk = sum(os.path.getsize(os.path.join(root, f))
                    for f in os.listdir(root))
         bad = masters_off_device(eng)
@@ -6714,7 +6765,7 @@ def offload_twin_flow(device_losses):
         if bad or any(g > OFFLOAD_TOL * (1 + abs(b))
                       for g, b in zip(gaps, device_losses)):
             raise AssertionError(f"[{label}] losses {losses} vs the on-device"
-                                 f" engine's {device_losses[:3]}; leaves "
+                                 f" engine's {device_losses}; leaves "
                                  f"{bad} differ from the masters")
         kept = [names[i] for i in plan.kept]
         log(f"[{label}] ratio 0.5, moments on NVMe: offloaded "
@@ -6729,12 +6780,13 @@ def offload_twin_flow(device_losses):
             "losses": losses}
 
 
-INFINITY_LAYERS = 8
-INFINITY_GROUP = 2
+INFINITY_LAYERS = 2
+INFINITY_GROUP = 1         # the engine's default group, ceil(L / 4) (2 at 8 layers)
 
 
 def offload_infinity(device, steps, whole=None):
-    """(d) ZeRO-Infinity: MISTRAL_7B at 8 layers in 4 groups of 2, the
+    """(d) ZeRO-Infinity: MISTRAL_7B at INFINITY_LAYERS layers in groups of
+    INFINITY_GROUP, the
     params, moments and accumulators in host RAM or in files, ``steps``
     steps on one sequence. The first streamed loss is held to the whole
     model's ``CausalLM.loss`` on the gathered params, computed here unless
@@ -6866,6 +6918,470 @@ def phase_offload_apart():
         os.unlink(path)
 
 
+# ----------------------------------------------------------- distributed
+
+DIST_LAYERS = 2
+DIST_SEQ = 4097             # one 4096-token row a rank a step
+DIST_STEPS = 3
+DIST_RANKS = 2
+# the train and offload phases' tolerance for two engines that run the same
+# bf16 program and sum its fp32 gradients in other orders (OFFLOAD_TOL)
+DIST_TOL = OFFLOAD_TOL
+# gathered params after step 3: no element further from (a)'s than AdamW
+# moves one in the 3 steps at the peak lr. The forward is bf16: a master
+# that differs in its last bits (gradients summed in another order) can
+# round to the other bf16 weight, and where a gradient is small Adam's
+# normalized step then differs by up to lr
+DIST_PARAM_TOL = 3 * 1e-4
+# qwZ + qgZ against plain stage 3: int8 weights on the wire and int8
+# gradient partials move the loss by far less than this
+DIST_QUANT_TOL = 2e-2
+DIST_CHILD_S = 600
+# MISTRAL_7B's leaves that stage 3 shards over fsdp: 9 a layer, and of the
+# globals wte, the final norm and lm_head; the untied wte is only indexed,
+# so nothing saves it for the backward and it is not gathered again
+DIST_LAYER_LEAVES = 9
+DIST_GLOBAL_LEAVES = 3
+DIST_GLOBAL_REGATHERED = 2
+
+
+def dist_config(gas, **zero):
+    cfg = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+               steps_per_print=100, comms_logger={"enabled": True})
+    cfg["zero_optimization"] = dict(zero)
+    return cfg
+
+
+def dist_rows():
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    return np.random.default_rng(0).integers(
+        0, MISTRAL_7B.vocab_size, (DIST_RANKS, DIST_SEQ)).astype(np.int32)
+
+
+def dist_engine(gas, mesh=None, **zero):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=DIST_LAYERS)
+    kw = {} if mesh is None else {"mesh": mesh}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg), config=dist_config(gas, **zero), **kw)
+    return engine
+
+
+def dist_step(engine, rows):
+    """One global step: the rank's row on a mesh, or every row as a micro
+    step in one process; the loss and the synchronized seconds."""
+    if engine._mesh:
+        batches = [{"input_ids": rows[engine.rank:engine.rank + 1]}]
+    else:
+        batches = [{"input_ids": rows[r:r + 1]} for r in range(len(rows))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = float(engine.train_batch(iter(batches)))
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - t
+
+
+def dist_sample(engine):
+    """A strided sample of 4096 elements of every param leaf, by flat index
+    into the whole leaf, and its sum of squares: from the blocks this rank
+    holds first (no collective), merged over the ranks by
+    :func:`dist_merge`."""
+    from deepspeed_tpu_torch.parallel.sharding import (is_replica_zero,
+                                                       local_slice)
+    from deepspeed_tpu_torch.runtime.engine import _at, _paths
+
+    out = {}
+    for path, p in _paths(engine.state.params):
+        shape = tuple(p.shape)
+        blk = tuple(slice(0, d) for d in shape)
+        if engine._mesh:
+            spec = _at(engine._p_specs, path)
+            shape = engine._full_shapes[path]
+            if not is_replica_zero(spec, engine.topology, engine.rank):
+                continue
+            blk = local_slice(shape, spec, engine.topology, engine.rank)
+        n = math.prod(shape)
+        idx = np.arange(0, n, max(1, n // 4096))[:4096]
+        coords = np.unravel_index(idx, shape)
+        inside = np.ones(len(idx), bool)
+        for c, sl in zip(coords, blk):
+            inside &= (c >= sl.start) & (c < sl.stop)
+        local = tuple(torch.from_numpy(c[inside] - sl.start).to(p.device)
+                      for c, sl in zip(coords, blk))
+        out[".".join(path)] = {
+            "idx": idx[inside].tolist(),
+            "val": p.detach()[local].float().cpu().numpy().tolist(),
+            "sumsq": float(torch.sum(p.detach().double() ** 2))}
+    return out
+
+
+def dist_merge(samples):
+    """Every rank's :func:`dist_sample` as one: the values by flat index,
+    the sums of squares added."""
+    out = {}
+    for sample in samples:
+        for key, x in sample.items():
+            m = out.setdefault(key, {"val": {}, "sumsq": 0.0})
+            m["val"].update(zip(x["idx"], x["val"]))
+            m["sumsq"] += x["sumsq"]
+    return out
+
+
+def dist_compare_samples(a, b, label):
+    gap = 0.0
+    for key, x in a.items():
+        y = b[key]
+        if sorted(x["val"]) != sorted(y["val"]):
+            raise AssertionError(f"[{label}] {key}: sampled other elements")
+        gap = max(gap, max(abs(v - y["val"][i]) for i, v in x["val"].items()))
+        if abs(x["sumsq"] - y["sumsq"]) > 1e-4 * abs(y["sumsq"]):
+            raise AssertionError(f"[{label}] {key}: sum of squares "
+                                 f"{x['sumsq']} vs {y['sumsq']}")
+    if gap > DIST_PARAM_TOL:
+        raise AssertionError(f"[{label}] gathered params differ by {gap} "
+                             f"(tolerance {DIST_PARAM_TOL})")
+    return gap
+
+
+def dist_comms():
+    """The comms logger's records: op -> count, bytes, seconds, busbw."""
+    from deepspeed_tpu_torch import comm
+
+    out = {}
+    for op, sizes in comm.comms_logger.log_all(print_log=False).items():
+        recs = sizes.values()
+        count = sum(r["count"] for r in recs)
+        secs = sum(r["total_latency_ms"] for r in recs) / 1e3
+        nbytes = sum(size * r["count"] for size, r in sizes.items())
+        busbw = sum(r["busbw_gbps"] * r["count"] for r in recs) / count / 8
+        out[op] = {"count": count, "bytes": nbytes, "s": round(secs, 4),
+                   "busbw_gbs": round(busbw, 3)}
+    return out
+
+
+def dist_held(engine):
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    def nb(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    return nb(engine.state.params), nb(engine.state.opt_state.moments)
+
+
+def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
+             first=0, sample=False):
+    """On every rank: a ZeRO engine over fsdp = DIST_RANKS, ``steps`` steps
+    (saving after 2 when ``save_dir``; loading ``load_dir`` first); the
+    rank's numbers."""
+    from deepspeed_tpu_torch import comm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = dist_engine(1, mesh={"fsdp": DIST_RANKS}, **zero)
+    if load_dir is not None:
+        engine.load_checkpoint(load_dir)
+    comm.comms_logger.reset()
+    reset_launches()
+    losses, secs = [], []
+    for s in range(first, first + steps):
+        loss, sec = dist_step(engine, rows)
+        losses.append(loss)
+        secs.append(sec)
+        if save_dir is not None and s == 1:
+            engine.save_checkpoint(save_dir, tag="step2")
+    launches = {"flash": dict(fa.launches), "quantize": qz.launches[
+        "quantize"], "dequantize": qz.launches["dequantize"]}
+    comms = dist_comms()
+    staged = comm.comms_logger.host_staged_bytes
+    staged_s = comm.comms_logger.host_staged_s
+    gathers = [(t.gathers, t.regathers) for t in engine._gather_transforms]
+    pbytes, mbytes = dist_held(engine)
+    peak = torch.cuda.max_memory_allocated()
+    sample = dist_sample(engine) if sample else None
+    r = comm.get_rank()
+    log(f"[distributed r{r}] {label}: losses {[round(x, 6) for x in losses]}"
+        f", step s {[round(x, 3) for x in secs]}, peak "
+        f"{peak / 1e9:.2f} GB, params held {pbytes / 1e9:.3f} GB, moments "
+        f"{mbytes / 1e9:.3f} GB, launches {json.dumps(launches)}, "
+        f"host_staged_bytes {staged} in {staged_s:.3f} s")
+    for op, c in comms.items():
+        log(f"[distributed r{r}] {label} comms {op}: {c['count']} calls, "
+            f"{c['bytes'] / 1e9:.3f} GB, {c['s']:.3f} s, busbw "
+            f"{c['busbw_gbs']:.3f} GB/s")
+    want = steps * DIST_LAYERS
+    if any(launches["flash"][k] != want for k in ("fwd", "delta", "dq",
+                                                   "dkv")):
+        raise AssertionError(f"[distributed r{r}] {label}: flash launches "
+                             f"{launches['flash']}, want {want} each")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": secs, "peak": peak,
+            "param_bytes": pbytes, "moment_bytes": mbytes,
+            "launches": launches, "comms": comms, "staged": staged,
+            "staged_s": staged_s,
+            "gathers": gathers, "sample": sample}
+
+
+def dist_rank_main(rank, work):
+    """One rank of the distributed phase (``--dist-rank``): a gloo world of
+    DIST_RANKS processes on the one card; (b) stages 0-3 (stage 3 saving
+    after step 2), (d) a stage-3 engine resuming the one-process save, (c)
+    stage 3 with qwZ + qgZ. Writes its results as JSON."""
+    from deepspeed_tpu_torch import comm
+
+    comm.init_distributed(dist_backend="gloo", device="cuda",
+                          init_method=f"file://{work}/rendezvous",
+                          rank=rank, world_size=DIST_RANKS, verbose=False)
+    rows = dist_rows()
+    out = {}
+    try:
+        for stage in (0, 1, 2, 3):
+            out[f"s{stage}"] = dist_run(
+                f"(b) stage {stage}", rows, DIST_STEPS, {"stage": stage},
+                save_dir=os.path.join(work, "ranks") if stage == 3 else None,
+                sample=True)
+        ref_latest = os.path.join(work, "ref", "latest")
+        deadline = time.monotonic() + DIST_CHILD_S
+        while not os.path.exists(ref_latest):
+            if time.monotonic() > deadline:
+                raise AssertionError("[distributed] no one-process save")
+            time.sleep(0.2)
+        out["d"] = dist_run("(d) resume of the one-process save", rows, 1,
+                            {"stage": 3}, load_dir=os.path.join(work, "ref"),
+                            first=2)
+        out["c"] = dist_run("(c) stage 3 + qwZ + qgZ", rows, DIST_STEPS,
+                            {"stage": 3, "zero_quantized_weights": True,
+                             "zero_quantized_gradients": True})
+    finally:
+        comm.destroy_distributed()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def dist_nccl_one_rank(work, rows):
+    """(e) A one-rank nccl world: every collective of ``comm`` once on the
+    card (each an identity in a world of one) and ZeRO++'s quantized
+    gather forward and backward through the kernels; then one step of a
+    stage-3 ZeRO++ engine in that world (which shards nothing, as in the
+    JAX package)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import zeropp
+
+    comm.init_distributed(dist_backend="nccl", device="cuda",
+                          init_method=f"file://{work}/nccl_rendezvous",
+                          rank=0, world_size=1, verbose=False)
+    try:
+        g = torch.Generator("cuda").manual_seed(3)
+        x = torch.randn(64, 256, device="cuda", generator=g)
+        calls = {
+            "all_reduce": lambda: comm.all_reduce(x.clone()),
+            "all_reduce AVG": lambda: comm.all_reduce(x.clone(),
+                                                      comm.ReduceOp.AVG),
+            "all_gather_into_tensor": lambda: comm.all_gather_into_tensor(
+                None, x, axis=1),
+            "all_gather": lambda: comm.all_gather(None, x)[0],
+            "reduce_scatter_tensor": lambda: comm.reduce_scatter_tensor(
+                None, x, scatter_dim=1),
+            "all_to_all_single": lambda: comm.all_to_all_single(
+                None, x, "data"),
+            "broadcast": lambda: comm.broadcast(x.clone(), 0),
+            "ppermute": lambda: comm.ppermute(x, [(0, 0)], "data")}
+        for name, fn in calls.items():
+            if not torch.equal(fn(), x):
+                raise AssertionError(f"[distributed e] nccl {name} is not "
+                                     "the identity in a world of one")
+        comm.barrier()
+        reset_launches()
+        w = x.clone().requires_grad_(True)
+        y = zeropp.quantized_all_gather(w, "fsdp", 0, qw_bits=8, qg_bits=8)
+        y.backward(torch.ones_like(y))
+        # the plain versions: the kernels give their bits (kernel phase)
+        q, s = qz._quantize_torch(x, 8, qz.choose_block(256))
+        want = qz._dequantize_torch(q, s, qz.choose_block(256))
+        if not torch.equal(y.detach(), want) or \
+                qz.launches["quantize"] != 2 or qz.launches["dequantize"] != 2:
+            raise AssertionError(
+                f"[distributed e] quantized gather {qz.launches}, gap "
+                f"{(y.detach() - want).abs().max().item()}")
+        engine = dist_engine(2, stage=3, zero_quantized_weights=True,
+                             zero_quantized_gradients=True)
+        loss, sec = dist_step(engine, rows)
+        del engine
+        log(f"[distributed e] one-rank nccl world: {len(calls)} collectives "
+            f"and barrier on nccl, the quantized gather through the kernels "
+            f"(2 quantize, 2 dequantize launches), one stage-3 ZeRO++ step: "
+            f"loss {loss:.6f} in {sec:.2f} s")
+    finally:
+        comm.destroy_distributed()
+        free_engine()
+    return loss
+
+
+def dist_wait_for(path, procs, deadline, what):
+    """Wait for ``path`` (a checkpoint's ``latest``) while the ranks run;
+    fails when a rank has exited non-zero or the deadline passes."""
+    while not os.path.exists(path):
+        for p in procs:
+            if p.poll() not in (None, 0):
+                raise AssertionError(f"[distributed] a rank exited "
+                                     f"{p.returncode} before {what}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[distributed] no {what} in time")
+        time.sleep(0.2)
+
+
+def phase_distributed():
+    """The distributed spine at MISTRAL_7B widths, DIST_LAYERS layers,
+    bf16: two gloo ranks on the card in child processes (``--dist-rank``)
+    run (b)-(d) while this process runs (a) the one-process engine at gas 2
+    (saving after step 2) and, once the ranks' stage-3 save is committed,
+    (d) its one-process resume; then (e) a one-rank nccl world. The ranks
+    are mostly waiting on gloo, so the card has room for both."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    rows = dist_rows()
+    per_ckpt = 12 * dataclasses.replace(MISTRAL_7B,
+                                        num_layers=DIST_LAYERS).num_params()
+    work = ckpt_root("distributed", 2 * per_ckpt + per_ckpt // 6)
+    secs = {}
+    procs = []
+    t_ranks = time.perf_counter()
+    deadline = time.monotonic() + DIST_CHILD_S
+    try:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-rank", str(r), "--dist-dir", work],
+                                  cwd=REPO) for r in range(DIST_RANKS)]
+        t = time.perf_counter()
+        reset_launches()
+        ref = dist_engine(2)
+        ref_losses, ref_secs = [], []
+        for s in range(DIST_STEPS):
+            loss, sec = dist_step(ref, rows)
+            ref_losses.append(loss)
+            ref_secs.append(sec)
+            if s == 1:
+                ref.save_checkpoint(os.path.join(work, "ref"), tag="step2")
+        ref_sample = dist_merge([dist_sample(ref)])
+        ref_held = dist_held(ref)
+        if fa.launches["fwd"] != DIST_STEPS * 2 * DIST_LAYERS:
+            raise AssertionError(f"[distributed a] launches {fa.launches}")
+        log(f"[distributed a] one process, gas 2 (beside the ranks): losses "
+            f"{[round(x, 6) for x in ref_losses]}, step s "
+            f"{[round(x, 3) for x in ref_secs]}, params held "
+            f"{ref_held[0] / 1e9:.3f} GB, moments {ref_held[1] / 1e9:.3f} GB")
+        del ref
+        free_engine()
+        secs["a"] = round(time.perf_counter() - t, 1)
+
+        # (d), this side: the ranks' stage-3 save, once committed
+        dist_wait_for(os.path.join(work, "ranks", "latest"), procs, deadline,
+                      "stage-3 save from the ranks")
+        t = time.perf_counter()
+        one = dist_engine(2)
+        one.load_checkpoint(os.path.join(work, "ranks"))
+        d_loss, _ = dist_step(one, rows)
+        del one
+        free_engine()
+        secs["d"] = round(time.perf_counter() - t, 1)
+        try:
+            for p in procs:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                if rc != 0:
+                    raise AssertionError(f"[distributed] a rank exited {rc}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        secs["ranks"] = round(time.perf_counter() - t_ranks, 1)
+
+        # (b): every stage's losses on every rank against (a)'s, and the
+        # params gathered after step 3
+        for stage in range(4):
+            for r, res in enumerate(ranks):
+                got = res[f"s{stage}"]["losses"]
+                gaps = [abs(a - b) / abs(b) for a, b in zip(got, ref_losses)]
+                if max(gaps) > DIST_TOL:
+                    raise AssertionError(
+                        f"[distributed b] stage {stage} rank {r}: losses "
+                        f"{got} vs {ref_losses} (tolerance {DIST_TOL})")
+            gap = dist_compare_samples(
+                dist_merge([res[f"s{stage}"]["sample"] for res in ranks]),
+                ref_sample, f"distributed b s{stage}")
+            log(f"[distributed b] stage {stage}: losses within "
+                f"{max(gaps):.3g} of (a)'s (tolerance {DIST_TOL}), gathered "
+                f"params within {gap:.3g} (tolerance {DIST_PARAM_TOL})")
+        s3 = ranks[0]["s3"]
+        if not s3["param_bytes"] < 0.55 * ref_held[0] or \
+                not s3["moment_bytes"] < 0.55 * ref_held[1]:
+            raise AssertionError(f"[distributed b] stage 3 holds "
+                                 f"{s3['param_bytes']}, {s3['moment_bytes']}")
+        # (c): ZeRO++ against plain stage 3, launches from the gathers
+        micro = DIST_STEPS
+        for r, res in enumerate(ranks):
+            c = res["c"]
+            gaps = [abs(a - b) / abs(b) for a, b in
+                    zip(c["losses"], res["s3"]["losses"])]
+            gathers = sum(g for g, _ in c["gathers"])
+            regathers = sum(x for _, x in c["gathers"])
+            want_g = (DIST_LAYER_LEAVES * DIST_LAYERS
+                      + DIST_GLOBAL_LEAVES) * micro
+            want_r = (DIST_LAYER_LEAVES * DIST_LAYERS
+                      + DIST_GLOBAL_REGATHERED) * micro
+            want_q = want_g + want_r + want_g
+            if (gathers, regathers) != (want_g, want_r) or \
+                    c["launches"]["quantize"] != want_q or \
+                    c["launches"]["dequantize"] != want_q or \
+                    max(gaps) > DIST_QUANT_TOL:
+                raise AssertionError(
+                    f"[distributed c] rank {r}: gathers {gathers}/{want_g}, "
+                    f"regathers {regathers}/{want_r}, launches "
+                    f"{c['launches']} (want {want_q} each), losses "
+                    f"{c['losses']} vs stage 3's {res['s3']['losses']}")
+        log(f"[distributed c] qwZ + qgZ: losses within {max(gaps):.3g} of "
+            f"stage 3's (bound {DIST_QUANT_TOL}); {want_q // micro} quantize "
+            f"and {want_q // micro} dequantize launches a rank a step "
+            f"({want_g // micro} gathers, {want_r // micro} re-gathers, "
+            f"{want_g // micro} gradient reduces; asserted)")
+
+        # (d): the ranks resumed the one-process save; the one process
+        # resumed the ranks' stage-3 save
+        for r, res in enumerate(ranks):
+            gap = abs(res["d"]["losses"][0] - ref_losses[2]) / ref_losses[2]
+            if gap > DIST_TOL:
+                raise AssertionError(f"[distributed d] rank {r} resumed "
+                                     f"{res['d']['losses']} vs {ref_losses}")
+        want = ranks[0]["s3"]["losses"][2]
+        if abs(d_loss - want) > DIST_TOL * abs(want):
+            raise AssertionError(f"[distributed d] one process resumed the "
+                                 f"ranks' save: {d_loss} vs {want}")
+        log(f"[distributed d] the ranks' stage-3 save resumed in one process:"
+            f" step 3 loss {d_loss:.6f} vs the ranks' {want:.6f}; the one-"
+            f"process save resumed on the ranks: {ranks[0]['d']['losses'][0]:.6f}"
+            f" vs {ref_losses[2]:.6f} (tolerance {DIST_TOL})")
+        t = time.perf_counter()
+        e_loss = dist_nccl_one_rank(work, rows)
+        secs["e"] = round(time.perf_counter() - t, 1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        free_engine()
+    log(f"[distributed] sub-phases s: {json.dumps(secs)}")
+    return {"ref_losses": ref_losses, "ref_step_s": ref_secs,
+            "ranks": ranks, "e_loss": e_loss, "secs": secs}
+
+
 def json_scalar(x):
     if isinstance(x, np.generic):
         return x.item()
@@ -6901,7 +7417,7 @@ def main(argv=None):
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
                                        "features", "kv_tier", "serving",
                                        "fabric", "train", "train_state",
-                                       "offload"],
+                                       "offload", "distributed"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--offload-result", metavar="PATH",
@@ -6913,6 +7429,13 @@ def main(argv=None):
                          "main path's shapes through their entry points "
                          "alone, so that a copy of this script in another "
                          "checkout times that checkout (no result lines)")
+    ap.add_argument("--dist-rank", type=int, metavar="R",
+                    help="run one rank of the distributed phase, without the "
+                         "build and kernel phases (the phase starts its "
+                         "ranks so)")
+    ap.add_argument("--dist-dir", metavar="DIR",
+                    help="the distributed phase's rendezvous and result "
+                         "directory (with --dist-rank)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     secs = {}
@@ -6925,6 +7448,9 @@ def main(argv=None):
         return out
 
     card = timed("device", phase_device)
+    if args.dist_rank is not None:
+        dist_rank_main(args.dist_rank, args.dist_dir)
+        return
     if args.offload_result:
         out = timed("offload", phase_offload)
         with open(args.offload_result, "w") as fh:
@@ -6946,9 +7472,11 @@ def main(argv=None):
                  "serving": phase_serving, "fabric": phase_fabric,
                  "train": phase_train,
                  "train_state": phase_train_state,
-                 "offload": phase_offload}[args.only]
+                 "offload": phase_offload,
+                 "distributed": phase_distributed}[args.only]
         kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
-                                 "fabric", "train_state", "offload") else {
+                                 "fabric", "train_state", "offload",
+                                 "distributed") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -6966,6 +7494,7 @@ def main(argv=None):
     fabric = timed("fabric", phase_fabric)
     train = timed("train", phase_train, profile_step=args.profile)
     state = timed("train_state", phase_train_state)
+    dist = timed("distributed", phase_distributed)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
         f"{main_res['prefill_tps']:.1f} | {int8['prefill_tps']:.1f} | "
@@ -6990,7 +7519,7 @@ def main(argv=None):
         + "; weights GB "
         + " | ".join(f"{r['weights_gb']:.3f}" for r in v1.values())
         + "; peak GB " + " | ".join(f"{r['peak_gb']:.2f}" for r in v1.values()))
-    log(f"[features] MISTRAL_7B, {SERVE_LAYERS} layers: prefix cache warm pass "
+    log(f"[features] MISTRAL_7B, {FEATURE_LAYERS} layers: prefix cache warm pass "
         f"{features['prefix']['warm']}; spec (proposed/accepted/decode "
         f"puts) bf16 "
         + ", ".join(f"{k} {v['proposed']}/{v['accepted']}/{v['puts']}"
@@ -7053,12 +7582,27 @@ def main(argv=None):
         f"{ob['peak_gb']:.2f} GB, host RSS at most {ob['peak_rss_gb']:.1f} GB; "
         f"parity gap {offload['a']['gap']:.3g}; ZeRO-Infinity step seconds "
         f"cpu {offload['d cpu']['step_s']}, nvme {offload['d nvme']['step_s']}")
-    # the flash kernels run on two paths, each counted from 0: the train
-    # phase's and the offload headline's
+    r0 = dist["ranks"][0]
+    log(f"[distributed] MISTRAL_7B widths, {DIST_LAYERS} layers, bf16, "
+        f"{DIST_RANKS} gloo ranks on one card: step seconds (rank 0) "
+        + ", ".join(f"stage {k}: {[round(x, 2) for x in r0[f's{k}']['step_s']]}"
+                    for k in range(4))
+        + f", qwZ + qgZ {[round(x, 2) for x in r0['c']['step_s']]}; one "
+        f"process at gas 2 {[round(x, 2) for x in dist['ref_step_s']]}; "
+        f"host-staged bytes a rank (stages 0-3, c) "
+        f"{[r0[k]['staged'] for k in ('s0', 's1', 's2', 's3', 'c')]}")
+    # the flash kernels run on three paths, each counted from 0: the train
+    # phase's, the offload headline's and a rank's distributed stage-0 run;
+    # quantize on the quant phase's build and dequantize on v1 int8's, and
+    # both on ZeRO++'s (a rank's qwZ + qgZ run)
     by_path = {name: {"train": launches[name],
-                      "offload": ob["launches"][key]}
+                      "offload": ob["launches"][key],
+                      "distributed": r0["s0"]["launches"]["flash"][key]}
                for name, key in (("flash_fwd", "fwd"), ("flash_dq", "dq"),
                                  ("flash_dkv", "dkv"))}
+    for name, path in (("quantize", "quant"), ("dequantize", "v1")):
+        by_path[name] = {path: launches[name],
+                         "distributed": r0["c"]["launches"][name]}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         t = times[name]

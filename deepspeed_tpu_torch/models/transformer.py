@@ -447,6 +447,12 @@ class CausalLM:
 
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
+        # ZeRO-3 / ZeRO++ hooks (parallel/zeropp.py, set by the training
+        # engine): the explicit gather of sharded weights. layer_ runs on
+        # each layer's params in apply, global_ on the non-stacked leaves
+        # (embeddings, final norm, lm head) keyed "<group>.<leaf>".
+        self.layer_transform = None
+        self.global_transform = None
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, device=None,
@@ -585,6 +591,16 @@ class CausalLM:
             raise not_ported("pipeline parallelism", "queue 1 item 14")
         B, T = tokens.shape
         dev = tokens.device
+        if self.global_transform is not None:
+            # gather the non-stacked weights once a forward (ZeRO-3)
+            flat = {f"{grp}.{k}": v
+                    for grp in ("embed", "final_norm", "lm_head")
+                    for k, v in params.get(grp, {}).items()}
+            flat = self.global_transform(flat)
+            params = dict(params)
+            for grp in ("embed", "final_norm", "lm_head"):
+                if grp in params:
+                    params[grp] = {k: flat[f"{grp}.{k}"] for k in params[grp]}
         x = self._embed(params, tokens)
         cos = sin = None
         if cfg.position == "rope":
@@ -608,6 +624,8 @@ class CausalLM:
 
         def block_for(window):
             def block(x, lp, layer):
+                if self.layer_transform is not None:
+                    lp = self.layer_transform(lp)
                 if remat_kw is not None and torch.is_grad_enabled():
                     from torch.utils.checkpoint import checkpoint
 
@@ -623,6 +641,69 @@ class CausalLM:
         if return_aux:
             return logits, torch.zeros((), dtype=torch.float32, device=dev)
         return logits
+
+    # -- sharding specs -----------------------------------------------------
+    def param_specs(self) -> Dict[str, Any]:
+        """Logical-axis spec tree mirroring ``init``'s param tree (read by
+        ``parallel/sharding.py``); the JAX ``param_specs``, leaf for
+        leaf."""
+        from ..parallel.sharding import spec
+
+        cfg = self.cfg
+        layers = {
+            "attn_norm_w": spec("layers", "embed"),
+            "wq": spec("layers", "embed", "heads"),
+            "wk": spec("layers", "embed", "kv_heads"),
+            "wv": spec("layers", "embed", "kv_heads"),
+            "wo": spec("layers", "heads", "embed"),
+        }
+        if not cfg.shared_layernorm:
+            layers["mlp_norm_w"] = spec("layers", "embed")
+        if cfg.moe_num_experts > 0:
+            layers["router_wg"] = spec("layers", "embed", None)
+            layers["w_in"] = spec("layers", "expert", "embed", "mlp")
+            layers["w_out"] = spec("layers", "expert", "mlp", "embed")
+            if cfg.activation == "silu":
+                layers["w_gate"] = spec("layers", "expert", "embed", "mlp")
+        else:
+            layers["w_in"] = spec("layers", "embed", "mlp")
+            layers["w_out"] = spec("layers", "mlp", "embed")
+            if cfg.activation == "silu":
+                layers["w_gate"] = spec("layers", "embed", "mlp")
+        mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
+        if cfg.norm == "layernorm":
+            layers["attn_norm_b"] = spec("layers", "embed")
+            if not cfg.shared_layernorm:
+                layers["mlp_norm_b"] = spec("layers", "embed")
+        if cfg.use_bias or cfg.qkv_bias:
+            layers["wq_b"] = spec("layers", "heads")
+            layers["wk_b"] = spec("layers", "kv_heads")
+            layers["wv_b"] = spec("layers", "kv_heads")
+        if cfg.resolved_o_bias:
+            layers["wo_b"] = spec("layers", "embed")
+        if mlp_bias:
+            layers["w_in_b"] = spec("layers", "mlp")
+            layers["w_out_b"] = spec("layers", "embed")
+            if cfg.activation == "silu" and cfg.moe_num_experts == 0:
+                layers["w_gate_b"] = spec("layers", "mlp")
+        specs = {
+            "embed": {"wte": spec("vocab", "embed")},
+            "layers": layers,
+            "final_norm": {"w": spec("embed")},
+        }
+        if cfg.position == "learned":
+            specs["embed"]["wpe"] = spec(None, "embed")
+        if cfg.embedding_layernorm:
+            specs["embed"]["ln_w"] = spec("embed")
+            if cfg.norm == "layernorm":
+                specs["embed"]["ln_b"] = spec("embed")
+        if cfg.norm == "layernorm":
+            specs["final_norm"]["b"] = spec("embed")
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = {"w": spec("embed", "vocab")}
+            if cfg.lm_head_bias:
+                specs["lm_head"]["b"] = spec("vocab")
+        return specs
 
     # -- loss ---------------------------------------------------------------
     def loss(self, params, batch, rng=None):

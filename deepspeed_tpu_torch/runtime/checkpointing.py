@@ -18,10 +18,13 @@ keys them, and ``offload/`` the host masters and moments of the offloaded
 leaves, ``<i>`` the leaf's index in the JAX flatten order. The JAX package
 writes no ``state_*`` files when its moments live on NVMe; the port writes
 them either way, and each package's loader reads whatever files are
-there. The port runs as one process on one device, so it
-writes each leaf whole as ``<key>.npy``; the reader also reassembles the
-shard files that the JAX package writes from a mesh, whatever mesh wrote
-them.
+there. One process writes each leaf whole as ``<key>.npy``. Over a mesh
+every rank writes the blocks it is the first holder of as
+``<key>.shard_<starts>.npy`` (a replicated leaf whole, from rank 0), no
+leaf is gathered, and after a barrier rank 0 commits the manifest and
+``latest``: the JAX package's file set on the same mesh. The reader
+reassembles shard files, whatever mesh wrote them, and cuts each rank's
+block.
 
 Saving copies every leaf to host memory before it returns: the engine
 updates its masters and moments in place, so a write must never read a
@@ -53,7 +56,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import comm, not_ported, resolve_device
+from ..parallel import topology as topo
+from ..parallel.sharding import is_replica_zero, is_sharded, local_slice
 from ..utils.logging import logger
 
 # numpy reads, then a torch cast for the types numpy lacks (bfloat16)
@@ -175,15 +180,36 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 
 
 def _save_tree(tree: Any, out_dir: str,
-               writer: Optional[CheckpointWriter] = None) -> Dict[str, str]:
-    """Write every leaf of ``tree`` whole as ``<key>.npy`` in ``out_dir``,
-    through ``writer`` when one is given; returns the index key -> file
-    name. Each leaf is copied to host memory before this returns."""
+               writer: Optional[CheckpointWriter] = None,
+               layout: Optional[Dict[str, tuple]] = None) -> Dict[str, str]:
+    """Write the leaves of ``tree`` in ``out_dir``, through ``writer`` when
+    one is given; returns the index key -> file name. Each written leaf is
+    copied to host memory before this returns.
+
+    In one process every leaf is written whole as ``<key>.npy``. Over a
+    mesh, ``layout`` gives each key its (whole shape, spec) and the leaf is
+    this rank's block: a sharded leaf's block is written as
+    ``<key>.shard_<starts>.npy`` by its first holder only (the JAX
+    ``replica_id == 0``), and nothing is gathered; a replicated leaf is
+    written whole by rank 0."""
     os.makedirs(out_dir, exist_ok=True)
     index = {}
+    t = rank = None
+    if layout is not None:
+        t, rank = topo.get_topology(), comm.get_rank()
     for key, leaf in _flatten(tree):
-        index[key] = key + ".npy"
-        fname = os.path.join(out_dir, index[key])
+        shape, spec = layout[key] if layout is not None else (None, ())
+        if layout is not None and is_sharded(spec, t):
+            index[key] = key + ".shard_*"
+            if not is_replica_zero(spec, t, rank):
+                continue
+            start = [s.start for s in local_slice(shape, spec, t, rank)]
+            fname = os.path.join(out_dir, _shard_fname(key, start))
+        else:
+            index[key] = key + ".npy"
+            if rank:
+                continue
+            fname = os.path.join(out_dir, index[key])
         arr = _host_copy(leaf)
         if writer is not None:
             writer.submit(fname, arr)
@@ -242,7 +268,12 @@ def _load_tree(template: Any, in_dir: str, device=None) -> Any:
     return tree
 
 
-def _check_tree_files(tree: Any, in_dir: str) -> None:
+def _whole_shape(key, leaf, layout) -> tuple:
+    return tuple(layout[key][0]) if layout is not None else tuple(leaf.shape)
+
+
+def _check_tree_files(tree: Any, in_dir: str,
+                      layout: Optional[Dict[str, tuple]] = None) -> None:
     """Before any leaf is overwritten: every leaf of ``tree`` has data in
     ``in_dir``, and a whole ``<key>.npy`` has the leaf's shape (read from
     its header), so that a checkpoint of another model fails before it
@@ -254,29 +285,30 @@ def _check_tree_files(tree: Any, in_dir: str) -> None:
                 f"no checkpoint data for leaf {key} in {in_dir}")
         if single is not None:
             shape = np.load(single, mmap_mode="r").shape
-            if tuple(shape) != tuple(leaf.shape):
+            want = _whole_shape(key, leaf, layout)
+            if tuple(shape) != want:
                 raise ValueError(f"Checkpoint shape mismatch for {key}: "
-                                 f"{tuple(shape)} vs expected "
-                                 f"{tuple(leaf.shape)}")
+                                 f"{tuple(shape)} vs expected {want}")
 
 
 @torch.no_grad()
-def _copy_tree_into(tree: Any, in_dir: str) -> None:
+def _copy_tree_into(tree: Any, in_dir: str,
+                    layout: Optional[Dict[str, tuple]] = None) -> None:
     """Read every leaf of ``tree`` from ``in_dir`` and ``copy_`` it into
-    the leaf, one leaf at a time (host memory holds one leaf)."""
+    the leaf, one leaf at a time (host memory holds one leaf). Over a mesh
+    (``layout``, as :func:`_save_tree` takes it) the whole leaf is
+    reassembled, whatever mesh wrote it, and this rank's block is cut
+    from it."""
     for key, leaf in _flatten(tree):
-        arr = _read_leaf(in_dir, key, tuple(leaf.shape),
-                         _NP_DTYPE.get(leaf.dtype))
-        if tuple(arr.shape) != tuple(leaf.shape):
+        want = _whole_shape(key, leaf, layout)
+        arr = _read_leaf(in_dir, key, want, _NP_DTYPE.get(leaf.dtype))
+        if tuple(arr.shape) != want:
             raise ValueError(f"Checkpoint shape mismatch for {key}: "
-                             f"{arr.shape} vs expected {tuple(leaf.shape)}")
+                             f"{arr.shape} vs expected {want}")
+        if layout is not None:
+            arr = arr[local_slice(want, layout[key][1], topo.get_topology(),
+                                  comm.get_rank())]
         leaf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-
-
-def _multi_rank() -> bool:
-    dist = torch.distributed
-    return dist.is_available() and dist.is_initialized() \
-        and dist.get_world_size() > 1
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -292,9 +324,6 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     joined first (its failure is logged, not raised: a broken earlier save
     must not abort this one), the write completes synchronously, and the
     wall time lands on ``engine.last_urgent_save_s``."""
-    if _multi_rank() or getattr(engine, "dp_world_size", 1) > 1:
-        raise not_ported("a multi-rank checkpoint save (each rank writing "
-                         "the shards it owns)", "queue 1 item 14")
     t_urgent = time.perf_counter() if urgent else None
     if urgent:
         async_save = False
@@ -312,12 +341,14 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     os.makedirs(ckpt_dir, exist_ok=True)
 
     state = engine.state
+    layout = _layout(engine)
     writer = CheckpointWriter() if async_save else None
     try:
         p_index = _save_tree(state.params, os.path.join(ckpt_dir, "params"),
-                             writer)
+                             writer, layout and layout[0])
         o_index = _save_tree(state.opt_state.moments,
-                             os.path.join(ckpt_dir, "opt"), writer)
+                             os.path.join(ckpt_dir, "opt"), writer,
+                             layout and layout[1])
     except BaseException:
         if writer is not None:
             try:
@@ -352,6 +383,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     }
 
     def commit():
+        if layout is not None and comm.get_rank() != 0:
+            return
         _atomic_write_text(os.path.join(ckpt_dir, "manifest.json"),
                            json.dumps(manifest, indent=2, default=str))
         if save_latest:
@@ -409,9 +442,16 @@ def _load_offload(plan, off_dir: str) -> None:
             plan.store_leaf_state(i, state)
 
 
+def _layout(engine):
+    """The engine's (params, moments) layouts over a mesh, else None."""
+    fn = getattr(engine, "_ckpt_layout", None)
+    return fn() if fn is not None else None
+
+
 def wait_pending_save(engine) -> None:
-    """Join the async writer (if any), then write the manifest and the
-    ``latest`` commit marker."""
+    """Join the async writer (if any), wait for every rank's writes (a
+    barrier over a mesh), then write the manifest and the ``latest``
+    commit marker (rank 0)."""
     writer = getattr(engine, "_pending_ckpt_writer", None)
     if writer is not None:
         try:
@@ -423,6 +463,8 @@ def wait_pending_save(engine) -> None:
             raise
         finally:
             engine._pending_ckpt_writer = None
+    if _layout(engine) is not None:
+        comm.barrier()
     commit = getattr(engine, "_pending_ckpt_commit", None)
     if commit is not None:
         engine._pending_ckpt_commit = None
@@ -450,15 +492,16 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         manifest = json.load(fh)
 
     state = engine.state
+    p_lay, o_lay = _layout(engine) or (None, None)
     with_opt = load_optimizer_states and not load_module_only
-    _check_tree_files(state.params, os.path.join(ckpt_dir, "params"))
+    _check_tree_files(state.params, os.path.join(ckpt_dir, "params"), p_lay)
     if with_opt:
         _check_tree_files(state.opt_state.moments,
-                          os.path.join(ckpt_dir, "opt"))
-    _copy_tree_into(state.params, os.path.join(ckpt_dir, "params"))
+                          os.path.join(ckpt_dir, "opt"), o_lay)
+    _copy_tree_into(state.params, os.path.join(ckpt_dir, "params"), p_lay)
     if with_opt:
         _copy_tree_into(state.opt_state.moments,
-                        os.path.join(ckpt_dir, "opt"))
+                        os.path.join(ckpt_dir, "opt"), o_lay)
 
         def like(old, value):
             return torch.tensor(value, dtype=old.dtype, device=old.device)
@@ -547,6 +590,9 @@ def save_16bit_model(engine, save_dir: str,
     member carries the header numpy gives an ``ml_dtypes.bfloat16`` array
     (``'descr': '<V2'``) and the tensor's 16-bit patterns as its data,
     written without a numpy bf16 type."""
+    if _layout(engine) is not None:
+        raise not_ported("save_16bit_model over a mesh (a consolidated "
+                         "gather of the sharded leaves)", "queue 1 item 14")
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, save_filename)
     # np.savez's container: an uncompressed zip, one "<key>.npy" a member

@@ -444,32 +444,46 @@ class DeepSpeedTpuConfig(DSConfigModel):
         self.gradient_accumulation_steps = gas
 
     # ------------------------------------------------------------ not ported
-    def raise_if_not_ported(self) -> None:
+    def raise_if_not_ported(self, mesh: bool = False) -> None:
         """Raise ``NotImplementedError`` for the first block that is switched
         on and whose feature the port does not run yet. ZeRO stages 1-3 and
-        the offload blocks pass: the engine's world is one device, where the
-        JAX package's stages shard nothing either."""
+        the offload blocks pass. With ``mesh`` (the training engine) a
+        ``data``/``fsdp`` mesh, MiCS, hpZ, ZeRO++ and the comms logger pass
+        too; the other engines keep refusing them."""
         z = self.zero_optimization
-        mesh = self.mesh
-        checks = [
+        m = self.mesh
+        # declared and never read by the JAX package: refused, not ignored
+        for on, key in ((self.sparse_gradients, "sparse_gradients"),
+                        (self.communication_data_type is not None,
+                         "communication_data_type")):
+            if on:
+                raise NotImplementedError(
+                    f"{key} is declared but never read by the JAX package; "
+                    "the port refuses it rather than ignore it (ROADMAP.md "
+                    "queue 3)")
+        checks = [] if mesh else [
             (z.mics_shard_size > 0, "zero_optimization.mics_shard_size "
              "(MiCS)", "queue 1 item 14"),
             (z.zero_hpz_partition_size > 1,
              "zero_optimization.zero_hpz_partition_size (hpZ)",
              "queue 1 item 14"),
-            (z.zero_quantized_weights or z.zero_quantized_gradients
-             or z.zero_quantized_nontrainable_weights,
+            (z.zero_quantized_weights or z.zero_quantized_gradients,
              "zero_optimization.zero_quantized_weights/gradients (ZeRO++)",
              "queue 1 item 14"),
-            (any(getattr(mesh, a) > 1 for a in
-                 ("data", "fsdp", "tensor", "pipe", "sequence", "expert")),
+            (any(getattr(m, a) > 1 for a in ("data", "fsdp")),
              "a mesh with more than one device", "queue 1 item 14"),
+            (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
+        ]
+        checks += [
+            (z.zero_quantized_nontrainable_weights,
+             "zero_optimization.zero_quantized_nontrainable_weights",
+             "queue 1 item 14"),
+            (any(getattr(m, a) > 1 for a in
+                 ("tensor", "pipe", "sequence", "expert")),
+             "a tensor, pipe, sequence or expert mesh axis (14b-14e)",
+             "queue 1 item 14"),
             (self.pipeline.stages > 1 or bool(self.pipeline.micro_batches),
              "pipeline parallelism", "queue 1 item 14"),
-            (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
-            (self.sparse_gradients, "sparse_gradients", "queue 1 item 14"),
-            (self.communication_data_type is not None,
-             "communication_data_type", "queue 1 item 14"),
             (self.tensorboard.enabled or self.wandb.enabled
              or self.csv_monitor.enabled,
              "monitors (tensorboard, wandb, csv_monitor)", "queue 1 item 17"),

@@ -46,10 +46,29 @@ either package resumes the other's. ``runtime/resilience.py``'s
 ``TrainingSupervisor`` drives ``train_batch`` under crashes, preemption,
 wedged steps and anomaly storms.
 
-Single device only. ZeRO stages 1-3 are accepted, as the JAX engine runs
-them on a one-device mesh: nothing is sharded. A mesh of more than one
-device, MiCS, hpZ, ZeRO++, 1-bit optimizers, pipeline and sequence
-parallelism, MoE, curriculum, compression, elasticity, monitors and the
+Over a ``data`` × ``fsdp`` mesh of ranks (one process a rank, a
+``torch.distributed`` process group up; ``comm.init_distributed``) the
+engine runs ZeRO stages 0-3 by hand on the functional param tree, with
+the layouts of ``parallel/sharding.ZeroShardingPlan`` (so shard files and
+blocks equal the JAX engine's): each rank keeps only the blocks the plan
+gives it. Stage 0 averages the gradients over ``GRAD_REDUCE_AXES``; stage 1
+updates a rank's moment block and all-gathers the params back; stage 2
+also reduce-scatters each micro step's gradients onto the ``fsdp`` axis;
+stage 3 stores the params sharded and gathers each layer at use through
+``parallel/zeropp``'s autograd Function (its backward reduce-scatters),
+installed as the model's ``layer_transform``/``global_transform``; a
+gathered layer is freed after its use and gathered again for the backward.
+MiCS reshapes the mesh to ``fsdp = k``, hpZ shards the moments over
+(``fsdp``, ``data``), ZeRO++ quantizes the stage-3 gather (qwZ) and
+gradient reduce (qgZ). The grad norm is one all-reduce of the sum of
+squares, so overflow, clipping and the loss scale agree on every rank.
+Each rank reads its own micro batch (DeepSpeed's convention; the JAX engine
+is fed one global batch), and ``train_batch`` returns the loss averaged
+over the ranks.
+
+ZeRO stages on a one-rank world shard nothing, as in the JAX package.
+Tensor, pipeline, sequence and expert axes, 1-bit optimizers, MoE,
+offload on a mesh, curriculum, compression, elasticity, monitors and the
 flops profiler raise ``NotImplementedError`` naming their ROADMAP item.
 ZeRO-Infinity's parameter streaming is its own engine
 (``runtime/zero_infinity.py``), which ``initialize`` builds for an
@@ -58,6 +77,7 @@ ZeRO-Infinity's parameter streaming is its own engine
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -66,15 +86,20 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import comm as dist
 from .. import not_ported, resolve_device
 from ..models.transformer import CausalLM, layer_grads_in_place
 from ..models.weights import params_from_numpy
-from ..ops.optimizers import OptimizerState, build_optimizer, tree_leaves
+from ..ops.optimizers import Lamb, OptimizerState, build_optimizer, tree_leaves
+from ..parallel import topology as topo
+from ..parallel import zeropp
+from ..parallel.sharding import (ZeroShardingPlan, block_shape, entry_axes,
+                                 is_replica_zero, local_slice)
 from ..utils.logging import log_dist
 from ..utils.timer import (FORWARD_MICRO_TIMER, STEP_GLOBAL_TIMER,
                            SynchronizedWallClockTimer, ThroughputTimer)
-from .config import (DeepSpeedTpuConfig, DtypeEnum, OffloadDeviceEnum,
-                     load_config)
+from .config import (DeepSpeedTpuConfig, DtypeEnum, MeshConfig,
+                     OffloadDeviceEnum, load_config)
 from .dataloader import DeepSpeedTpuDataLoader, RepeatingLoader
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .zero_offload import OffloadOptimizerPlan
@@ -115,6 +140,20 @@ def _at(tree, path):
     return tree
 
 
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _unflatten(leaves, like):
+    """``like``'s nesting with ``leaves[path]`` at each leaf."""
+    out = {}
+    for path, _ in _paths(like):
+        _put(out, path, leaves[path])
+    return out
+
+
 class DeepSpeedTpuEngine:
     """See the module docstring. Construct via
     ``deepspeed_tpu_torch.initialize``."""
@@ -127,16 +166,33 @@ class DeepSpeedTpuEngine:
             getattr(args, "deepspeed_config", None) if config is None
             else config)
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise not_ported("a device mesh (the engine runs on one device)",
-                             "queue 1 item 14")
-        self.config.raise_if_not_ported()
-        self.dp_world_size = 1
+        dist.init_distributed(config=self.config, device=self.device.type)
+        self.config.raise_if_not_ported(mesh=True)
+        self.zero_stage = self.config.zero_optimization.stage
+        self.topology = self._build_topology(mesh)
+        topo.set_topology(self.topology)
+        self.rank = dist.get_rank()
+        # the mesh branch: every rank a process, blocks and collectives
+        self._mesh = self.topology.world_size > 1
+        self.dp_world_size = self.topology.get_data_parallel_world_size()
         self.config.resolve_batch_sizes(self.dp_world_size)
 
         # -- model ---------------------------------------------------------
         self.module = self._resolve_model(model)
-        self.zero_stage = self.config.zero_optimization.stage
+        spec_tree = (self.module.param_specs()
+                     if hasattr(self.module, "param_specs") else None)
+        hpz_size = self.config.zero_optimization.zero_hpz_partition_size
+        if hpz_size > 1:
+            # hpZ's secondary (weight-shard) group is the fsdp axis; any
+            # other size would need another mesh
+            fsdp_size = self.topology.axis_size(topo.FSDP_AXIS)
+            if hpz_size != fsdp_size:
+                raise ValueError(
+                    f"zero_hpz_partition_size={hpz_size} must equal the mesh "
+                    f"fsdp axis size ({fsdp_size}); size the mesh's fsdp axis "
+                    "to the intended secondary-partition group")
+        self.plan = ZeroShardingPlan(self.topology, self.zero_stage,
+                                     spec_tree, hpz=hpz_size > 1)
 
         # -- precision -----------------------------------------------------
         self.precision = self.config.precision
@@ -170,9 +226,19 @@ class DeepSpeedTpuEngine:
             step_source=lambda: int(self.state.global_step)
             if getattr(self, "state", None) is not None else 0)
 
+        if self._mesh:
+            if self._offload_config() is not None:
+                raise not_ported("ZeRO-Offload over a mesh (per-rank host "
+                                 "shards)", "queue 1 item 14")
+            if isinstance(self.opt, Lamb) and self.zero_stage >= 1:
+                raise not_ported("LAMB over sharded moments (its trust "
+                                 "ratio takes whole-leaf norms)",
+                                 "queue 1 item 14")
+
         # -- state ---------------------------------------------------------
         self._seed = int(self.config.seed if rng is None else rng)
         self.state = self._init_state(model_parameters)
+        self._setup_zeropp()
 
         # -- data ----------------------------------------------------------
         self.training_dataloader = None
@@ -203,11 +269,62 @@ class DeepSpeedTpuEngine:
 
         log_dist(
             f"DeepSpeedTpuEngine ready: device={self.device} "
+            f"mesh={self.topology.shape} "
             f"zero_stage={self.zero_stage} precision={self.precision.value} "
             f"micro_batch={self.train_micro_batch_size_per_gpu()} "
             f"gas={self.gradient_accumulation_steps()}", ranks=[0])
 
     # ------------------------------------------------------------------ setup
+    def _build_topology(self, mesh) -> topo.MeshTopology:
+        """The rank grid: ``mesh`` (a ``MeshTopology``, a mesh config or a
+        dict of axis sizes) or the config's ``mesh`` block, over the process
+        group's world (the registry is not consulted: a config's mesh is
+        always its own). MiCS then reshapes it as the JAX engine does."""
+        if mesh is None:
+            t = topo.MeshTopology.build(self.config.mesh)
+        elif isinstance(mesh, topo.MeshTopology):
+            t = mesh
+        elif isinstance(mesh, (MeshConfig, dict)):
+            t = topo.MeshTopology.build(
+                mesh if isinstance(mesh, MeshConfig) else MeshConfig(**mesh))
+        else:
+            raise not_ported(f"a mesh given as {type(mesh).__name__} (the "
+                             "port takes a MeshTopology, a mesh config or a "
+                             "dict of axis sizes)", "queue 1 item 14")
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        if t.world_size != world:
+            raise ValueError(f"Mesh sizes {t.shape} product {t.world_size} "
+                             f"!= device count {world}")
+        for a in (topo.TENSOR_AXIS, topo.PIPE_AXIS, topo.SEQUENCE_AXIS,
+                  topo.EXPERT_AXIS):
+            if t.axis_size(a) > 1:
+                raise not_ported(f"a mesh with {a} > 1 (14b-14e)",
+                                 "queue 1 item 14")
+        zc = self.config.zero_optimization
+        if zc.mics_shard_size and zc.mics_shard_size > 0:
+            k = int(zc.mics_shard_size)
+            if zc.stage != 3:
+                raise ValueError(
+                    f"mics_shard_size={k} requires zero_optimization.stage=3 "
+                    "(MiCS is a ZeRO-3 variant, reference mics.py:55)")
+            fsdp_size = t.axis_size(topo.FSDP_AXIS)
+            if fsdp_size != k:
+                if mesh is None and fsdp_size == 1 and t.world_size % k == 0:
+                    # the engine's own mesh: fsdp becomes the shard group,
+                    # data soaks up the replication factor
+                    t = topo.MeshTopology.build(self.config.mesh, fsdp=k,
+                                                data=-1)
+                else:
+                    raise ValueError(
+                        f"mics_shard_size={k} conflicts with the mesh fsdp "
+                        f"axis ({fsdp_size}); size the fsdp axis to the MiCS "
+                        "shard group (params shard over fsdp, replicate over "
+                        "data)")
+            log_dist(f"MiCS: shard group={k} (fsdp axis), replication="
+                     f"{t.axis_size(topo.DATA_AXIS)} (data axis)", ranks=[0])
+        return t
+
     def _resolve_model(self, model):
         if model is None:
             raise ValueError("model is required")
@@ -254,6 +371,9 @@ class DeepSpeedTpuEngine:
 
     def _init_state(self, model_parameters=None) -> TrainState:
         self._model_dtype_override()
+        self._scattered = set()
+        if self._mesh:
+            return self._init_mesh_state(model_parameters)
         if model_parameters is not None:
             # the caller's starting tree (numpy arrays or tensors): copied
             # into fp32 master weights on the engine's device
@@ -301,6 +421,10 @@ class DeepSpeedTpuEngine:
             self.offload_timings: Dict[str, float] = {}
         with torch.no_grad():
             opt_state = self._init_opt_state(kept)
+        return self._fresh_state(params, opt_state, grad_acc)
+
+    def _fresh_state(self, params, opt_state, grad_acc) -> TrainState:
+        """A train state at step 0 around these trees."""
         scale0 = (2.0 ** self.config.fp16.initial_scale_power
                   if self.dynamic_loss_scale else self._static_scale)
         scale_state = ScaleState(
@@ -312,6 +436,102 @@ class DeepSpeedTpuEngine:
                           global_step=self._scalar(0, torch.int32),
                           skipped_steps=self._scalar(0, torch.int32))
 
+    def _init_mesh_state(self, model_parameters) -> TrainState:
+        """The rank's blocks of the train state. The whole starting tree
+        (``model_parameters``, or ``module.init`` from the seed, the same
+        on every rank) is cut to the plan's param blocks; each block is an
+        fp32 autograd leaf whose ``.grad`` is the micro step's gradient
+        buffer. The accumulator is that buffer where the grads' layout is
+        the params' (stages 0, 1, 3), else (stage 2) a block of its own;
+        the moments are blocks of the plan's optimizer layout."""
+        if model_parameters is not None:
+            full = params_from_numpy(model_parameters, "cpu",
+                                     dtype=torch.float32)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self._seed)
+            full = self.module.init(gen, device=self.device)
+        plan, t, r = self.plan, self.topology, self.rank
+        self._full_shapes = {path: tuple(p.shape) for path, p in _paths(full)}
+        shapes = _unflatten(self._full_shapes, full)
+        self._p_specs = plan.params(shapes)
+        self._g_specs = plan.grads(shapes)
+        kinds = list(self.opt.init(
+            {"_": torch.zeros(1, device=self.device)}).moments)
+        self._o_specs = plan.opt_state({mk: shapes for mk in kinds})
+        params, grad_acc, blocks = {}, {}, {}
+        self._scattered = set()     # leaves with an accumulator of their own
+        for path, p in _paths(full):
+            shape, ps = self._full_shapes[path], _at(self._p_specs, path)
+            blk = p.detach()[local_slice(shape, ps, t, r)].to(
+                self.device, torch.float32).clone()
+            blk.requires_grad_(True)
+            blk.grad = torch.zeros_like(blk)
+            gs = _at(self._g_specs, path)
+            acc = blk.grad
+            if gs != ps:
+                acc = torch.zeros(block_shape(shape, gs, t), device=self.device)
+                self._scattered.add(path)
+            os_ = _at(self._o_specs[kinds[0]], path) if kinds else ps
+            _put(params, path, blk)
+            _put(grad_acc, path, acc)
+            _put(blocks, path, torch.zeros(block_shape(shape, os_, t),
+                                           device=self.device))
+        del full
+        self._offload_plan = None
+        with torch.no_grad():
+            opt_state = self._init_opt_state(blocks)
+        return self._fresh_state(params, opt_state, grad_acc)
+
+    def _setup_zeropp(self):
+        """Stage 3 over a mesh gathers each sharded weight at use: the
+        model gets ``parallel/zeropp``'s gather transforms (plain, or with
+        ZeRO++'s qwZ/qgZ quantized payloads). ZeRO++ needs stage 3, as in
+        the JAX engine."""
+        zc = self.config.zero_optimization
+        quant = zc.zero_quantized_weights or zc.zero_quantized_gradients
+        if quant and self.zero_stage < 3:
+            raise ValueError(
+                "zero_quantized_weights/gradients (ZeRO++) require "
+                f"zero_optimization.stage=3, got stage={self.zero_stage}")
+        self._gather_transforms = []
+        if not self._mesh or self.zero_stage < 3:
+            return
+        if not isinstance(self.module, CausalLM):
+            raise ValueError("stage 3 over a mesh needs a framework CausalLM "
+                             "(its layer_transform/global_transform hooks)")
+        qw = 8 if zc.zero_quantized_weights else None
+        qg = 8 if zc.zero_quantized_gradients else None
+        dt = self.compute_dtype
+        layer_specs, l_dtypes = {}, {}
+        for k, spec in self._p_specs["layers"].items():
+            if spec and entry_axes(spec[0]):
+                raise not_ported(f"a stage-3 plan that shards the stacked "
+                                 f"layer dim of layers.{k}", "queue 1 item 14")
+            layer_specs[k] = spec[1:]
+            # matrices are gathered into the compute dtype (the model casts
+            # them so at use); norms and biases stay fp32
+            if len(self._full_shapes[("layers", k)]) > 2:
+                l_dtypes[k] = dt
+        g_specs = {f"{grp}.{k}": spec
+                   for grp in ("embed", "final_norm", "lm_head")
+                   for k, spec in self._p_specs.get(grp, {}).items()}
+        # the embedding tables stay fp32: their row gradients are summed
+        # over repeated tokens (and, tied, with the unembedding's) in fp32
+        g_dtypes = {"lm_head.w": dt}
+        self.module.layer_transform = zeropp.make_quantized_gather_transform(
+            self.topology, layer_specs, qw_bits=qw, qg_bits=qg,
+            out_dtypes=l_dtypes)
+        self.module.global_transform = \
+            zeropp.make_quantized_gather_transform(
+                self.topology, g_specs, qw_bits=qw, qg_bits=qg,
+                out_dtypes=g_dtypes)
+        self._gather_transforms = [x for x in (self.module.layer_transform,
+                                               self.module.global_transform)
+                                   if x is not None]
+        if quant:
+            log_dist(f"ZeRO++ enabled: qwZ={bool(qw)} qgZ={bool(qg)}",
+                     ranks=[0])
+
     # ----------------------------------------------------------- step programs
     def _predivide(self) -> float:
         return float(self.dp_world_size) \
@@ -320,19 +540,151 @@ class DeepSpeedTpuEngine:
     def _micro(self, batch):
         """Forward, backward and accumulate for one micro batch; the loss is
         scaled by ``scale / (dp_size if predivide else 1)`` before the
-        gradient."""
+        gradient. At stage 3 the gathered weights are freed after use
+        (``zeropp.free_gathered``); at stage 2 each leaf's gradient is
+        reduce-scattered onto its grads block and the buffer cleared."""
         state = self.state
-        with layer_grads_in_place():
+        free = (zeropp.free_gathered() if self._gather_transforms
+                else contextlib.nullcontext())
+        with free, layer_grads_in_place():
             loss = self.module.loss(state.params, batch, None)
         scaled = (loss * state.scale_state.scale
                   / self._predivide()).to(torch.float32)
         scaled.backward()
         for path, p in _paths(state.params):
-            if p.grad.data_ptr() != _at(state.grad_acc, path).data_ptr():
+            acc = _at(state.grad_acc, path)
+            if path in self._scattered:
+                with torch.no_grad():
+                    acc.add_(self._scatter(p.grad, path))
+                    p.grad.zero_()
+            elif p.grad.data_ptr() != acc.data_ptr():
                 raise RuntimeError(
                     f"autograd replaced the accumulator of {'.'.join(path)} "
                     "instead of adding into it")
         return loss.detach()
+
+    # ------------------------------------------------------- mesh layouts
+    def _slice_of(self, t, path, src, dst):
+        """This rank's ``dst`` block of a leaf, from its ``src`` block
+        ``t``: a view where the ``dst`` block lies inside the ``src`` one,
+        else through the whole leaf."""
+        shape = self._full_shapes[path]
+        have = local_slice(shape, src, self.topology, self.rank)
+        want = local_slice(shape, dst, self.topology, self.rank)
+        if all(w.start >= h.start and w.stop <= h.stop
+               for h, w in zip(have, want)):
+            return t[tuple(slice(w.start - h.start, w.stop - h.start)
+                           for h, w in zip(have, want))]
+        return self._gather_from(t, src, ())[want]
+
+    def _gather_from(self, t, src, dst):
+        """The ``dst`` block from the ``src`` blocks of every rank, for a
+        ``dst`` that each dim shards over a leading part of ``src``'s axes
+        (all-gather over the rest); else through the whole leaf."""
+        dst = tuple(dst) + (None,) * (len(src) - len(dst))
+        if all(entry_axes(s)[:len(entry_axes(d))] == entry_axes(d)
+               for s, d in zip(src, dst)):
+            for dim, (s, d) in enumerate(zip(src, dst)):
+                extra = entry_axes(s)[len(entry_axes(d)):]
+                if extra:
+                    t = dist.all_gather_into_tensor(None, t, extra, axis=dim)
+            return t
+        full = self._gather_from(t, src, ())
+        shape = tuple(full.shape)
+        return full[local_slice(shape, dst, self.topology, self.rank)]
+
+    def _scatter(self, full, path):
+        """This rank's grads block of the sum of every rank's ``full``
+        gradient (reduce-scatter over the block's axes, dim by dim)."""
+        out = full
+        for dim, entry in enumerate(_at(self._g_specs, path)):
+            if entry_axes(entry):
+                out = dist.reduce_scatter_tensor(
+                    None, out, dist.ReduceOp.SUM, entry_axes(entry),
+                    scatter_dim=dim)
+        return out
+
+    def _ckpt_layout(self):
+        """For a sharded checkpoint: {dotted key: (whole shape, spec)} of
+        the params and of the moments (keys ``<kind>.<leaf>``), or None in
+        one process."""
+        if not self._mesh:
+            return None
+        p_lay, o_lay = {}, {}
+        for path, shape in self._full_shapes.items():
+            key = ".".join(path)
+            p_lay[key] = (shape, _at(self._p_specs, path))
+            for mk, specs in self._o_specs.items():
+                o_lay[f"{mk}.{key}"] = (shape, _at(specs, path))
+        return p_lay, o_lay
+
+    @torch.no_grad()
+    def _update_mesh(self):
+        """The update over a mesh. Each accumulator holds its grads block
+        summed over the axes the block is sharded on; one all-reduce a leaf
+        over the other ``GRAD_REDUCE_AXES`` completes the sum, whose mean
+        over the DP ranks is the JAX engine's gradient. The norm is one
+        all-reduce of the sums of squares of every block's first holder.
+        Each leaf's optimizer moments are its moment block, the update runs
+        on the matching param and grad blocks, and the new params are
+        all-gathered back to the param layout."""
+        state = self.state
+        t, r = self.topology, self.rank
+        gas = self.gradient_accumulation_steps()
+        clip = self.config.gradient_clipping
+        scale = state.scale_state.scale
+        denom = scale * gas * self.dp_world_size / self._predivide()
+        sumsq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for path, acc in _paths(state.grad_acc):
+            gs = _at(self._g_specs, path)
+            sharded = {a for e in gs for a in entry_axes(e)}
+            rest = tuple(a for a in topo.GRAD_REDUCE_AXES
+                         if t.axis_size(a) > 1 and a not in sharded)
+            if rest:
+                dist.all_reduce(acc, dist.ReduceOp.SUM, rest)
+            if is_replica_zero(gs, t, r):
+                sumsq = sumsq + torch.sum(torch.square(acc / denom))
+        dist.all_reduce(sumsq, dist.ReduceOp.SUM, None)
+        gnorm = torch.sqrt(sumsq)
+        overflow = ~torch.isfinite(gnorm)
+        coeff = (torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+                 if clip > 0 else None)
+        lr = self.schedule(state.global_step)
+        opt_state = state.opt_state
+        new_step = opt_state.step + 1
+        for path, p in _paths(state.params):
+            ps, gs = _at(self._p_specs, path), _at(self._g_specs, path)
+            os_ = _at(next(iter(self._o_specs.values())), path) \
+                if self._o_specs else ps
+            acc = _at(state.grad_acc, path)
+            grad = self._slice_of(acc, path, gs, os_) / denom
+            if coeff is not None:
+                grad = grad * coeff
+            p_blk = self._slice_of(p.detach(), path, ps, os_)
+            moments = {mk: {"p": _at(tree, path)}
+                       for mk, tree in opt_state.moments.items()}
+            new_p, new_os = self.opt.step(
+                {"p": p_blk}, {"p": grad},
+                OptimizerState(step=opt_state.step, moments=moments), lr)
+            kept = torch.where(overflow, p_blk, new_p["p"])
+            p.copy_(self._gather_from(kept, os_, ps))
+            for mk, sub in new_os.moments.items():
+                old = moments[mk]["p"]
+                old.copy_(torch.where(overflow, old, sub["p"]))
+            acc.zero_()
+            new_step = new_os.step
+        one = torch.ones_like(state.global_step)
+        zero = torch.zeros_like(state.global_step)
+        self.state = state._replace(
+            opt_state=OptimizerState(
+                step=torch.where(overflow, opt_state.step, new_step),
+                moments=opt_state.moments),
+            scale_state=self._next_scale_state(state.scale_state, overflow),
+            global_step=state.global_step + torch.where(overflow, zero, one),
+            skipped_steps=state.skipped_steps
+            + torch.where(overflow, one, zero))
+        return {"grad_norm": gnorm, "lr": lr, "overflow": overflow,
+                "loss_scale": scale}
 
     def _grad_norm(self, denom):
         """Global norm of the unscaled accumulated gradients (before
@@ -374,6 +726,8 @@ class DeepSpeedTpuEngine:
     @torch.no_grad()
     def _update(self):
         """unscale → clip → (overflow-gated) optimizer step → new scale."""
+        if self._mesh:
+            return self._update_mesh()
         state = self.state
         gas = self.gradient_accumulation_steps()
         clip = self.config.gradient_clipping
@@ -507,10 +861,12 @@ class DeepSpeedTpuEngine:
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None,
                      num_local_io_workers=None, data_sampler=None,
                      route=None):
-        """A loader of global micro batches (micro × DP world) over
-        ``dataset``, shuffled from the config's seed."""
-        global_micro = (self.train_micro_batch_size_per_gpu()
-                        * self.dp_world_size)
+        """A loader over ``dataset``, shuffled from the config's seed: of
+        global micro batches (micro × DP world) in one process, of this
+        rank's micro batches over a mesh (the loader reads the rank's
+        strided share of the order)."""
+        global_micro = self.train_micro_batch_size_per_gpu() * (
+            1 if self._mesh else self.dp_world_size)
         return DeepSpeedTpuDataLoader(
             dataset, batch_size=batch_size or global_micro,
             collate_fn=collate_fn, seed=self.config.seed,
@@ -642,7 +998,10 @@ class DeepSpeedTpuEngine:
             losses.append(self.forward(next(it)))
             self.backward()
         self.step()
-        return torch.mean(torch.stack(losses))
+        loss = torch.mean(torch.stack(losses))
+        if self._mesh:    # the mean over the DP ranks: the global batch's
+            loss = dist.all_reduce(loss, dist.ReduceOp.AVG, None)
+        return loss
 
     def reset_data_iterator(self):
         """Drop the persistent no-argument ``train_batch`` iterator, so that

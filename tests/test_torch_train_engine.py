@@ -351,12 +351,6 @@ def test_config_unknown_keys_none_and_types(tmp_path):
 
 
 NOT_PORTED = {
-    "mics": ({"zero_optimization": {"mics_shard_size": 2}}, "item 14"),
-    "hpz": ({"zero_optimization": {"zero_hpz_partition_size": 2}},
-            "item 14"),
-    "zeropp": ({"zero_optimization": {"zero_quantized_weights": True}},
-               "item 14"),
-    "mesh": ({"mesh": {"fsdp": 2}}, "item 14"),
     "pipeline": ({"pipeline": {"stages": 2}}, "item 14"),
     "onebit": ({"optimizer": {"type": "OneBitAdam", "params": {}}},
                "item 14"),
@@ -368,6 +362,35 @@ NOT_PORTED = {
     "flops-profiler": ({"flops_profiler": {"enabled": True}}, "item 17"),
     "hybrid-engine": ({"hybrid_engine": {"enabled": True}}, "item 17"),
 }
+
+# blocks that raised naming item 14 before the distributed spine was
+# ported: in a one-process world they now raise the JAX engine's own
+# ValueError on a one-device mesh (the mesh case: the JAX topology's, no
+# data axis can be inferred from one device)
+RAISE_AS_JAX = {
+    "mics": {"zero_optimization": {"mics_shard_size": 2}},
+    "hpz": {"zero_optimization": {"zero_hpz_partition_size": 2}},
+    "zeropp": {"zero_optimization": {"zero_quantized_weights": True}},
+    "mesh": {"mesh": {"fsdp": 2}},
+}
+
+
+def _raises_as_jax(block):
+    cfg = {"train_batch_size": 2, **block}
+    with pytest.raises(ValueError) as te:
+        _port_engine(json.loads(json.dumps(cfg)))
+    topo.reset_topology()
+    with pytest.raises(ValueError) as je:
+        if "mesh" in block:
+            topo.MeshTopology.build(
+                deepspeed_tpu.runtime.config.MeshConfig(**block["mesh"]),
+                devices=jax.devices()[:1])
+        else:
+            deepspeed_tpu.initialize(
+                model=jtf.CausalLM(jtf.TINY_TEST), config=cfg,
+                mesh=topo.MeshTopology.build(devices=jax.devices()[:1]))
+    assert str(te.value) == str(je.value)
+
 
 # blocks that parsed into a raise before the serving stack, the rest of
 # telemetry and the training state were ported; they now parse into their
@@ -429,9 +452,12 @@ def _now_runs(name, block, tmp_path):
     assert np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("name", list(NOT_PORTED) + list(PORTED_BLOCKS)
-                         + list(NOW_RUN))
+@pytest.mark.parametrize("name", list(RAISE_AS_JAX) + list(NOT_PORTED)
+                         + list(PORTED_BLOCKS) + list(NOW_RUN))
 def test_not_ported_block_raises(name, tmp_path):
+    if name in RAISE_AS_JAX:
+        _raises_as_jax(RAISE_AS_JAX[name])
+        return
     if name in NOW_RUN:
         _now_runs(name, NOW_RUN[name], tmp_path)
         return
