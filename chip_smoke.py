@@ -273,7 +273,28 @@ Phases, each of which raises on failure (nothing is caught):
              the comms logger's calls, bytes, seconds and busbw per op with
              the bytes and seconds staged through host memory. A failed
              rank fails the phase; checkpoints under build/, removed in a
-             ``finally``.
+             ``finally``. Then tensor parallelism over tensor = 2 in the
+             same two ranks (each process draws the whole tree once from
+             one seed on the host; a rank's card receives only its
+             blocks): (f) v2 serving at SERVE_LAYERS layers, bf16, the
+             main prompts x 32 new tokens, then int8 weights + int8 KV on
+             3 of them: the two ranks' streams and captured logits
+             bit-equal, the logits within TP_LOGIT_LIMIT of the
+             one-process engine's (this process, the same tree) on the
+             same puts, prefill puts among them, and the streams held to
+             its streams by the greedy-parity rule with the one-process
+             engine's own kernel/plain logit gap; SERVE_LAYERS paged
+             launches a put and 7 SERVE_LAYERS + 1 quantized-matmul
+             launches a put under int8, 8 quantize launches at the build
+             (asserted, per rank); the bf16 run's gloo all-reduces timed by
+             the comms logger; (g) v1 ``generate`` with tp_size = 2, bf16
+             and int8, the same prompts, held the same way (the limit on
+             one forward's logits, the margin from a one-process
+             forward), L flash, 32 L paged and 33 (9 L + 2)
+             dequantize launches (asserted); (h) training on tensor = 2,
+             both rows a step as 2 micro steps on both ranks, against (a)
+             (losses, sampled params), its save after step 2 resumed in
+             one process on the ranks' curve.
 
 Depth and step cuts of PR 18, which made room for phase 14 (seconds on
 one H100, 700 W, before: PR 17's two whole runs; after: this PR's, in
@@ -2486,13 +2507,14 @@ def feature_run(engine, prompts, label, ranks=None, record_margins=False,
                         for i in range(len(prompts))]}
 
 
-def parity_rule(off, on, gap, label):
+def parity_rule(off, on, gap, label, phase="features"):
     """Greedy parity between feature off and on at full width: bf16 batches
     of different composition may round differently, so each request's
     streams must be equal, or at their first differing position the
     feature-off run's top-2 logit margin must be no larger than ``gap``,
     the largest |kernel - plain| logit difference ``compare_steps``
-    measured on this engine."""
+    measured on this engine (the distributed phase: the largest
+    |tensor-parallel - one process| difference on the same puts)."""
     diverged = []
     for i, (a, b) in enumerate(zip(off["streams"], on["streams"])):
         if a == b:
@@ -2501,11 +2523,11 @@ def parity_rule(off, on, gap, label):
         m = off["margins"][i].get(j)
         if m is None or m > gap:
             raise AssertionError(
-                f"[features] {label}: request {i} diverges at token {j} "
+                f"[{phase}] {label}: request {i} diverges at token {j} "
                 f"with a feature-off top-2 margin of {m} > the kernel/plain "
                 f"logit gap {gap:.4g}")
         diverged.append((i, j, round(m, 4)))
-    log(f"[features] {label}: greedy parity: "
+    log(f"[{phase}] {label}: greedy parity: "
         f"{len(off['streams']) - len(diverged)} of {len(off['streams'])} "
         f"streams equal; diverged (request, token, off-run margin) "
         f"{diverged} within the kernel/plain gap {gap:.4g}")
@@ -6936,7 +6958,7 @@ DIST_PARAM_TOL = 3 * 1e-4
 # qwZ + qgZ against plain stage 3: int8 weights on the wire and int8
 # gradient partials move the loss by far less than this
 DIST_QUANT_TOL = 2e-2
-DIST_CHILD_S = 600
+DIST_CHILD_S = 900          # the ranks' cells, (b)-(d) and (f)-(h)
 # MISTRAL_7B's leaves that stage 3 shards over fsdp: 9 a layer, and of the
 # globals wte, the final norm and lm_head; the untied wte is only indexed,
 # so nothing saves it for the backward and it is not gathered again
@@ -6971,12 +6993,12 @@ def dist_engine(gas, mesh=None, **zero):
 
 
 def dist_step(engine, rows):
-    """One global step: the rank's row on a mesh, or every row as a micro
-    step in one process; the loss and the synchronized seconds."""
-    if engine._mesh:
-        batches = [{"input_ids": rows[engine.rank:engine.rank + 1]}]
-    else:
-        batches = [{"input_ids": rows[r:r + 1]} for r in range(len(rows))]
+    """One global step: the rows of the rank's data-parallel index on a mesh
+    (a tensor group's ranks read the same), or every row, each a micro step;
+    the loss and the synchronized seconds."""
+    mine = rows[engine.dp_rank::engine.dp_world_size] if engine._mesh \
+        else rows
+    batches = [{"input_ids": mine[r:r + 1]} for r in range(len(mine))]
     torch.cuda.synchronize()
     t = time.perf_counter()
     loss = float(engine.train_batch(iter(batches)))
@@ -7071,16 +7093,16 @@ def dist_held(engine):
 
 
 def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
-             first=0, sample=False):
-    """On every rank: a ZeRO engine over fsdp = DIST_RANKS, ``steps`` steps
-    (saving after 2 when ``save_dir``; loading ``load_dir`` first); the
-    rank's numbers."""
+             first=0, sample=False, mesh=None, gas=1):
+    """On every rank: a ZeRO engine over ``mesh`` (default fsdp =
+    DIST_RANKS) at ``gas``, ``steps`` steps (saving after 2 when
+    ``save_dir``; loading ``load_dir`` first); the rank's numbers."""
     from deepspeed_tpu_torch import comm
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    engine = dist_engine(1, mesh={"fsdp": DIST_RANKS}, **zero)
+    engine = dist_engine(gas, mesh=mesh or {"fsdp": DIST_RANKS}, **zero)
     if load_dir is not None:
         engine.load_checkpoint(load_dir)
     comm.comms_logger.reset()
@@ -7111,7 +7133,7 @@ def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
         log(f"[distributed r{r}] {label} comms {op}: {c['count']} calls, "
             f"{c['bytes'] / 1e9:.3f} GB, {c['s']:.3f} s, busbw "
             f"{c['busbw_gbs']:.3f} GB/s")
-    want = steps * DIST_LAYERS
+    want = steps * gas * DIST_LAYERS
     if any(launches["flash"][k] != want for k in ("fwd", "delta", "dq",
                                                    "dkv")):
         raise AssertionError(f"[distributed r{r}] {label}: flash launches "
@@ -7130,7 +7152,9 @@ def dist_rank_main(rank, work):
     """One rank of the distributed phase (``--dist-rank``): a gloo world of
     DIST_RANKS processes on the one card; (b) stages 0-3 (stage 3 saving
     after step 2), (d) a stage-3 engine resuming the one-process save, (c)
-    stage 3 with qwZ + qgZ. Writes its results as JSON."""
+    stage 3 with qwZ + qgZ; then over tensor = DIST_RANKS (f) v2 serving,
+    (g) v1 ``generate`` and (h) training (saving after step 2). Writes its
+    results as JSON (the serving cells' streams and logits as ``.pt``)."""
     from deepspeed_tpu_torch import comm
 
     comm.init_distributed(dist_backend="gloo", device="cuda",
@@ -7156,10 +7180,430 @@ def dist_rank_main(rank, work):
         out["c"] = dist_run("(c) stage 3 + qwZ + qgZ", rows, DIST_STEPS,
                             {"stage": 3, "zero_quantized_weights": True,
                              "zero_quantized_gradients": True})
+        t = time.perf_counter()
+        model, params = tp_tree()
+        out["f"] = tp_serving_rank(work, rank, model, params)
+        out["g"] = tp_v1_rank(work, rank, model, params)
+        del model, params
+        out["h"] = dist_run("(h) tensor = 2", rows, DIST_STEPS, {"stage": 0},
+                            save_dir=os.path.join(work, "tp"), sample=True,
+                            mesh={"tensor": DIST_RANKS}, gas=DIST_RANKS)
+        out["tp_s"] = round(time.perf_counter() - t, 1)
     finally:
         comm.destroy_distributed()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
+
+
+# ------------------------------------------- tensor parallelism, (f)-(h)
+
+TP_SEED = 5
+TP_QUANT_PROMPTS = 3        # the int8 weights + int8 KV run's prompts
+TP_CAPTURE = 24             # puts whose logits are kept for the comparisons
+TP_QUANT = {"weight_quant_enabled": True, "kv_quant_enabled": True}
+TP_GAP_TOKENS = 256         # the v1 comparison's forward: 2 prompts this long
+# the largest |tensor = 2 - one process| logit difference allowed on the
+# same puts (and, for v1, on one forward), set from two readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): that difference,
+# 0.166-0.180, and the one-process engines' own kernel/plain gap,
+# 0.199-0.234, at logits up to 5.4-6.9 in magnitude
+TP_LOGIT_LIMIT = 0.35
+
+
+def tp_tree():
+    """MISTRAL_7B at SERVE_LAYERS layers, bf16 weights drawn on the host
+    from TP_SEED: the same tree in every process. Each engine cuts what it
+    needs from it, so a rank's card only receives that rank's blocks."""
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    model = CausalLM(serve_cfg())
+    t = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(TP_SEED), device="cpu",
+                        dtype=torch.bfloat16)
+    log(f"[distributed] the {model.cfg.num_layers}-layer tree drawn on the "
+        f"host in {time.perf_counter() - t:.1f} s")
+    return model, params
+
+
+def tp_prompts(cfg):
+    rng = np.random.default_rng(TP_SEED)
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in MAIN_PROMPT_LENS]
+
+
+def tp_v2_engine(model, params, quant, mesh):
+    """The v2 engine from the host tree (over ``mesh``, or one process),
+    its quantize launches, and the card's peak memory while it was built."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=16, max_chunk_tokens=256, max_ragged_sequence_count=32,
+        kv_blocks=1024, **(TP_QUANT if quant else {}))
+    free_engine()
+    torch.cuda.reset_peak_memory_stats()
+    qz.launches["quantize"] = 0
+    engine = InferenceEngineV2(model, params, ecfg, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    return engine, qz.launches["quantize"], torch.cuda.max_memory_allocated()
+
+
+def tp_v2_serve(engine, prompts, label):
+    """Serve ``prompts`` at once through a margin-recording scheduler
+    (MAIN_NEW_TOKENS each): the streams, each put's inputs and seconds, the
+    logits of the first TP_CAPTURE puts, and the launch counts (set to 0
+    just before, read just after), checked against L paged launches a put
+    and, under weight quantization, 7 L + 1 quantized-matmul launches."""
+    sched = margin_scheduler(engine)
+    puts = []
+    real = engine.put
+
+    def put(uids, chunks, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(uids, chunks, **kw)
+        torch.cuda.synchronize()
+        rec = {"key": [list(uids), [list(c) for c in chunks]],
+               "s": time.perf_counter() - t,
+               "decode": max(len(c) for c in chunks) == 1}
+        if len(puts) < TP_CAPTURE:
+            rec["logits"] = out.float().cpu()
+        puts.append(rec)
+        return out
+
+    engine.put = put
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            sched.submit(i, p, max_new_tokens=MAIN_NEW_TOKENS)
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+    finally:
+        del engine.put
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pa.launches,
+                "quantized_matmul": qz.launches["quantized_matmul"]}
+    L = engine.model.cfg.num_layers
+    want = {"paged_attention": L * len(puts),
+            "quantized_matmul": (7 * L + 1) * len(puts)
+            if engine.config.weight_quant_enabled else 0}
+    streams = [sched.finished[i].generated for i in range(len(prompts))]
+    if launches != want or any(len(x) != MAIN_NEW_TOKENS for x in streams) \
+            or engine.free_blocks != engine.config.kv_blocks:
+        raise AssertionError(f"[{label}] launches {launches} (want {want}), "
+                             f"stream lengths {[len(x) for x in streams]}, "
+                             f"free blocks {engine.free_blocks}")
+    dec = [p["s"] for p in puts if p["decode"]]
+    log(f"[{label}] {len(prompts)} requests x {MAIN_NEW_TOKENS} tokens in "
+        f"{wall:.2f} s, {len(puts)} puts ({len(dec)} decode-only, median "
+        f"{1e3 * float(np.median(dec)):.2f} ms); launches "
+        f"{json.dumps(launches)} = {json.dumps(want)} expected")
+    return {"streams": streams, "puts": puts, "wall": wall,
+            "launches": launches,
+            "margins": [sched.margins.get(i, {}) for i in range(len(prompts))]}
+
+
+def tp_serving_rank(work, rank, model, params):
+    """(f) on a rank: the v2 engine over tensor = DIST_RANKS, its blocks
+    cut from the host tree ``params`` (contiguous on the card), bf16 on the
+    main prompts with the comms logger timing every all-reduce, then int8
+    weights + int8 KV on TP_QUANT_PROMPTS of them. Writes streams, puts and
+    captured logits to ``tp_f<rank>.pt``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    out = {}
+    for quant in (False, True):
+        label = f"distributed f r{rank} {'int8' if quant else 'bf16'}"
+        t = time.perf_counter()
+        engine, n_quant, build_peak = tp_v2_engine(
+            model, params, quant, {"tensor": DIST_RANKS})
+        build_s = time.perf_counter() - t
+        held = sum(t_.numel() * t_.element_size() for t_ in
+                   tree_leaves(engine.params))
+        want_q = 7 + 1 if quant else 0
+        pool = tuple(engine.state_manager.kv_cache["k"].shape)
+        if n_quant != want_q or pool[2] != model.cfg.kv_heads // DIST_RANKS:
+            raise AssertionError(f"[{label}] {n_quant} quantize launches "
+                                 f"(want {want_q}), pool {pool}")
+        prompts = tp_prompts(model.cfg)[:TP_QUANT_PROMPTS if quant else None]
+        engine.put([10_000], [prompts[0][:16]])        # warm-up
+        engine.flush(10_000)
+        comm.comms_logger.reset()
+        comm.comms_logger.enabled = not quant
+        comm.comms_logger.prof_all = not quant
+        torch.cuda.reset_peak_memory_stats()
+        res = tp_v2_serve(engine, prompts, label)
+        comms = dist_comms()
+        staged_s = comm.comms_logger.host_staged_s
+        comm.comms_logger.enabled = False
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{label}] build {build_s:.2f} s ({n_quant} quantize launches "
+            f"= {want_q} expected), weights held {held / 1e9:.3f} GB, build "
+            f"peak {build_peak / 1e9:.3f} GB, pool {pool}, serving peak "
+            f"{peak / 1e9:.2f} GB"
+            + (f"; all-reduces {json.dumps(comms.get('all_reduce'))}, host "
+               f"staging {staged_s:.3f} s" if not quant else ""))
+        res.update(build_s=build_s, held=held, build_peak=build_peak,
+                   peak=peak, comms=comms, staged_s=staged_s)
+        out["int8" if quant else "bf16"] = res
+        del engine
+    torch.save(out, os.path.join(work, f"tp_f{rank}.pt"))
+    return {k: {"wall": v["wall"], "puts": len(v["puts"]),
+                "held": v["held"], "build_peak": v["build_peak"]}
+            for k, v in out.items()}
+
+
+def tp_v1_generate(engine, prompts, label, layers):
+    """``generate`` of the prompts (MAIN_NEW_TOKENS greedy tokens) with the
+    launch counts checked: L flash forwards, L paged launches a decode step,
+    and with quantized weights (9 L + 2) dequantize launches a forward."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=MAIN_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = v1_launches()
+    bits = engine.config.quant.enabled
+    want = {"dequantize": (1 + MAIN_NEW_TOKENS) * (9 * layers + 2)
+            if bits else 0, "flash_fwd": layers,
+            "paged_attention": MAIN_NEW_TOKENS * layers, "quantize": 0}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    log(f"[{label}] generate {len(prompts)} prompts x {MAIN_NEW_TOKENS} in "
+        f"{wall:.2f} s; launches {json.dumps(launches)} = expected")
+    return out.cpu(), wall
+
+
+def tp_gap_tokens(cfg):
+    rng = np.random.default_rng(TP_SEED + 1)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (2, TP_GAP_TOKENS)),
+                           dtype=torch.int32, device="cuda")
+
+
+def tp_v1_engine(model, params, bits, tp):
+    """``init_inference`` from the host tree at ``tp_size`` ``tp`` (bf16,
+    int8 weights when ``bits``), its quantize launches checked, and the
+    card's peak memory while it was built."""
+    import deepspeed_tpu_torch
+
+    config = {"dtype": "bf16"}
+    if tp > 1:
+        config["tensor_parallel"] = {"tp_size": tp}
+    if bits:
+        config["quant"] = {"enabled": True, "bits": bits}
+    free_engine()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    engine = deepspeed_tpu_torch.init_inference(
+        model, config=config, params=params, device="cuda")
+    torch.cuda.synchronize()
+    if qz.launches["quantize"] != (V1_QUANT_LEAVES if bits else 0):
+        raise AssertionError(f"[distributed g] tp {tp}: "
+                             f"{qz.launches['quantize']} quantize launches")
+    return engine, torch.cuda.max_memory_allocated()
+
+
+def tp_v1_rank(work, rank, model, params):
+    """(g) on a rank: ``init_inference`` with tp_size = DIST_RANKS, its
+    blocks cut from the host tree ``params``, bf16 and int8: the main
+    prompts' greedy streams and one forward's logits, written to
+    ``tp_g<rank>.pt``."""
+    from deepspeed_tpu_torch.inference.quantization import tree_nbytes
+
+    out = {}
+    for bits in (None, 8):
+        label = f"distributed g r{rank} {'int8' if bits else 'bf16'}"
+        engine, build_peak = tp_v1_engine(model, params, bits, DIST_RANKS)
+        held = tree_nbytes(engine.params)
+        log(f"[{label}] weights held {held / 1e9:.3f} GB, build peak "
+            f"{build_peak / 1e9:.3f} GB")
+        prompts = tp_prompts(model.cfg)
+        engine.generate([prompts[0][:16]], max_new_tokens=2)     # warm-up
+        streams, wall = tp_v1_generate(engine, prompts, label,
+                                       model.cfg.num_layers)
+        with torch.no_grad():
+            logits = engine.forward(tp_gap_tokens(model.cfg)).float().cpu()
+        out["int8" if bits else "bf16"] = {
+            "streams": streams, "wall": wall, "logits": logits,
+            "held": held, "build_peak": build_peak}
+        del engine
+    torch.save(out, os.path.join(work, f"tp_g{rank}.pt"))
+    return {k: {"wall": v["wall"], "held": v["held"],
+                "build_peak": v["build_peak"]} for k, v in out.items()}
+
+
+def tp_one_gap(get_logits, label):
+    """The one-process engine's largest |kernel - plain| logit difference
+    over a prefill and a decode step (``compare_steps``): the bf16 rounding
+    noise that the tensor = 2 runs' parity is judged by, measured without
+    them."""
+    res = compare_steps(get_logits, label)
+    return max(r["max_dlogit"] for r in res.values())
+
+
+def tp_references(work):
+    """The one-process engines on the same host tree: (f) the v2 engine's
+    runs and (g) v1's streams and forward logits, each with its
+    kernel/plain gap (``tp_one_gap``), kept for the comparison."""
+    model, params = tp_tree()
+    rng = np.random.default_rng(99)
+    chunks = [rng.integers(0, model.cfg.vocab_size, 257).tolist(),
+              rng.integers(0, model.cfg.vocab_size, 201).tolist()]
+    ref = {"f": {}, "g": {}}
+    for quant in (False, True):
+        label = f"distributed f one process {'int8' if quant else 'bf16'}"
+        engine, _, _ = tp_v2_engine(model, params, quant, None)
+        prompts = tp_prompts(model.cfg)[:TP_QUANT_PROMPTS if quant else None]
+        engine.put([10_000], [prompts[0][:16]])
+        engine.flush(10_000)
+        res = tp_v2_serve(engine, prompts, label)
+        res["gap"] = tp_one_gap(
+            functools.partial(step_logits, engine, chunks), label)
+        ref["f"]["int8" if quant else "bf16"] = res
+        del engine
+    rng = np.random.default_rng(98)
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (2, 256)),
+                           dtype=torch.int32, device="cuda")
+    plen = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, 2),
+                          dtype=torch.int32, device="cuda")
+    for bits in (None, 8):
+        label = f"distributed g one process {'int8' if bits else 'bf16'}"
+        engine, _ = tp_v1_engine(model, params, bits, 1)
+        prompts = tp_prompts(model.cfg)
+        engine.generate([prompts[0][:16]], max_new_tokens=2)
+        streams, wall = tp_v1_generate(engine, prompts, label,
+                                       model.cfg.num_layers)
+        with torch.no_grad():
+            logits = engine.forward(tp_gap_tokens(model.cfg)).float().cpu()
+        gap = tp_one_gap(functools.partial(v1_step_logits, engine, toks,
+                                           plen, nxt), label)
+        # the engine is kept for the margins of the greedy-parity rule
+        ref["g"]["int8" if bits else "bf16"] = {
+            "streams": streams, "wall": wall, "logits": logits, "gap": gap,
+            "engine": engine}
+        del engine
+    return ref
+
+
+def tp_margin_at(engine, prompt, stream, j):
+    """The one-process v1 engine's top-2 logit margin for the token at new
+    position ``j`` of ``stream`` after ``prompt``."""
+    toks = torch.as_tensor([list(prompt) + list(stream[:j])],
+                           dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        last = engine.forward(toks)[0, -1].float().cpu().numpy()
+    return margin_of(last)
+
+
+def tp_limit(diff, label):
+    """Fail when the tensor = 2 logits are further than TP_LOGIT_LIMIT from
+    the one process's on the same inputs."""
+    if not diff <= TP_LOGIT_LIMIT:
+        raise AssertionError(
+            f"[{label}] max |tensor = 2 - one process| logit difference "
+            f"{diff:.4g} on the same inputs > the limit {TP_LOGIT_LIMIT}")
+
+
+def tp_check(work, ref):
+    """(f) and (g): the two ranks' streams and captured logits equal bit
+    for bit; the rank's logits within TP_LOGIT_LIMIT of the one process's
+    on the same puts ((g): on one forward); the streams held to the one
+    process's by the greedy-parity rule, with the gap the one-process
+    engine's own kernel/plain gap (``tp_one_gap``)."""
+    ranks_f = [torch.load(os.path.join(work, f"tp_f{r}.pt"))
+               for r in range(DIST_RANKS)]
+    ranks_g = [torch.load(os.path.join(work, f"tp_g{r}.pt"))
+               for r in range(DIST_RANKS)]
+    summary = {}
+    for mode in ("bf16", "int8"):
+        a, b = ranks_f[0][mode], ranks_f[1][mode]
+        same = a["streams"] == b["streams"] and all(
+            torch.equal(x["logits"], y["logits"])
+            for x, y in zip(a["puts"], b["puts"]) if "logits" in x)
+        if not same:
+            raise AssertionError(f"[distributed f] {mode}: the ranks' streams"
+                                 " or logits differ")
+        one = ref["f"][mode]
+        pairs = [(x, y) for x, y in zip(a["puts"], one["puts"])
+                 if "logits" in x and "logits" in y and x["key"] == y["key"]]
+        n_pre = sum(not x["decode"] for x, _ in pairs)
+        if not n_pre:
+            raise AssertionError(f"[distributed f] {mode}: no prefill put "
+                                 "on the same inputs to compare")
+        diff = max(float((x["logits"] - y["logits"]).abs().max())
+                   for x, y in pairs)
+        scale = max(float(y["logits"].abs().max()) for _, y in pairs)
+        tp_limit(diff, f"distributed f {mode}")
+        div = parity_rule(one, a, one["gap"], f"distributed f {mode}",
+                          "distributed")
+        dec = [p["s"] for p in a["puts"] if p["decode"]]
+        one_dec = [p["s"] for p in one["puts"] if p["decode"]]
+        ar = a["comms"].get("all_reduce", {})
+        summary[f"f {mode}"] = {
+            "dlogit": diff, "limit": TP_LOGIT_LIMIT, "gap": one["gap"],
+            "max_logit": scale, "puts_compared": [n_pre, len(pairs) - n_pre],
+            "diverged": div, "wall_s": a["wall"], "one_wall_s": one["wall"],
+            "decode_put_ms": 1e3 * float(np.median(dec)),
+            "one_decode_put_ms": 1e3 * float(np.median(one_dec)),
+            "puts": len(a["puts"]), "all_reduce": ar,
+            "staged_s": a["staged_s"], "held": [r[mode]["held"]
+                                                for r in ranks_f],
+            "build_peak": [r[mode]["build_peak"] for r in ranks_f]}
+        log(f"[distributed f] {mode}: ranks bit-equal ({len(a['puts'])} "
+            f"puts, {sum('logits' in p for p in a['puts'])} captured logits "
+            f"equal); max |tensor = 2 - one process| logit {diff:.4g} on "
+            f"{n_pre} prefill and {len(pairs) - n_pre} decode puts of the "
+            f"same inputs (limit {TP_LOGIT_LIMIT}; max |logit| {scale:.4g}; "
+            f"the one process's kernel/plain gap {one['gap']:.4g}); tensor "
+            f"= 2 {a['wall']:.2f} s vs one process {one['wall']:.2f} s, "
+            f"median decode put "
+            f"{summary[f'f {mode}']['decode_put_ms']:.2f} vs "
+            f"{summary[f'f {mode}']['one_decode_put_ms']:.2f} ms"
+            + (f"; gloo all-reduces {ar.get('count')} in {ar.get('s')} s, "
+               f"host staging {a['staged_s']:.3f} s" if ar else ""))
+    for mode in ("bf16", "int8"):
+        a, b = ranks_g[0][mode], ranks_g[1][mode]
+        if not (torch.equal(a["streams"], b["streams"])
+                and torch.equal(a["logits"], b["logits"])):
+            raise AssertionError(f"[distributed g] {mode}: the ranks differ")
+        one = ref["g"][mode]
+        diff = float((a["logits"] - one["logits"]).abs().max())
+        tp_limit(diff, f"distributed g {mode}")
+        gap = one["gap"]
+        prompts = tp_prompts(serve_cfg())
+        diverged = []
+        for i, p in enumerate(prompts):
+            x = a["streams"][i, len(p):len(p) + MAIN_NEW_TOKENS].tolist()
+            y = one["streams"][i, len(p):len(p) + MAIN_NEW_TOKENS].tolist()
+            if x == y:
+                continue
+            j = next(k for k, (u, v) in enumerate(zip(x, y)) if u != v)
+            m = tp_margin_at(one["engine"], p, y, j)
+            if m > gap:
+                raise AssertionError(
+                    f"[distributed g] {mode}: row {i} diverges at {j} with a "
+                    f"one-process margin {m} > its kernel/plain gap "
+                    f"{gap:.4g}")
+            diverged.append((i, j, round(m, 4)))
+        summary[f"g {mode}"] = {
+            "dlogit": diff, "limit": TP_LOGIT_LIMIT, "gap": gap,
+            "diverged": diverged, "wall_s": a["wall"],
+            "one_wall_s": one["wall"],
+            "held": [r[mode]["held"] for r in ranks_g],
+            "build_peak": [r[mode]["build_peak"] for r in ranks_g]}
+        log(f"[distributed g] {mode}: ranks bit-equal; max |tensor = 2 - "
+            f"one process| logit {diff:.4g} on one forward of 2 x "
+            f"{TP_GAP_TOKENS} tokens (limit {TP_LOGIT_LIMIT}); greedy parity "
+            f"with one process: {len(prompts) - len(diverged)} of "
+            f"{len(prompts)} rows equal, diverged {diverged} within the one "
+            f"process's kernel/plain gap {gap:.4g}; generate "
+            f"{a['wall']:.2f} s vs one process {one['wall']:.2f} s")
+    return summary
 
 
 def dist_nccl_one_rank(work, rows):
@@ -7239,14 +7683,22 @@ def phase_distributed():
     bf16: two gloo ranks on the card in child processes (``--dist-rank``)
     run (b)-(d) while this process runs (a) the one-process engine at gas 2
     (saving after step 2) and, once the ranks' stage-3 save is committed,
-    (d) its one-process resume; then (e) a one-rank nccl world. The ranks
-    are mostly waiting on gloo, so the card has room for both."""
+    (d) its one-process resume. Then the ranks run the tensor-parallel
+    cells over tensor = 2 while this process runs the one-process
+    references of (f) v2 serving and (g) v1 ``generate`` (SERVE_LAYERS
+    layers); once the ranks are done, (f) and (g) are checked (the ranks
+    bit-equal, their logits within TP_LOGIT_LIMIT of one process's on the
+    same inputs, the greedy-parity rule against one process) and (h), tensor
+    = 2 training, against (a), and its save is resumed in one process;
+    then (e) a one-rank nccl world. The ranks are mostly waiting on gloo,
+    so the card has room for both."""
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
 
     rows = dist_rows()
     per_ckpt = 12 * dataclasses.replace(MISTRAL_7B,
                                         num_layers=DIST_LAYERS).num_params()
-    work = ckpt_root("distributed", 2 * per_ckpt + per_ckpt // 6)
+    # the stage-3, one-process and tensor = 2 saves, and (f)/(g)'s logits
+    work = ckpt_root("distributed", 3 * per_ckpt + per_ckpt // 6 + 10 ** 9)
     secs = {}
     procs = []
     t_ranks = time.perf_counter()
@@ -7287,6 +7739,10 @@ def phase_distributed():
         del one
         free_engine()
         secs["d"] = round(time.perf_counter() - t, 1)
+        # (f), (g) this side: the one-process runs the ranks are held to
+        t = time.perf_counter()
+        tp_ref = tp_references(work)
+        secs["fg_ref"] = round(time.perf_counter() - t, 1)
         try:
             for p in procs:
                 rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -7367,6 +7823,48 @@ def phase_distributed():
             f" step 3 loss {d_loss:.6f} vs the ranks' {want:.6f}; the one-"
             f"process save resumed on the ranks: {ranks[0]['d']['losses'][0]:.6f}"
             f" vs {ref_losses[2]:.6f} (tolerance {DIST_TOL})")
+        # (f), (g): the ranks against each other and the one process
+        t = time.perf_counter()
+        tp_summary = tp_check(work, tp_ref)
+        for mode in ("bf16", "int8"):
+            tp_ref["g"][mode]["engine"] = None
+        del tp_ref
+        free_engine()
+        # (h): tensor = 2 against (a), and its save resumed in one process
+        for r, res in enumerate(ranks):
+            h = res["h"]
+            gaps = [abs(a - b) / abs(b) for a, b in zip(h["losses"],
+                                                         ref_losses)]
+            flash = h["launches"]["flash"]
+            if max(gaps) > DIST_TOL or h["losses"] != ranks[0]["h"]["losses"]:
+                raise AssertionError(f"[distributed h] rank {r}: losses "
+                                     f"{h['losses']} vs {ref_losses}")
+            log(f"[distributed h] rank {r}: losses within {max(gaps):.3g} of "
+                f"(a)'s (tolerance {DIST_TOL}); flash launches "
+                f"{json.dumps(flash)} = {DIST_STEPS * 2 * DIST_LAYERS} "
+                "expected each")
+        gap = dist_compare_samples(
+            dist_merge([res["h"]["sample"] for res in ranks]), ref_sample,
+            "distributed h")
+        one = dist_engine(2)
+        one.load_checkpoint(os.path.join(work, "tp"))
+        h_loss, _ = dist_step(one, rows)
+        del one
+        free_engine()
+        want = ranks[0]["h"]["losses"][2]
+        if abs(h_loss - want) > DIST_TOL * abs(want):
+            raise AssertionError(f"[distributed h] one process resumed the "
+                                 f"tensor-sharded save: {h_loss} vs {want}")
+        log(f"[distributed h] gathered params within {gap:.3g} of (a)'s "
+            f"(tolerance {DIST_PARAM_TOL}); the tensor-sharded save resumed "
+            f"in one process: step 3 loss {h_loss:.6f} vs the ranks' "
+            f"{want:.6f}; the ranks' tensor cells took "
+            f"{ranks[0]['tp_s']} s")
+        tp_summary["h"] = {"losses": ranks[0]["h"]["losses"],
+                           "resumed": h_loss, "param_gap": gap,
+                           "step_s": ranks[0]["h"]["step_s"],
+                           "comms": ranks[0]["h"]["comms"]}
+        secs["fgh_check"] = round(time.perf_counter() - t, 1)
         t = time.perf_counter()
         e_loss = dist_nccl_one_rank(work, rows)
         secs["e"] = round(time.perf_counter() - t, 1)
@@ -7379,7 +7877,8 @@ def phase_distributed():
         free_engine()
     log(f"[distributed] sub-phases s: {json.dumps(secs)}")
     return {"ref_losses": ref_losses, "ref_step_s": ref_secs,
-            "ranks": ranks, "e_loss": e_loss, "secs": secs}
+            "ranks": ranks, "e_loss": e_loss, "secs": secs,
+            "tensor": tp_summary}
 
 
 def json_scalar(x):
@@ -7591,13 +8090,26 @@ def main(argv=None):
         f"process at gas 2 {[round(x, 2) for x in dist['ref_step_s']]}; "
         f"host-staged bytes a rank (stages 0-3, c) "
         f"{[r0[k]['staged'] for k in ('s0', 's1', 's2', 's3', 'c')]}")
+    tp = dist["tensor"]
+    log(f"[distributed] tensor = 2 over the gloo ranks: v2 bf16 "
+        f"{tp['f bf16']['wall_s']:.2f} s vs one process "
+        f"{tp['f bf16']['one_wall_s']:.2f} s (median decode put "
+        f"{tp['f bf16']['decode_put_ms']:.2f} vs "
+        f"{tp['f bf16']['one_decode_put_ms']:.2f} ms), diverged "
+        f"{tp['f bf16']['diverged']} (gap {tp['f bf16']['gap']:.4g}); int8 "
+        f"diverged {tp['f int8']['diverged']}; v1 bf16 | int8 generate "
+        f"{tp['g bf16']['wall_s']:.2f} | {tp['g int8']['wall_s']:.2f} s vs "
+        f"{tp['g bf16']['one_wall_s']:.2f} | {tp['g int8']['one_wall_s']:.2f}"
+        f" s; training losses {[round(x, 6) for x in tp['h']['losses']]}, "
+        f"step s {[round(x, 2) for x in tp['h']['step_s']]}")
     # the flash kernels run on three paths, each counted from 0: the train
     # phase's, the offload headline's and a rank's distributed stage-0 run;
     # quantize on the quant phase's build and dequantize on v1 int8's, and
     # both on ZeRO++'s (a rank's qwZ + qgZ run)
     by_path = {name: {"train": launches[name],
                       "offload": ob["launches"][key],
-                      "distributed": r0["s0"]["launches"]["flash"][key]}
+                      "distributed": r0["s0"]["launches"]["flash"][key],
+                      "tensor": r0["h"]["launches"]["flash"][key]}
                for name, key in (("flash_fwd", "fwd"), ("flash_dq", "dq"),
                                  ("flash_dkv", "dkv"))}
     for name, path in (("quantize", "quant"), ("dequantize", "v1")):

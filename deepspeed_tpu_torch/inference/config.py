@@ -56,9 +56,6 @@ class InferenceConfig(DSConfigModel):
         """Raise ``NotImplementedError`` for the first key that asks for a
         feature the port does not run yet."""
         checks = [
-            (self.tensor_parallel.tp_size > 1,
-             f"tensor_parallel.tp_size={self.tensor_parallel.tp_size} "
-             "(tensor parallelism over a device mesh)", "queue 1 item 14"),
             (self.checkpoint is not None
              and is_hf_checkpoint(str(self.checkpoint)),
              "HF checkpoint loading (config.checkpoint naming an HF "

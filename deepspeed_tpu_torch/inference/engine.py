@@ -24,9 +24,20 @@ it (its ``inference/engine.py:99-104``). ``load_checkpoint(path)`` reads
 the leaves' own directory into a built engine's params, as the JAX
 engine's does.
 
+Tensor parallelism: ``tensor_parallel.tp_size`` maps onto the ``tensor``
+axis of a mesh over the process world (``data`` takes the rest), as the
+JAX ``inference/engine.py:62-70`` maps it; a ``mesh`` (a ``MeshTopology``,
+a mesh config or a dict of axis sizes) is taken as it is. Every rank
+builds the engine from the same whole tree and calls ``generate`` with the
+same arguments (SPMD, as DeepSpeed's AutoTP ranks run); a rank keeps its
+blocks of the params (quantized as the whole leaves would be,
+``quantization.quantize_param_blocks``) and its kv heads of the cache, and
+prefill and decode run on its heads. The logits come out whole and equal
+on every rank, so a sampled stream draws the same tokens from one seed on
+every rank.
+
 Not ported (they raise): encoder models (``encode``/``mlm``/``classify``),
-a device mesh and tensor parallelism, HF checkpoints (``config.checkpoint``
-naming one), ``profile_model_time``.
+HF checkpoints (``config.checkpoint`` naming one), ``profile_model_time``.
 """
 
 from __future__ import annotations
@@ -40,9 +51,12 @@ import torch
 
 from .. import not_ported, resolve_device
 from ..models.weights import params_from_numpy
+from ..parallel import topology as topo
+from ..parallel.sharding import ZeroShardingPlan, place_blocks
 from ..utils.logging import logger
 from .config import InferenceConfig
-from .quantization import QuantTensor, quantize_param_tree
+from .quantization import (QuantTensor, _leaves, quantize_param_blocks,
+                           quantize_param_tree)
 
 _DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
            "bf16": torch.bfloat16, "float32": torch.float32,
@@ -86,9 +100,13 @@ class InferenceEngine:
         self.config = config if isinstance(config, InferenceConfig) \
             else InferenceConfig(**merged)
         self.config.raise_if_not_ported()
-        if mesh is not None:
-            raise not_ported("a device mesh for inference", "queue 1 item 14")
         self.device = resolve_device(device)
+        tp_size = int(self.config.tensor_parallel.tp_size)
+        if mesh is None and tp_size > 1:
+            mesh = {"tensor": tp_size, "data": -1}
+        self.topology = None if mesh is None else topo.mesh_topology(mesh)
+        self.tp = 1 if self.topology is None \
+            else self.topology.axis_size(topo.TENSOR_AXIS)
 
         if isinstance(model, str):
             from ..models import build_model
@@ -103,32 +121,55 @@ class InferenceEngine:
         dtype = _DTYPES.get(str(self.config.dtype), torch.bfloat16)
         if model.cfg.dtype != dtype:
             model = type(model)(dataclasses.replace(model.cfg, dtype=dtype))
+        if self.tp > 1:
+            topo.set_topology(self.topology)
+            model = model.tensor_parallel(self.tp)
         self.module = model
 
         ckpt = self.config.checkpoint
+        # under tensor parallelism the whole tree stays where it was read or
+        # drawn and each rank's blocks are cut from it
+        where = "cpu" if self.tp > 1 else self.device
         if params is None and ckpt is not None:
-            params = self._load_universal(model, str(ckpt))
+            params = self._load_universal(model, str(ckpt), where)
         elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = model.init(gen, device=self.device)
-        else:
+        elif self.tp == 1:
             params = _on_device(params, self.device)
-        if self.config.quant.enabled:
+        elif not all(torch.is_tensor(leaf) for leaf in _leaves(params)):
+            if any(isinstance(leaf, QuantTensor) for leaf in _leaves(params)):
+                raise ValueError("a tensor-parallel engine cuts its blocks "
+                                 "from dense whole leaves: pass a dense tree "
+                                 "and set quant.enabled")
+            params = params_from_numpy(params, "cpu")
+        if self.tp > 1:
+            specs = ZeroShardingPlan(self.topology, 0,
+                                     model.param_specs()).params(params)
+            rank = torch.distributed.get_rank()
+            if self.config.quant.enabled:
+                params = quantize_param_blocks(
+                    params, specs, self.topology, rank, self.device,
+                    bits=self.config.quant.bits)
+            else:
+                params = place_blocks(params, specs, self.topology, rank,
+                                      self.device)
+        elif self.config.quant.enabled:
             # ZeRO-Inference weight-only quantization: the quantize kernel on
             # the card, one launch a quantized leaf
             params = quantize_param_tree(params, bits=self.config.quant.bits)
         self.params = params
 
-    def _load_universal(self, model, ckpt: str):
+    def _load_universal(self, model, ckpt: str, device):
         """fp32 params (as the JAX engine keeps them) from a universal
-        checkpoint on this engine's device."""
+        checkpoint on ``device``."""
         from ..runtime.checkpointing import (_load_tree, load_params_for_model,
                                              param_template)
 
         if (os.path.exists(os.path.join(ckpt, "manifest.json"))
                 or os.path.exists(os.path.join(ckpt, "latest"))):
-            return load_params_for_model(model, ckpt, device=self.device)
-        return _load_tree(param_template(model), ckpt, self.device)
+            return load_params_for_model(model, ckpt, device=device)
+        return _load_tree(param_template(model), ckpt, device)
 
     # ------------------------------------------------------------------ API
     def forward(self, tokens, *args, **kwargs):
@@ -280,6 +321,11 @@ class InferenceEngine:
         build such an engine with ``config.checkpoint`` instead."""
         from ..runtime.checkpointing import _flatten, _load_tree
 
+        if self.tp > 1:
+            raise ValueError(
+                "load_checkpoint reads whole leaves, and a tensor-parallel "
+                "engine holds blocks; build the engine with "
+                "config={'checkpoint': ...} instead")
         if any(isinstance(leaf, QuantTensor)
                for _, leaf in _flatten(self.params)):
             raise ValueError(

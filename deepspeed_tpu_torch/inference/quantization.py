@@ -18,6 +18,13 @@ package unpacks before it dequantizes; the kernel takes int8 codes only.
 There is no fused dequantize-and-multiply here: a quantized linear
 dequantizes its weight to the compute dtype, then multiplies, as the JAX
 package does.
+
+Under tensor parallelism (:func:`quantize_param_blocks`) the JAX package
+quantizes the placed whole leaves, with the block of the whole last dim, so
+a scale group can straddle the boundary of a rank's columns. A rank keeps
+the codes and scales of the groups that cover its columns and the span of
+its columns inside them (``cols``); dequantizing gives exactly its columns
+of the whole leaf's dequantization.
 """
 
 from __future__ import annotations
@@ -28,27 +35,33 @@ import torch
 
 from ..ops.quantizer import (choose_block, dequantize_blockwise, pack_int4,
                              quantize_blockwise, unpack_int4)
+from ..parallel.sharding import place_blocks, rank_block
 
 __all__ = ["QuantTensor", "quantize_array", "quantize_param_tree",
-           "tree_nbytes", "pack_int4", "unpack_int4"]
+           "quantize_param_blocks", "tree_nbytes", "pack_int4",
+           "unpack_int4"]
 
 
 class QuantTensor:
     """Blockwise-quantized param leaf. ``q`` int8 (or nibble-packed uint8
     when ``packed``), ``scales`` float32 ``[..., ceil(N/block)]``;
     ``out_dtype`` is the dtype of the array it was quantized from, the
-    default of :meth:`dequantize` and of a row gather."""
+    default of :meth:`dequantize` and of a row gather. ``cols`` (start,
+    stop): the leaf is that span of the codes' dequantized last dim (a
+    rank's columns inside the groups that cover them); None: all of it."""
 
-    __slots__ = ("q", "scales", "block", "bits", "packed", "out_dtype")
+    __slots__ = ("q", "scales", "block", "bits", "packed", "out_dtype",
+                 "cols")
 
     def __init__(self, q, scales, block: int, bits: int, packed: bool,
-                 out_dtype):
+                 out_dtype, cols: Optional[Tuple[int, int]] = None):
         self.q = q
         self.scales = scales
         self.block = int(block)
         self.bits = int(bits)
         self.packed = bool(packed)
         self.out_dtype = out_dtype
+        self.cols = cols
 
     def __repr__(self):
         return (f"QuantTensor(shape={self.shape}, bits={self.bits}, "
@@ -58,6 +71,8 @@ class QuantTensor:
     @property
     def shape(self) -> Tuple[int, ...]:
         s = tuple(self.q.shape)
+        if self.cols is not None:
+            return s[:-1] + (self.cols[1] - self.cols[0],)
         return s[:-1] + (s[-1] * 2,) if self.packed else s
 
     @property
@@ -70,25 +85,28 @@ class QuantTensor:
 
     def _like(self, q, scales) -> "QuantTensor":
         return QuantTensor(q, scales, self.block, self.bits, self.packed,
-                           self.out_dtype)
+                           self.out_dtype, self.cols)
 
     def _codes(self, q):
         return unpack_int4(q) if self.packed else q
 
+    def _span(self, x):
+        return x if self.cols is None else x[..., self.cols[0]:self.cols[1]]
+
     def dequantize(self, dtype=None) -> torch.Tensor:
         """The whole leaf in ``dtype`` (default ``out_dtype``)."""
-        return dequantize_blockwise(self._codes(self.q), self.scales,
-                                    block=self.block,
-                                    dtype=dtype or self.out_dtype)
+        return self._span(dequantize_blockwise(
+            self._codes(self.q), self.scales, block=self.block,
+            dtype=dtype or self.out_dtype))
 
     def __getitem__(self, idx) -> torch.Tensor:
         """Row gather (the embedding lookup): the rows' codes and scales are
         gathered first (packed int4 rows as they are stored) and only they
         are dequantized, to ``out_dtype``. Indexing the last dim is not
         supported."""
-        return dequantize_blockwise(self._codes(self.q[idx]),
-                                    self.scales[idx], block=self.block,
-                                    dtype=self.out_dtype)
+        return self._span(dequantize_blockwise(
+            self._codes(self.q[idx]), self.scales[idx], block=self.block,
+            dtype=self.out_dtype))
 
     def unbind(self, dim: int = 0):
         """One QuantTensor per index of a leading dim (the per-layer slices
@@ -120,6 +138,34 @@ def quantize_array(x: torch.Tensor, bits: int = 8, block: Optional[int] = None,
         q = pack_int4(q)
     return QuantTensor(q=q, scales=s, block=block, bits=bits, packed=packed,
                        out_dtype=x.dtype)
+
+
+def quantize_param_blocks(params, specs, topology, rank: int, device,
+                          bits: int = 8, min_dims: int = 2,
+                          min_size: int = 4096):
+    """Rank ``rank``'s blocks of a whole param tree (laid out by the spec
+    tree ``specs``, ``parallel/sharding.py``) on ``device``, quantized as
+    :func:`quantize_param_tree` quantizes the whole tree: the same leaves
+    (the rule reads the whole shape) at the whole last dim's block. Where
+    the rank's columns do not start and end on group boundaries, the
+    groups that cover them are quantized and ``cols`` marks the columns;
+    the groups are independent, so the codes and scales are those of the
+    whole leaf, sliced. Each block is made contiguous on ``device``; the
+    whole tree is never copied there."""
+    def cut(leaf, sl, device):
+        if leaf.dim() < min_dims or leaf.numel() < min_size:
+            return rank_block(leaf, sl, device)
+        # widen the column span to the whole leaf's group boundaries
+        block = choose_block(leaf.shape[-1])
+        lo, hi = sl[-1].start, sl[-1].stop
+        a, b = lo // block * block, -(-hi // block) * block
+        qt = quantize_array(rank_block(leaf, sl[:-1] + (slice(a, b),),
+                                       device), bits=bits, block=block)
+        if (a, b) != (lo, hi):
+            qt.cols = (lo - a, hi - a)
+        return qt
+
+    return place_blocks(params, specs, topology, rank, device, cut)
 
 
 def _map(fn, tree):

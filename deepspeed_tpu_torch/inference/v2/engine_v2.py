@@ -15,6 +15,20 @@ cache blocks spill to host RAM and disk and are restored on a match),
 speculative verification (``put(verify_width=, defer_commit=)``,
 ``trim_sequence``, ``commit_tokens``), KV export/import, and reservation
 admission with preemption (``admission_*``; the scheduler reads them).
+
+Tensor-parallel serving (``mesh`` with a ``tensor`` axis over a
+``torch.distributed`` world, one process a rank): every rank builds the
+same engine from the same whole tree and calls ``put``/``flush`` with the
+same arguments, as DeepSpeed's AutoTP ranks do. A rank keeps its blocks of
+the params (the stage-0 ``ZeroShardingPlan``: heads and MLP columns over
+``tensor``), quantized after placement with the block the JAX package
+picks for the whole leaf, and its kv heads of the pools; the logits come
+out whole and equal on every rank, so the host logic above (allocator,
+prefix index, scheduler, speculation) runs in lockstep without traffic of
+its own. ``export_sequence`` gathers the kv heads, so a payload is the
+JAX engine's whole-head payload; ``import_sequence`` keeps the rank's
+heads of one. The KV tier and the draft-model proposer are refused over
+such a mesh (ROADMAP queue 1 item 14b-ii).
 """
 
 from __future__ import annotations
@@ -26,6 +40,8 @@ import torch
 
 from ... import not_ported, resolve_device
 from ...models.transformer import CausalLM
+from ...parallel import topology as topo
+from ...parallel.sharding import ZeroShardingPlan, place_blocks
 from .kv_quant import validate_kv_quant
 from .paged_model import PagedCausalLM
 from .ragged import DSStateManager, RaggedBatchWrapper
@@ -86,6 +102,15 @@ class RaggedInferenceEngineConfig:
             admission_max_preemptions_per_seq
 
 
+def _dotted(tree, prefix=""):
+    """(dotted key, leaf) of a param tree: "layers.wq", "lm_head.w", ..."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _dotted(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -101,26 +126,46 @@ class InferenceEngineV2:
         if checkpoint_path is not None:
             raise not_ported("checkpoint loading (models/convert.py)",
                              "queue 1 item 16")
-        if mesh is not None:
-            raise not_ported("tensor-parallel serving (mesh)",
-                             "queue 1 item 14")
         if model is None:
             raise ValueError("InferenceEngineV2 needs a model")
         self.device = resolve_device(device)
+        # tensor parallelism: a mesh without a tensor axis (or with one
+        # rank on it) serves unsharded, as in the JAX engine
+        self.topology = None if mesh is None else topo.mesh_topology(mesh)
+        self.tp = 1 if self.topology is None \
+            else self.topology.axis_size(topo.TENSOR_AXIS)
+        if self.tp > 1:
+            topo.set_topology(self.topology)
+            model = model.tensor_parallel(self.tp)
+            if self.config.kv_tier_enabled:
+                raise not_ported("the KV tier over a tensor-parallel mesh",
+                                 "queue 1 item 14b-ii")
         self.model = model
         if params is None:
             params = model.init(
                 torch.Generator(device=self.device).manual_seed(0),
                 device=self.device)
-        params = _to_device(params, self.device)
+        self._last_dims = None
+        if self.tp > 1:
+            # the quantizer's block follows each leaf's whole last dim
+            self._last_dims = {k: int(v.shape[-1])
+                               for k, v in _dotted(params)}
+            params = place_blocks(
+                params, ZeroShardingPlan(self.topology, 0,
+                                         model.param_specs()).params(params),
+                self.topology, torch.distributed.get_rank(), self.device)
+        else:
+            params = _to_device(params, self.device)
         # weight serving: quantize the tree once, on the engine's device
-        # (on the card each stacked leaf is one quantize-kernel launch)
+        # (on the card each stacked leaf is one quantize-kernel launch),
+        # after placement: each rank quantizes its own blocks
         self._weight_quant_stats = None
         if self.config.weight_quant_enabled:
             params, self._weight_quant_stats = quantize_weights(
                 model.cfg, params, dtype=self.config.weight_quant_dtype,
                 block=self.config.weight_quant_block,
-                skip=self.config.weight_quant_skip)
+                skip=self.config.weight_quant_skip, tp=self.tp,
+                last_dims=self._last_dims)
         self.params = params
 
         cfg = model.cfg
@@ -140,7 +185,7 @@ class InferenceEngineV2:
         return DSStateManager(
             self.model.cfg, self.config.max_tracked_sequences,
             self.config.kv_blocks, self.config.kv_block_size,
-            device=self.device,
+            device=self.device, tp=self.tp,
             enable_prefix_cache=self.config.enable_prefix_cache,
             prefix_cache_max_blocks=self.config.prefix_cache_max_blocks,
             kv_quant=self.config.kv_quant_enabled,
@@ -358,6 +403,9 @@ class InferenceEngineV2:
         spilled entry (host and disk). ``None`` keeps the config's value,
         so re-tuning the host bound keeps a configured disk tier; pass
         ``disk_bytes=0`` to drop one."""
+        if enabled and self.tp > 1:
+            raise not_ported("the KV tier over a tensor-parallel mesh",
+                             "queue 1 item 14b-ii")
         host = (int(host_bytes) if host_bytes is not None
                 else self.config.kv_tier_host_bytes)
         dpath = (disk_path if disk_path is not None
@@ -436,7 +484,7 @@ class InferenceEngineV2:
                 "tracked — mid-stream logits would shift")
         self.params, self._weight_quant_stats = quantize_weights(
             self.model.cfg, self.params, dtype=dtype, block=int(block),
-            skip=skip_list)
+            skip=skip_list, tp=self.tp, last_dims=self._last_dims)
         self.config.weight_quant_enabled = True
         self.config.weight_quant_dtype = dtype
         self.config.weight_quant_block = int(block)

@@ -24,7 +24,16 @@ dequantizes with the layer's scale planes. Linear weights may be dense or
 Unlike the JAX forward, which returns new pools (XLA aliases them, so
 nothing is copied on the TPU), this one writes ``kv_cache["k"][layer]``
 and ``kv_cache["v"][layer]`` (and the scale planes) in place: a copy of a
-multi-GB pool per layer would dominate the step. It runs with ``tp == 1``.
+multi-GB pool per layer would dominate the step.
+
+Over a ``tensor`` group (the model built with ``tp > 1``; the engine does
+that for a mesh with a tensor axis) each rank holds its kv heads of the
+pools, ``[L, NB, KH/tp, bs, D]`` (and scale planes ``[L, NB, KH/tp]``), and
+its blocks of the weights: the projections give ``H/tp`` query and
+``KH/tp`` kv heads, the paged kernel runs on those local heads (the JAX
+package's ``shard_map`` over the tensor axis, :84-129), and ``wo`` and
+``w_out`` reduce their partial products over the group before their
+biases. The logits come out whole and equal on every rank.
 """
 
 from __future__ import annotations
@@ -33,8 +42,8 @@ from typing import Dict
 
 import torch
 
-from ...models.transformer import (CausalLM, _linear, _norm, alibi_slopes,
-                                   apply_rope, rope_table)
+from ...models.transformer import (CausalLM, _linear, _norm, apply_rope,
+                                   rope_table)
 from ...ops.paged_attention import paged_attention
 from .kv_quant import quantized_block_write, touched_block_plan
 
@@ -93,7 +102,7 @@ class PagedCausalLM:
             cos_full, sin_full = self._rope(dev)
             cos, sin = cos_full[pos_read], sin_full[pos_read]   # [N, C, R/2]
         elif cfg.position == "alibi":
-            slopes = alibi_slopes(cfg.num_heads, device=dev)
+            slopes = model.head_slopes(dev)
         else:
             x = x + params["embed"]["wpe"][pos_read].to(dt)
 
@@ -116,7 +125,7 @@ class PagedCausalLM:
             write_blk = blk_ids.reshape(-1)[write]
             write_off = (positions % bs).reshape(-1)[write]
 
-        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        nh, kvh, hd = model.local_heads, model.local_kv_heads, cfg.head_dim
 
         def rope_q(t):
             if cfg.position != "rope":
@@ -155,8 +164,9 @@ class PagedCausalLM:
                                        n_tokens, alibi_slopes=slopes,
                                        window=window, sm_scale=cfg.attn_scale,
                                        k_scale=ks, v_scale=vs)
-                attn_out = _linear(attn.reshape(N, C, nh * hd), lp["wo"],
-                                   lp.get("wo_b"), dt)
+                attn_out = model._row_linear(attn.reshape(N, C, nh * hd),
+                                             lp["wo"], lp.get("wo_b"), dt,
+                                             model.tp)
                 return model._attn_mlp_merge(x, attn_out, lp, h1)
             return block
 

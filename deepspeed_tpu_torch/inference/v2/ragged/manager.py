@@ -49,7 +49,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .... import resolve_device
+from .... import comm, resolve_device
+from ....parallel.topology import TENSOR_AXIS
 from ..kv_quant import kv_bytes_per_block, pool_dtype
 from ..kv_tier import TieredKVStore, empty_tier_stats
 from .blocked_allocator import BlockedAllocator
@@ -101,6 +102,7 @@ class DSStateManager:
     def __init__(self, model_cfg, max_tracked_sequences: int = 256,
                  num_blocks: int = 256, block_size: int = 16,
                  dtype: Optional[torch.dtype] = None, device=None,
+                 tp: int = 1,
                  enable_prefix_cache: bool = False,
                  prefix_cache_max_blocks: Optional[int] = None,
                  kv_quant: bool = False, kv_quant_dtype: str = "int8",
@@ -113,6 +115,9 @@ class DSStateManager:
         self.num_blocks = num_blocks
         self.max_tracked_sequences = max_tracked_sequences
         self.device = resolve_device(device)
+        # tensor parallelism: this rank holds kv heads [r·KH/tp, (r+1)·KH/tp)
+        # of every pool and scale plane
+        self.tp = int(tp)
         self.kv_quant = bool(kv_quant)
         self.kv_quant_dtype = str(kv_quant_dtype)
         dt = dtype or model_cfg.dtype
@@ -141,8 +146,9 @@ class DSStateManager:
             self.configure_kv_tier(True, host_bytes=kv_tier_host_bytes,
                                    disk_path=kv_tier_disk_path,
                                    disk_bytes=kv_tier_disk_bytes)
-        shape = (model_cfg.num_layers, num_blocks, model_cfg.kv_heads,
-                 block_size, model_cfg.head_dim)
+        shape = (model_cfg.num_layers, num_blocks,
+                 model_cfg.kv_heads // self.tp, block_size,
+                 model_cfg.head_dim)
         pool_dt = pool_dtype(self.kv_quant_dtype) if self.kv_quant else dt
 
         # distinct buffers: they are written in place
@@ -226,11 +232,18 @@ class DSStateManager:
 
     # -- KV handoff ----------------------------------------------------------
     def _gather(self, blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
-        """Every pool's slabs at ``blocks`` (dim 1), as device tensors."""
+        """Every pool's slabs at ``blocks`` (dim 1), as device tensors, with
+        every kv head (dim 2): under tensor parallelism the ranks' heads
+        are all-gathered, so every rank must make the call."""
         ids = torch.as_tensor(list(blocks), dtype=torch.long,
                               device=self.device)
-        return {name: _raw(pool).index_select(1, ids)
-                for name, pool in self.kv_cache.items()}
+        out = {name: _raw(pool).index_select(1, ids)
+               for name, pool in self.kv_cache.items()}
+        if self.tp > 1:
+            out = {name: comm.all_gather_into_tensor(None, a, TENSOR_AXIS,
+                                                     axis=2)
+                   for name, a in out.items()}
+        return out
 
     def _typed(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Host byte views back to each pool's dtype."""
@@ -251,6 +264,9 @@ class DSStateManager:
             raw, src = _raw(pool), _raw(src)
             if src.dtype != raw.dtype:        # e.g. bf16 widened to fp32
                 src = _raw(src.to(pool.dtype))
+            if self.tp > 1:                   # this rank's kv heads
+                n = raw.shape[2]
+                src = src.narrow(2, comm.axis_index(TENSOR_AXIS) * n, n)
             raw.index_copy_(1, ids, src.to(self.device))
 
     def export_sequence(self, uid: int,

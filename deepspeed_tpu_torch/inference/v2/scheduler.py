@@ -50,7 +50,7 @@ from ...telemetry import NOOP_TRACER
 from ...utils.logging import logger
 from .engine_v2 import InferenceEngineV2
 from .scheduling_utils import SchedulingResult
-from .spec import DraftProposer, verify_greedy
+from .spec import DraftModelProposer, DraftProposer, verify_greedy
 
 
 @dataclasses.dataclass
@@ -123,6 +123,12 @@ class ContinuousBatchingScheduler:
         # custom sample_fn turns the proposer off
         self.max_draft_tokens = max_draft_tokens
         self.proposer = proposer
+        if getattr(engine, "tp", 1) > 1 \
+                and isinstance(proposer, DraftModelProposer):
+            from ... import not_ported
+
+            raise not_ported("a draft-model proposer for a tensor-parallel "
+                             "engine", "queue 1 item 14b-ii")
         if proposer is not None and sample_fn is not None:
             logger.warning(
                 "speculative decoding requires greedy sampling; custom "

@@ -107,6 +107,11 @@ class DraftModelProposer:
     context_window = None
 
     def __init__(self, engine):
+        if getattr(engine, "tp", 1) > 1:
+            from .... import not_ported
+
+            raise not_ported("a draft model on a tensor-parallel engine",
+                             "queue 1 item 14b-ii")
         self.engine = engine
         self._fed: Dict[int, List[int]] = {}      # uid -> tokens in draft KV
         self._last: Dict[int, np.ndarray] = {}    # uid -> last logits row

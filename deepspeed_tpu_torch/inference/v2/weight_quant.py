@@ -14,15 +14,19 @@ and biases never do; ``skip`` prunes the whitelist by name. The engine
 quantizes once, at build, on the engine's device: a stacked ``[L, in, out]``
 leaf is one ``quantize_blockwise`` call (one kernel launch on the card).
 
-Tensor parallelism (``tp > 1`` and ``expand_spec_tree``) waits for the
-distributed slice (ROADMAP queue 1 item 14).
+Under tensor parallelism (``tp > 1``) the block divides the per-shard
+width of the leaf's whole output dim (``_eff_block``, the JAX rule), and the
+scale groups lie along that dim, so a rank that quantizes its own block of
+a leaf gets exactly the JAX package's codes and scales of that block: the
+engine quantizes after placement and passes each leaf's whole last dim
+(``last_dims``). ``expand_spec_tree`` gives a quantized node's two members
+the weight's logical spec, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
-from ... import not_ported
 from ...ops.quantizer import choose_block, quantize_blockwise
 
 WEIGHT_SUPPORTED_DTYPES = ("int8", "fp8_e4m3")
@@ -50,27 +54,33 @@ def is_quantized(leaf) -> bool:
 
 
 def _eff_block(out_dim: int, want: int, tp: int) -> int:
-    """Block size for one leaf: the largest divisor of the output width
-    that is <= ``want``, so the scale groups tile the dim."""
-    if tp > 1:
-        raise not_ported("weight quantization under tensor parallelism",
-                         "queue 1 item 14")
+    """Block size for one leaf: the largest divisor of the (per-shard)
+    output width <= ``want``, so the scale groups tile the dim and, under
+    tensor parallelism, never straddle a shard boundary."""
+    if tp > 1 and out_dim % tp == 0:
+        return choose_block(out_dim // tp, want)
     return choose_block(out_dim, want)
 
 
 def quantize_weights(model_cfg, params, dtype: str = "int8",
                      block: int = 128, skip: Sequence[str] = (),
-                     tp: int = 1) -> Tuple[dict, Dict[str, int]]:
+                     tp: int = 1,
+                     last_dims: Optional[Mapping[str, int]] = None
+                     ) -> Tuple[dict, Dict[str, int]]:
     """Quantize a CausalLM param tree once (the engine-build path).
 
+    ``last_dims`` ("layers.wq", "lm_head.w", ...: the whole leaf's last
+    dim) when ``params`` holds a rank's blocks; default each leaf's own.
     Returns ``(new_params, stats)``: quantized leaves are ``{"qw", "qs"}``
     nodes, everything else is the original tensor (the same object)."""
     validate_weight_quant(dtype, block)
     skip = set(skip) | set(DEFAULT_SKIP)
     moe = getattr(model_cfg, "moe_num_experts", 0) > 0
 
-    def quant_leaf(w):
-        eff = _eff_block(int(w.shape[-1]), int(block), int(tp))
+    def quant_leaf(key, w):
+        out_dim = int(w.shape[-1]) if last_dims is None \
+            else int(last_dims[key])
+        eff = _eff_block(out_dim, int(block), int(tp))
         q, s = quantize_blockwise(w, block=eff, dtype=dtype)
         return {"qw": q, "qs": s}
 
@@ -81,11 +91,11 @@ def quantize_weights(model_cfg, params, dtype: str = "int8",
             continue
         if moe and name in ("w_in", "w_out", "w_gate"):
             continue
-        layers[name] = quant_leaf(layers[name])
+        layers[name] = quant_leaf(f"layers.{name}", layers[name])
     out["layers"] = layers
     if "lm_head" in params and "lm_head" not in skip:
         head = dict(params["lm_head"])
-        head["w"] = quant_leaf(head["w"])
+        head["w"] = quant_leaf("lm_head.w", head["w"])
         out["lm_head"] = head
     return out, param_stats(out, dtype=dtype, block=int(block))
 
@@ -122,3 +132,23 @@ def param_stats(params, dtype: str = "", block: int = 0) -> Dict[str, int]:
             "params_quantized": nodes,
             "weight_quant_dtype": dtype,
             "weight_quant_block": block}
+
+
+def expand_spec_tree(spec_tree, params):
+    """Mirror a ``param_specs()`` logical-axis tree onto a quantized param
+    tree: a ``{"qw", "qs"}`` node's spec leaf is given to both members
+    (``qs``'s dims follow the weight's, the last one shortened by the
+    block), and ``shard_spec_for`` drops a tensor entry that does not
+    divide, so a scale dim that does not tile stays replicated."""
+    def walk(spec, par):
+        if is_quantized(par):
+            return {"qw": spec, "qs": spec}
+        if isinstance(par, dict):
+            return {k: walk(spec[k] if isinstance(spec, dict) else spec,
+                            par[k])
+                    for k in par}
+        return spec
+
+    if spec_tree is None:
+        return None
+    return walk(spec_tree, params)

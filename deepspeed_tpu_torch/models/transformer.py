@@ -20,6 +20,18 @@ runs the paged pair) write each layer's K/V into the cache in place and
 return it. Prefill attends through ``_attention`` (the flash forward kernel
 on the card), paged decode through ``ops/paged_attention.py``.
 
+Tensor parallelism (``CausalLM(cfg, tp=...)``, set by the engines, never
+inferred from weight shapes): each rank of the ``tensor`` group holds its
+blocks of the param tree as ``parallel/sharding.py`` lays them out, so the
+block runs on ``num_heads / tp`` query and ``kv_heads / tp`` kv heads and on
+``intermediate_size / tp`` MLP columns. ``wq``/``wk``/``wv`` and ``w_in``/
+``w_gate`` are column-parallel, ``wo`` and ``w_out`` row-parallel: each
+reduces its partial product over the group
+(``parallel/tensor_parallel.py``), and its bias is added once, after the
+reduce. Embeddings, norms and the unembedding are replicated, so the logits
+come out whole on every rank. An MLP width that does not divide stays
+replicated, as the sharding plan drops a tensor entry that does not divide.
+
 A param leaf may be a ``inference/quantization.QuantTensor`` (ZeRO-Inference
 weight-only quantization). The model reaches one in three ways only:
 ``_weight(w, dtype)`` dequantizes a whole leaf (linear weights and biases,
@@ -38,10 +50,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported, resolve_device
+from .. import comm, not_ported, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.quantizer import quantized_matmul
+from ..parallel.tensor_parallel import (copy_to_tensor_region,
+                                        reduce_from_tensor_region)
+from ..parallel.topology import TENSOR_AXIS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,20 +421,23 @@ def _local_attention(q, k, v, cfg: "TransformerConfig", causal=True,
                                scale=cfg.attn_scale)
 
 
-def _attention(q, k, v, cfg: "TransformerConfig", causal=True, window=0):
+def _attention(q, k, v, cfg: "TransformerConfig", causal=True, window=0,
+               slopes=None):
     """Dispatch by configuration, as the JAX ``_attention`` (:458) on one
     device: ALiBi models take the plain attention with the slopes·position
     bias (no kernel takes a bias there either, and the window is not passed,
-    as at :480); everything else is ``_local_attention``. The sequence-mesh
-    paths (Ulysses, ring) come with the distributed slice."""
+    as at :480); everything else is ``_local_attention``. ``slopes``: the
+    ALiBi slopes of ``q``'s heads (default: every head's). The
+    sequence-mesh paths (Ulysses, ring) come with a later slice."""
     if cfg.position == "alibi":
         if cfg.attention_impl == "sparse":
             raise NotImplementedError(
                 "attention_impl='sparse' does not support ALiBi models yet "
                 "(the block-sparse op takes no logit bias)")
         S = k.shape[1]
-        bias = alibi_slopes(cfg.num_heads, device=q.device)[:, None] \
-            * torch.arange(S, device=q.device)[None, :]
+        if slopes is None:
+            slopes = alibi_slopes(cfg.num_heads, device=q.device)
+        bias = slopes[:, None] * torch.arange(S, device=q.device)[None, :]
         return attention_reference(q, k, v, causal=causal, bias=bias,
                                    scale=cfg.attn_scale)
     return _local_attention(q, k, v, cfg, causal, window=window)
@@ -445,7 +463,7 @@ class CausalLM:
          ("lm_head": {"w": [H,V], ("b": [V])})}
     """
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp: int = 1):
         self.cfg = cfg
         # ZeRO-3 / ZeRO++ hooks (parallel/zeropp.py, set by the training
         # engine): the explicit gather of sharded weights. layer_ runs on
@@ -453,6 +471,38 @@ class CausalLM:
         # (embeddings, final norm, lm head) keyed "<group>.<leaf>".
         self.layer_transform = None
         self.global_transform = None
+        # tensor parallelism: this rank's heads and MLP columns (the
+        # topology must be registered first; the engines do that). Heads
+        # are the unit of the split, as the JAX serving path has it
+        # (inference/v2/paged_model.py:61-66)
+        self.tp = int(tp)
+        if self.tp > 1 and (cfg.num_heads % self.tp or cfg.kv_heads % self.tp):
+            raise ValueError(
+                f"tensor parallelism needs heads ({cfg.num_heads}) and "
+                f"kv_heads ({cfg.kv_heads}) divisible by the tensor axis "
+                f"({self.tp})")
+        self.tp_rank = comm.axis_index(TENSOR_AXIS) if self.tp > 1 else 0
+        self.local_heads = cfg.num_heads // self.tp
+        self.local_kv_heads = cfg.kv_heads // self.tp
+        self.mlp_tp = self.tp if cfg.intermediate_size % self.tp == 0 else 1
+
+    def tensor_parallel(self, tp: int) -> "CausalLM":
+        """This model's config over ``tp`` ranks of the ``tensor`` axis (a
+        new model; hooks are not carried over)."""
+        return type(self)(self.cfg, tp=tp)
+
+    def head_slopes(self, device=None) -> torch.Tensor:
+        """The ALiBi slopes of this rank's query heads (the JAX
+        ``P("tensor")`` spec on the slopes)."""
+        lo = self.tp_rank * self.local_heads
+        return alibi_slopes(self.cfg.num_heads,
+                            device=device)[lo:lo + self.local_heads]
+
+    def _row_linear(self, x, w, b, dt, tp):
+        """A row-parallel product over ``tp`` ranks: each rank's partial
+        ``x @ w`` is summed over the group, then the bias is added once."""
+        y = reduce_from_tensor_region(_linear(x, w, None, dt), tp)
+        return y if b is None else y + _weight(b, dt)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, device=None,
@@ -543,9 +593,11 @@ class CausalLM:
 
     # -- one transformer block ---------------------------------------------
     def _qkv(self, h1, lp, cos, sin, B, T):
+        """This rank's q [B, T, H/tp, D] and k, v [B, T, KH/tp, D]."""
         cfg = self.cfg
-        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        nh, kvh, hd = self.local_heads, self.local_kv_heads, cfg.head_dim
         dt = cfg.dtype
+        h1 = copy_to_tensor_region(h1, self.tp)
         q = _linear(h1, lp["wq"], lp.get("wq_b"), dt).reshape(B, T, nh, hd)
         k = _linear(h1, lp["wk"], lp.get("wk_b"), dt).reshape(B, T, kvh, hd)
         v = _linear(h1, lp["wv"], lp.get("wv_b"), dt).reshape(B, T, kvh, hd)
@@ -564,9 +616,12 @@ class CausalLM:
         h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm,
                    cfg.norm_eps)
         q, k, v = self._qkv(h1, lp, cos, sin, B, T)
-        attn = _attention(q, k, v, cfg, causal=True, window=window)
-        attn = _linear(attn.reshape(B, T, -1), lp["wo"], lp.get("wo_b"),
-                       cfg.dtype)
+        slopes = (self.head_slopes(x.device) if cfg.position == "alibi"
+                  else None)
+        attn = _attention(q, k, v, cfg, causal=True, window=window,
+                          slopes=slopes)
+        attn = self._row_linear(attn.reshape(B, T, -1), lp["wo"],
+                                lp.get("wo_b"), cfg.dtype, self.tp)
         return self._attn_mlp_merge(x, attn, lp, h1), k, v
 
     # -- forward ------------------------------------------------------------
@@ -735,13 +790,15 @@ class CausalLM:
         approximation, gelu_exact the erf form)."""
         cfg = self.cfg
         dt = cfg.dtype
+        h2 = copy_to_tensor_region(h2, self.mlp_tp)
         if cfg.activation == "silu":
             y = F.silu(_linear(h2, lp["w_gate"], lp.get("w_gate_b"), dt)) \
                 * _linear(h2, lp["w_in"], lp.get("w_in_b"), dt)
         else:
             act = _ACTIVATIONS.get(cfg.activation, _ACTIVATIONS["gelu"])
             y = act(_linear(h2, lp["w_in"], lp.get("w_in_b"), dt))
-        return _linear(y, lp["w_out"], lp.get("w_out_b"), dt)
+        return self._row_linear(y, lp["w_out"], lp.get("w_out_b"), dt,
+                                self.mlp_tp)
 
     def _scan_layers(self, body_for_window: Callable, carry,
                      layer_params: Dict[str, torch.Tensor]):
@@ -830,9 +887,9 @@ class CausalLM:
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
         """Contiguous KV cache ``{"k", "v"}``, each [L, B, max_len, KH, D] in
-        the compute dtype."""
+        the compute dtype (this rank's KH / tp kv heads)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads,
+        shape = (cfg.num_layers, batch_size, max_len, self.local_kv_heads,
                  cfg.head_dim)
         device = resolve_device(device)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -918,26 +975,26 @@ class CausalLM:
             keep = keep & (pos - kpos < window)
         bias = None
         if cfg.position == "alibi":
-            bias = alibi_slopes(cfg.num_heads, device=x.device)[:, None] \
-                * kpos[None, :]
+            bias = self.head_slopes(x.device)[:, None] * kpos[None, :]
         attn = attention_reference(q, kc, vc, causal=False,
                                    mask=keep[None, None, None, :], bias=bias,
                                    scale=cfg.attn_scale)
-        attn = _linear(attn.reshape(B, 1, -1), lp["wo"], lp.get("wo_b"),
-                       cfg.dtype)
+        attn = self._row_linear(attn.reshape(B, 1, -1), lp["wo"],
+                                lp.get("wo_b"), cfg.dtype, self.tp)
         return self._attn_mlp_merge(x, attn, lp, h1)
 
     # -- paged KV-cache inference (v1 decode through the paged kernel) --------
     def init_paged_cache(self, batch_size: int, max_len: int,
                          block_size: int = 128, device=None):
-        """Pool-layout KV cache ``{"k", "v"}``, each [L, B·NB, KH, bs, D],
-        with sequence b owning the contiguous block range [b·NB, (b+1)·NB).
-        Returns (cache, tables [B, NB] int32)."""
+        """Pool-layout KV cache ``{"k", "v"}``, each [L, B·NB, KH, bs, D]
+        (this rank's KH / tp kv heads), with sequence b owning the
+        contiguous block range [b·NB, (b+1)·NB). Returns (cache, tables
+        [B, NB] int32)."""
         cfg = self.cfg
         device = resolve_device(device)
         nb = -(-max_len // block_size)
-        shape = (cfg.num_layers, batch_size * nb, cfg.kv_heads, block_size,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, batch_size * nb, self.local_kv_heads,
+                 block_size, cfg.head_dim)
         tables = torch.arange(batch_size * nb, dtype=torch.int32,
                               device=device).reshape(batch_size, nb)
         return ({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -959,10 +1016,11 @@ class CausalLM:
         write_off = (pos % bs).repeat(B)
 
         def write(layer, k, v):
+            kvh = self.local_kv_heads
             cache["k"][layer][write_blk, :, write_off, :] = k.reshape(
-                B * T, cfg.kv_heads, cfg.head_dim)
+                B * T, kvh, cfg.head_dim)
             cache["v"][layer][write_blk, :, write_off, :] = v.reshape(
-                B * T, cfg.kv_heads, cfg.head_dim)
+                B * T, kvh, cfg.head_dim)
 
         return self._prefill_impl(params, tokens, cache, write)
 
@@ -983,8 +1041,8 @@ class CausalLM:
         if cfg.position == "learned":
             x = x + params["embed"]["wpe"][pos.long()][:, None, :].to(
                 cfg.dtype)
-        slopes = (alibi_slopes(cfg.num_heads, device=dev)
-                  if cfg.position == "alibi" else None)
+        slopes = (self.head_slopes(dev) if cfg.position == "alibi"
+                  else None)
         write_blk = torch.gather(tables.long(), 1,
                                  (pos.long() // bs)[:, None])[:, 0]    # [B]
         write_off = pos.long() % bs
@@ -1001,8 +1059,8 @@ class CausalLM:
                 attn = paged_attention(q, kc, vc, tables, pos, n_tok,
                                        alibi_slopes=slopes, window=win,
                                        sm_scale=cfg.attn_scale)
-                attn = _linear(attn.reshape(B, 1, -1), lp["wo"],
-                               lp.get("wo_b"), cfg.dtype)
+                attn = self._row_linear(attn.reshape(B, 1, -1), lp["wo"],
+                                        lp.get("wo_b"), cfg.dtype, self.tp)
                 return self._attn_mlp_merge(x, attn, lp, h1)
             return body
 

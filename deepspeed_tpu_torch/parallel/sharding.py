@@ -200,6 +200,26 @@ def local_slice(shape, spec_: tuple, topology: topo.MeshTopology,
     return tuple(out)
 
 
+def rank_block(leaf, sl: Tuple[slice, ...], device):
+    """``leaf[sl]`` as a contiguous tensor on ``device``: the kernels'
+    stride contracts refuse a strided view. Only the block is copied."""
+    return leaf[sl].to(device).contiguous()
+
+
+def place_blocks(tree, specs, topology: topo.MeshTopology, rank: int,
+                 device, cut=rank_block):
+    """Rank ``rank``'s blocks of a whole param tree (tensors on the host or
+    on ``device``) laid out by the spec tree ``specs``:
+    ``cut(leaf, local_slice(...), device)`` for each leaf, by default the
+    block itself (:func:`rank_block`). The whole tree is never copied to
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: place_blocks(v, specs[k], topology, rank, device, cut)
+                for k, v in tree.items()}
+    return cut(tree, local_slice(tuple(tree.shape), specs, topology, rank),
+               device)
+
+
 def block_shape(shape, spec_: tuple, topology: topo.MeshTopology):
     """The shape of every rank's block."""
     return tuple(dim // topology.axis_size_of(

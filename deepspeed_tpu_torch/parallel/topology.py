@@ -186,6 +186,31 @@ class MeshTopology:
         return f"MeshTopology({self.shape})"
 
 
+def mesh_topology(mesh) -> MeshTopology:
+    """An engine's ``mesh`` argument as a topology over the process world:
+    a ``MeshTopology`` as it is, a mesh config (``runtime/config.py``
+    ``MeshConfig``) or a dict of its axis sizes built over the world;
+    another type raises ``NotImplementedError``, and a grid of another size
+    than the world ``ValueError``."""
+    from .. import not_ported
+    from ..runtime.config import MeshConfig
+
+    if isinstance(mesh, MeshTopology):
+        t = mesh
+    elif isinstance(mesh, (MeshConfig, dict)):
+        t = MeshTopology.build(
+            mesh if isinstance(mesh, MeshConfig) else MeshConfig(**mesh))
+    else:
+        raise not_ported(f"a mesh given as {type(mesh).__name__} (the port "
+                         "takes a MeshTopology, a mesh config or a dict of "
+                         "axis sizes)", "queue 1 item 14")
+    world = _process_world()
+    if t.world_size != world:
+        raise ValueError(f"Mesh sizes {t.shape} product {t.world_size} != "
+                         f"device count {world}")
+    return t
+
+
 # ------------------------------------------------------------------ registry
 _topology: Optional[MeshTopology] = None
 

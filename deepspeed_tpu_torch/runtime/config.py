@@ -448,8 +448,8 @@ class DeepSpeedTpuConfig(DSConfigModel):
         """Raise ``NotImplementedError`` for the first block that is switched
         on and whose feature the port does not run yet. ZeRO stages 1-3 and
         the offload blocks pass. With ``mesh`` (the training engine) a
-        ``data``/``fsdp`` mesh, MiCS, hpZ, ZeRO++ and the comms logger pass
-        too; the other engines keep refusing them."""
+        ``data``/``fsdp``/``tensor`` mesh, MiCS, hpZ, ZeRO++ and the comms
+        logger pass too; the other engines keep refusing them."""
         z = self.zero_optimization
         m = self.mesh
         # declared and never read by the JAX package: refused, not ignored
@@ -470,7 +470,7 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_weights or z.zero_quantized_gradients,
              "zero_optimization.zero_quantized_weights/gradients (ZeRO++)",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1 for a in ("data", "fsdp")),
+            (any(getattr(m, a) > 1 for a in ("data", "fsdp", "tensor")),
              "a mesh with more than one device", "queue 1 item 14"),
             (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
         ]
@@ -478,9 +478,8 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_nontrainable_weights,
              "zero_optimization.zero_quantized_nontrainable_weights",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1 for a in
-                 ("tensor", "pipe", "sequence", "expert")),
-             "a tensor, pipe, sequence or expert mesh axis (14b-14e)",
+            (any(getattr(m, a) > 1 for a in ("pipe", "sequence", "expert")),
+             "a pipe, sequence or expert mesh axis (14d-14e)",
              "queue 1 item 14"),
             (self.pipeline.stages > 1 or bool(self.pipeline.micro_batches),
              "pipeline parallelism", "queue 1 item 14"),

@@ -63,7 +63,10 @@ class DeepSpeedTpuDataLoader:
     ``dataset`` may be: a dict of equal-length arrays, an array/sequence of
     examples (dict or array each), a torch Dataset (indexable), or an
     iterable of ready-made batches (then ``batch_size`` is ignored).
-    Under a process group each rank reads ``order[rank::world_size]``.
+    Under a process group each rank reads ``order[rank::world_size]``;
+    with a ``topology`` (a ``MeshTopology``) the shard is the rank's
+    data-parallel index over the batch axes (``data`` x ``fsdp``), so the
+    ranks of one tensor group read the same batches.
     """
 
     def __init__(self, dataset, batch_size: int, topology=None,
@@ -91,6 +94,11 @@ class DeepSpeedTpuDataLoader:
         up = dist.is_available() and dist.is_initialized()
         self.num_shards = dist.get_world_size() if up else 1
         self.shard_id = dist.get_rank() if up else 0
+        if up and topology is not None:
+            from ..parallel.topology import BATCH_AXES
+
+            self.num_shards = topology.axis_size_of(BATCH_AXES)
+            self.shard_id = topology.flat_index(self.shard_id, BATCH_AXES)
 
     # -- helpers -----------------------------------------------------------
     def _len_dataset(self):

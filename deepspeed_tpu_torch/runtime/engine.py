@@ -66,10 +66,21 @@ Each rank reads its own micro batch (DeepSpeed's convention; the JAX engine
 is fed one global batch), and ``train_batch`` returns the loss averaged
 over the ranks.
 
+A ``tensor`` axis (Megatron tensor parallelism, SPMD as DeepSpeed runs
+it): the model is built over the tensor group (``CausalLM(cfg, tp=...)``)
+and runs on the rank's blocks of the heads and MLP columns, reducing the
+row-parallel products over the group (``parallel/tensor_parallel.py``).
+The ranks of one tensor group read the same micro batch (the loader's
+share and the rows go by the data-parallel index over ``data`` x
+``fsdp``); gradients are averaged over ``GRAD_REDUCE_AXES`` only, the
+stage-2 reduce-scatter and the stage-3 gather run over ``fsdp`` and leave
+the tensor blocks in place, and the norm counts a replicated leaf once and
+each tensor block of a sharded one once.
+
 ZeRO stages on a one-rank world shard nothing, as in the JAX package.
-Tensor, pipeline, sequence and expert axes, 1-bit optimizers, MoE,
-offload on a mesh, curriculum, compression, elasticity, monitors and the
-flops profiler raise ``NotImplementedError`` naming their ROADMAP item.
+Pipeline, sequence and expert axes, 1-bit optimizers, MoE, offload on a
+mesh, curriculum, compression, elasticity, monitors and the flops profiler
+raise ``NotImplementedError`` naming their ROADMAP item.
 ZeRO-Infinity's parameter streaming is its own engine
 (``runtime/zero_infinity.py``), which ``initialize`` builds for an
 ``offload_param`` block.
@@ -98,8 +109,8 @@ from ..parallel.sharding import (ZeroShardingPlan, block_shape, entry_axes,
 from ..utils.logging import log_dist
 from ..utils.timer import (FORWARD_MICRO_TIMER, STEP_GLOBAL_TIMER,
                            SynchronizedWallClockTimer, ThroughputTimer)
-from .config import (DeepSpeedTpuConfig, DtypeEnum, MeshConfig,
-                     OffloadDeviceEnum, load_config)
+from .config import (DeepSpeedTpuConfig, DtypeEnum, OffloadDeviceEnum,
+                     load_config)
 from .dataloader import DeepSpeedTpuDataLoader, RepeatingLoader
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .zero_offload import OffloadOptimizerPlan
@@ -174,7 +185,11 @@ class DeepSpeedTpuEngine:
         self.rank = dist.get_rank()
         # the mesh branch: every rank a process, blocks and collectives
         self._mesh = self.topology.world_size > 1
+        self.tp = self.topology.axis_size(topo.TENSOR_AXIS)
         self.dp_world_size = self.topology.get_data_parallel_world_size()
+        # this rank's index among the data-parallel replicas: which rows of
+        # a global batch it reads (its tensor peers read the same)
+        self.dp_rank = self.topology.flat_index(self.rank, topo.BATCH_AXES)
         self.config.resolve_batch_sizes(self.dp_world_size)
 
         # -- model ---------------------------------------------------------
@@ -230,10 +245,11 @@ class DeepSpeedTpuEngine:
             if self._offload_config() is not None:
                 raise not_ported("ZeRO-Offload over a mesh (per-rank host "
                                  "shards)", "queue 1 item 14")
-            if isinstance(self.opt, Lamb) and self.zero_stage >= 1:
-                raise not_ported("LAMB over sharded moments (its trust "
-                                 "ratio takes whole-leaf norms)",
-                                 "queue 1 item 14")
+            if isinstance(self.opt, Lamb) and (self.zero_stage >= 1
+                                               or self.tp > 1):
+                raise not_ported("LAMB over sharded moments or tensor-"
+                                 "sharded leaves (its trust ratio takes "
+                                 "whole-leaf norms)", "queue 1 item 14")
 
         # -- state ---------------------------------------------------------
         self._seed = int(self.config.seed if rng is None else rng)
@@ -280,26 +296,10 @@ class DeepSpeedTpuEngine:
         dict of axis sizes) or the config's ``mesh`` block, over the process
         group's world (the registry is not consulted: a config's mesh is
         always its own). MiCS then reshapes it as the JAX engine does."""
-        if mesh is None:
-            t = topo.MeshTopology.build(self.config.mesh)
-        elif isinstance(mesh, topo.MeshTopology):
-            t = mesh
-        elif isinstance(mesh, (MeshConfig, dict)):
-            t = topo.MeshTopology.build(
-                mesh if isinstance(mesh, MeshConfig) else MeshConfig(**mesh))
-        else:
-            raise not_ported(f"a mesh given as {type(mesh).__name__} (the "
-                             "port takes a MeshTopology, a mesh config or a "
-                             "dict of axis sizes)", "queue 1 item 14")
-        world = (torch.distributed.get_world_size()
-                 if torch.distributed.is_initialized() else 1)
-        if t.world_size != world:
-            raise ValueError(f"Mesh sizes {t.shape} product {t.world_size} "
-                             f"!= device count {world}")
-        for a in (topo.TENSOR_AXIS, topo.PIPE_AXIS, topo.SEQUENCE_AXIS,
-                  topo.EXPERT_AXIS):
+        t = topo.mesh_topology(self.config.mesh if mesh is None else mesh)
+        for a in (topo.PIPE_AXIS, topo.SEQUENCE_AXIS, topo.EXPERT_AXIS):
             if t.axis_size(a) > 1:
-                raise not_ported(f"a mesh with {a} > 1 (14b-14e)",
+                raise not_ported(f"a mesh with {a} > 1 (14d-14e)",
                                  "queue 1 item 14")
         zc = self.config.zero_optimization
         if zc.mics_shard_size and zc.mics_shard_size > 0:
@@ -371,6 +371,11 @@ class DeepSpeedTpuEngine:
 
     def _init_state(self, model_parameters=None) -> TrainState:
         self._model_dtype_override()
+        if self.tp > 1:
+            if not isinstance(self.module, CausalLM):
+                raise ValueError("a tensor axis needs a framework CausalLM "
+                                 "(its column- and row-parallel blocks)")
+            self.module = self.module.tensor_parallel(self.tp)
         self._scattered = set()
         if self._mesh:
             return self._init_mesh_state(model_parameters)
@@ -593,15 +598,19 @@ class DeepSpeedTpuEngine:
         shape = tuple(full.shape)
         return full[local_slice(shape, dst, self.topology, self.rank)]
 
-    def _scatter(self, full, path):
-        """This rank's grads block of the sum of every rank's ``full``
-        gradient (reduce-scatter over the block's axes, dim by dim)."""
-        out = full
+    def _scatter(self, blk, path):
+        """This rank's grads block of the sum of every rank's gradient of
+        its param block ``blk`` (reduce-scatter, dim by dim, over the axes
+        the grads block shards and the param block does not: a tensor block
+        stays in place)."""
+        out = blk
+        ps = _at(self._p_specs, path)
         for dim, entry in enumerate(_at(self._g_specs, path)):
-            if entry_axes(entry):
+            have = entry_axes(ps[dim]) if dim < len(ps) else ()
+            axes = tuple(a for a in entry_axes(entry) if a not in have)
+            if axes:
                 out = dist.reduce_scatter_tensor(
-                    None, out, dist.ReduceOp.SUM, entry_axes(entry),
-                    scatter_dim=dim)
+                    None, out, dist.ReduceOp.SUM, axes, scatter_dim=dim)
         return out
 
     def _ckpt_layout(self):
@@ -863,12 +872,14 @@ class DeepSpeedTpuEngine:
                      route=None):
         """A loader over ``dataset``, shuffled from the config's seed: of
         global micro batches (micro × DP world) in one process, of this
-        rank's micro batches over a mesh (the loader reads the rank's
-        strided share of the order)."""
+        rank's micro batches over a mesh (the loader reads the strided
+        share of the rank's data-parallel index, which its tensor peers
+        share)."""
         global_micro = self.train_micro_batch_size_per_gpu() * (
             1 if self._mesh else self.dp_world_size)
         return DeepSpeedTpuDataLoader(
             dataset, batch_size=batch_size or global_micro,
+            topology=self.topology if self._mesh else None,
             collate_fn=collate_fn, seed=self.config.seed,
             data_sampler=data_sampler)
 

@@ -55,9 +55,10 @@ def main(argv=None) -> int:
     with open(args.spec) as fh:
         spec = json.load(fh)
     if spec.get("mesh"):
-        print(f"serve_frontend: mesh spec {spec['mesh']} refused: a device "
-              "mesh (tensor-parallel serving) is not ported to "
-              "deepspeed_tpu_torch yet (ROADMAP.md queue 1 item 14)",
+        print(f"serve_frontend: mesh spec {spec['mesh']} refused: a "
+              "tensor-parallel replica is a group of processes (a leader "
+              "and its tensor followers), which deepspeed_tpu_torch does "
+              "not launch yet (ROADMAP.md queue 1 item 14b-ii)",
               file=sys.stderr)
         return 2
 

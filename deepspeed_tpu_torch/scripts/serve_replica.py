@@ -32,8 +32,8 @@ as a :class:`RemoteHandle` replica::
                                     # hello (a frontend adopting this
                                     # replica under a DIFFERENT model name
                                     # refuses it: ModelMismatch)
-      "mesh":       null,           # a device mesh is not ported: a spec
-                                    # with one exits non-zero
+      "mesh":       null,           # a tensor-parallel replica is not
+                                    # launched yet: a spec with one exits 2
       "serving":    {... ServingConfig dict (engine blocks, speculative,
                       disaggregation/handoff chunking, faults...) ...}
     }
@@ -89,9 +89,10 @@ def main(argv=None) -> int:
     with open(args.spec) as fh:
         spec = json.load(fh)
     if spec.get("mesh"):
-        print(f"serve_replica: mesh spec {spec['mesh']} refused: a device "
-              "mesh (tensor-parallel serving) is not ported to "
-              "deepspeed_tpu_torch yet (ROADMAP.md queue 1 item 14)",
+        print(f"serve_replica: mesh spec {spec['mesh']} refused: a "
+              "tensor-parallel replica is a group of processes (a leader "
+              "and its tensor followers), which deepspeed_tpu_torch does "
+              "not launch yet (ROADMAP.md queue 1 item 14b-ii)",
               file=sys.stderr)
         return 2
 

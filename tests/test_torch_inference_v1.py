@@ -427,6 +427,14 @@ def test_config_surface_matches_jax():
     {"checkpoint": "HF"}, {"ep_size": 2}, {"moe": {"enabled": True}},
     {"save_mp_checkpoint_path": "/nowhere"}])
 def test_unported_config_keys_raise(config, tmp_path):
+    if "tp" in config or "tensor_parallel" in config:
+        # tp_size is ported: it is the tensor axis of a mesh over the
+        # process world (tests/test_torch_tensor_parallel.py runs it on 2
+        # ranks), which one process cannot hold
+        with pytest.raises(ValueError, match="1 devices not divisible"):
+            deepspeed_tpu_torch.init_inference("tiny", config=config,
+                                               device="cpu")
+        return
     if config.get("checkpoint") == "HF":
         # an HF checkpoint directory (universal ones load: see
         # test_torch_checkpoint.py)

@@ -8,16 +8,19 @@ JAX one, and for the params, grads and moment plans of stages 0-3, hpZ and
 a MiCS-shaped mesh on meshes (2, 2), (1, 4) and (4, 1) (data, fsdp):
 every leaf's mesh spec equals the JAX ``PartitionSpec`` entry for entry,
 and rank r's ``local_slice`` is the index JAX device r holds
-(``NamedSharding.devices_indices_map``).
+(``NamedSharding.devices_indices_map``). On tensor x data and tensor x
+fsdp meshes ``place_blocks`` cuts rank r JAX device r's shard of each leaf.
 """
 
 import jax
+import numpy as np
 import pytest
 
 from deepspeed_tpu.models import transformer as jtf
 from deepspeed_tpu.parallel import sharding as jsh
 from deepspeed_tpu.parallel import topology as jtopo
 from deepspeed_tpu_torch.models import transformer as ttf
+from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.parallel import sharding as tsh
 from deepspeed_tpu_torch.parallel import topology as ttopo
 from deepspeed_tpu_torch.runtime.checkpointing import param_template
@@ -125,6 +128,30 @@ def test_plan_blocks_match_jax_devices(model, name, stage, hpz, mesh):
     assert tplan.replicated() == tuple(jplan.replicated().spec)
 
 
+@pytest.mark.parametrize("model", list(MODELS))
+@pytest.mark.parametrize("stage,mesh", [(0, dict(data=2, tensor=2)),
+                                        (3, dict(fsdp=2, tensor=2))],
+                         ids=["s0-d2t2", "s3-f2t2"])
+def test_place_blocks_are_the_jax_shards(model, stage, mesh):
+    """``place_blocks`` gives rank r, for every leaf, JAX device r's shard
+    of the placed fp32 tree, bit for bit, as a contiguous tensor."""
+    jm, tm = _models(model)
+    jt = jtopo.MeshTopology.build(devices=jax.devices()[:4], **mesh)
+    tt = ttopo.MeshTopology.build(world_size=4, **mesh)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    placed = jax.device_put(jparams, jsh.ZeroShardingPlan(
+        jt, stage, jm.param_specs()).params(jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    tspecs = tsh.ZeroShardingPlan(tt, stage, tm.param_specs()).params(tparams)
+    for r in range(4):
+        blocks = tsh.place_blocks(tparams, tspecs, tt, r, "cpu")
+        for path, blk in _leaves(blocks):
+            shard = next(s for s in _get(placed, path).addressable_shards
+                         if s.device.id == r)
+            assert blk.is_contiguous(), path
+            np.testing.assert_array_equal(blk.numpy(), np.asarray(shard.data))
+
+
 def test_shard_spec_for_fallback_and_rules():
     """The fsdp fallback (no ``embed`` dim divides: the largest that does),
     a hpZ group, and a tensor rule that does not divide (dropped)."""
@@ -144,16 +171,18 @@ def test_shard_spec_for_fallback_and_rules():
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"mesh": {"tensor": 2}}, "item 14"), ({"mesh": {"pipe": 2}}, "item 14"),
+    ({"pipeline": {"stages": 2}}, "item 14"),
+    ({"mesh": {"pipe": 2}}, "item 14"),
     ({"mesh": {"sequence": 2}}, "item 14"),
     ({"mesh": {"expert": 2}}, "item 14"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 14"),
     ({"sparse_gradients": True}, "queue 3"),
     ({"communication_data_type": "fp16"}, "queue 3")])
 def test_axes_beyond_the_spine_still_raise(block, item):
-    """The tensor, pipe, sequence and expert axes and the 1-bit optimizers
-    raise naming item 14; the two keys the JAX package declares and never
-    reads raise naming queue 3."""
+    """Pipeline parallelism, the pipe, sequence and expert axes and the
+    1-bit optimizers raise naming item 14 (the tensor axis runs:
+    ``test_torch_tensor_parallel.py``); the two keys the JAX package
+    declares and never reads raise naming queue 3."""
     import deepspeed_tpu_torch
 
     with pytest.raises(NotImplementedError, match=item):

@@ -117,9 +117,16 @@ def test_validation_errors():
         with pytest.raises(ValueError):
             JW.validate_weight_quant(kw["dtype"], kw["block"])
     TW.validate_weight_quant("fp8_e4m3", 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        TW.quantize_weights(ttf.TINY_TEST, ttf.CausalLM(ttf.TINY_TEST).init(
-            device="cpu"), tp=2)
+    # tp > 1 is ported (it raised before tensor parallelism): the block
+    # divides the per-shard width, as the JAX package's does
+    jp = jax.tree.map(np.asarray,
+                      jtf.CausalLM(jtf.TINY_TEST).init(jax.random.PRNGKey(0)))
+    jq, _ = JW.quantize_weights(jtf.TINY_TEST,
+                                jax.tree.map(jnp.asarray, jp), tp=2)
+    tq, _ = TW.quantize_weights(ttf.TINY_TEST, params_from_numpy(jp, "cpu"),
+                                tp=2)
+    _assert_same_tree(jq, tq)
+    assert tq["layers"]["wq"]["qs"].shape[-1] == 2    # blocks of 32 of 64
 
 
 @pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3"])

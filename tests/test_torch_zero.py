@@ -28,7 +28,13 @@ global micro batch (the rows JAX's batch sharding gives device r). Then:
   mesh, gathers nothing, and resumes in the JAX engine on another mesh
   (fsdp 2 → 4), as a JAX save resumes in the port on it, on the writer's
   curve (1e-5); ``zero_to_fp32`` of both packages reads the port's shards
-  alike.
+  alike;
+- over ``tensor`` x ``fsdp`` (stages 0, 2 and 3) the moments are held to
+  1e-5 (m) and 1e-8 (v): the JAX package's own tensor-parallel and
+  unsharded engines differ by 4.0e-6 and 4.3e-9 on the same data (``TOL``);
+  a (fsdp 2, tensor 2) save resumes on pure data parallelism in the other
+  package on the writer's curve, the twin of
+  ``tests/test_checkpoint_sharded.py:261``.
 """
 
 import json
@@ -61,8 +67,8 @@ def _cfg(stage, gas=1, clip=0.0, **zero):
             "zero_optimization": {"stage": stage, **zero}}
 
 
-# name: (config, (data, fsdp), port mesh: the dict given to initialize, or
-# None for the engine's own mesh)
+# name: (config, (data, fsdp[, tensor]), port mesh: the dict given to
+# initialize, or None for the engine's own mesh)
 CASES = {
     "s0-2x2": (_cfg(0), (2, 2), {"data": 2, "fsdp": 2}),
     "s1-2x2-gas2-clip": (_cfg(1, gas=2, clip=0.05), (2, 2),
@@ -78,6 +84,12 @@ CASES = {
     "qwz-qgz": (_cfg(3, zero_quantized_weights=True,
                      zero_quantized_gradients=True), (1, 4),
                 {"data": 1, "fsdp": 4}),
+    # tensor parallelism over fsdp: the stage-2 reduce-scatter and the
+    # stage-3 gather run over fsdp and leave the tensor blocks in place
+    "s0-f2t2": (_cfg(0), (1, 2, 2), {"fsdp": 2, "tensor": 2}),
+    "s2-f2t2-clip": (_cfg(2, clip=0.05), (1, 2, 2),
+                     {"fsdp": 2, "tensor": 2}),
+    "s3-f2t2-gas2": (_cfg(3, gas=2), (1, 2, 2), {"fsdp": 2, "tensor": 2}),
 }
 
 
@@ -98,10 +110,11 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _jax_engine(cfg, data, fsdp):
+def _jax_engine(cfg, data, fsdp, tensor=1):
     jtopo.reset_topology()
-    mesh = jtopo.MeshTopology.build(devices=jax.devices()[:4], data=data,
-                                    fsdp=fsdp)
+    mesh = jtopo.MeshTopology.build(
+        devices=jax.devices()[:data * fsdp * tensor], data=data, fsdp=fsdp,
+        tensor=tensor)
     je, *_ = deepspeed_tpu.initialize(model=jtf.CausalLM(jtf.TINY_TEST),
                                       config=json.loads(json.dumps(cfg)),
                                       mesh=mesh)
@@ -137,7 +150,13 @@ def _shards(tree):
 
 
 TOL = {"fp32": {"loss": 1e-5, "params": 1e-4, "m": 1e-6, "v": 1e-9},
-       "qgz": {"loss": 5e-4, "params": 1e-2, "m": 1e-3, "v": 1e-6}}
+       "qgz": {"loss": 5e-4, "params": 1e-2, "m": 1e-3, "v": 1e-6},
+       # over tensor x fsdp: the JAX package's own tensor-parallel engine
+       # and its unsharded one differ by 4.0e-6 (m) and 4.3e-9 (v) on the
+       # same data (Adam's normalized step turns the row-parallel sums'
+       # other order into param differences, which the next gradients
+       # read); the port is held to its TP engine within 2.4e-6 and 2.5e-9
+       "tp": {"loss": 1e-5, "params": 1e-4, "m": 1e-5, "v": 1e-8}}
 
 
 def _check_blocks(je, res, tol):
@@ -171,13 +190,15 @@ def _check_gathers(res, cfg):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_stage_matches_jax_engine(name, pool, tmp_path):
-    cfg, (data, fsdp), mesh = CASES[name]
-    je = _jax_engine(cfg, data, fsdp)
-    params, bpath, batches = _inputs(str(tmp_path), je, cfg, data * fsdp)
+    cfg, dims, mesh = CASES[name]
+    je = _jax_engine(cfg, *dims)
+    params, bpath, batches = _inputs(str(tmp_path), je, cfg,
+                                     dims[0] * dims[1])
     res = pool.run(cases.zero_run, json.dumps(cfg), mesh, params, bpath,
                    STEPS)
     jl = _jax_train(je, batches, cfg["gradient_accumulation_steps"], STEPS)
-    tol = TOL["qgz" if "qgz" in name else "fp32"]
+    tol = TOL["qgz" if "qgz" in name else "tp" if "t2" in name
+              else "fp32"]
     for out in res:
         np.testing.assert_allclose(out["losses"], jl, rtol=tol["loss"])
     _check_blocks(je, res, tol)
@@ -280,3 +301,64 @@ def test_mesh_refusals_name_item_14(pool):
     for out in pool.run(cases.refusals):
         assert "item 14" in out["offload"] and "Offload" in out["offload"]
         assert "item 14" in out["lamb"] and "LAMB" in out["lamb"]
+
+
+@pytest.fixture(scope="module")
+def saved_tp(pool, tmp_path_factory):
+    """Stage 3 on (fsdp 2, tensor 2), 2 rows a rank (4 a global micro
+    batch): the port ranks and the JAX engine each train 2 steps, save,
+    and train a third."""
+    tmp = str(tmp_path_factory.mktemp("zero_tp_ckpt"))
+    cfg = dict(_cfg(3), train_micro_batch_size_per_gpu=2)
+    je = _jax_engine(cfg, 1, 2, tensor=2)
+    params, bpath, batches = _inputs(tmp, je, cfg, 4, seed=6)
+    port_dir, jax_dir = os.path.join(tmp, "port"), os.path.join(tmp, "jax")
+    res = pool.run(cases.zero_run, json.dumps(cfg),
+                   {"fsdp": 2, "tensor": 2}, params, bpath, STEPS,
+                   save_dir=port_dir, save_after=2)
+    jl = _jax_train(je, batches, 1, 2)
+    je.save_checkpoint(jax_dir, tag="ckpt")
+    jl += _jax_train(je, batches, 1, 1, first=2)
+    return {"params": params, "bpath": bpath, "batches": batches,
+            "res": res, "jax_losses": jl, "port_dir": port_dir,
+            "jax_dir": jax_dir}
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_tensor_sharded_resume_on_pure_dp(direction, saved_tp, pool):
+    """A checkpoint written on (fsdp 2, tensor 2) resumes on pure data
+    parallelism (data 4, 1 row a rank: the same 4-row global batch) in the
+    other package, on the writer's curve (1e-5): the twin of
+    ``tests/test_checkpoint_sharded.py:261``. The port's shard files are
+    the JAX engine's, and ``zero_to_fp32`` of both packages merges the
+    tensor blocks alike."""
+    cfg = _cfg(3)
+    res = saved_tp["res"]
+    for out in res:
+        np.testing.assert_allclose(out["losses"], saved_tp["jax_losses"],
+                                   rtol=1e-5)
+    if direction == "jax-to-port":
+        got = [out["losses"][0] for out in pool.run(
+            cases.zero_run, json.dumps(cfg), {"data": 4}, saved_tp["params"],
+            saved_tp["bpath"], 1, load_dir=saved_tp["jax_dir"], first=2)]
+        want = saved_tp["jax_losses"][2]
+    else:
+        je = _jax_engine(cfg, 4, 1)
+        je.load_checkpoint(saved_tp["port_dir"])
+        got = _jax_train(je, saved_tp["batches"], 1, 1, first=2)
+        want = res[0]["losses"][2]
+        files = sorted(os.listdir(os.path.join(saved_tp["port_dir"], "ckpt",
+                                               "params")))
+        assert files == sorted(os.listdir(os.path.join(
+            saved_tp["jax_dir"], "ckpt", "params")))
+        port = tz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_tp["port_dir"])
+        jax_ = jz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_tp["port_dir"])
+        own = jz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_tp["jax_dir"])
+        for k in own:
+            np.testing.assert_array_equal(port[k], jax_[k])
+            np.testing.assert_allclose(port[k], own[k], rtol=0,
+                                       atol=TOL["fp32"]["params"])
+    np.testing.assert_allclose(got, [want] * len(got), rtol=1e-5)

@@ -101,11 +101,12 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _rank_batches(batches, rank, dp):
-    """Rank ``rank``'s rows of each global micro batch: the rows the JAX
-    engine's batch sharding gives device ``rank``."""
+def _rank_batches(batches, dp_rank, dp):
+    """The rows of each global micro batch of data-parallel index
+    ``dp_rank``: the rows the JAX engine's batch sharding gives its
+    devices (tensor peers share them)."""
     mb = batches.shape[1] // dp
-    return batches[:, rank * mb:(rank + 1) * mb]
+    return batches[:, dp_rank * mb:(dp_rank + 1) * mb]
 
 
 def _engine(cfg_json, mesh, params_path):
@@ -122,10 +123,8 @@ def _engine(cfg_json, mesh, params_path):
 
 
 def _train(engine, batches, steps, first=0):
-    from deepspeed_tpu_torch import comm
-
     gas = engine.gradient_accumulation_steps()
-    mine = _rank_batches(batches, comm.get_rank(), engine.dp_world_size)
+    mine = _rank_batches(batches, engine.dp_rank, engine.dp_world_size)
     losses = []
     for s in range(first, first + steps):
         it = iter({"input_ids": mine[s * gas + i]} for i in range(gas))
@@ -200,3 +199,157 @@ def refusals():
         except NotImplementedError as e:
             out[name] = str(e)
     return out
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _raw(t):
+    """A tensor's values as numpy (float8 as its bytes: the ranks have no
+    numpy float8 type to return)."""
+    import torch
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def _tiny(**overrides):
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    return ttf.CausalLM(dataclasses.replace(ttf.TINY_TEST, **overrides))
+
+
+def tp_v2_run(params_path, overrides, config_kw, prompts, decode_tokens,
+              mesh=None):
+    """The v2 engine over ``mesh`` (default tensor 2) on the params of
+    ``params_path``: each prompt prefilled alone, then a put of every
+    sequence a decode step; the logits of every put, the rank's quantized
+    blocks, and the export of the first sequence, imported again under a
+    new uid and held to the original by one more put."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (
+        InferenceEngineV2, RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models.weights import params_from_numpy
+
+    engine = InferenceEngineV2(
+        _tiny(**overrides), params=params_from_numpy(_tree(params_path),
+                                                     "cpu"),
+        config=RaggedInferenceEngineConfig(**config_kw),
+        mesh=mesh or {"tensor": 2}, device="cpu")
+    out = {"prefill": [], "decode": [], "quant": {},
+           "pool": tuple(engine.state_manager.kv_cache["k"].shape)}
+    uids = list(prompts)
+    with torch.no_grad():
+        for uid in uids:
+            out["prefill"].append(engine.put([uid], [prompts[uid]]).numpy())
+        for step in decode_tokens:
+            out["decode"].append(engine.put(uids, step).numpy())
+        for name, node in engine.params["layers"].items():
+            if isinstance(node, dict):
+                out["quant"][name] = (_raw(node["qw"]), _raw(node["qs"]))
+        payload = engine.export_sequence(uids[0])
+        out["payload"] = {k: _raw(v) for k, v in payload["slabs"].items()}
+        ctx = list(prompts[uids[0]]) + [s[0][0] for s in decode_tokens]
+        engine.import_sequence(999, payload, ctx)
+        nxt = [decode_tokens[-1][0]]
+        a = engine.put([uids[0]], nxt).numpy()
+        b = engine.put([999], nxt).numpy()
+    out["import_equal"] = bool(np.array_equal(a, b))
+    return out
+
+
+def tp_v2_refusals():
+    """What a tensor-parallel v2 engine refuses: the KV tier and a draft
+    model, each naming item 14b-ii; a mesh of another type."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (
+        InferenceEngineV2, RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.inference.v2.spec import DraftModelProposer
+
+    out = {}
+    model = _tiny()
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def engine(**kw):
+        return InferenceEngineV2(
+            model, params=params, mesh={"tensor": 2}, device="cpu",
+            config=RaggedInferenceEngineConfig(kv_blocks=16, **kw))
+
+    calls = {
+        "tier": lambda: engine(enable_prefix_cache=True,
+                               kv_tier_enabled=True),
+        "tier-later": lambda: engine(enable_prefix_cache=True)
+        .configure_kv_tier(True),
+        "draft": lambda: DraftModelProposer(engine()),
+        "draft-target": lambda: ContinuousBatchingScheduler(
+            engine(), proposer=DraftModelProposer(InferenceEngineV2(
+                model, params=params, device="cpu",
+                config=RaggedInferenceEngineConfig(kv_blocks=16)))),
+        "mesh": lambda: InferenceEngineV2(model, params=params,
+                                          mesh=object(), device="cpu")}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = ""
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def tp_v1_run(params_path, overrides, config, prompts, max_new):
+    """``init_inference`` with ``config`` (its ``tensor_parallel``) on the
+    params of ``params_path``: the greedy stream, a sampled stream, and
+    the rank's quantized blocks (codes, scales, ``cols``)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import QuantTensor
+
+    engine = deepspeed_tpu_torch.init_inference(
+        _tiny(**overrides), config=dict(config), params=_tree(params_path),
+        device="cpu")
+    out = {"greedy": engine.generate(prompts, max_new_tokens=max_new).numpy(),
+           "sampled": engine.generate(prompts, max_new_tokens=max_new,
+                                      temperature=1.0, top_k=8,
+                                      rng=3).numpy(),
+           "quant": {}}
+    for grp, sub in engine.params.items():
+        for name, leaf in sub.items():
+            if isinstance(leaf, QuantTensor):
+                out["quant"][f"{grp}.{name}"] = (
+                    _raw(leaf.q), _raw(leaf.scales), leaf.cols,
+                    leaf.packed, tuple(leaf.shape))
+            else:
+                out["quant"][f"{grp}.{name}"] = tuple(leaf.shape)
+    return out
+
+
+def tp_train_loader(mesh):
+    """The first two micro batches each rank's loader yields over
+    ``mesh``."""
+    import deepspeed_tpu_torch
+
+    data = {"input_ids": np.arange(16 * 9, dtype=np.int32).reshape(16, 9)}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_tiny(), config={"train_micro_batch_size_per_gpu": 2},
+        training_data=data, mesh=dict(mesh), device="cpu")
+    it = iter(engine.training_dataloader)
+    return [np.asarray(next(it)["input_ids"]) for _ in range(2)]
+
+
+def tp_lamb_refused():
+    import deepspeed_tpu_torch
+
+    try:
+        deepspeed_tpu_torch.initialize(
+            model=_tiny(), device="cpu", mesh={"tensor": 2},
+            config={"train_micro_batch_size_per_gpu": 1,
+                    "optimizer": {"type": "Lamb", "params": {}}})
+    except NotImplementedError as e:
+        return str(e)
+    return ""
