@@ -248,7 +248,29 @@ Phases, each of which raises on failure (nothing is caught):
              a step. This phase runs right after the timing phase, in a
              child process of this script (``--offload-result``), which
              hands the host memory back when it exits.
-14. distributed — the distributed spine at MISTRAL_7B widths, 2 layers,
+14. moe    — MoE at MISTRAL_7B widths with 8 experts (Mixtral-8x7B's
+             count and top-2 routing, capacity factor 1.25): (a) v2 serving
+             at SERVE_LAYERS layers, bf16, 23.7 GB of weights, the main
+             prompts x 32 greedy tokens through the scheduler: stream
+             lengths, finite logits, SERVE_LAYERS paged launches a put,
+             every block back, one prefill and one decode step held
+             against the plain versions with the routing of the fp32
+             attention's run replayed in the others (``moe_tape``); a
+             prefill and a decode put timed whole beside one layer's gate,
+             dispatch einsum, expert products and combine einsum; (b) the
+             same tree with int8 weights (the attention and lm_head; the
+             expert stacks stay bf16: 5 quantize launches at the build,
+             4 SERVE_LAYERS + 1 quantized matmuls a put) and int8 KV, and
+             its steps; (c) dropless top-1 on the same tree, its group
+             sizes and the seconds of their host reads; (d) small fp32
+             top-1 and top-2 engines at capacities where no token can
+             drop, and dropless, give the CPU's greedy streams, and v1
+             int8 MoE ``generate`` the CPU's; (e)
+             training at 1 layer (1.7 B parameters), top-1 and top-2, 3
+             steps each, the flash kernels' launches asserted, finite
+             losses and aux loss, and top-2's micro step held against the
+             plain attention with the routing replayed.
+15. distributed — the distributed spine at MISTRAL_7B widths, 2 layers,
              bf16, the train phase's AdamW, schedule and clipping, two
              4096-token rows a step, 3 steps: (a) the one-process engine at
              2 micro steps a step (saving after step 2); (b) ZeRO stages
@@ -294,7 +316,10 @@ Phases, each of which raises on failure (nothing is caught):
              dequantize launches (asserted); (h) training on tensor = 2,
              both rows a step as 2 micro steps on both ranks, against (a)
              (losses, sampled params), its save after step 2 resumed in
-             one process on the ranks' curve.
+             one process on the ranks' curve; (i) the moe phase's training
+             model over expert = 2 (4 of the 8 experts a rank), 2 steps,
+             against the same engine in one process (losses within 2e-4,
+             grad norms within 1e-2).
 
 Depth and step cuts of PR 18, which made room for phase 14 (seconds on
 one H100, 700 W, before: PR 17's two whole runs; after: this PR's, in
@@ -319,7 +344,8 @@ later phase after it (a short call after an edit; no result lines;
 ``--only kv_tier`` runs the KV tier cell on its own MISTRAL_7B engine;
 ``--only serving`` runs the serving phase, ``--only fabric`` the fabric
 phase, ``--only train_state`` the training-state phase, ``--only offload``
-the offload phase, ``--only distributed`` the distributed phase).
+the offload phase, ``--only moe`` the MoE phase, ``--only distributed`` the
+distributed phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -358,7 +384,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
 # Tolerances of the paged kernel against its plain version, |k - ref| <=
-# atol + rtol * |ref| on valid rows. bf16: both write a bf16 output (one
+# atol + rtol * |ref| on every row. bf16: both write a bf16 output (one
 # rounding of 2^-8 relative each) and the plain version also rounds p to
 # bf16 before p @ V (another 2^-8 relative), and with quantized pools the
 # dequantized K and V to bf16 (the kernel keeps them in fp32); 2e-2 covers
@@ -530,6 +556,14 @@ KERNEL_CASES = [
      torch.float32, 1, True, 50),
     ("fp32 prefill C=40 G=4 D=128 window", [40, 300, 1000], 40, 32, 8, 128,
      16, torch.float32, 1, False, 256),
+    # rows past n_tokens further than the window past the context attend
+    # nothing (the gathered mean), on each route
+    ("prefill C=64 G=4 D=128 rows past the window", [10, 300], 64, 32, 8,
+     128, 16, torch.bfloat16, 1, False, 8),
+    ("decode C=4 G=4 rows past the window", [2, 3, 500], 4, 32, 8, 128, 16,
+     torch.bfloat16, 1, False, 1),
+    ("fp32 C=12 G=2 alibi rows past the window", [3, 40], 12, 8, 4, 64, 8,
+     torch.float32, 1, True, 2),
 ]
 
 
@@ -551,23 +585,18 @@ def check_paged(name, q, kp, vp, tbl, sp, nt, dtype, kw, routes=None):
                              "the same inputs differ")
     atol, rtol = TOL[dtype]
     err = 0.0
+    # every row, those past n_tokens (a MoE put routes them) and those of
+    # padded sequences included
     for i in range(q.shape[0]):
-        v = int(nt[i])
-        # rows past n_tokens (all of a padded sequence's) attend nothing:
-        # the kernel writes zeros there (acc / max(l, 1e-30))
-        if v < q.shape[1] and out[i, v:].abs().max().item() != 0.0:
-            raise AssertionError(f"[kernel] {name}: sequence {i} has a "
-                                 f"non-zero row past its {v} tokens")
-        if v == 0:
-            continue
-        o, r = out[i, :v].float(), ref[i, :v].float()
+        o, r = out[i].float(), ref[i].float()
         d = (o - r).abs()
         err = max(err, d.max().item())
         bad = d > atol + rtol * r.abs()
         if bad.any():
             raise AssertionError(
-                f"[kernel] {name}: row {i} max |diff| {d.max().item():.3g}"
-                f" over atol {atol} + rtol {rtol}·|ref|")
+                f"[kernel] {name}: sequence {i} ({int(nt[i])} tokens) max "
+                f"|diff| {d.max().item():.3g} over atol {atol} + rtol "
+                f"{rtol}·|ref|")
     route = paged_route_name(q, kp)
     if routes is not None:
         routes.add(route)
@@ -1467,19 +1496,25 @@ def time_ms(fn, flush, iters=20, warmup=3):
 
 
 def live_spans(start, ntok, C, window):
-    """Per row (n, ci) the attended KV positions [lo, hi]; per sequence the
-    union of its rows' spans (the K/V the function must read)."""
+    """Per row (n, ci), those past n_tokens included, the number of KV
+    positions it attends; per sequence the union of its rows' spans (the
+    K/V the function must read)."""
     rows, seqs = [], []
     for s, n in zip(start, ntok):
-        if n == 0:
+        ctx = s + n
+        if ctx == 0:
             continue
         lo_seq = None
-        for ci in range(n):
+        for ci in range(C):
             qp = s + ci
             lo = max(0, qp - window + 1) if window else 0
-            rows.append(qp - lo + 1)
+            hi = min(qp + 1, ctx)
+            if hi <= lo:
+                continue
+            rows.append(hi - lo)
             lo_seq = lo if lo_seq is None else min(lo_seq, lo)
-        seqs.append(s + n - lo_seq)
+        if lo_seq is not None:
+            seqs.append(ctx - lo_seq)
     return rows, seqs
 
 
@@ -2042,7 +2077,8 @@ def step_logits(engine, chunks, step, mode):
                 engine.flush(u)
 
 
-def compare_steps(get_logits, label, steps=("prefill", "decode")):
+def compare_steps(get_logits, label, steps=("prefill", "decode"),
+                  slack_ulps=0):
     """One prefill and one decode step (or ``steps``) through the kernels
     against the plain versions; ``get_logits(step, mode)`` gives the logits
     of ``step`` in ``mode`` ("kernel", "plain" or "plain_fp32").
@@ -2050,11 +2086,17 @@ def compare_steps(get_logits, label, steps=("prefill", "decode")):
     that the kernels' logits are no further from the fp32-arithmetic
     attention's than the plain bf16 version's are (the plain version rounds
     p — and dequantized K/V — to bf16 before the products; the kernel keeps
-    them in fp32)."""
+    them in fp32). ``slack_ulps``: how many bf16 units in the last place of
+    the largest logit the kernels' distance may exceed the plain one's by
+    (the MoE cells: at 8 layers the kernel's advantage is of the order of
+    one rounding of the bf16 logits themselves)."""
     res = {}
     for step in steps:
-        k, p, p32 = (get_logits(step, m)
-                     for m in ("kernel", "plain", "plain_fp32"))
+        # the yardstick first: a MoE engine records its routing in that run
+        # and replays it in the other two (``moe_tape``)
+        out = {m: get_logits(step, m)
+               for m in ("plain_fp32", "kernel", "plain")}
+        k, p, p32 = out["kernel"], out["plain"], out["plain_fp32"]
         if not torch.isfinite(k).all():
             raise AssertionError(f"[{label}] {step}: non-finite logits")
         d_kp = (k - p).abs().max().item()
@@ -2066,11 +2108,12 @@ def compare_steps(get_logits, label, steps=("prefill", "decode")):
             f"{d_kp:.4g}, max |kernel - fp32 attention| = {d_k32:.4g}, "
             f"max |plain - fp32 attention| = {d_p32:.4g}; argmax agreement "
             f"kernel/plain {agree:.2f}")
-        if d_k32 > d_p32:
+        ulp = 2.0 ** (math.floor(math.log2(p32.abs().max().item())) - 7)
+        if d_k32 > d_p32 + slack_ulps * ulp:
             raise AssertionError(
                 f"[{label}] {step}: the kernels' logits are further from "
                 f"fp32 attention ({d_k32:.4g}) than the plain version's "
-                f"({d_p32:.4g})")
+                f"({d_p32:.4g}) + {slack_ulps} ulp of {ulp:.4g}")
         res[step] = {"max_dlogit": d_kp, "argmax_agreement": agree}
     return res
 
@@ -5711,7 +5754,7 @@ def tiny_train_parity():
 MICRO_STEP_TOL = 0.06
 
 
-def micro_step_check(engine, vocab):
+def micro_step_check(engine, vocab, label="train", tape=None):
     """One micro step's loss and a few gradient leaves with the kernels
     against the same step with the plain attention pinned, at full width
     and T = 2048 (where the plain version's dense logits of all heads
@@ -5723,7 +5766,9 @@ def micro_step_check(engine, vocab):
     (test-only, swapped in here): the loss with the kernels must agree with
     the plain one to 2e-3, and each gradient leaf must lie within
     MICRO_STEP_TOL of its largest entry of the fp32 attention's and within
-    10% of the plain version's."""
+    10% of the plain version's. A MoE model's routing is recorded in the
+    fp32 attention's run and replayed in the other two (``tape``: a list,
+    ``moe_tape``)."""
     params = engine.state.params
     leaves = {"layers.wq[0]": params["layers"]["wq"],
               "layers.wk[0]": params["layers"]["wk"],
@@ -5745,14 +5790,17 @@ def micro_step_check(engine, vocab):
         return run
 
     res = {}
-    for mode in ("kernel", "plain", "plain_fp32"):
+    for mode in ("plain_fp32", "kernel", "plain"):
         fa.FORCE_REFERENCE = mode != "kernel"
         if mode == "plain_fp32":
             fa._attention_torch, fa._dq_torch, fa._dkv_torch = map(in_fp32,
                                                                    plain)
+        routing = (contextlib.nullcontext() if tape is None
+                   else moe_tape(tape, record=mode == "plain_fp32"))
         try:
-            loss = engine.module.loss(params, {"input_ids": tokens})
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with routing:
+                loss = engine.module.loss(params, {"input_ids": tokens})
+                grads = torch.autograd.grad(loss, list(leaves.values()))
         finally:
             fa.FORCE_REFERENCE = False
             fa._attention_torch, fa._dq_torch, fa._dkv_torch = plain
@@ -5762,24 +5810,25 @@ def micro_step_check(engine, vocab):
         del loss, grads
     dl = abs(res["kernel"][0] - res["plain"][0])
     if dl > 2e-3:
-        raise AssertionError(f"[train] micro step: loss {res['kernel'][0]} "
+        raise AssertionError(f"[{label}] micro step: loss {res['kernel'][0]} "
                              f"vs plain {res['plain'][0]}")
     parts = []
-    for name, gk, gp, g32 in zip(leaves, *(res[m][1] for m in res)):
+    for name, gk, gp, g32 in zip(leaves, *(res[m][1] for m in (
+            "kernel", "plain", "plain_fp32"))):
         if not torch.isfinite(gk).all():
-            raise AssertionError(f"[train] micro step: non-finite d{name}")
+            raise AssertionError(f"[{label}] micro step: non-finite d{name}")
         top = g32.abs().max()
         d_kp, d_k32, d_p32 = (((a - b).abs().max() / top).item()
                               for a, b in ((gk, gp), (gk, g32), (gp, g32)))
         parts.append(f"{name} {d_kp:.3g} / {d_k32:.3g} / {d_p32:.3g}")
         if d_k32 > MICRO_STEP_TOL or d_kp > 0.1:
             raise AssertionError(
-                f"[train] micro step: d{name} with the kernels is "
+                f"[{label}] micro step: d{name} with the kernels is "
                 f"{d_k32:.3g} of its largest entry from the fp32 "
                 f"attention's ({MICRO_STEP_TOL} allowed; the plain "
                 f"version's: {d_p32:.3g}) and {d_kp:.3g} from the plain "
                 f"version's")
-    log(f"[train] one micro step at T=2048, kernels vs plain attention: "
+    log(f"[{label}] one micro step at T=2048, kernels vs plain attention: "
         f"loss {res['kernel'][0]:.5f} vs {res['plain'][0]:.5f} (|diff| "
         f"{dl:.3g}, 2e-3 allowed; fp32 attention "
         f"{res['plain_fp32'][0]:.5f}); max |dgrad| / max |grad| as kernel "
@@ -6940,6 +6989,486 @@ def phase_offload_apart():
         os.unlink(path)
 
 
+# ------------------------------------------------------------------- MoE
+
+# MISTRAL_7B's widths with Mixtral-8x7B's expert count and top-2 routing at
+# the JAX defaults (capacity factor 1.25, min capacity 4). Serving at
+# SERVE_LAYERS layers: 11.9 B parameters, 23.7 GB of bf16 weights (all 32
+# layers would be 93 GB); training at 1 layer: 1.7 B parameters, 27 GB of
+# fp32 master, moments and accumulator.
+MOE_EXPERTS = 8
+MOE_LAYERS = SERVE_LAYERS
+MOE_KV_BLOCKS = 1024
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_SEQ = 4097
+MOE_TRAIN_STEPS = 3
+
+
+def moe_cfg(layers, **kw):
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    kw = {"moe_top_k": 2, **kw}
+    return dataclasses.replace(MISTRAL_7B, num_layers=layers,
+                               moe_num_experts=MOE_EXPERTS, **kw)
+
+
+@contextlib.contextmanager
+def moe_tape(tape, record):
+    """Top-2 routing recorded into ``tape`` (``record``) or replayed from it:
+    a replayed call's first expert is raised just above the token's largest
+    logit where another one leads (a change as small as the gap it closes),
+    and its second expert is chosen through the gate's ``noise``, which
+    moves no gate value. So the three runs of a comparison route every
+    token alike, and the kernels are held against the plain versions
+    without routing flips between them (a flip moves a token's output by
+    O(1), which no attention tolerance bounds)."""
+    import deepspeed_tpu_torch.models.transformer as tt
+
+    real = tt.top2gating
+    calls = iter(range(1 << 30))
+
+    def gate(logits, cf, min_cap, noise=None, group=None):
+        i = next(calls)
+        E = logits.shape[-1]
+        if record:
+            idx1 = torch.argmax(torch.softmax(logits.detach(), -1), -1)
+            no1 = logits.detach().scatter(-1, idx1[:, None], -math.inf)
+            tape.append((idx1, torch.argmax(no1, -1)))
+            return real(logits, cf, min_cap, noise=noise, group=group)
+        idx1, idx2 = tape[i]
+        lead = torch.argmax(torch.softmax(logits.detach(), -1), -1)
+        wrong = lead != idx1
+        if bool(wrong.any()):
+            top = logits.detach().max(-1).values
+            bump = torch.zeros_like(logits.detach())
+            rows = wrong.nonzero()[:, 0]
+            bump[rows, idx1[rows]] = (top[rows] - logits.detach()[
+                rows, idx1[rows]] + 1e-3)
+            logits = logits + bump
+        force = torch.nn.functional.one_hot(idx2, E).float() * 1e4
+        return real(logits, cf, min_cap, noise=force, group=group)
+
+    tt.top2gating = gate
+    try:
+        yield
+    finally:
+        tt.top2gating = real
+
+
+def moe_step_logits(engine, chunks, tapes, step, mode):
+    """``step_logits`` of a MoE engine, with the routing of the fp32
+    attention's run (made first) replayed in the others."""
+    tape = tapes.setdefault(step, [])
+    with moe_tape(tape, record=mode == "plain_fp32"):
+        return step_logits(engine, chunks, step, mode)
+
+
+@contextlib.contextmanager
+def moe_group_sizes(record):
+    """Each dropless layer's host read of its group sizes: (sizes, seconds
+    of the ``tolist``, which waits for the queued work before it)."""
+    from deepspeed_tpu_torch.moe import grouped
+
+    real = grouped._host_sizes
+
+    def host_sizes(gs):
+        t = time.perf_counter()
+        out = real(gs)
+        record.append((out, time.perf_counter() - t))
+        return out
+
+    grouped._host_sizes = host_sizes
+    try:
+        yield
+    finally:
+        grouped._host_sizes = real
+
+
+def moe_serve(label, cfg, params, quant=None, steps=True):
+    """One v2 engine over the shared MoE tree (the expert stacks are never
+    quantized, so only the attention and lm_head get nodes of their own):
+    MAIN_PROMPT_LENS x MAIN_NEW_TOKENS greedy through the scheduler, the
+    launch counts checked, and (``steps``) one prefill and one decode step
+    held against the plain versions with the routing replayed."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qz.launches["quantize"] = 0
+    t0 = time.perf_counter()
+    engine = InferenceEngineV2(
+        CausalLM(cfg), params, RaggedInferenceEngineConfig(
+            kv_block_size=16, max_chunk_tokens=256,
+            max_ragged_sequence_count=32, kv_blocks=MOE_KV_BLOCKS,
+            **(quant or {})), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    quantize_launches = qz.launches["quantize"]
+    L = cfg.num_layers
+    if quant and quantize_launches != 5:
+        raise AssertionError(f"[{label}] {quantize_launches} quantize "
+                             "launches at the build, want 5 (wq, wk, wv, wo,"
+                             " lm_head; the expert stacks stay bf16)")
+    for name in ("w_in", "w_out", "w_gate"):
+        if engine.params["layers"][name].data_ptr() != \
+                params["layers"][name].data_ptr():
+            raise AssertionError(f"[{label}] the engine copied {name}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MAIN_PROMPT_LENS]
+    engine.put([10_000], [prompts[0][:16]])          # warm-up
+    engine.flush(10_000)
+    sizes = []
+    with moe_group_sizes(sizes):
+        res = serve(engine, cfg, prompts, MAIN_NEW_TOKENS, label)
+    res.update(build_s=build_s, quantize_launches=quantize_launches)
+    puts, launches = res["puts"], res["launches"]
+    if launches["paged_attention"] != L * puts:
+        raise AssertionError(f"[{label}] {launches['paged_attention']} paged "
+                             f"launches for {puts} puts x {L} layers")
+    qmm = (4 * L + 1) * puts if quant else 0
+    if launches["quantized_matmul"] != qmm:
+        raise AssertionError(f"[{label}] {launches['quantized_matmul']} "
+                             f"quantized-matmul launches, want {qmm}")
+    log(f"[{label}] {L} paged launches a put and "
+        f"{(4 * L + 1) if quant else 0} quantized matmuls a put (asserted); "
+        f"engine built in {build_s:.2f} s")
+    if cfg.moe_dropless:
+        if len(sizes) != L * puts:
+            raise AssertionError(f"[{label}] {len(sizes)} group-size reads "
+                                 f"for {puts} puts x {L} layers")
+        sync = [s for _, s in sizes]
+        first = [g for g, _ in sizes[:L]]
+        res["sync"] = {"reads": len(sync), "total_s": sum(sync),
+                       "median_ms": 1e3 * float(np.median(sync)),
+                       "max_ms": 1e3 * max(sync)}
+        log(f"[{label}] group sizes of the first put's {L} layers: {first}; "
+            f"{len(sync)} host reads (one a layer a put) took "
+            f"{sum(sync):.3f} s in all, median {res['sync']['median_ms']:.3f}"
+            f" ms, max {res['sync']['max_ms']:.3f} ms (each waits for the "
+            f"work queued before it)")
+    if steps:
+        rng = np.random.default_rng(99)
+        chunks = [rng.integers(0, cfg.vocab_size, 257).tolist(),
+                  rng.integers(0, cfg.vocab_size, 201).tolist()]
+        res["steps"] = compare_steps(
+            functools.partial(moe_step_logits, engine, chunks, {}), label,
+            slack_ulps=1)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_expert_share(cfg, params):
+    """A prefill put (3 rows of 256 tokens: the engine's 768-token put) and
+    a decode put (8 rows of 1) of the MoE engine timed whole (CUDA
+    events), and each MoE piece of one
+    layer timed alone at the same token count on layer 0's weights: the
+    gate (router product and top-2 gating), the dispatch einsum, the
+    expert products and the combine einsum. The MoE share of a put is
+    layers x the pieces' sum over the put's time; the expert products'
+    bound is their weight bytes (decode) or their operations (prefill)."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    engine = InferenceEngineV2(
+        CausalLM(cfg), params, RaggedInferenceEngineConfig(
+            kv_block_size=16, max_chunk_tokens=256,
+            max_ragged_sequence_count=32, kv_blocks=256), device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 257).tolist()
+               for _ in range(8)]
+    uids = list(range(30_000, 30_008))
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    H, M, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    out = {}
+
+    def prefill_put():
+        # three fresh sequences, flushed after
+        fresh = [40_000, 40_001, 40_002]
+        engine.put(fresh, [p[:256] for p in prompts[:3]])
+        for u in fresh:
+            engine.flush(u)
+
+    for lo in (0, 3, 6):
+        engine.put(uids[lo:lo + 3], [p[:256] for p in prompts[lo:lo + 3]])
+
+    def decode_put():
+        # the same decode put each time: the token is trimmed off again
+        engine.put(uids, [[p[256]] for p in prompts])
+        for u in uids:
+            engine.trim_sequence(u, 1)
+
+    try:
+        for step, S, put in (("prefill", 3 * 256, prefill_put),
+                             ("decode", 8, decode_put)):
+            put_ms = time_ms(put, flush, iters=5, warmup=1)
+            h = (torch.randn((S, H), device="cuda") * 0.5).to(torch.bfloat16)
+            router = lp["router_wg"].float()
+            gate_out = sm.top2gating(h.float() @ router,
+                                     cfg.moe_capacity_factor,
+                                     cfg.moe_min_capacity)
+            _, combine, dispatch, _ = gate_out
+            expert_in = torch.einsum("sec,sm->ecm",
+                                     dispatch.to(torch.bfloat16), h)
+            expert_out = sm.expert_mlp(expert_in, lp["w_in"], lp["w_out"],
+                                       lp["w_gate"], "silu", torch.bfloat16)
+            C = combine.shape[-1]
+            t = {
+                "gate": time_ms(lambda: sm.top2gating(
+                    h.float() @ router, cfg.moe_capacity_factor,
+                    cfg.moe_min_capacity), flush, iters=10),
+                "dispatch": time_ms(lambda: torch.einsum(
+                    "sec,sm->ecm", dispatch.to(torch.bfloat16), h), flush,
+                    iters=10),
+                "experts": time_ms(lambda: sm.expert_mlp(
+                    expert_in, lp["w_in"], lp["w_out"], lp["w_gate"],
+                    "silu", torch.bfloat16), flush, iters=10),
+                "combine": time_ms(lambda: torch.einsum(
+                    "sec,ecm->sm", combine.to(torch.bfloat16), expert_out),
+                    flush, iters=10)}
+            w_bytes = 3 * E * H * M * 2
+            flops = 2 * 3 * E * C * H * M
+            bound = max(w_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS)
+            moe_ms = cfg.num_layers * sum(t.values())
+            out[step] = dict(t, put_ms=put_ms, tokens=S, capacity=C,
+                             experts_bound_ms=1e3 * bound,
+                             moe_share=moe_ms / put_ms)
+            log(f"[moe share] {step} put of {S} tokens (capacity {C} a "
+                f"expert): {put_ms:.2f} ms; one layer's gate "
+                f"{t['gate']:.3f} ms, dispatch einsum {t['dispatch']:.3f} ms,"
+                f" expert products {t['experts']:.3f} ms (bound "
+                f"{1e3 * bound:.3f} ms by "
+                f"{'bytes' if w_bytes / PEAK_BYTES_PER_S > flops / PEAK_BF16_FLOPS else 'operations'}"
+                f"), combine einsum {t['combine']:.3f} ms; x "
+                f"{cfg.num_layers} layers = {moe_ms:.2f} ms, "
+                f"{out[step]['moe_share']:.3f} of the put")
+    finally:
+        for u in uids:
+            engine.flush(u)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def moe_drops(record):
+    """Each capacity gate's dropped assignments (k a token, less the
+    dispatched ones) appended to ``record``."""
+    import deepspeed_tpu_torch.models.transformer as tt
+
+    real = {k: getattr(tt, k) for k in ("top1gating", "top2gating")}
+
+    def wrap(name, k):
+        def gate(logits, *a, **kw):
+            out = real[name](logits, *a, **kw)
+            record.append(k * logits.shape[0] - int(out[2].sum()))
+            return out
+        return gate
+
+    tt.top1gating = wrap("top1gating", 1)
+    tt.top2gating = wrap("top2gating", 2)
+    try:
+        yield
+    finally:
+        for k, v in real.items():
+            setattr(tt, k, v)
+
+
+def moe_small_parity():
+    """Small fp32 MoE models (TINY_TEST widths, 4 experts, weights x4) give
+    the same greedy streams through the kernels on the card as through the
+    plain versions on the CPU: top-1 at capacity factor 0.5 and top-2 at
+    the JAX default 1.25, where tokens drop (both runs must drop, and drop
+    alike), and dropless; and the v1 int8 MoE ``generate`` (the expert
+    stacks quantized too) at top-2 and 1.25 gives the CPU's stream. A put's
+    padding rows route and take capacity slots, so where tokens drop these
+    streams hold the paged kernels' rows past n_tokens to the plain
+    version's (``tests/test_torch_moe.py::test_padding_rows_take_capacity``
+    shows that zeroed padding rows move them)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.testing import greedy_generate
+    from deepspeed_tpu_torch.models.transformer import TINY_TEST, CausalLM
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, TINY_TEST.vocab_size, n).tolist()
+               for n in (5, 40, 17, 33, 100)]
+    base = dict(kv_blocks=64, max_chunk_tokens=16, max_ragged_batch_size=32)
+    variants = {"top1 cf 0.5": {"moe_top_k": 1, "moe_capacity_factor": 0.5},
+                "top2 cf 1.25": {"moe_top_k": 2,
+                                 "moe_capacity_factor": 1.25},
+                "dropless": {"moe_dropless": True}}
+    out = {"drops": {}}
+    for name, kw in variants.items():
+        cfg = dataclasses.replace(TINY_TEST, moe_num_experts=4, **kw)
+        model = CausalLM(cfg)
+        params = model.init(torch.Generator("cpu").manual_seed(3),
+                            device="cpu")
+        params = {g: {k: v * 4 if v.dim() >= 2 else v for k, v in sub.items()}
+                  for g, sub in params.items()}
+        streams, drops = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = InferenceEngineV2(model, params,
+                                    RaggedInferenceEngineConfig(**base),
+                                    device=dev)
+            rec = []
+            with moe_drops(rec):
+                streams[dev] = greedy_generate(eng, prompts,
+                                               max_new_tokens=12,
+                                               sequential=False)
+            drops[dev] = rec
+        if streams["cpu"] != streams["cuda"] or drops["cpu"] != drops["cuda"]:
+            raise AssertionError(f"[moe] small fp32 {name}: cpu {streams['cpu']}"
+                                 f" dropping {sum(drops['cpu'])}, cuda "
+                                 f"{streams['cuda']} dropping "
+                                 f"{sum(drops['cuda'])}")
+        if not cfg.moe_dropless and not sum(drops["cuda"]):
+            raise AssertionError(f"[moe] small fp32 {name}: no token dropped")
+        out["drops"][name] = sum(drops["cuda"])
+        dropped = (f"{sum(drops['cuda'])} assignments dropped over "
+                   f"{len(drops['cuda'])} gate calls, call for call as on "
+                   "the CPU" if drops["cuda"] else "no capacity gate")
+        log(f"[moe] small fp32 {name}: greedy streams on the card equal the "
+            f"CPU plain path's ({len(prompts)} requests x 12 tokens), "
+            f"{dropped}")
+    cfg = dataclasses.replace(TINY_TEST, moe_num_experts=4, moe_top_k=2,
+                              moe_capacity_factor=1.25)
+    params = CausalLM(cfg).init(torch.Generator("cpu").manual_seed(4),
+                                device="cpu")
+    params = {g: {k: v * 4 if v.dim() >= 2 else v for k, v in sub.items()}
+              for g, sub in params.items()}
+    gen, drops = {}, {}
+    for dev in ("cpu", "cuda"):
+        reset_launches()
+        eng = deepspeed_tpu_torch.init_inference(
+            CausalLM(cfg), config={"dtype": "fp32", "quant": {
+                "enabled": True, "bits": 8}}, params=params, device=dev)
+        rec = []
+        with moe_drops(rec):
+            gen[dev] = eng.generate(prompts[:3], max_new_tokens=8).cpu()
+        drops[dev] = rec
+        deq = qz.launches["dequantize"]
+    if not torch.equal(gen["cpu"], gen["cuda"]) \
+            or drops["cpu"] != drops["cuda"] or deq == 0:
+        raise AssertionError(f"[moe] v1 int8 MoE generate: cuda "
+                             f"{gen['cuda'].tolist()} vs cpu "
+                             f"{gen['cpu'].tolist()}, drops "
+                             f"{sum(drops['cuda'])} vs {sum(drops['cpu'])}, "
+                             f"{deq} dequantize launches")
+    out["drops"]["v1 top2 cf 1.25"] = sum(drops["cuda"])
+    log(f"[moe] v1 int8 MoE generate on the card equals the CPU's (3 "
+        f"prompts x 8 tokens, top-2 at 1.25, {sum(drops['cuda'])} "
+        f"assignments dropped alike; {deq} dequantize launches)")
+    out["dequantize"] = deq
+    return out
+
+
+def moe_train(label, top_k, checks=False):
+    """MISTRAL_7B's widths at MOE_TRAIN_LAYERS layer with 8 experts through
+    ``initialize``: MOE_TRAIN_STEPS steps of 2 micro steps on 2 rows of
+    MOE_TRAIN_SEQ tokens; finite losses and aux losses, the flash kernels'
+    launches, and (``checks``) one micro step held against the plain
+    attention with the routing replayed."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    cfg = moe_cfg(MOE_TRAIN_LAYERS, moe_top_k=top_k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = {"input_ids": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, MOE_TRAIN_SEQ)).astype(np.int32)}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg), config=dict(TRAIN_CONFIG), training_data=data)
+    n_params = sum(p.numel() for p in tree_tensors(engine.state.params))
+    reset_launches()
+    losses, secs = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch()))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = dict(fa.launches)
+    with torch.no_grad():
+        tokens = torch.as_tensor(data["input_ids"][:1, :-1], device="cuda")
+        _, aux = engine.module.apply(engine.state.params, tokens,
+                                     return_aux=True)
+    aux = float(aux)
+    per = MOE_TRAIN_STEPS * 2 * MOE_TRAIN_LAYERS
+    want = {"fwd": per, "delta": per, "dq": per, "dkv": per}
+    if launches != want or not np.isfinite(losses).all() \
+            or not np.isfinite(aux) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{label}] launches {launches} (want {want}), "
+                             f"losses {losses}, aux {aux}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] {n_params / 1e9:.3f} B parameters; {MOE_TRAIN_STEPS} "
+        f"steps x 2 micro steps of {MOE_TRAIN_SEQ - 1} tokens: losses "
+        f"{[round(x, 4) for x in losses]}, aux loss after {aux:.4f}, step s "
+        f"{[round(x, 2) for x in secs]}, launches {json.dumps(launches)} "
+        f"(asserted), peak {peak:.2f} GB")
+    if checks:
+        micro_step_check(engine, cfg.vocab_size, label=label, tape=[])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "aux": aux,
+            "step_s": secs, "peak_gb": peak}
+
+
+def phase_moe():
+    """MoE at MISTRAL_7B widths with 8 experts: (a) v2 serving, top-2 at
+    the capacity factor 1.25, of MOE_LAYERS layers, bf16, 8 requests x 32
+    greedy tokens through the scheduler, the device time of a put split
+    into the MoE pieces; (b) the same tree with int8 weights (attention and
+    lm_head; the experts stay bf16) and int8 KV; (c) dropless top-1 on the
+    same tree, with its group sizes and host reads; (d) small fp32 models
+    card == CPU; (e) training, top-1 and top-2, at MOE_TRAIN_LAYERS layer.
+    (f), expert parallelism, runs in the distributed phase's ranks. The
+    kernels' launch counts are set to 0 before each served path and read
+    after it."""
+    cfg = moe_cfg(MOE_LAYERS)
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    free_engine()
+    t0 = time.perf_counter()
+    params = CausalLM(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for sub in params.values()
+                 for v in sub.values())
+    experts = sum(params["layers"][k].numel() * 2
+                  for k in ("w_in", "w_out", "w_gate"))
+    log(f"[moe] MISTRAL_7B widths, {cfg.num_layers} layers, {MOE_EXPERTS} "
+        f"experts, top-2: {nbytes / 1e9:.2f} GB of bf16 weights "
+        f"({experts / 1e9:.2f} GB of experts, {experts / 1e9 / cfg.num_layers:.2f}"
+        f" GB a layer), made in {time.perf_counter() - t0:.1f} s")
+    res = {"a": moe_serve("moe a top-2", cfg, params)}
+    res["share"] = moe_expert_share(cfg, params)
+    res["b"] = moe_serve("moe b int8", cfg, params,
+                         quant=dict(weight_quant_enabled=True,
+                                    weight_quant_block=128,
+                                    kv_quant_enabled=True))
+    res["c"] = moe_serve("moe c dropless", dataclasses.replace(
+        cfg, moe_top_k=1, moe_dropless=True), params, steps=False)
+    del params
+    free_engine()
+    res["d"] = moe_small_parity()
+    res["e1"] = moe_train("moe e top-1", 1)
+    res["e2"] = moe_train("moe e top-2", 2, checks=True)
+    return res
+
+
 # ----------------------------------------------------------- distributed
 
 DIST_LAYERS = 2
@@ -6958,7 +7487,23 @@ DIST_PARAM_TOL = 3 * 1e-4
 # qwZ + qgZ against plain stage 3: int8 weights on the wire and int8
 # gradient partials move the loss by far less than this
 DIST_QUANT_TOL = 2e-2
-DIST_CHILD_S = 900          # the ranks' cells, (b)-(d) and (f)-(h)
+DIST_CHILD_S = 900          # the ranks' cells, (b)-(d) and (f)-(i)
+# (i): MoE over expert = DIST_RANKS (4 of the 8 experts a rank) against one
+# process; the second step's loss reads the first step's update. The bf16
+# backward's partial token gradients (and gate gradients) are summed over
+# the expert group after a bf16 rounding the one process does not make, so
+# the leaves upstream of that sum (norms, router, attention) read larger
+# gaps than the expert leaves, whose own gradients each rank computes whole.
+# Limits from readings on an NVIDIA H100 80GB HBM3 at 700 W: the global grad
+# norm 10x the largest (4.47e-05); each expert leaf's accumulated-gradient
+# norm, summed over the ranks' experts, 10x the largest (1.02e-05, w_in);
+# every other leaf's 5x the largest (1.06e-03, mlp_norm_w). The gathered
+# params after the steps are held to DIST_PARAM_TOL, as (h)'s
+MOE_DIST_STEPS = 2
+MOE_DIST_NORM_TOL = 4.5e-4
+MOE_DIST_EXPERT_TOL = 1e-4
+MOE_DIST_LEAF_TOL = 5e-3
+MOE_EXPERT_LEAVES = ("w_in", "w_out", "w_gate")
 # MISTRAL_7B's leaves that stage 3 shards over fsdp: 9 a layer, and of the
 # globals wte, the final norm and lm_head; the untied wte is only indexed,
 # so nothing saves it for the backward and it is not gathered again
@@ -6981,29 +7526,63 @@ def dist_rows():
         0, MISTRAL_7B.vocab_size, (DIST_RANKS, DIST_SEQ)).astype(np.int32)
 
 
-def dist_engine(gas, mesh=None, **zero):
+def dist_engine(gas, mesh=None, cfg=None, **zero):
+    """A training engine over ``mesh`` (one process without one) of ``cfg``
+    (default MISTRAL_7B at DIST_LAYERS layers)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
-    cfg = dataclasses.replace(MISTRAL_7B, num_layers=DIST_LAYERS)
+    cfg = cfg or dataclasses.replace(MISTRAL_7B, num_layers=DIST_LAYERS)
     kw = {} if mesh is None else {"mesh": mesh}
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=CausalLM(cfg), config=dist_config(gas, **zero), **kw)
     return engine
 
 
-def dist_step(engine, rows):
+def dist_step(engine, rows, grads=None):
     """One global step: the rows of the rank's data-parallel index on a mesh
     (a tensor group's ranks read the same), or every row, each a micro step;
-    the loss and the synchronized seconds."""
+    the loss and the synchronized seconds. ``grads``: a list that receives
+    :func:`dist_grad_sumsq` of the accumulated gradients just before the
+    update."""
     mine = rows[engine.dp_rank::engine.dp_world_size] if engine._mesh \
         else rows
     batches = [{"input_ids": mine[r:r + 1]} for r in range(len(mine))]
+    if grads is not None:
+        real = engine.step
+
+        def step():
+            if engine.is_gradient_accumulation_boundary():
+                grads.append(dist_grad_sumsq(engine))
+            return real()
+        engine.step = step
     torch.cuda.synchronize()
     t = time.perf_counter()
-    loss = float(engine.train_batch(iter(batches)))
+    try:
+        loss = float(engine.train_batch(iter(batches)))
+    finally:
+        if grads is not None:
+            del engine.step
     torch.cuda.synchronize()
     return loss, time.perf_counter() - t
+
+
+def dist_grad_sumsq(engine):
+    """Each leaf's sum of squares of its accumulated gradient, over the
+    blocks this rank holds first; summed over the ranks, the whole leaf's.
+    Read where nothing is left to reduce (no data or fsdp axis)."""
+    from deepspeed_tpu_torch.parallel.sharding import is_replica_zero
+    from deepspeed_tpu_torch.runtime.engine import _at, _paths
+
+    out = {}
+    for path, acc in _paths(engine.state.grad_acc):
+        if engine._mesh and not is_replica_zero(
+                _at(engine._g_specs, path), engine.topology, engine.rank):
+            continue
+        out[".".join(path)] = sum(
+            float(torch.sum(piece.double() ** 2))
+            for piece in acc.detach().reshape(-1).split(1 << 26))
+    return out
 
 
 def dist_sample(engine):
@@ -7093,25 +7672,28 @@ def dist_held(engine):
 
 
 def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
-             first=0, sample=False, mesh=None, gas=1):
-    """On every rank: a ZeRO engine over ``mesh`` (default fsdp =
-    DIST_RANKS) at ``gas``, ``steps`` steps (saving after 2 when
-    ``save_dir``; loading ``load_dir`` first); the rank's numbers."""
+             first=0, sample=False, mesh=None, gas=1, cfg=None, grads=False):
+    """On every rank: a ZeRO engine of ``cfg`` (``dist_engine``) over
+    ``mesh`` (default fsdp = DIST_RANKS) at ``gas``, ``steps`` steps (saving
+    after 2 when ``save_dir``; loading ``load_dir`` first); the rank's
+    numbers (with ``grads``, each step's :func:`dist_grad_sumsq`)."""
     from deepspeed_tpu_torch import comm
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    engine = dist_engine(gas, mesh=mesh or {"fsdp": DIST_RANKS}, **zero)
+    engine = dist_engine(gas, mesh=mesh or {"fsdp": DIST_RANKS}, cfg=cfg,
+                         **zero)
     if load_dir is not None:
         engine.load_checkpoint(load_dir)
     comm.comms_logger.reset()
     reset_launches()
-    losses, secs = [], []
+    losses, secs, norms, grad_sumsq = [], [], [], []
     for s in range(first, first + steps):
-        loss, sec = dist_step(engine, rows)
+        loss, sec = dist_step(engine, rows, grad_sumsq if grads else None)
         losses.append(loss)
         secs.append(sec)
+        norms.append(engine.get_global_grad_norm())
         if save_dir is not None and s == 1:
             engine.save_checkpoint(save_dir, tag="step2")
     launches = {"flash": dict(fa.launches), "quantize": qz.launches[
@@ -7133,7 +7715,7 @@ def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
         log(f"[distributed r{r}] {label} comms {op}: {c['count']} calls, "
             f"{c['bytes'] / 1e9:.3f} GB, {c['s']:.3f} s, busbw "
             f"{c['busbw_gbs']:.3f} GB/s")
-    want = steps * gas * DIST_LAYERS
+    want = steps * gas * engine.module.cfg.num_layers
     if any(launches["flash"][k] != want for k in ("fwd", "delta", "dq",
                                                    "dkv")):
         raise AssertionError(f"[distributed r{r}] {label}: flash launches "
@@ -7141,10 +7723,10 @@ def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "step_s": secs, "peak": peak,
-            "param_bytes": pbytes, "moment_bytes": mbytes,
+    return {"losses": losses, "step_s": secs, "grad_norms": norms,
+            "peak": peak, "param_bytes": pbytes, "moment_bytes": mbytes,
             "launches": launches, "comms": comms, "staged": staged,
-            "staged_s": staged_s,
+            "staged_s": staged_s, "grad_sumsq": grad_sumsq,
             "gathers": gathers, "sample": sample}
 
 
@@ -7189,6 +7771,12 @@ def dist_rank_main(rank, work):
                             save_dir=os.path.join(work, "tp"), sample=True,
                             mesh={"tensor": DIST_RANKS}, gas=DIST_RANKS)
         out["tp_s"] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+        out["i"] = dist_run("(i) MoE, expert = 2", rows, MOE_DIST_STEPS,
+                            {"stage": 0}, mesh={"expert": DIST_RANKS},
+                            gas=DIST_RANKS, cfg=moe_cfg(MOE_TRAIN_LAYERS),
+                            sample=True, grads=True)
+        out["moe_s"] = round(time.perf_counter() - t, 1)
     finally:
         comm.destroy_distributed()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
@@ -7865,6 +8453,10 @@ def phase_distributed():
                            "step_s": ranks[0]["h"]["step_s"],
                            "comms": ranks[0]["h"]["comms"]}
         secs["fgh_check"] = round(time.perf_counter() - t, 1)
+        # (i): MoE over expert = 2 against one process
+        t = time.perf_counter()
+        moe_summary = moe_dist_check(ranks, rows)
+        secs["i"] = round(time.perf_counter() - t, 1)
         t = time.perf_counter()
         e_loss = dist_nccl_one_rank(work, rows)
         secs["e"] = round(time.perf_counter() - t, 1)
@@ -7878,7 +8470,96 @@ def phase_distributed():
     log(f"[distributed] sub-phases s: {json.dumps(secs)}")
     return {"ref_losses": ref_losses, "ref_step_s": ref_secs,
             "ranks": ranks, "e_loss": e_loss, "secs": secs,
-            "tensor": tp_summary}
+            "tensor": tp_summary, "moe": moe_summary}
+
+
+def moe_dist_check(ranks, rows):
+    """(i): the ranks' MoE engine over expert = 2 (each holding 4 of the 8
+    experts of MISTRAL_7B's widths at MOE_TRAIN_LAYERS layer, the partial
+    outputs summed over the pair) against the same engine in one process:
+    equal losses on both ranks, each within DIST_TOL of one process's; the
+    global grad norms within MOE_DIST_NORM_TOL; each leaf's accumulated
+    gradient norm at every step within MOE_DIST_EXPERT_TOL for the expert
+    leaves (summed over the ranks' experts) and MOE_DIST_LEAF_TOL for the
+    others; the gathered params after the steps within DIST_PARAM_TOL; half
+    the expert bytes a rank."""
+    free_engine()
+    reset_launches()
+    one = dist_engine(2, cfg=moe_cfg(MOE_TRAIN_LAYERS))
+    losses, norms, secs, one_grads = [], [], [], []
+    for _ in range(MOE_DIST_STEPS):
+        loss, sec = dist_step(one, rows, one_grads)
+        losses.append(loss)
+        norms.append(one.get_global_grad_norm())
+        secs.append(sec)
+    held = dist_held(one)
+    one_sample = dist_merge([dist_sample(one)])
+    del one
+    free_engine()
+    for r, res in enumerate(ranks):
+        i = res["i"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(i["losses"], losses)]
+        ngaps = [abs(a - b) / abs(b) for a, b in zip(i["grad_norms"], norms)]
+        if i["losses"] != ranks[0]["i"]["losses"] or max(gaps) > DIST_TOL \
+                or max(ngaps) > MOE_DIST_NORM_TOL \
+                or not i["param_bytes"] < 0.75 * held[0]:
+            raise AssertionError(
+                f"[distributed i] rank {r}: losses {i['losses']} vs "
+                f"{losses} (tolerance {DIST_TOL}), grad norms "
+                f"{i['grad_norms']} vs {norms} (tolerance "
+                f"{MOE_DIST_NORM_TOL}), params held {i['param_bytes']} vs "
+                f"{held[0]}")
+    # each leaf's gradient norm, step by step: the ranks' blocks merged
+    leaf_gaps = {}
+    for s_, want in enumerate(one_grads):
+        got = {}
+        for res in ranks:
+            for k, v in res["i"]["grad_sumsq"][s_].items():
+                got[k] = got.get(k, 0.0) + v
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"[distributed i] gradient leaves "
+                                 f"{sorted(got)} vs {sorted(want)}")
+        for k, v in want.items():
+            gap = abs(math.sqrt(got[k]) - math.sqrt(v)) / math.sqrt(v)
+            leaf_gaps[k] = max(leaf_gaps.get(k, 0.0), gap)
+    def is_expert(k):
+        return k.split(".")[-1] in MOE_EXPERT_LEAVES
+
+    for k, gap in leaf_gaps.items():
+        tol = MOE_DIST_EXPERT_TOL if is_expert(k) else MOE_DIST_LEAF_TOL
+        if gap > tol:
+            raise AssertionError(f"[distributed i] gradient norm of {k} "
+                                 f"{gap:.3g} from one process's (tolerance "
+                                 f"{tol}); every leaf: "
+                                 f"{json.dumps(leaf_gaps)}")
+    experts = max(v for k, v in leaf_gaps.items() if is_expert(k))
+    others = {k: v for k, v in leaf_gaps.items() if not is_expert(k)}
+    worst = max(others, key=others.get)
+    param_gap = dist_compare_samples(
+        dist_merge([res["i"]["sample"] for res in ranks]), one_sample,
+        "distributed i")
+    i = ranks[0]["i"]
+    log(f"[distributed i] MoE over expert = 2: losses "
+        f"{[round(x, 6) for x in i['losses']]} vs one process "
+        f"{[round(x, 6) for x in losses]} (within {max(gaps):.3g}, "
+        f"tolerance {DIST_TOL}); grad norms within {max(ngaps):.3g} "
+        f"(tolerance {MOE_DIST_NORM_TOL}); leaf gradient norms: expert "
+        f"leaves within {experts:.3g} (tolerance {MOE_DIST_EXPERT_TOL}), "
+        f"the others within {leaf_gaps[worst]:.3g} ({worst}; tolerance "
+        f"{MOE_DIST_LEAF_TOL}); every leaf "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in leaf_gaps.items()})}"
+        f"); gathered params within {param_gap:.3g} (tolerance "
+        f"{DIST_PARAM_TOL}); params held a rank "
+        f"{i['param_bytes'] / 1e9:.3f} GB vs {held[0] / 1e9:.3f} GB; step s "
+        f"{[round(x, 2) for x in i['step_s']]} vs "
+        f"{[round(x, 2) for x in secs]}; flash launches "
+        f"{json.dumps(i['launches']['flash'])}; the ranks' cell took "
+        f"{ranks[0]['moe_s']} s")
+    return {"losses": i["losses"], "one_losses": losses,
+            "grad_norms": i["grad_norms"], "one_grad_norms": norms,
+            "leaf_gaps": leaf_gaps, "param_gap": param_gap,
+            "step_s": i["step_s"], "one_step_s": secs,
+            "launches": i["launches"]["flash"], "comms": i["comms"]}
 
 
 def json_scalar(x):
@@ -7916,7 +8597,7 @@ def main(argv=None):
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
                                        "features", "kv_tier", "serving",
                                        "fabric", "train", "train_state",
-                                       "offload", "distributed"],
+                                       "offload", "moe", "distributed"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--offload-result", metavar="PATH",
@@ -7971,10 +8652,10 @@ def main(argv=None):
                  "serving": phase_serving, "fabric": phase_fabric,
                  "train": phase_train,
                  "train_state": phase_train_state,
-                 "offload": phase_offload,
+                 "offload": phase_offload, "moe": phase_moe,
                  "distributed": phase_distributed}[args.only]
         kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
-                                 "fabric", "train_state", "offload",
+                                 "fabric", "train_state", "offload", "moe",
                                  "distributed") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
@@ -7993,6 +8674,7 @@ def main(argv=None):
     fabric = timed("fabric", phase_fabric)
     train = timed("train", phase_train, profile_step=args.profile)
     state = timed("train_state", phase_train_state)
+    moe = timed("moe", phase_moe)
     dist = timed("distributed", phase_distributed)
     log(f"[quant] MISTRAL_7B tokens/s and peak memory, bf16 | int8 weights "
         f"+ int8 KV | fp8 weights + fp8 KV (fewer requests): prefill "
@@ -8102,6 +8784,19 @@ def main(argv=None):
         f"{tp['g bf16']['one_wall_s']:.2f} | {tp['g int8']['one_wall_s']:.2f}"
         f" s; training losses {[round(x, 6) for x in tp['h']['losses']]}, "
         f"step s {[round(x, 2) for x in tp['h']['step_s']]}")
+    ma, mb, mc = moe["a"], moe["b"], moe["c"]
+    log(f"[moe] MISTRAL_7B widths, {MOE_LAYERS} layers, {MOE_EXPERTS} "
+        f"experts: prefill | decode tokens/s top-2 bf16 "
+        f"{ma['prefill_tps']:.1f} | {ma['decode_tps']:.1f}, int8 weights + "
+        f"int8 KV {mb['prefill_tps']:.1f} | {mb['decode_tps']:.1f}, dropless "
+        f"top-1 {mc['prefill_tps']:.1f} | {mc['decode_tps']:.1f} (group-size "
+        f"reads {mc['sync']['total_s']:.3f} s); MoE share of a put prefill "
+        f"{moe['share']['prefill']['moe_share']:.3f}, decode "
+        f"{moe['share']['decode']['moe_share']:.3f}; training step s top-1 "
+        f"{[round(x, 2) for x in moe['e1']['step_s']]}, top-2 "
+        f"{[round(x, 2) for x in moe['e2']['step_s']]}; expert = 2 losses "
+        f"{[round(x, 6) for x in dist['moe']['losses']]} vs one process "
+        f"{[round(x, 6) for x in dist['moe']['one_losses']]}")
     # the flash kernels run on three paths, each counted from 0: the train
     # phase's, the offload headline's and a rank's distributed stage-0 run;
     # quantize on the quant phase's build and dequantize on v1 int8's, and
@@ -8115,6 +8810,25 @@ def main(argv=None):
     for name, path in (("quantize", "quant"), ("dequantize", "v1")):
         by_path[name] = {path: launches[name],
                          "distributed": r0["c"]["launches"][name]}
+    # the MoE paths, each counted from 0 just before it: (a) bf16 and (b)
+    # int8 serving, (d) the small v1 int8 generate, (e) training and (i)
+    # the expert-parallel ranks
+    moe_flash = {k: moe["e1"]["launches"][k] + moe["e2"]["launches"][k]
+                 for k in ("fwd", "dq", "dkv")}
+    by_path["quantize"]["moe"] = mb["quantize_launches"]
+    by_path["dequantize"]["moe"] = moe["d"]["dequantize"]
+    for name, key in (("flash_fwd", "fwd"), ("flash_dq", "dq"),
+                      ("flash_dkv", "dkv")):
+        by_path[name]["moe"] = moe_flash[key]
+        by_path[name]["moe expert-parallel"] = dist["moe"]["launches"][key]
+    by_path["paged_attention"] = {"main": launches["paged_attention"],
+                                  "moe": ma["launches"]["paged_attention"]}
+    by_path["paged_attention_quant"] = {
+        "quant": launches["paged_attention_quant"],
+        "moe": mb["launches"]["paged_attention"]}
+    by_path["quantized_matmul"] = {
+        "quant": launches["quantized_matmul"],
+        "moe": mb["launches"]["quantized_matmul"]}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         t = times[name]

@@ -60,10 +60,12 @@ class InferenceConfig(DSConfigModel):
              and is_hf_checkpoint(str(self.checkpoint)),
              "HF checkpoint loading (config.checkpoint naming an HF "
              "directory; universal checkpoints load)", "queue 1 item 16"),
-            (self.ep_size > 1, f"ep_size={self.ep_size} (expert parallelism)",
-             "queue 1 item 14"),
-            (bool(self.moe), "the moe block (MoE inference)",
-             "queue 1 item 14"),
+            (self.ep_size > 1, f"ep_size={self.ep_size} (expert-parallel "
+             "serving; a MoE model serves whole on each rank)",
+             "queue 1 item 14d-ii"),
+            (bool(self.moe), "the moe block (the JAX package declares it and "
+             "reads none of it; a MoE model's config drives its layers)",
+             "queue 1 item 14d-ii"),
         ]
         for on, feature, item in checks:
             if on:

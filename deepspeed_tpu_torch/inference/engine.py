@@ -118,6 +118,10 @@ class InferenceEngine:
         if not hasattr(model, "decode_step_paged"):
             raise not_ported("encoder models (models/encoder.py: encode, mlm, "
                              "classify)", "queue 1 item 16")
+        if self.topology is not None and model.cfg.moe_num_experts > 0 \
+                and self.topology.axis_size(topo.EXPERT_AXIS) > 1:
+            raise not_ported("expert-parallel serving (a MoE model over an "
+                             "expert mesh axis)", "queue 1 item 14d-ii")
         dtype = _DTYPES.get(str(self.config.dtype), torch.bfloat16)
         if model.cfg.dtype != dtype:
             model = type(model)(dataclasses.replace(model.cfg, dtype=dtype))

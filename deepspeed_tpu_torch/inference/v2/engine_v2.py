@@ -134,6 +134,10 @@ class InferenceEngineV2:
         self.topology = None if mesh is None else topo.mesh_topology(mesh)
         self.tp = 1 if self.topology is None \
             else self.topology.axis_size(topo.TENSOR_AXIS)
+        if self.topology is not None and model.cfg.moe_num_experts > 0 \
+                and self.topology.axis_size(topo.EXPERT_AXIS) > 1:
+            raise not_ported("expert-parallel serving (a MoE model over an "
+                             "expert mesh axis)", "queue 1 item 14d-ii")
         if self.tp > 1:
             topo.set_topology(self.topology)
             model = model.tensor_parallel(self.tp)

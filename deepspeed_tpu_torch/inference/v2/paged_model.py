@@ -167,7 +167,7 @@ class PagedCausalLM:
                 attn_out = model._row_linear(attn.reshape(N, C, nh * hd),
                                              lp["wo"], lp.get("wo_b"), dt,
                                              model.tp)
-                return model._attn_mlp_merge(x, attn_out, lp, h1)
+                return model._attn_mlp_merge(x, attn_out, lp, h1)[0]
             return block
 
         x = model._scan_layers(block_for, x, params["layers"])

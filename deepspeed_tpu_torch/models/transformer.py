@@ -32,6 +32,17 @@ reduce. Embeddings, norms and the unembedding are replicated, so the logits
 come out whole on every rank. An MLP width that does not divide stays
 replicated, as the sharding plan drops a tensor entry that does not divide.
 
+MoE (``moe_num_experts`` > 0): every MLP is a top-1 or top-2 GShard MoE
+(``moe/sharded_moe.py``) or, with ``moe_dropless``, a top-1 dropless one
+(``moe/grouped.py``) over the stacked ``[L, E, ...]`` expert leaves, and
+``apply(return_aux=True)`` sums the layers' load-balancing losses, which
+``loss`` adds at ``moe_aux_loss_coef``. ``CausalLM(cfg, ep=..., dp=...)``
+(set by the training engine) runs over an ``expert`` group of ``ep`` ranks,
+each holding ``E/ep`` experts and every token row, and routes over a batch
+group (``data`` x ``fsdp``) of ``dp`` ranks, each holding some rows of one
+global batch, with the global batch's capacity and statistics. MoE over a
+``tensor`` axis is refused (ROADMAP queue 1 item 14d-ii).
+
 A param leaf may be a ``inference/quantization.QuantTensor`` (ZeRO-Inference
 weight-only quantization). The model reaches one in three ways only:
 ``_weight(w, dtype)`` dequantizes a whole leaf (linear weights and biases,
@@ -53,10 +64,13 @@ import torch.nn.functional as F
 from .. import comm, not_ported, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
+from ..moe.grouped import dropless_moe_mlp, dropless_moe_mlp_ep
+from ..moe.sharded_moe import (expert_mlp, gumbel, moe_dispatch_combine,
+                               top1gating, top2gating)
 from ..ops.quantizer import quantized_matmul
 from ..parallel.tensor_parallel import (copy_to_tensor_region,
                                         reduce_from_tensor_region)
-from ..parallel.topology import TENSOR_AXIS
+from ..parallel.topology import BATCH_AXES, EXPERT_AXIS, TENSOR_AXIS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -463,7 +477,8 @@ class CausalLM:
          ("lm_head": {"w": [H,V], ("b": [V])})}
     """
 
-    def __init__(self, cfg: TransformerConfig, tp: int = 1):
+    def __init__(self, cfg: TransformerConfig, tp: int = 1, ep: int = 1,
+                 dp: int = 1):
         self.cfg = cfg
         # ZeRO-3 / ZeRO++ hooks (parallel/zeropp.py, set by the training
         # engine): the explicit gather of sharded weights. layer_ runs on
@@ -476,6 +491,9 @@ class CausalLM:
         # are the unit of the split, as the JAX serving path has it
         # (inference/v2/paged_model.py:61-66)
         self.tp = int(tp)
+        E = cfg.moe_num_experts
+        if E > 0 and self.tp > 1:
+            raise not_ported("MoE over a tensor axis", "queue 1 item 14d-ii")
         if self.tp > 1 and (cfg.num_heads % self.tp or cfg.kv_heads % self.tp):
             raise ValueError(
                 f"tensor parallelism needs heads ({cfg.num_heads}) and "
@@ -485,11 +503,25 @@ class CausalLM:
         self.local_heads = cfg.num_heads // self.tp
         self.local_kv_heads = cfg.kv_heads // self.tp
         self.mlp_tp = self.tp if cfg.intermediate_size % self.tp == 0 else 1
+        # expert parallelism: this rank's experts (an expert count that does
+        # not divide stays replicated, as the sharding plan has it)
+        self.dp = int(dp)
+        self.moe_ep = int(ep) if E > 0 and E % int(ep) == 0 else 1
+        self.expert_rank = (comm.axis_index(EXPERT_AXIS) if self.moe_ep > 1
+                            else 0)
+        # the batch group whose ranks hold the rows of one global batch:
+        # routing statistics and capacity are the global batch's
+        self.batch_group = BATCH_AXES if E > 0 and self.dp > 1 else None
 
     def tensor_parallel(self, tp: int) -> "CausalLM":
         """This model's config over ``tp`` ranks of the ``tensor`` axis (a
         new model; hooks are not carried over)."""
-        return type(self)(self.cfg, tp=tp)
+        return type(self)(self.cfg, tp=tp, ep=self.moe_ep, dp=self.dp)
+
+    def expert_parallel(self, ep: int, dp: int = 1) -> "CausalLM":
+        """This model over an ``expert`` group of ``ep`` ranks and a batch
+        group of ``dp`` ranks (a new model; hooks are not carried over)."""
+        return type(self)(self.cfg, tp=self.tp, ep=ep, dp=dp)
 
     def head_slopes(self, device=None) -> torch.Tensor:
         """The ALiBi slopes of this rank's query heads (the JAX
@@ -515,8 +547,6 @@ class CausalLM:
         on its own, so no fp32 copy of a whole stacked leaf is ever made.
         ``generator`` must live on ``device``."""
         cfg = self.cfg
-        if cfg.moe_num_experts > 0:
-            raise not_ported("MoE layers", "queue 1 item 14")
         device = resolve_device(device)
         dtype = dtype or torch.float32
         if generator is None:
@@ -554,10 +584,17 @@ class CausalLM:
         }
         if not cfg.shared_layernorm:
             layers["mlp_norm_w"] = const((L, h), 1.0)
-        layers["w_in"] = layer_stack((h, m))
-        layers["w_out"] = layer_stack((m, h), scale=std / math.sqrt(2 * L))
+        E = cfg.moe_num_experts
+        # MoE: the router and the [L, E, ...] expert stacks (JAX :587-592)
+        ex = (E,) if E > 0 else ()
+        if E > 0:
+            layers["router_wg"] = layer_stack((h, E),
+                                              scale=1.0 / math.sqrt(h))
+        layers["w_in"] = layer_stack(ex + (h, m))
+        layers["w_out"] = layer_stack(ex + (m, h),
+                                      scale=std / math.sqrt(2 * L))
         if cfg.activation == "silu":
-            layers["w_gate"] = layer_stack((h, m))
+            layers["w_gate"] = layer_stack(ex + (h, m))
         mlp_bias = cfg.use_bias if cfg.mlp_bias is None else cfg.mlp_bias
         if cfg.norm == "layernorm":
             layers["attn_norm_b"] = const((L, h), 0.0)
@@ -572,7 +609,7 @@ class CausalLM:
         if mlp_bias:
             layers["w_in_b"] = const((L, m), 0.0)
             layers["w_out_b"] = const((L, h), 0.0)
-            if cfg.activation == "silu":
+            if cfg.activation == "silu" and E == 0:
                 layers["w_gate_b"] = const((L, m), 0.0)
 
         params = {"embed": {"wte": normal((v, h))}, "layers": layers,
@@ -606,11 +643,16 @@ class CausalLM:
             k = apply_rope(k, cos, sin, cfg.rope_interleaved)
         return q, k, v
 
-    def _block(self, x, lp, cos, sin, window=0):
-        return self._block_kv(x, lp, cos, sin, window)[0]
+    def _block(self, x, lp, cos, sin, window=0, noise=None):
+        """The forward block: (x, its MLP's aux loss; None for a dense
+        MLP), as the JAX ``_block``. ``noise``: the top-2 gate's Gumbel
+        draw."""
+        x, _, _, aux = self._block_kv(x, lp, cos, sin, window, noise)
+        return x, aux
 
-    def _block_kv(self, x, lp, cos, sin, window=0):
-        """Forward block that also returns this layer's K/V (for prefill)."""
+    def _block_kv(self, x, lp, cos, sin, window=0, noise=None):
+        """Forward block that also returns this layer's K/V (for prefill):
+        (x, k, v, the MLP's aux loss)."""
         cfg = self.cfg
         B, T, _ = x.shape
         h1 = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm,
@@ -622,28 +664,31 @@ class CausalLM:
                           slopes=slopes)
         attn = self._row_linear(attn.reshape(B, T, -1), lp["wo"],
                                 lp.get("wo_b"), cfg.dtype, self.tp)
-        return self._attn_mlp_merge(x, attn, lp, h1), k, v
+        x, aux = self._attn_mlp_merge(x, attn, lp, h1, noise)
+        return x, k, v, aux
 
     # -- forward ------------------------------------------------------------
     def apply(self, params, tokens, rng=None, deterministic: bool = True,
               positions=None, return_aux: bool = False):
         """tokens [B, T] integers → logits [B, T, V] (in compute dtype).
-        With ``return_aux``, returns (logits, moe_aux_loss); the aux loss is
-        0 for the dense models the port runs. ``cfg.remat`` recomputes each
+        With ``return_aux``, returns (logits, moe_aux_loss): the sum of the
+        MoE layers' load-balancing losses, 0 for a dense model. ``rng``, a
+        ``torch.Generator``, draws the top-2 gates' Gumbel noise when
+        ``deterministic`` is off (the JAX gates' ``rng``; the draws are
+        torch's own). ``cfg.remat`` recomputes each
         block in the backward (``torch.utils.checkpoint``) under
         ``cfg.remat_policy``: ``None`` and ``"nothing_saveable"`` recompute
         the whole block, ``"dots_saveable"`` keeps the matrix products'
         outputs (``runtime/activation_checkpointing.py``); another name
         raises ``ValueError``. Differentiable in the param tree's leaves."""
         cfg = self.cfg
-        if cfg.moe_num_experts > 0:
-            raise not_ported("MoE layers", "queue 1 item 14")
         if cfg.dropout > 0 and not deterministic:
             raise not_ported("dropout in CausalLM.apply (the masks would "
                              "have to equal jax.random's)",
                              "queue 1 item 17")
         if cfg.pipeline_microbatches:
-            raise not_ported("pipeline parallelism", "queue 1 item 14")
+            raise not_ported("pipeline parallelism (with or without MoE)",
+                             "queue 1 item 14e")
         B, T = tokens.shape
         dev = tokens.device
         if self.global_transform is not None:
@@ -677,16 +722,29 @@ class CausalLM:
 
             remat_kw = checkpoint_kwargs(cfg.remat_policy)
 
+        # the top-2 gates' noise, drawn before the block so that a
+        # recomputed block reads the same draw
+        gen = (rng if not deterministic and isinstance(rng, torch.Generator)
+               and cfg.moe_num_experts > 0 and cfg.moe_top_k == 2
+               and not cfg.moe_dropless else None)
+        auxs = []
+
         def block_for(window):
             def block(x, lp, layer):
                 if self.layer_transform is not None:
                     lp = self.layer_transform(lp)
+                noise = None if gen is None else gumbel(
+                    (B * T, cfg.moe_num_experts), gen, dev)
                 if remat_kw is not None and torch.is_grad_enabled():
                     from torch.utils.checkpoint import checkpoint
 
-                    return checkpoint(self._block, x, lp, cos, sin, window,
-                                      **remat_kw)
-                return self._block(x, lp, cos, sin, window)
+                    x, aux = checkpoint(self._block, x, lp, cos, sin,
+                                        window, noise, **remat_kw)
+                else:
+                    x, aux = self._block(x, lp, cos, sin, window, noise)
+                if aux is not None:
+                    auxs.append(aux)
+                return x
             return block
 
         x = self._scan_layers(block_for, x, params["layers"])
@@ -694,7 +752,9 @@ class CausalLM:
                   cfg.norm, cfg.norm_eps)
         logits = self._unembed(params, x)
         if return_aux:
-            return logits, torch.zeros((), dtype=torch.float32, device=dev)
+            aux = (torch.stack(auxs).sum() if auxs
+                   else torch.zeros((), dtype=torch.float32, device=dev))
+            return logits, aux
         return logits
 
     # -- sharding specs -----------------------------------------------------
@@ -760,6 +820,12 @@ class CausalLM:
                 specs["lm_head"]["b"] = spec("vocab")
         return specs
 
+    def fp32_layer_leaves(self) -> Tuple[str, ...]:
+        """The stacked layer matrices this model reads in fp32 (the MoE
+        router: its logits and gates are fp32, JAX :744); the others are
+        read in the compute dtype. A stage-3 gather keeps these fp32."""
+        return ("router_wg",) if self.cfg.moe_num_experts > 0 else ()
+
     # -- loss ---------------------------------------------------------------
     def loss(self, params, batch, rng=None):
         """batch: {"input_ids": [B,T]} (labels = shifted inputs) or
@@ -771,24 +837,31 @@ class CausalLM:
             labels = tokens[:, 1:]
             tokens = tokens[:, :-1]
         mask = batch.get("loss_mask")
-        logits, _ = self.apply(params, tokens, rng=rng,
-                               deterministic=rng is None, return_aux=True)
+        logits, aux = self.apply(params, tokens, rng=rng,
+                                 deterministic=rng is None, return_aux=True)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = logz - gold
         if mask is not None:
             mask = mask.to(nll.dtype)
-            return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
-        return torch.mean(nll)
+            loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+        else:
+            loss = torch.mean(nll)
+        if self.cfg.moe_num_experts > 0:
+            loss = loss + self.cfg.moe_aux_loss_coef * aux
+        return loss
 
     def num_params(self) -> int:
         return self.cfg.num_params()
 
-    def _mlp_body(self, h2, lp):
-        """Dense FFN on normed input (SwiGLU for silu; gelu is the tanh
-        approximation, gelu_exact the erf form)."""
+    def _mlp_body(self, h2, lp, noise=None):
+        """The FFN on normed input: (y, aux loss), the MoE FFN
+        (:meth:`_moe_mlp`) or the dense one, whose aux is None (SwiGLU for
+        silu; gelu is the tanh approximation, gelu_exact the erf form)."""
         cfg = self.cfg
+        if cfg.moe_num_experts > 0:
+            return self._moe_mlp(h2, lp, noise)
         dt = cfg.dtype
         h2 = copy_to_tensor_region(h2, self.mlp_tp)
         if cfg.activation == "silu":
@@ -798,7 +871,48 @@ class CausalLM:
             act = _ACTIVATIONS.get(cfg.activation, _ACTIVATIONS["gelu"])
             y = act(_linear(h2, lp["w_in"], lp.get("w_in_b"), dt))
         return self._row_linear(y, lp["w_out"], lp.get("w_out_b"), dt,
-                                self.mlp_tp)
+                                self.mlp_tp), None
+
+    def _moe_mlp(self, h2, lp, noise=None):
+        """The GShard top-k MoE MLP (JAX :744-799) over the stacked expert
+        weights (this rank's experts under expert parallelism), or the
+        top-1 dropless one. Returns (y, l_aux)."""
+        cfg = self.cfg
+        B, T, M = h2.shape
+        dt = cfg.dtype
+        tokens = h2.reshape(B * T, M)
+        logits = tokens.float() @ _weight(lp["router_wg"], torch.float32)
+        experts = (lp["w_in"], lp["w_out"], lp.get("w_gate"))
+        if cfg.moe_dropless:
+            if cfg.moe_top_k != 1:
+                raise ValueError("moe_dropless supports top-1 routing")
+            if self.moe_ep > 1:
+                y, l_aux = dropless_moe_mlp_ep(
+                    tokens, logits, *experts, ep=self.moe_ep,
+                    expert_index=self.expert_rank, activation=cfg.activation,
+                    dtype=dt, group=self.batch_group)
+            else:
+                y, l_aux = dropless_moe_mlp(
+                    tokens, logits, *experts, activation=cfg.activation,
+                    dtype=dt, group=self.batch_group)
+            return y.reshape(B, T, M), l_aux
+        if cfg.moe_top_k == 1:
+            l_aux, combine, dispatch, _ = top1gating(
+                logits, cfg.moe_capacity_factor, cfg.moe_min_capacity,
+                group=self.batch_group)
+        else:
+            l_aux, combine, dispatch, _ = top2gating(
+                logits, cfg.moe_capacity_factor, cfg.moe_min_capacity,
+                noise=noise, group=self.batch_group)
+
+        def expert_fn(expert_in):  # [E/ep, C, M]
+            return expert_mlp(expert_in, *experts, cfg.activation, dt)
+
+        el = cfg.moe_num_experts // self.moe_ep
+        y = moe_dispatch_combine(tokens.to(dt), combine, dispatch, expert_fn,
+                                 ep=self.moe_ep,
+                                 first_expert=self.expert_rank * el)
+        return y.reshape(B, T, M), l_aux
 
     def _scan_layers(self, body_for_window: Callable, carry,
                      layer_params: Dict[str, torch.Tensor]):
@@ -848,17 +962,21 @@ class CausalLM:
             y = y + _weight(params["lm_head"]["b"], cfg.dtype)
         return y
 
-    def _attn_mlp_merge(self, x, attn_out, lp, h1=None):
+    def _attn_mlp_merge(self, x, attn_out, lp, h1=None, noise=None):
         """Residual wiring: sequential (mlp reads post-attention), parallel
         (both branches read x), or shared-layernorm parallel (GPT-J: the
-        mlp reads the same normed h1 the attention read)."""
+        mlp reads the same normed h1 the attention read). Returns (x, the
+        MLP's aux loss); the inference blocks drop the aux, as the JAX
+        ``_attn_mlp_merge`` does."""
         cfg = self.cfg
         if cfg.shared_layernorm:
-            return x + attn_out + self._mlp_body(h1, lp)
-        mlp_in = x if cfg.parallel_residual else x + attn_out
-        h2 = _norm(mlp_in, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg.norm,
-                   cfg.norm_eps)
-        return x + attn_out + self._mlp_body(h2, lp)
+            h2 = h1
+        else:
+            mlp_in = x if cfg.parallel_residual else x + attn_out
+            h2 = _norm(mlp_in, lp["mlp_norm_w"], lp.get("mlp_norm_b"),
+                       cfg.norm, cfg.norm_eps)
+        y, aux = self._mlp_body(h2, lp, noise)
+        return x + attn_out + y, aux
 
     # -- KV-cache inference (v1): the cache is written in place ---------------
     def _pos_tables(self, T, positions, device):
@@ -911,7 +1029,7 @@ class CausalLM:
 
         def body_for(win):
             def body(x, lp, layer):
-                x, k, v = self._block_kv(x, lp, cos, sin, window=win)
+                x, k, v, _ = self._block_kv(x, lp, cos, sin, window=win)
                 write_kv(layer, k, v)
                 return x
             return body
@@ -981,7 +1099,7 @@ class CausalLM:
                                    scale=cfg.attn_scale)
         attn = self._row_linear(attn.reshape(B, 1, -1), lp["wo"],
                                 lp.get("wo_b"), cfg.dtype, self.tp)
-        return self._attn_mlp_merge(x, attn, lp, h1)
+        return self._attn_mlp_merge(x, attn, lp, h1)[0]
 
     # -- paged KV-cache inference (v1 decode through the paged kernel) --------
     def init_paged_cache(self, batch_size: int, max_len: int,
@@ -1061,7 +1179,7 @@ class CausalLM:
                                        sm_scale=cfg.attn_scale)
                 attn = self._row_linear(attn.reshape(B, 1, -1), lp["wo"],
                                         lp.get("wo_b"), cfg.dtype, self.tp)
-                return self._attn_mlp_merge(x, attn, lp, h1)
+                return self._attn_mlp_merge(x, attn, lp, h1)[0]
             return body
 
         x = self._scan_layers(body_for, x, params["layers"])

@@ -11,10 +11,16 @@
 // slot (b, s) of its table, at position b*bs + s, when kv <= q and
 // kv < start_pos + n_tokens; with a window also when q - kv < window; with
 // ALiBi the logit gains slope[h] * kv. Head h reads KV head h / G. Softmax is
-// online and in fp32; the output has q's dtype. A row that attends nothing
-// (a padded row with n_tokens = 0) writes zeros, as the Pallas kernel's
-// acc / max(l, 1e-30) does; so does every row past n_tokens (the contract
-// leaves those rows unspecified; zeros keep the output finite). Quantized pools (int8 or float8_e4m3fn) carry
+// online and in fp32; the output has q's dtype. Rows past n_tokens are
+// computed like the others, as the Pallas kernel computes every row of its
+// [G*C, D] group: such a row sits past the context, so it attends the whole
+// valid context (within its window). A MoE put routes those rows, and they
+// take capacity slots, so they must be the reference's. A row that attends
+// nothing (every row of a padded sequence, whose table is all -1, or a row
+// further than the window past the context) is the mean of V over the
+// table's MB * bs gathered slots: the plain version's softmax over scores
+// that are all masked is uniform (the XLA reference's too; the Pallas
+// kernel's acc / max(l, 1e-30) writes 0 there). Quantized pools (int8 or float8_e4m3fn) carry
 // one f32 scale per (block, KV head), k_scale/v_scale [NB, KH]: each staged
 // K/V element is converted to fp32 and multiplied by its block's scale, as
 // the Pallas kernel dequantizes each block in VMEM right after its DMA; the
@@ -115,6 +121,36 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+
+// Column d of KV head kh for a row that attends nothing: the mean of V over
+// the MB * bs slots that the table gathers (negative entries read block 0),
+// each code times its block's scale for a quantized pool. A run of equal
+// table entries is read once and weighted by its length. A slow path: only
+// padded sequences and rows past the window take it, so it is a call (not
+// inlined into the kernels' unrolled epilogues).
+template <typename P>
+__device__ __noinline__ float gathered_mean(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
+                               const int* __restrict__ tbl, int MB, int bs, int NB, int KH,
+                               int kh, int D, int d) {
+  float sum = 0.f;
+  for (int b = 0; b < MB;) {
+    const int blk = min(max(tbl[b], 0), NB - 1);
+    int run = 1;
+    while (b + run < MB && min(max(tbl[b + run], 0), NB - 1) == blk) ++run;
+    const float sc = v_scale != nullptr ? v_scale[(size_t)blk * KH + kh] : 1.f;
+    const P* src = v_pool + ((size_t)blk * KH + kh) * bs * D + d;
+    float part = 0.f;
+    for (int t = 0; t < bs; ++t) part += to_f32(src[(size_t)t * D]) * sc;
+    sum += part * (float)run;
+    b += run;
+  }
+  return sum / (float)(MB * bs);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -165,19 +201,17 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   const int ctx = startp + ntok;
   const int* tbl = tables + (size_t)n * MB;
 
-  // This tile's rows r = g*C + ci span chunk positions [ci_min, ci_max],
-  // rows past the chunk's tokens (ci >= n_tokens) left out: they attend
-  // nothing and are written as zeros.
+  // This tile's rows r = g*C + ci span chunk positions [ci_min, ci_max]
+  // (rows past n_tokens included).
   int ci_min = C, ci_max = -1;
   for (int r = r0; r < min(r0 + ROWS, GC); ++r) {
     const int ci = r % C;
-    if (ci >= ntok) continue;
     ci_min = min(ci_min, ci);
     ci_max = max(ci_max, ci);
   }
   // Live positions: [lo, hi). Nothing past the context or the table, and no
   // row of this tile attends past its own position; with a window nothing
-  // before startp + ci_min - window + 1. No live row: nothing.
+  // before startp + ci_min - window + 1.
   const int hi = ci_max < 0 ? 0 : min(min(ctx, MB * bs), startp + ci_max + 1);
   const int lo = ci_max < 0 ? 0 : window > 0 ? max(0, startp + ci_min - window + 1) : 0;
 
@@ -205,8 +239,7 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   for (int i = 0; i < RW; ++i) {
     const int r = r0 + warp * RW + i;
     const int g = r / C;
-    // -1: no such row, or a row past n_tokens
-    qpos[i] = r < GC && r - g * C < ntok ? startp + (r - g * C) : -1;
+    qpos[i] = r < GC ? startp + (r - g * C) : -1;  // -1: no such row
     slope[i] = (slopes != nullptr && r < GC) ? slopes[kh * G + g] : 0.f;
     m[i] = -INFINITY;
     l[i] = 0.f;
@@ -310,12 +343,17 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
     const int r = r0 + warp * RW + i;
     if (r >= GC) continue;
     const int g = r / C, ci = r - (r / C) * C;
-    const float den = fmaxf(l[i], 1e-30f);
     T* dst = out + ((size_t)(n * C + ci) * H + kh * G + g) * D;
+    if (l[i] == 0.f) {  // attended nothing (warp-uniform): the gathered mean
+#pragma unroll 1
+      for (int d = lane; d < D; d += 32)
+        store(dst + d, gathered_mean(v_pool, v_scale, tbl, MB, bs, NB, KH, kh, D, d));
+      continue;
+    }
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) store(dst + d, acc[i][c] / den);
+      if (d < D) store(dst + d, acc[i][c] / l[i]);
     }
   }
 }
@@ -397,9 +435,9 @@ cudaError_t launch_t(int rows_per_warp, int dch, const void* q,
 // rounded once to bf16, as the plain version rounds its dequantized
 // context) into the bf16 tiles the products read. sm_scale multiplies the
 // fp32 logits, ALiBi adds slope * position in fp32, and the masks
-// (causal, context, window, rows past n_tokens) are applied only on tiles
-// that cross an edge. Rows past n_tokens are written as zeros; a block
-// whose rows all lie there writes zeros and returns.
+// (causal, context, window) are applied only on tiles that cross an edge.
+// Rows past n_tokens attend the context like the others; a row that
+// attended nothing takes gathered_mean.
 
 constexpr int kPfRows = 64;   // query rows a block
 constexpr int kPfTile = 64;   // KV positions a tile
@@ -461,37 +499,27 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict
   const int startp = start_pos[n], ntok = n_tokens[n];
   const int* tbl = tables + (size_t)n * MB;
 
-  // the tile's chunk positions, capped by the chunk's own tokens
+  // the tile's chunk positions
   const int ci_lo = r0 / G;
-  const int ci_hi = min((r_end - 1) / G, ntok - 1);
-  if (ci_lo > ci_hi) {  // every row lies past n_tokens: zeros
-    for (int i = tid; i < (r_end - r0) * (HD / 8); i += kThreads) {
-      const int r = r0 + i / (HD / 8), d = (i % (HD / 8)) * 8;
-      const int ci = r / G, g = r - ci * G;
-      *reinterpret_cast<uint4*>(out + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-    return;
-  }
+  const int ci_hi = (r_end - 1) / G;
   const int cap = min(startp + ntok, MB * bs);  // context and table
   const int hi = min(cap, startp + ci_hi + 1);
   const int lo = window > 0 ? max(0, startp + ci_lo - window + 1) : 0;
   const int first = (lo / kPfTile) * kPfTile;
   const int n_tiles = hi > first ? (hi - first + kPfTile - 1) / kPfTile : 0;
-  // every row of the tile is a live row
-  const bool full = r0 + kPfRows <= GC && (r0 + kPfRows - 1) / G < ntok;
+  // every row of the tile is a row of the group
+  const bool full = r0 + kPfRows <= GC;
 
   // this thread's two rows: chunk position, query position (-1: past
-  // n_tokens or past G * C, attends nothing), ALiBi slope
+  // G * C, attends nothing), ALiBi slope
   int qpos[2];
   float slope[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = r0 + m0 + gid + 8 * hf;
     const int ci = r / G, g = r - ci * G;
-    const bool live = r < GC && ci < ntok;
-    qpos[hf] = live ? startp + ci : -1;
-    slope[hf] = (slopes != nullptr && live) ? slopes[kh * G + g] : 0.f;
+    qpos[hf] = r < GC ? startp + ci : -1;
+    slope[hf] = (slopes != nullptr && r < GC) ? slopes[kh * G + g] : 0.f;
   }
 
   // Q rows: 16-byte chunks; rows past G * C are zero
@@ -630,9 +658,16 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict
     const int r = r0 + m0 + gid + 8 * hf;
     if (r >= GC) continue;
     const int ci = r / G, g = r - ci * G;
-    // a row past n_tokens has l = 0 and acc = 0: zeros
-    const float inv = 1.f / fmaxf(l_r[hf], 1e-30f);
     __nv_bfloat16* dst = out + ((size_t)(n * C + ci) * H + kh * G + g) * HD;
+    if (l_r[hf] == 0.f) {  // attended nothing: the gathered mean of this thread's columns
+#pragma unroll 1
+      for (int c = tig * 2; c < HD; c += 8)
+        *reinterpret_cast<uint32_t*>(dst + c) =
+            pack2(gathered_mean(v_pool, v_scale, tbl, MB, bs, NB, KH, kh, HD, c),
+                  gathered_mean(v_pool, v_scale, tbl, MB, bs, NB, KH, kh, HD, c + 1));
+      continue;
+    }
+    const float inv = 1.f / l_r[hf];
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<uint32_t*>(dst + dt * 8 + tig * 2) =
@@ -694,8 +729,9 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_pool, const void* v_p
 // partial to fp32 scratch [N, KH, n_split, R] (m, l) and [.., R, D] (acc).
 // paged_decode_combine_kernel then merges the pieces of each (sequence, KV
 // head) in piece order and writes the rows: the same inputs give the same
-// bits on every run. Rows past n_tokens, and rows that attend nothing, have
-// l = 0 in every piece and are written as zeros.
+// bits on every run. Rows past n_tokens attend the context as the others
+// do; a row that attends nothing has l = 0 in every piece, and the combine
+// writes its gathered_mean.
 
 constexpr int kSplitPiece = 256;                                  // positions a block
 constexpr int kSplitTile = 32;                                    // positions a warp tile
@@ -741,10 +777,6 @@ __device__ __forceinline__ void chunk_f32(const P*, uint4 raw, float* f) {
   for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
 }
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
-
 // DCH adjacent values of a staged row to fp32, in one 2-, 4- or 8-byte read
 template <int DCH, typename P>
 __device__ __forceinline__ void cols_f32(const P* p, float* f) {
@@ -785,11 +817,10 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const P* __restri
   const int* tbl = tables + (size_t)n * MB;
   const size_t piece = ((size_t)n * KH + kh) * n_split + j;
 
-  // the group's live span, as paged_attention_kernel's: rows r = g * C + ci
-  // with ci < n_tokens; then this piece's share of it
-  const int ci_max = min(C, ntok) - 1;
-  const int hi = ci_max < 0 ? 0 : min(min(startp + ntok, MB * bs), startp + ci_max + 1);
-  const int lo = ci_max < 0 ? 0 : window > 0 ? max(0, startp - window + 1) : 0;
+  // the group's live span, as paged_attention_kernel's (rows r = g * C +
+  // ci, ci < C); then this piece's share of it
+  const int hi = min(min(startp + ntok, MB * bs), startp + C);
+  const int lo = window > 0 ? max(0, startp - window + 1) : 0;
   const int p0 = (lo / kSplitPiece) * kSplitPiece + j * kSplitPiece;
   const int p_lo = max(p0, lo), p_hi = min(p0 + kSplitPiece, hi);
   if (p_lo >= p_hi) {  // nothing live here: a neutral partial
@@ -846,8 +877,7 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const P* __restri
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int g = r / C, ci = r - g * C;
-    // -1: no such row, or a row past n_tokens
-    qpos[r] = r < R && ci < ntok ? startp + ci : -1;
+    qpos[r] = r < R ? startp + ci : -1;  // -1: no such row
     slope[r] = (slopes != nullptr && r < R) ? slopes[kh * G + g] : 0.f;
     m[r] = -INFINITY;
     l[r] = 0.f;
@@ -980,11 +1010,14 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const P* __restri
 }
 
 // grid (N, KH); 128 threads. Merges the n_split pieces of each row in piece
-// order and writes out [N, C, H, HD] in bf16 (rows past n_tokens: zeros).
-template <int HD>
+// order and writes out [N, C, H, HD] in bf16 (a row no piece saw: its
+// gathered_mean).
+template <typename P, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                            __nv_bfloat16* __restrict__ out, int C, int H, int KH, int n_split) {
+                            const P* __restrict__ v_pool, const float* __restrict__ v_scale,
+                            const int* __restrict__ tables, __nv_bfloat16* __restrict__ out,
+                            int C, int H, int NB, int KH, int bs, int MB, int n_split) {
   const int n = blockIdx.x, kh = blockIdx.y;
   const int G = H / KH, R = G * C;
   const size_t first = ((size_t)n * KH + kh) * n_split;  // piece 0 of this group
@@ -1007,7 +1040,14 @@ paged_decode_combine_kernel(const float* __restrict__ part_ml, const float* __re
         a[3] += v.w * sc;
       }
     }
-    const float den = fmaxf(ls, 1e-30f);
+    float den = ls;
+    if (ls == 0.f) {  // no piece saw the row: the gathered mean
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        a[e] = gathered_mean(v_pool, v_scale, tables + (size_t)n * MB, MB, bs, NB, KH, kh, HD,
+                             d + e);
+      den = 1.f;
+    }
     const int g = r / C, ci = r - g * C;
     __nv_bfloat16* dst = out + ((size_t)(n * C + ci) * H + kh * G + g) * HD + d;
     *reinterpret_cast<uint2*>(dst) =
@@ -1036,8 +1076,9 @@ cudaError_t launch_decode_split(const void* q, const void* k_pool, const void* v
       part_ml, part_acc, C, H, NB, KH, bs, MB, window, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine_kernel<HD><<<dim3(N, KH), kThreads, 0, stream>>>(
-      part_ml, part_acc, static_cast<__nv_bfloat16*>(out), C, H, KH, n_split);
+  paged_decode_combine_kernel<P, HD><<<dim3(N, KH), kThreads, 0, stream>>>(
+      part_ml, part_acc, static_cast<const P*>(v_pool), v_scale, tables,
+      static_cast<__nv_bfloat16*>(out), C, H, NB, KH, bs, MB, n_split);
   return cudaGetLastError();
 }
 

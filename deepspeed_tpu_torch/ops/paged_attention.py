@@ -81,9 +81,11 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, start_pos,
                           n_tokens, alibi_slopes=None, window: int = 0,
                           sm_scale=None, k_scale=None, v_scale=None):
     """Dense-gather formulation: gather the table into [N, KH, MB·bs, D]
-    and mask (``paged_attention_xla``). Rows with ``ci >= n_tokens`` are
-    unspecified. ``k_scale``/``v_scale`` [NB, KH]: per-(block, KV head)
-    scales of quantized pools, gathered through the same table."""
+    and mask (``paged_attention_xla``). A row with ``ci >= n_tokens`` sits
+    past the context and attends all of it (within the window); a row that
+    attends nothing gets uniform weights over the MB·bs gathered slots.
+    ``k_scale``/``v_scale`` [NB, KH]: per-(block, KV head) scales of
+    quantized pools, gathered through the same table."""
     N, C, H, D = q.shape
     NB, KH, bs, _ = k_pool.shape
     G = H // KH
@@ -273,9 +275,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, start_pos, n_tokens,
     (entries < 0 = unallocated); start_pos/n_tokens [N] int32. The pool
     must already hold this chunk's K/V (write-then-attend). ``alibi_slopes``
     [H]: ALiBi slopes; ``window`` > 0: sliding window; ``k_scale``/
-    ``v_scale`` [NB, KH] f32: the scales of int8/fp8 pools. Rows beyond
-    n_tokens are unspecified (the kernel writes zeros there). A CPU tensor
-    runs ``paged_attention_torch``; a CUDA tensor runs the kernel or
+    ``v_scale`` [NB, KH] f32: the scales of int8/fp8 pools. Every row is
+    computed, those past n_tokens too: a MoE put routes them, so the kernel
+    gives them what the plain version gives (they attend the context; a row
+    that attends nothing is the mean of V over the gathered slots). A CPU
+    tensor runs ``paged_attention_torch``; a CUDA tensor runs the kernel or
     raises.
     """
     kw = dict(alibi_slopes=alibi_slopes, window=window, sm_scale=sm_scale,

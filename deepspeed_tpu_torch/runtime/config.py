@@ -470,7 +470,8 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_weights or z.zero_quantized_gradients,
              "zero_optimization.zero_quantized_weights/gradients (ZeRO++)",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1 for a in ("data", "fsdp", "tensor")),
+            (any(getattr(m, a) > 1
+                 for a in ("data", "fsdp", "tensor", "expert")),
              "a mesh with more than one device", "queue 1 item 14"),
             (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
         ]
@@ -478,11 +479,12 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_nontrainable_weights,
              "zero_optimization.zero_quantized_nontrainable_weights",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1 for a in ("pipe", "sequence", "expert")),
-             "a pipe, sequence or expert mesh axis (14d-14e)",
-             "queue 1 item 14"),
+            (any(getattr(m, a) > 1 for a in ("pipe", "sequence")),
+             "a pipe or sequence mesh axis (with or without MoE)",
+             "queue 1 item 14e"),
             (self.pipeline.stages > 1 or bool(self.pipeline.micro_batches),
-             "pipeline parallelism", "queue 1 item 14"),
+             "pipeline parallelism (with or without MoE)",
+             "queue 1 item 14e"),
             (self.tensorboard.enabled or self.wandb.enabled
              or self.csv_monitor.enabled,
              "monitors (tensorboard, wandb, csv_monitor)", "queue 1 item 17"),

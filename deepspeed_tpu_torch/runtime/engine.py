@@ -77,9 +77,17 @@ stage-2 reduce-scatter and the stage-3 gather run over ``fsdp`` and leave
 the tensor blocks in place, and the norm counts a replicated leaf once and
 each tensor block of a sharded one once.
 
+An ``expert`` axis (MoE expert parallelism): each rank holds its experts'
+slice of the ``[L, E, ...]`` expert leaves and every token row of its
+micro batch (activations are replicated over ``expert``; the ranks of one
+expert group read the same rows), and the model (``CausalLM(cfg, ep=...,
+dp=...)``) sums each layer's partial MoE output over the group. Expert
+gradients reduce over the batch axes only. A MoE model over ``data`` x
+``fsdp`` routes over the global batch, as the JAX engine does.
+
 ZeRO stages on a one-rank world shard nothing, as in the JAX package.
-Pipeline, sequence and expert axes, 1-bit optimizers, MoE, offload on a
-mesh, curriculum, compression, elasticity, monitors and the flops profiler
+Pipeline and sequence axes, MoE over a tensor axis, 1-bit optimizers,
+offload on a mesh, curriculum, compression, elasticity, monitors and the flops profiler
 raise ``NotImplementedError`` naming their ROADMAP item.
 ZeRO-Infinity's parameter streaming is its own engine
 (``runtime/zero_infinity.py``), which ``initialize`` builds for an
@@ -186,6 +194,7 @@ class DeepSpeedTpuEngine:
         # the mesh branch: every rank a process, blocks and collectives
         self._mesh = self.topology.world_size > 1
         self.tp = self.topology.axis_size(topo.TENSOR_AXIS)
+        self.ep = self.topology.axis_size(topo.EXPERT_AXIS)
         self.dp_world_size = self.topology.get_data_parallel_world_size()
         # this rank's index among the data-parallel replicas: which rows of
         # a global batch it reads (its tensor peers read the same)
@@ -297,10 +306,10 @@ class DeepSpeedTpuEngine:
         group's world (the registry is not consulted: a config's mesh is
         always its own). MiCS then reshapes it as the JAX engine does."""
         t = topo.mesh_topology(self.config.mesh if mesh is None else mesh)
-        for a in (topo.PIPE_AXIS, topo.SEQUENCE_AXIS, topo.EXPERT_AXIS):
+        for a in (topo.PIPE_AXIS, topo.SEQUENCE_AXIS):
             if t.axis_size(a) > 1:
-                raise not_ported(f"a mesh with {a} > 1 (14d-14e)",
-                                 "queue 1 item 14")
+                raise not_ported(f"a mesh with {a} > 1 (with or without "
+                                 "MoE)", "queue 1 item 14e")
         zc = self.config.zero_optimization
         if zc.mics_shard_size and zc.mics_shard_size > 0:
             k = int(zc.mics_shard_size)
@@ -376,6 +385,13 @@ class DeepSpeedTpuEngine:
                 raise ValueError("a tensor axis needs a framework CausalLM "
                                  "(its column- and row-parallel blocks)")
             self.module = self.module.tensor_parallel(self.tp)
+        if isinstance(self.module, CausalLM) \
+                and self.module.cfg.moe_num_experts > 0 \
+                and (self.ep > 1 or self.dp_world_size > 1):
+            # MoE over the mesh: this rank's experts, and routing over the
+            # global batch of the data-parallel ranks
+            self.module = self.module.expert_parallel(self.ep,
+                                                      self.dp_world_size)
         self._scattered = set()
         if self._mesh:
             return self._init_mesh_state(model_parameters)
@@ -508,14 +524,16 @@ class DeepSpeedTpuEngine:
         qg = 8 if zc.zero_quantized_gradients else None
         dt = self.compute_dtype
         layer_specs, l_dtypes = {}, {}
+        fp32 = self.module.fp32_layer_leaves()
         for k, spec in self._p_specs["layers"].items():
             if spec and entry_axes(spec[0]):
                 raise not_ported(f"a stage-3 plan that shards the stacked "
                                  f"layer dim of layers.{k}", "queue 1 item 14")
             layer_specs[k] = spec[1:]
             # matrices are gathered into the compute dtype (the model casts
-            # them so at use); norms and biases stay fp32
-            if len(self._full_shapes[("layers", k)]) > 2:
+            # them so at use); norms, biases and the matrices the model
+            # reads in fp32 stay fp32
+            if len(self._full_shapes[("layers", k)]) > 2 and k not in fp32:
                 l_dtypes[k] = dt
         g_specs = {f"{grp}.{k}": spec
                    for grp in ("embed", "final_norm", "lm_head")

@@ -176,6 +176,10 @@ class ZeroInfinityEngine:
     def __init__(self, model: CausalLM, config, rng=None,
                  group_layers: Optional[int] = None, mesh=None,
                  device=None):
+        if model.cfg.moe_num_experts > 0:
+            raise not_ported("MoE under ZeRO-Infinity streaming (its group "
+                             "program carries no aux loss)",
+                             "queue 1 item 14d-ii")
         if model.cfg.tie_embeddings:
             raise ValueError("ZeRO-Infinity streaming requires "
                              "tie_embeddings=False (wte would need to be "
@@ -269,8 +273,8 @@ class ZeroInfinityEngine:
         window = self.cfg.layer_windows()[0]
         layers = {k: v.unbind(0) for k, v in gp.items()}
         for j in range(len(next(iter(layers.values())))):
-            x = self.module._block(x, {k: v[j] for k, v in layers.items()},
-                                   cos, sin, window)
+            x, _ = self.module._block(
+                x, {k: v[j] for k, v in layers.items()}, cos, sin, window)
         return x
 
     def _embed_fwd(self, ep, tokens, positions):

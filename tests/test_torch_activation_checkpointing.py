@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
 from deepspeed_tpu_torch.runtime.config import load_config
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 POLICIES = [None, "dots_saveable", "nothing_saveable"]
 # tests/test_torch_transformer.py's tolerance for paths with matmuls

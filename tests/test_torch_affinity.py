@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
 from deepspeed_tpu_torch.inference.v2.testing import greedy_generate
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 BS = 8

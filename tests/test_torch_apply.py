@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import (params_from_numpy,
                                                 params_to_numpy)
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 SMALL = dict(num_layers=2, hidden_size=64, intermediate_size=96,
              vocab_size=256, max_seq_len=64, num_heads=4)

@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 JAX = SimpleNamespace(S=j_serving, A=j_autoscaler, T=j_telemetry)
 PORT = SimpleNamespace(S=t_serving, A=t_autoscaler, T=t_telemetry)

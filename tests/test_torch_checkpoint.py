@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.inference.v2.testing import (assert_greedy_parity,
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_to_numpy
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 ENGINE_KW = dict(kv_blocks=48, kv_block_size=16, max_chunk_tokens=16,
                  max_ragged_batch_size=40, max_ragged_sequence_count=4)

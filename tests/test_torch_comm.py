@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.utils import comms_logging as tlog
 
 import torch_rank_cases as cases
 from torch_ranks import RankPool
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 TOPOLOGIES = [
     ({"data": 2, "fsdp": 2}, None, 4),

@@ -33,6 +33,7 @@ from deepspeed_tpu.analysis.declared import \
 from deepspeed_tpu_torch.analysis.__main__ import main as cli_main
 from deepspeed_tpu_torch.analysis.declared import \
     check_declared_names as t_check_declared
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ import torch
 from deepspeed_tpu.ops import cpu_adam as jcpu
 from deepspeed_tpu_torch.ops import cpu_adam as tcpu
 from deepspeed_tpu_torch.ops import op_builder
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 # (optimizer, constructor keywords, size): each keyword variant meets two
 # sizes across the cases, and every optimizer an odd size

@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.serving import (RequestState, ServingConfig,
                                          ServingFrontend)
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 BS = 8

@@ -13,6 +13,7 @@ against the JAX engine on the CPU, plus the port's hygiene rules.
   tier); the prefix cache and the admission options build an engine.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ from deepspeed_tpu_torch.inference.v2.testing import (assert_greedy_parity,
                                                       greedy_generate)
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 ENGINE_KW = dict(kv_blocks=48, kv_block_size=16, max_chunk_tokens=16,
                  max_ragged_batch_size=40, max_ragged_sequence_count=4)
@@ -167,9 +169,16 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu",
                           mesh=object())
-    # CausalLM.apply is ported; the model paths that still wait raise
-    moe = ttf.CausalLM(ttf.TransformerConfig(moe_num_experts=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.apply({}, torch.zeros((1, 2), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.init(device="cpu")
+    # MoE runs (tests/test_torch_moe.py); MoE over a tensor axis and the
+    # pipeline still raise, naming their items
+    cfg = dataclasses.replace(ttf.TINY_TEST, moe_num_experts=2)
+    moe = ttf.CausalLM(cfg)
+    params = moe.init(device="cpu")
+    assert tuple(params["layers"]["w_in"].shape) == (2, 2, 64, 128)
+    logits = moe.apply(params, torch.zeros((1, 2), dtype=torch.int64))
+    assert logits.shape == (1, 2, 256) and bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="item 14d-ii"):
+        ttf.CausalLM(cfg, tp=2)
+    with pytest.raises(NotImplementedError, match="item 14e"):
+        ttf.CausalLM(dataclasses.replace(cfg, pipeline_microbatches=2)).apply(
+            params, torch.zeros((1, 2), dtype=torch.int64))

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.serving.fabric import transport as ftransport
 from deepspeed_tpu_torch.serving.fabric.handle import (HANDLE_SURFACE,
                                                        LocalHandle)
 from deepspeed_tpu_torch.serving.fabric.server import ReplicaServer
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

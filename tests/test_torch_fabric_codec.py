@@ -28,6 +28,7 @@ from deepspeed_tpu.serving import ServingRequest as JRequest
 from deepspeed_tpu.serving.fabric import codec as jcodec
 from deepspeed_tpu_torch.serving import ServingRequest as TRequest
 from deepspeed_tpu_torch.serving.fabric import codec as tcodec
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.serving import ServingConfig as TServingConfig
 from deepspeed_tpu_torch.serving import ServingFrontend as TFrontend
 from deepspeed_tpu_torch.serving.fabric.server import ReplicaServer as TServer
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 MODEL_KW = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=128,

@@ -40,6 +40,7 @@ from deepspeed_tpu.inference.v2.testing import \
 from deepspeed_tpu.models import transformer as jtf
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 MODEL_KW = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=128,

@@ -25,6 +25,7 @@ import torch
 
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.runtime.checkpointing import _flatten as ckpt_flatten
 from deepspeed_tpu_torch.models.weights import (params_from_numpy,
                                                 params_to_numpy)
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 ATOL = 1e-5
 

@@ -31,6 +31,7 @@ from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.inference.v2 import kv_quant as TK
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 BS, MB, NB, KH, D = 4, 6, 20, 2, 8
 

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.inference.v2.testing import (assert_greedy_parity,
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.ops import op_builder
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 BS = 8

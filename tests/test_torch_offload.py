@@ -32,6 +32,7 @@ from deepspeed_tpu.parallel import topology as topo
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.runtime import engine as tengine
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.models.weights import (params_from_numpy,
                                                 train_state_to_numpy)
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 OPTIMIZERS = {
     "adam-l2": ("Adam", {"lr": 1e-2, "weight_decay": 0.1,

@@ -18,6 +18,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 ATOL = RTOL = 2e-5
 
@@ -81,7 +82,8 @@ def test_matches_xla(H, KH, C, ctx_lens, n_pad, alibi, window):
     arrs = _case(0, len(ctx_lens), C, H, KH, 16, 8, 8, ctx_lens, n_pad)
     ref, out, ntok = _both(arrs, alibi=alibi, window=window)
     for i in range(len(ntok)):
-        v = int(ntok[i])     # valid rows only: padded rows are unspecified
+        # valid rows; test_every_row_matches_jax holds every row
+        v = int(ntok[i])
         np.testing.assert_allclose(out[i, :v], ref[i, :v], atol=ATOL,
                                    rtol=RTOL)
 
@@ -160,8 +162,8 @@ def _mixed_case(seed, C, H, KH, D, bs, ctx_lens, chunks):
 @pytest.mark.parametrize("window", [0, 40])
 def test_mixed_put_matches_xla(window):
     """The bucketed SplitFuse shape the tensor-core route serves: one
-    sequence's full chunk beside sequences of one token (rows past their
-    n_tokens are unspecified and not compared)."""
+    sequence's full chunk beside sequences of one token (the valid rows;
+    rows past n_tokens are held by ``test_every_row_matches_jax``)."""
     arrs = _mixed_case(4, 16, 8, 2, 16, 8, [64, 5, 17, 33], [16, 1, 1, 1])
     ref, out, ntok = _both(arrs, window=window)
     assert list(ntok) == [16, 1, 1, 1]
@@ -229,7 +231,7 @@ def test_split_route_edge_shapes_match_xla(H, KH, C, bs, ctx_lens, n_pad,
     narrower): live spans not a multiple of the 256-position piece, windows
     shorter than a piece and of one position, bs = 128 tables with padded
     rows, and 16-row groups. Valid rows match ``paged_attention_xla`` (rows
-    past n_tokens are unspecified here and not compared)."""
+    past n_tokens are held by ``test_every_row_matches_jax``)."""
     MB = max(-(-c // bs) for c in ctx_lens) + 1
     arrs = _case(5 + len(ctx_lens), len(ctx_lens), C, H, KH, 16, bs, MB,
                  ctx_lens, n_pad)
@@ -238,3 +240,50 @@ def test_split_route_edge_shapes_match_xla(H, KH, C, bs, ctx_lens, n_pad,
         v = int(ntok[i])
         np.testing.assert_allclose(out[i, :v], ref[i, :v], atol=ATOL,
                                    rtol=RTOL)
+
+
+PAD_ROW_CASES = [
+    # H, KH, C, ctx lens, padded sequences, alibi, window
+    pytest.param(8, 2, 5, [3, 38, 64], 2, False, 0,
+                 id="chunk5-short-and-padded"),
+    pytest.param(8, 2, 8, [2, 30, 45], 1, True, 3,
+                 id="chunk8-alibi-rows-past-the-window"),
+    pytest.param(16, 2, 2, [1, 40], 1, False, 0, id="16-rows-C2-G8"),
+    pytest.param(8, 4, 16, [5, 17, 33], 1, False, 40,
+                 id="bucket16-window"),
+]
+
+
+def _attends(start, ntok, C, window):
+    """[N, C]: whether row (n, ci) attends at least one KV position."""
+    qp = start[:, None] + np.arange(C)[None, :]
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    hi = np.minimum(qp + 1, (start + ntok)[:, None])
+    return hi > lo
+
+
+@pytest.mark.parametrize("H,KH,C,ctx_lens,n_pad,alibi,window", PAD_ROW_CASES)
+def test_every_row_matches_jax(H, KH, C, ctx_lens, n_pad, alibi, window):
+    """Rows past n_tokens belong to the contract: a MoE put routes them and
+    its capacity counts them, so the card's kernel is held to the plain
+    version on every row. Every row (past n_tokens, further than the window
+    past the context, and every row of a padded sequence) matches
+    ``paged_attention_xla``; the rows that attend a position match the
+    Pallas kernel in interpret mode too. Where a row attends nothing the
+    two JAX versions differ (the Pallas kernel writes 0, the XLA reference
+    the mean of V over the gathered slots); the port gives the XLA
+    reference's, which is what the JAX package computes off the TPU."""
+    MB = max(-(-c // 8) for c in ctx_lens) + 1
+    arrs = _case(11 + len(ctx_lens), len(ctx_lens), C, H, KH, 16, 8, MB,
+                 ctx_lens, n_pad)
+    ref, out, ntok = _both(arrs, alibi=alibi, window=window)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    slopes = (jnp.asarray([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)],
+                          jnp.float32) if alibi else None)
+    pallas = np.asarray(jpa._paged_pallas(
+        *(jnp.asarray(a) for a in arrs), alibi_slopes=slopes, window=window,
+        interpret=True))
+    live = _attends(arrs[4], ntok, C, window)
+    past = np.arange(C)[None, :] >= ntok[:, None]
+    assert (live & past).any() and (~live).any()
+    np.testing.assert_allclose(out[live], pallas[live], atol=ATOL, rtol=RTOL)

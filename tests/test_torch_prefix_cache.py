@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.inference.v2.testing import (assert_greedy_parity,
                                                       greedy_generate)
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 BS = 8
 ENGINE_KW = dict(kv_blocks=64, kv_block_size=BS, max_chunk_tokens=16,

@@ -31,6 +31,7 @@ import torch
 from chip_smoke import QMM_TOL
 from deepspeed_tpu.ops import quantizer as jq
 from deepspeed_tpu_torch.ops import quantizer as tq
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 
 def _x(seed, shape, zero_group=None, block=128, scale=None):

@@ -39,6 +39,7 @@ import deepspeed_tpu_torch.utils.restart as t_restart
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import quantizer as qz
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 JAX = SimpleNamespace(
     S=j_serving, M=j_metrics, Replica=j_replica.Replica,

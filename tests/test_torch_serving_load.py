@@ -56,6 +56,7 @@ from deepspeed_tpu_torch.serving.frontend import engine_from_model_spec
 from deepspeed_tpu_torch.telemetry import (OpsJournal, trace_coverage,
                                            validate_chrome_trace,
                                            validate_events)
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 BS = 8

@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.parallel import sharding as tsh
 from deepspeed_tpu_torch.parallel import topology as ttopo
 from deepspeed_tpu_torch.runtime.checkpointing import param_template
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 GPT_LIKE = dict(vocab_size=96, hidden_size=32, intermediate_size=64,
                 num_layers=2, num_heads=4, max_seq_len=24, norm="layernorm",
@@ -171,17 +172,18 @@ def test_shard_spec_for_fallback_and_rules():
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"pipeline": {"stages": 2}}, "item 14"),
-    ({"mesh": {"pipe": 2}}, "item 14"),
-    ({"mesh": {"sequence": 2}}, "item 14"),
-    ({"mesh": {"expert": 2}}, "item 14"),
+    ({"pipeline": {"stages": 2}}, "item 14e"),
+    ({"mesh": {"pipe": 2}}, "item 14e"),
+    ({"mesh": {"sequence": 2}}, "item 14e"),
+    ({"pipeline": {"micro_batches": 2}}, "item 14e"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 14"),
     ({"sparse_gradients": True}, "queue 3"),
     ({"communication_data_type": "fp16"}, "queue 3")])
 def test_axes_beyond_the_spine_still_raise(block, item):
-    """Pipeline parallelism, the pipe, sequence and expert axes and the
-    1-bit optimizers raise naming item 14 (the tensor axis runs:
-    ``test_torch_tensor_parallel.py``); the two keys the JAX package
+    """Pipeline parallelism, the pipe and sequence axes and the 1-bit
+    optimizers raise naming item 14 (the tensor axis runs:
+    ``test_torch_tensor_parallel.py``; the expert axis:
+    ``test_torch_zero.py``'s MoE cases); the two keys the JAX package
     declares and never reads raise naming queue 3."""
     import deepspeed_tpu_torch
 

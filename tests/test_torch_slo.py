@@ -27,6 +27,7 @@ import deepspeed_tpu.telemetry.fleet as j_fleet
 import deepspeed_tpu_torch.serving.metrics as t_metrics
 import deepspeed_tpu_torch.telemetry as t_tel
 import deepspeed_tpu_torch.telemetry.fleet as t_fleet
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 JAX = SimpleNamespace(M=j_metrics, T=j_tel, F=j_fleet)
 PORT = SimpleNamespace(M=t_metrics, T=t_tel, F=t_fleet)

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.utils import locks as tlocks
 from deepspeed_tpu_torch.utils.locks import (LockOrderError, RankedCondition,
                                              RankedLock, disable_lock_debug,
                                              enable_lock_debug, lock_debug)
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 VOCAB = 128
 PKGS = {"jax": (jtel, jlocks), "port": (ttel, tlocks)}

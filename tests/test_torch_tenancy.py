@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 JAX = SimpleNamespace(S=j_serving, C=j_config, T=j_tenancy)
 PORT = SimpleNamespace(S=t_serving, C=t_config, T=t_tenancy)

@@ -53,6 +53,7 @@ import torch_rank_cases as cases
 from test_torch_zero import (BASE, STEPS, TOL, _check_blocks, _inputs,
                              _jax_engine, _jax_train)
 from torch_ranks import RankPool
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 TP_TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -165,11 +166,14 @@ def test_v2_put_matches_jax_tp_engine(name, pool, tmp_path):
 
 def test_v2_refusals_name_item_14(pool):
     """Over a tensor mesh the KV tier and the draft-model proposer are
-    refused naming item 14b-ii; a mesh of another type still raises."""
+    refused naming item 14b-ii; a mesh of another type still raises; MoE
+    serving over a tensor or an expert axis raises naming 14d-ii."""
     for out in pool.run(cases.tp_v2_refusals):
         for key in ("tier", "tier-later", "draft", "draft-target"):
             assert "item 14b-ii" in out[key], (key, out[key])
         assert "item 14" in out["mesh"]
+        for key in ("moe-tensor", "moe-expert", "moe-v1-expert"):
+            assert "item 14d-ii" in out[key], (key, out[key])
 
 
 # ------------------------------------------------------------------- v1

@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.models.weights import params_to_numpy
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt
 from deepspeed_tpu_torch.utils import zero_to_fp32 as tz2f
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.runtime import config as tconfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedTpuDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedTpuEngine
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 BASE = {
     "train_micro_batch_size_per_gpu": 2,
@@ -513,10 +514,23 @@ def test_not_ported_engine_surfaces_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 16"):
         _ = deepspeed_tpu_torch.initialize(model="tiny", device="cpu",
                                            config={"train_batch_size": 2})
-    moe = ttf.CausalLM(ttf.TransformerConfig(moe_num_experts=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        deepspeed_tpu_torch.initialize(model=moe, device="cpu",
-                                       config={"train_batch_size": 2})
+    # MoE trains (tests/test_torch_moe.py); MoE with the pipeline and
+    # under ZeRO-Infinity streaming still raise, naming their items
+    moe = ttf.CausalLM(dataclasses.replace(ttf.TINY_TEST, moe_num_experts=2))
+    eng_moe, *_ = deepspeed_tpu_torch.initialize(
+        model=moe, device="cpu", config={"train_batch_size": 2})
+    loss = eng_moe.train_batch(iter([{"input_ids": torch.zeros(
+        (2, 5), dtype=torch.int64)}]))
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(NotImplementedError, match="MoE.*item 14e"):
+        deepspeed_tpu_torch.initialize(
+            model=moe, device="cpu", config={"train_batch_size": 2,
+                                             "pipeline": {"stages": 2}})
+    with pytest.raises(NotImplementedError, match="MoE.*item 14d-ii"):
+        deepspeed_tpu_torch.initialize(
+            model=moe, device="cpu", config={
+                "train_batch_size": 2, "zero_optimization": {
+                    "stage": 3, "offload_param": {"device": "cpu"}}})
     eng = _port_engine({"train_batch_size": 2})
     # checkpoints are ported: a directory without 'latest' loads nothing,
     # and a save writes the tag and commits it

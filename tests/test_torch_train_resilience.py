@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.runtime.resilience import (InjectedTrainFault,
                                                     StepWatchdog,
                                                     TrainFaultInjector,
                                                     TrainingSupervisor)
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 N_STEPS = 8
 

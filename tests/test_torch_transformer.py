@@ -20,6 +20,7 @@ import torch
 from deepspeed_tpu.models import transformer as jtf
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 EW = dict(atol=1e-6, rtol=1e-6)
 MM = dict(atol=1e-4, rtol=1e-5)
@@ -97,7 +98,8 @@ def test_mlp_activations(activation, mlp_bias):
     jm, tm, jlp, tlp = _layer(cfg)
     x = _rng(3).standard_normal((2, 3, cfg.hidden_size)).astype(np.float32)
     ref, _ = jm._mlp_body(jnp.asarray(x), jlp, None, True)
-    out = tm._mlp_body(torch.from_numpy(x), tlp)
+    out, aux = tm._mlp_body(torch.from_numpy(x), tlp)
+    assert aux is None
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MM)
 
 
@@ -113,8 +115,9 @@ def test_attn_mlp_merge(variant):
                 for _ in range(3))
     ref = jm._attn_mlp_merge(jnp.asarray(x), jnp.asarray(a), jlp,
                              jnp.asarray(h1))
-    out = tm._attn_mlp_merge(torch.from_numpy(x), torch.from_numpy(a), tlp,
-                             torch.from_numpy(h1))
+    out, aux = tm._attn_mlp_merge(torch.from_numpy(x), torch.from_numpy(a),
+                                  tlp, torch.from_numpy(h1))
+    assert aux is None
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MM)
 
 

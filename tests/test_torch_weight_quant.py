@@ -22,6 +22,7 @@ from deepspeed_tpu.models import transformer as jtf
 from deepspeed_tpu_torch.inference.v2 import weight_quant as TW
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 UNTIED = dict(tie_embeddings=False)
 

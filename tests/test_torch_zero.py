@@ -34,9 +34,16 @@ global micro batch (the rows JAX's batch sharding gives device r). Then:
   unsharded engines differ by 4.0e-6 and 4.3e-9 on the same data (``TOL``);
   a (fsdp 2, tensor 2) save resumes on pure data parallelism in the other
   package on the writer's curve, the twin of
-  ``tests/test_checkpoint_sharded.py:261``.
+  ``tests/test_checkpoint_sharded.py:261``;
+- MoE over ``data`` x ``expert`` (4 experts, 2 a rank) keeps the fp32
+  tolerances: top-1 at capacity factor 0.5, where tokens drop (so each
+  rank's capacity and queue positions must be the global batch's), and
+  dropless; a (data 2, expert 2) save resumes on pure data parallelism in
+  the other package on the writer's curve, and ``zero_to_fp32`` of both
+  packages merges its expert shards alike.
 """
 
+import dataclasses
 import json
 import os
 
@@ -52,6 +59,7 @@ from deepspeed_tpu_torch.utils import zero_to_fp32 as tz2f
 
 import torch_rank_cases as cases
 from torch_ranks import RankPool
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 STEPS = 3
 T = 17
@@ -59,6 +67,11 @@ BASE = {"train_micro_batch_size_per_gpu": 1,
         "optimizer": {"type": "AdamW", "params": {"lr": 2e-3,
                                                   "weight_decay": 0.01}},
         "steps_per_print": 1000}
+
+
+MOE = {"top1-drop": {"moe_num_experts": 4, "moe_top_k": 1,
+                     "moe_capacity_factor": 0.5},
+       "dropless": {"moe_num_experts": 4, "moe_dropless": True}}
 
 
 def _cfg(stage, gas=1, clip=0.0, **zero):
@@ -90,6 +103,15 @@ CASES = {
     "s2-f2t2-clip": (_cfg(2, clip=0.05), (1, 2, 2),
                      {"fsdp": 2, "tensor": 2}),
     "s3-f2t2-gas2": (_cfg(3, gas=2), (1, 2, 2), {"fsdp": 2, "tensor": 2}),
+    # MoE over data x expert (4 experts, 2 a rank): top-1 at capacity
+    # factor 0.5, where tokens drop and the routing statistics must be the
+    # global batch's, and dropless
+    "moe-d2e2-top1-drop-s2": (
+        dict(_cfg(2, clip=0.05), _moe=MOE["top1-drop"]), (2, 1, 1, 2),
+        {"data": 2, "expert": 2}),
+    "moe-d2e2-dropless-s1-gas2": (
+        dict(_cfg(1, gas=2), _moe=MOE["dropless"]), (2, 1, 1, 2),
+        {"data": 2, "expert": 2}),
 }
 
 
@@ -110,14 +132,15 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _jax_engine(cfg, data, fsdp, tensor=1):
+def _jax_engine(cfg, data, fsdp, tensor=1, expert=1):
     jtopo.reset_topology()
     mesh = jtopo.MeshTopology.build(
-        devices=jax.devices()[:data * fsdp * tensor], data=data, fsdp=fsdp,
-        tensor=tensor)
-    je, *_ = deepspeed_tpu.initialize(model=jtf.CausalLM(jtf.TINY_TEST),
-                                      config=json.loads(json.dumps(cfg)),
-                                      mesh=mesh)
+        devices=jax.devices()[:data * fsdp * tensor * expert], data=data,
+        fsdp=fsdp, tensor=tensor, expert=expert)
+    cfg = json.loads(json.dumps(cfg))
+    model = jtf.CausalLM(dataclasses.replace(jtf.TINY_TEST,
+                                             **cfg.pop("_moe", {})))
+    je, *_ = deepspeed_tpu.initialize(model=model, config=cfg, mesh=mesh)
     return je
 
 
@@ -194,6 +217,8 @@ def test_stage_matches_jax_engine(name, pool, tmp_path):
     je = _jax_engine(cfg, *dims)
     params, bpath, batches = _inputs(str(tmp_path), je, cfg,
                                      dims[0] * dims[1])
+    if "_moe" in cfg:
+        assert je.state.params["layers"]["w_in"].sharding.spec[1] == "expert"
     res = pool.run(cases.zero_run, json.dumps(cfg), mesh, params, bpath,
                    STEPS)
     jl = _jax_train(je, batches, cfg["gradient_accumulation_steps"], STEPS)
@@ -357,6 +382,69 @@ def test_tensor_sharded_resume_on_pure_dp(direction, saved_tp, pool):
             saved_tp["port_dir"])
         own = jz2f.get_fp32_state_dict_from_zero_checkpoint(
             saved_tp["jax_dir"])
+        for k in own:
+            np.testing.assert_array_equal(port[k], jax_[k])
+            np.testing.assert_allclose(port[k], own[k], rtol=0,
+                                       atol=TOL["fp32"]["params"])
+    np.testing.assert_allclose(got, [want] * len(got), rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def saved_moe(pool, tmp_path_factory):
+    """Top-1 MoE at capacity factor 0.5 on (data 2, expert 2), ZeRO-2, 2
+    rows a rank (4 a global micro batch): the port ranks and the JAX engine
+    each train 2 steps, save, and train a third."""
+    tmp = str(tmp_path_factory.mktemp("zero_moe_ckpt"))
+    cfg = dict(_cfg(2), train_micro_batch_size_per_gpu=2,
+               _moe=MOE["top1-drop"])
+    je = _jax_engine(cfg, 2, 1, expert=2)
+    params, bpath, batches = _inputs(tmp, je, cfg, 4, seed=7)
+    port_dir, jax_dir = os.path.join(tmp, "port"), os.path.join(tmp, "jax")
+    res = pool.run(cases.zero_run, json.dumps(cfg), {"data": 2, "expert": 2},
+                   params, bpath, STEPS, save_dir=port_dir, save_after=2)
+    jl = _jax_train(je, batches, 1, 2)
+    je.save_checkpoint(jax_dir, tag="ckpt")
+    jl += _jax_train(je, batches, 1, 1, first=2)
+    return {"params": params, "bpath": bpath, "batches": batches,
+            "res": res, "jax_losses": jl, "port_dir": port_dir,
+            "jax_dir": jax_dir}
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_expert_sharded_resume_on_pure_dp(direction, saved_moe, pool):
+    """A checkpoint written on (data 2, expert 2) resumes on pure data
+    parallelism (data 4, 1 row a rank: the same global batch, routed over
+    the same global statistics) in the other package, on the writer's
+    curve (1e-5). The expert leaves are saved as the JAX engine's shard
+    files, and ``zero_to_fp32`` of both packages merges them alike."""
+    cfg = dict(_cfg(2), _moe=MOE["top1-drop"])
+    res = saved_moe["res"]
+    for out in res:
+        np.testing.assert_allclose(out["losses"], saved_moe["jax_losses"],
+                                   rtol=1e-5)
+    files = sorted(os.listdir(os.path.join(saved_moe["port_dir"], "ckpt",
+                                           "params")))
+    assert files == sorted(os.listdir(os.path.join(
+        saved_moe["jax_dir"], "ckpt", "params")))
+    assert "layers.w_in.shard_0-2-0-0.npy" in files
+    if direction == "jax-to-port":
+        got = [out["losses"][0] for out in pool.run(
+            cases.zero_run, json.dumps(cfg), {"data": 4},
+            saved_moe["params"], saved_moe["bpath"], 1,
+            load_dir=saved_moe["jax_dir"], first=2)]
+        want = saved_moe["jax_losses"][2]
+    else:
+        je = _jax_engine(cfg, 4, 1)
+        je.load_checkpoint(saved_moe["port_dir"])
+        got = _jax_train(je, saved_moe["batches"], 1, 1, first=2)
+        want = res[0]["losses"][2]
+        port = tz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_moe["port_dir"])
+        jax_ = jz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_moe["port_dir"])
+        own = jz2f.get_fp32_state_dict_from_zero_checkpoint(
+            saved_moe["jax_dir"])
+        assert port["layers.w_in"].shape == (2, 4, 64, 128)
         for k in own:
             np.testing.assert_array_equal(port[k], jax_[k])
             np.testing.assert_allclose(port[k], own[k], rtol=0,

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.weights import params_from_numpy
 from deepspeed_tpu_torch.runtime.config import load_config as tload
 from deepspeed_tpu_torch.runtime.zero_infinity import ZeroInfinityEngine
+import torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 SHAPE = dict(num_layers=5, tie_embeddings=False, num_kv_heads=4)
 JCFG = dataclasses.replace(jtf.TINY_TEST, **SHAPE)

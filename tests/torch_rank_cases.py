@@ -5,6 +5,7 @@ floats); none imports JAX."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -114,7 +115,8 @@ def _engine(cfg_json, mesh, params_path):
     from deepspeed_tpu_torch.models import transformer as ttf
 
     cfg = json.loads(cfg_json)
-    model = ttf.CausalLM(getattr(ttf, cfg.pop("_model", "TINY_TEST")))
+    model = ttf.CausalLM(dataclasses.replace(
+        getattr(ttf, cfg.pop("_model", "TINY_TEST")), **cfg.pop("_moe", {})))
     kw = {} if mesh is None else {"mesh": dict(mesh)}
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config=cfg, model_parameters=_tree(params_path),
@@ -264,7 +266,8 @@ def tp_v2_run(params_path, overrides, config_kw, prompts, decode_tokens,
 
 def tp_v2_refusals():
     """What a tensor-parallel v2 engine refuses: the KV tier and a draft
-    model, each naming item 14b-ii; a mesh of another type."""
+    model, each naming item 14b-ii; a mesh of another type; MoE serving
+    over a tensor or an expert axis (v2 and v1), naming 14d-ii."""
     import torch
 
     from deepspeed_tpu_torch.inference.v2.engine_v2 import (
@@ -273,8 +276,11 @@ def tp_v2_refusals():
         ContinuousBatchingScheduler
     from deepspeed_tpu_torch.inference.v2.spec import DraftModelProposer
 
+    import deepspeed_tpu_torch
+
     out = {}
     model = _tiny()
+    moe = _tiny(moe_num_experts=2)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
 
     def engine(**kw):
@@ -293,7 +299,17 @@ def tp_v2_refusals():
                 model, params=params, device="cpu",
                 config=RaggedInferenceEngineConfig(kv_blocks=16)))),
         "mesh": lambda: InferenceEngineV2(model, params=params,
-                                          mesh=object(), device="cpu")}
+                                          mesh=object(), device="cpu"),
+        # MoE serving over a tensor or an expert axis (item 14d-ii)
+        "moe-tensor": lambda: InferenceEngineV2(
+            moe, mesh={"tensor": 2}, device="cpu",
+            config=RaggedInferenceEngineConfig(kv_blocks=16)),
+        "moe-expert": lambda: InferenceEngineV2(
+            moe, mesh={"expert": 2}, device="cpu",
+            config=RaggedInferenceEngineConfig(kv_blocks=16)),
+        "moe-v1-expert": lambda: deepspeed_tpu_torch.init_inference(
+            moe, config={"dtype": "fp32"}, mesh={"expert": 2},
+            device="cpu")}
     for name, call in calls.items():
         try:
             call()
