@@ -10,7 +10,8 @@ Phases, each of which raises on failure (nothing is caught):
              sources in this checkout, one nvcc per source, in parallel.
 3. kernel  — hold each kernel against its plain PyTorch version on the card:
              the paged attention (bf16 and fp32, and int8 and fp8 pools:
-             decode and prefill chunks, G = 1 and 4, D = 64 and 128,
+             decode and prefill chunks, G = 1, 4 and 71 (Falcon-7B's 71
+             query heads over one KV head), D = 64 and 128,
              negative table entries, padded rows, ALiBi, a window smaller
              than the context, a SplitFuse put of one 256-token chunk and
              seven one-token rows, v1 decode's bs = 128 with contiguous
@@ -172,9 +173,10 @@ Phases, each of which raises on failure (nothing is caught):
              tokens, 32 new) through one replica process and two, and two
              of its prompts one at a time (byte-identical to the
              reference); (b) the disagg cell's traffic through a prefill
-             and a decode process, bf16 and int8 weights + KV, the KV in
-             chunk frames (16 handoffs, 0 fallbacks; export, wire, queue
-             and import times on one clock); (c) a SIGKILL of one of two
+             and a decode process, bf16, int8 weights + KV and bf16
+             weights + fp8 KV, the KV in chunk frames (16 handoffs, 0
+             fallbacks; export, wire, queue and import times on one
+             clock); (c) a SIGKILL of one of two
              servers mid-decode (requests fail over, replica_disconnected),
              its respawn on the same port re-dialed with reset
              (replica_reconnected), and a seeded drop_conn on the live link
@@ -321,6 +323,31 @@ Phases, each of which raises on failure (nothing is caught):
              against the same engine in one process (losses within 2e-4,
              grad norms within 1e-2).
 
+16. hf_import — the HF import (models/convert.py) at full width, after
+             features, the HF files written by this script (a safetensors
+             file with the standard library, .bin shards with torch.save)
+             from a seeded port tree through its own inverse of the
+             loader's names, each config.json from the published values:
+             (a) Mistral-7B at HF_LAYERS layers, two bf16 safetensors
+             shards + index (about 4 GB): every leaf bit-equal after
+             load_hf_checkpoint (its time, GB/s and host RSS growth, beside
+             the universal reader's), InferenceEngineV2(checkpoint_path=)
+             with the model inferred from config.json streaming byte for
+             byte as the in-memory tree's engine, v1 int8 from
+             config.checkpoint with no model generating as v1 from the
+             in-memory tree, and the same tree at HF_BIN_LAYERS layers as
+             two pytorch_model shards, every leaf held; (b) Falcon-7B at
+             HF_FALCON_LAYERS layers, the fused MQA query_key_value from
+             this script's inverse of FusedQKVSrc: config_from_hf is the
+             FALCON_7B preset but for depth, every leaf bit-equal, and the
+             v2 engine (G = 71: every put on paged_prefill_tc_kernel) held
+             to its plain paged attention by compare_steps and the
+             greedy-parity rule, its put times printed; (c) BERT-base (12
+             layers) as BertForMaskedLM and as BertForSequenceClassification
+             with 3 labels: v1 encode, mlm and classify, fp32 and bf16, on
+             the card against the same engine on the CPU. Every file under
+             build/, removed in a ``finally``.
+
 Depth and step cuts of PR 18, which made room for phase 14 (seconds on
 one H100, 700 W, before: PR 17's two whole runs; after: this PR's, in
 PERF.md section 6, PR 18): the features phase at 2 layers
@@ -345,7 +372,7 @@ later phase after it (a short call after an edit; no result lines;
 ``--only serving`` runs the serving phase, ``--only fabric`` the fabric
 phase, ``--only train_state`` the training-state phase, ``--only offload``
 the offload phase, ``--only moe`` the MoE phase, ``--only distributed`` the
-distributed phase).
+distributed phase, ``--only hf_import`` the HF import phase).
 ``--compare`` times the kernels at the main path's shapes through their
 entry points alone: a copy of this script in an unpacked parent commit
 times the parent's kernels on the same inputs (no result lines).
@@ -564,6 +591,13 @@ KERNEL_CASES = [
      torch.bfloat16, 1, False, 1),
     ("fp32 C=12 G=2 alibi rows past the window", [3, 40], 12, 8, 4, 64, 8,
      torch.float32, 1, True, 2),
+    # Falcon-7B (the HF import's): 71 query heads over one KV head at
+    # D = 64, so a decode group is 71 rows (more than one 64-row block of
+    # the tensor-core prefill kernel) and a 256-token chunk 18176
+    ("decode G=71 D=64 (Falcon-7B MQA)", [1, 17, 300, 2000], 1, 71, 1, 64,
+     16, torch.bfloat16, 1, False, 0),
+    ("mixed put C=256 G=71 D=64 (Falcon-7B MQA)", MIXED_CTX, 256, 71, 1, 64,
+     16, torch.bfloat16, 0, False, 0, MIXED_CHUNKS),
 ]
 
 
@@ -1572,8 +1606,8 @@ def sdpa_dense(q, kp, vp, tbl, sp, nt, window):
 
 
 def timing_case(label, ctxs, C, window, flush, seed=7, kv_dtype=None,
-                chunks=None, shared=0):
-    q, kp, vp, tbl, sp, nt = make_case(seed, ctxs, C, 32, 8, 128, 16,
+                chunks=None, shared=0, H=32, KH=8, D=128):
+    q, kp, vp, tbl, sp, nt = make_case(seed, ctxs, C, H, KH, D, 16,
                                        torch.bfloat16, chunks=chunks)
     if shared:
         tbl = share_first_blocks(tbl, shared)
@@ -1836,6 +1870,17 @@ def phase_timing():
         kv_dtype=torch.int8)
     timing_case(head + ", fp8 pools", main_ctx, 1, 4096, flush,
                 kv_dtype=torch.float8_e4m3fn)
+    # Falcon-7B (G = 71, D = 64, no window): every put on the tensor-core
+    # prefill kernel
+    falcon = dict(H=71, KH=1, D=64)
+    rows["paged_attention falcon decode"] = timing_case(
+        "Falcon-7B decode N=8 G=71 D=64, the main path's 8 contexts",
+        main_ctx, 1, 0, flush, **falcon)
+    rows["paged_attention falcon prefill"] = timing_case(
+        "Falcon-7B prefill chunk C=256 G=71 D=64 at positions 3840-4095",
+        [4096], 256, 0, flush, **falcon)
+    timing_case("Falcon-7B mixed put C=256 G=71 D=64", MIXED_CTX, 256, 0,
+                flush, chunks=MIXED_CHUNKS, **falcon)
     rows["quantized_matmul"] = qmm_timing_case(
         "w_in [4096, 14336] int8, decode M=8", 8, 4096, 14336, flush)
     for label, K, N in (("wq/wo [4096, 4096]", 4096, 4096),
@@ -2266,7 +2311,7 @@ def serve(engine, cfg, prompts, new_tokens, label):
         f"{sum(s for _, s in dec):.3f} s = {dec_tps:.1f} tokens/s; "
         f"peak memory {peak:.2f} GB")
     return {"launches": launches, "puts": len(puts), "prefill_tps": pre_tps,
-            "decode_tps": dec_tps, "peak_gb": peak}
+            "decode_tps": dec_tps, "peak_gb": peak, "streams": streams}
 
 
 def run_mistral(label, seed, prompt_lens, new_tokens, quant=None,
@@ -3462,6 +3507,675 @@ def phase_features(profile_puts=False):
     res["checkpoint"] = feature_checkpoint()
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- HF import
+
+# The HF import (models/convert.py) at full width. The card's machine may
+# lack the safetensors and transformers packages, so this script writes the
+# HF files itself (a safetensors file is an 8-byte length, a JSON header
+# and the raw bytes; .bin shards go through torch.save) from a port param
+# tree drawn from a seeded generator, through its own inverse of the
+# loader's name mapping, and each config.json from the published values
+# below (never downloaded).
+HF_SEED = 31
+HF_LAYERS = SERVE_LAYERS        # Mistral-7B's depth here (32 published)
+HF_BIN_LAYERS = 2               # the pytorch_model*.bin copy
+HF_FALCON_LAYERS = 2
+HF_NEW_TOKENS = 16
+HF_PROMPT_LENS = (17, 129, 333, 700)
+HF_KV_BLOCKS = 512
+# mistralai/Mistral-7B-v0.1 config.json
+HF_MISTRAL = {
+    "architectures": ["MistralForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "model_type": "mistral",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+    "sliding_window": 4096, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000}
+# tiiuae/falcon-7b config.json
+HF_FALCON = {
+    "alibi": False, "apply_residual_connection_post_layernorm": False,
+    "architectures": ["FalconForCausalLM"], "attention_dropout": 0.0,
+    "bias": False, "bos_token_id": 11, "eos_token_id": 11,
+    "hidden_dropout": 0.0, "hidden_size": 4544, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "model_type": "falcon",
+    "multi_query": True, "new_decoder_architecture": False,
+    "num_attention_heads": 71, "num_hidden_layers": 32,
+    "parallel_attn": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 65024}
+# bert-base-uncased config.json
+HF_BERT = {
+    "architectures": ["BertForMaskedLM"], "attention_probs_dropout_prob": 0.1,
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1, "hidden_size": 768,
+    "initializer_range": 0.02, "intermediate_size": 3072,
+    "layer_norm_eps": 1e-12, "max_position_embeddings": 512,
+    "model_type": "bert", "num_attention_heads": 12, "num_hidden_layers": 12,
+    "pad_token_id": 0, "position_embedding_type": "absolute",
+    "type_vocab_size": 2, "use_cache": True, "vocab_size": 30522}
+# the encoder's card-vs-CPU tolerance, |card - cpu| <= atol + rtol * |cpu|
+# elementwise: fp32 differs only in summation order (cuBLAS against the
+# CPU's GEMM, no TF32) over 12 layers; bf16 rounds every product input and
+# every layer's output to 8 bits of mantissa on both sides, in a different
+# order, so two results may sit a few bf16 ulps (2^-8 relative) apart after
+# 12 post-LN layers: 1/16 of the largest value bounds that with room.
+HF_ENC_FP32_TOL = (1e-3, 1e-3)
+HF_ENC_BF16_SHARE = 1.0 / 16
+
+_ST_NAMES = {torch.float64: "F64", torch.float32: "F32",
+             torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL",
+             torch.float8_e4m3fn: "F8_E4M3", torch.float8_e5m2: "F8_E5M2"}
+
+
+def st_write(path, tensors):
+    """``tensors`` (name -> tensor, on any device) as one safetensors file,
+    written with the standard library: the 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes) and each
+    tensor's raw bytes in order. Returns the bytes written."""
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(raw).to_bytes(8, "little"))
+        fh.write(raw)
+        for t in tensors.values():
+            a = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+            fh.write(memoryview(a.numpy()))
+    return 8 + len(raw) + off
+
+
+def hf_write(root, config, tensors, fmt="st", shards=1):
+    """An HF checkpoint directory: ``config.json`` and the tensors (a dict
+    in file order of names to functions making each tensor on the card) in
+    ``shards`` files of about equal bytes, with their index when ``shards``
+    > 1 (``model-0000i-of-0000n.safetensors`` + ``model.safetensors.index
+    .json``, or ``pytorch_model-...bin`` + ``pytorch_model.bin.index
+    .json``). Returns the tensor bytes written."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+    sizes = {}
+    for name, make in tensors.items():
+        t = make()
+        sizes[name] = t.numel() * t.element_size()
+        del t
+    total = sum(sizes.values())
+    per = -(-total // shards)
+    groups, acc = [[]], 0
+    for name in tensors:
+        if acc >= per * len(groups) and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(name)
+        acc += sizes[name]
+    ext = "safetensors" if fmt == "st" else "bin"
+    stem = "model" if fmt == "st" else "pytorch_model"
+    wmap = {}
+    for i, names in enumerate(groups):
+        fname = (f"{stem}.{ext}" if shards == 1
+                 else f"{stem}-{i + 1:05d}-of-{shards:05d}.{ext}")
+        if fmt == "st":
+            st_write(os.path.join(root, fname),
+                     {n: tensors[n]() for n in names})
+        else:       # each a tensor of its own storage on the host
+            torch.save({n: tensors[n]().cpu() for n in names},
+                       os.path.join(root, fname))
+        wmap.update({n: fname for n in names})
+    if shards > 1:
+        with open(os.path.join(root, f"{stem}.{ext}.index.json"), "w") as fh:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": wmap}, fh)
+    return total
+
+
+def _lin(t):
+    """A port [in, out] weight as the [out, in] ``nn.Linear`` stores it."""
+    return t.t().contiguous()
+
+
+def mistral_hf_tensors(params, layers):
+    """The Llama/Mistral HF names of a port tree's first ``layers`` layers,
+    written from the port layout by hand (not through the loader)."""
+    lp, out = params["layers"], {}
+    out["model.embed_tokens.weight"] = lambda: params["embed"]["wte"]
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        for hf_name, leaf, lin in (
+                ("input_layernorm.weight", "attn_norm_w", False),
+                ("self_attn.q_proj.weight", "wq", True),
+                ("self_attn.k_proj.weight", "wk", True),
+                ("self_attn.v_proj.weight", "wv", True),
+                ("self_attn.o_proj.weight", "wo", True),
+                ("post_attention_layernorm.weight", "mlp_norm_w", False),
+                ("mlp.gate_proj.weight", "w_gate", True),
+                ("mlp.up_proj.weight", "w_in", True),
+                ("mlp.down_proj.weight", "w_out", True)):
+            out[pre + hf_name] = (
+                lambda t=lp[leaf][i], lin=lin: _lin(t) if lin else t)
+    out["model.norm.weight"] = lambda: params["final_norm"]["w"]
+    out["lm_head.weight"] = lambda: _lin(params["lm_head"]["w"])
+    return out
+
+
+def fuse_qkv(wq, wk, wv, groups, q_per_group, hd):
+    """The inverse of the loader's ``FusedQKVSrc``: port [in, out] q, k, v
+    weights as one fused [rows, in] tensor packed per KV group as
+    [groups, q_per_group + 2, hd] in dim 0 (Falcon-7B: one group of 71 q
+    heads, then the K head, then the V head)."""
+    h = wq.shape[0]
+    q = wq.t().reshape(groups, q_per_group, hd, h)
+    k = wk.t().reshape(groups, 1, hd, h)
+    v = wv.t().reshape(groups, 1, hd, h)
+    return torch.cat([q, k, v], dim=1).reshape(-1, h).contiguous()
+
+
+def falcon_hf_tensors(params, cfg):
+    lp, out = params["layers"], {}
+    out["transformer.word_embeddings.weight"] = (
+        lambda: params["embed"]["wte"])
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}."
+        out[pre + "input_layernorm.weight"] = (
+            lambda i=i: lp["attn_norm_w"][i])
+        out[pre + "input_layernorm.bias"] = (
+            lambda i=i: lp["attn_norm_b"][i])
+        out[pre + "self_attention.query_key_value.weight"] = (
+            lambda i=i: fuse_qkv(lp["wq"][i], lp["wk"][i], lp["wv"][i],
+                                 cfg.kv_heads, cfg.num_heads // cfg.kv_heads,
+                                 cfg.head_dim))
+        for hf_name, leaf in (("self_attention.dense.weight", "wo"),
+                              ("mlp.dense_h_to_4h.weight", "w_in"),
+                              ("mlp.dense_4h_to_h.weight", "w_out")):
+            out[pre + hf_name] = lambda t=lp[leaf][i]: _lin(t)
+    out["transformer.ln_f.weight"] = lambda: params["final_norm"]["w"]
+    out["transformer.ln_f.bias"] = lambda: params["final_norm"]["b"]
+    return out
+
+
+def bert_hf_tensors(params, cfg, arch):
+    """BertForMaskedLM / BertForSequenceClassification names."""
+    lp, e, out = params["layers"], params["embed"], {}
+    for hf_name, t in (("word_embeddings.weight", e["wte"]),
+                       ("position_embeddings.weight", e["wpe"]),
+                       ("token_type_embeddings.weight", e["tte"]),
+                       ("LayerNorm.weight", e["ln_w"]),
+                       ("LayerNorm.bias", e["ln_b"])):
+        out["bert.embeddings." + hf_name] = lambda t=t: t
+    names = {"wq": "attention.self.query", "wk": "attention.self.key",
+             "wv": "attention.self.value", "wo": "attention.output.dense",
+             "w_in": "intermediate.dense", "w_out": "output.dense"}
+    for i in range(cfg.num_layers):
+        pre = f"bert.encoder.layer.{i}."
+        for leaf, hf_name in names.items():
+            out[pre + hf_name + ".weight"] = (
+                lambda t=lp[leaf][i]: _lin(t))
+            out[pre + hf_name + ".bias"] = (
+                lambda t=lp[leaf + "_b"][i]: t)
+        for leaf, hf_name in (("attn_ln", "attention.output.LayerNorm"),
+                              ("mlp_ln", "output.LayerNorm")):
+            out[pre + hf_name + ".weight"] = (
+                lambda t=lp[leaf + "_w"][i]: t)
+            out[pre + hf_name + ".bias"] = (
+                lambda t=lp[leaf + "_b"][i]: t)
+    if arch == "BertForMaskedLM":
+        m, c = params["mlm"], "cls.predictions."
+        out[c + "transform.dense.weight"] = lambda: _lin(m["w"])
+        out[c + "transform.dense.bias"] = lambda: m["b"]
+        out[c + "transform.LayerNorm.weight"] = lambda: m["ln_w"]
+        out[c + "transform.LayerNorm.bias"] = lambda: m["ln_b"]
+        out[c + "bias"] = lambda: m["bias"]
+    else:
+        p, c = params["pooler"], params["classifier"]
+        out["bert.pooler.dense.weight"] = lambda: _lin(p["w"])
+        out["bert.pooler.dense.bias"] = lambda: p["b"]
+        out["classifier.weight"] = lambda: _lin(c["w"])
+        out["classifier.bias"] = lambda: c["b"]
+    return out
+
+
+def jitter_norms_and_biases(params, gen):
+    """Norm weights around 1 and biases around 0 (the inits' 1 and 0 would
+    hide a norm or bias read from the wrong tensor)."""
+    for key, t in flat_leaves(params).items():
+        if key.endswith(("norm_w", "ln_w")) or key == "final_norm.w":
+            t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen,
+                                            device=t.device))
+        elif key.endswith("_b") or key.rsplit(".", 1)[-1] in ("b", "bias"):
+            t.copy_(0.02 * torch.randn(t.shape, generator=gen,
+                                       device=t.device))
+
+
+def tree_equal(got, want, label):
+    g, w = flat_leaves(got), flat_leaves(want)
+    if set(g) != set(w):
+        raise AssertionError(f"[hf_import] {label}: leaves {sorted(g)} vs "
+                             f"{sorted(w)}")
+    for k in w:
+        if g[k].dtype != w[k].dtype or not torch.equal(g[k].to(w[k].device),
+                                                       w[k]):
+            raise AssertionError(f"[hf_import] {label}: leaf {k} differs")
+    return len(w)
+
+
+def hf_timed_load(path, model, label):
+    """``load_hf_checkpoint`` onto the card, timed, with the bytes its
+    reader pulled off disk and the host RSS growth while it ran."""
+    from deepspeed_tpu_torch.models.convert import (load_hf_checkpoint,
+                                                    open_checkpoint)
+
+    reader = open_checkpoint(path)
+
+    def load():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = load_hf_checkpoint(path, model=model, device="cuda",
+                                 reader=reader)[1]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (params, secs), rss = peak_rss_during(load)
+    reader.close()
+    gb = reader.bytes_read / 1e9
+    log(f"[hf_import] {label}: {gb:.3f} GB read ({type(reader).__name__}) "
+        f"onto the card in {secs:.2f} s = {gb / secs:.2f} GB/s (warm page "
+        f"cache: the files were just written); host RSS growth during the "
+        f"load {rss / 1e9:.3f} GB")
+    return params, {"gb": gb, "load_s": secs, "gb_per_s": gb / secs,
+                    "rss_gb": rss / 1e9}
+
+
+def hf_file_rate(path):
+    """GB/s of reading every file under ``path`` into one reused host
+    buffer, nothing else done with the bytes: the host's read rate for
+    these files as they sit in the page cache at the time."""
+    view = memoryview(torch.empty(256 << 20, dtype=torch.uint8).numpy())
+    total, t = 0, time.perf_counter()
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb", buffering=0) as fh:
+            while True:
+                k = fh.readinto(view)
+                if not k:
+                    break
+                total += k
+    return total / 1e9 / (time.perf_counter() - t)
+
+
+def hf_mistral(root, universal):
+    """(a) Mistral-7B at full width, HF_LAYERS layers: two bf16 safetensors
+    shards with their index, loaded leaf for leaf through
+    ``load_hf_checkpoint`` and served by ``InferenceEngineV2(checkpoint_path
+    =...)`` with the in-memory tree's streams; v1 with int8 weights and the
+    model inferred from config.json against v1 from the in-memory tree; the
+    same tree at HF_BIN_LAYERS layers as two ``pytorch_model`` shards."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.testing import greedy_generate
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import config_from_hf
+
+    res = {}
+    hf_cfg = dict(HF_MISTRAL, num_hidden_layers=HF_LAYERS)
+    cfg = config_from_hf(hf_cfg)
+    # the preset's context is 8192 and it leaves o_bias and mlp_bias None
+    # (use_bias's False); config.json says 32768 and the mapping says False
+    want = dataclasses.replace(serve_cfg(HF_LAYERS), max_seq_len=32768,
+                               o_bias=False, mlp_bias=False)
+    if cfg != want:
+        raise AssertionError(f"[hf_import] config_from_hf(Mistral-7B) "
+                             f"{cfg} != {want}")
+    model = CausalLM(cfg)
+    gen = torch.Generator("cuda").manual_seed(HF_SEED)
+    params = model.init(gen, device="cuda", dtype=torch.bfloat16)
+    jitter_norms_and_biases(params, gen)
+    st_dir = os.path.join(root, "mistral")
+    t = time.perf_counter()
+    nbytes = hf_write(st_dir, hf_cfg, mistral_hf_tensors(params, HF_LAYERS),
+                      shards=2)
+    res["write_s"] = time.perf_counter() - t
+    log(f"[hf_import] (a) Mistral-7B, {HF_LAYERS} layers: {nbytes / 1e9:.3f}"
+        f" GB of bf16 written as 2 safetensors shards + index in "
+        f"{res['write_s']:.2f} s")
+    res["file_gb_per_s"] = hf_file_rate(st_dir)
+    loaded, res["load"] = hf_timed_load(st_dir, model, "(a) safetensors")
+    n = tree_equal(loaded, params, "(a) safetensors")
+    del loaded
+    res["file_again_gb_per_s"] = hf_file_rate(st_dir)
+    loaded, res["load_again"] = hf_timed_load(st_dir, model,
+                                              "(a) safetensors, read again")
+    del loaded
+    log(f"[hf_import] (a) {n} leaves bit-equal to the drawn tree; the "
+        f"files' plain read rate before the loads "
+        f"{res['file_gb_per_s']:.2f} GB/s, between them "
+        f"{res['file_again_gb_per_s']:.2f} GB/s")
+    uni = universal or {}
+    if uni:
+        log(f"[hf_import] (a) HF reader {res['load']['gb_per_s']:.2f} GB/s "
+            f"beside the universal reader's {uni['gb'] / uni['load_s']:.2f} "
+            f"GB/s (features checkpoint, this run)")
+
+    rng = np.random.default_rng(HF_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in HF_PROMPT_LENS]
+    ecfg = dict(kv_block_size=16, max_chunk_tokens=256,
+                max_ragged_sequence_count=8, kv_blocks=HF_KV_BLOCKS)
+    t = time.perf_counter()
+    engine = InferenceEngineV2(checkpoint_path=st_dir, device="cuda",
+                               config=RaggedInferenceEngineConfig(**ecfg))
+    torch.cuda.synchronize()
+    res["v2_build_s"] = time.perf_counter() - t
+    if engine.model.cfg != cfg:
+        raise AssertionError("[hf_import] (a) the v2 engine's inferred model")
+    tree_equal(engine.params, params, "(a) v2 engine params")
+    engine.put([10_000], [prompts[0][:16]])       # warm-up
+    engine.flush(10_000)
+    served = serve(engine, cfg, prompts, HF_NEW_TOKENS, "hf_import (a) v2")
+    if served["launches"]["paged_attention"] != HF_LAYERS * served["puts"]:
+        raise AssertionError(f"[hf_import] (a) {served['launches']} for "
+                             f"{served['puts']} puts")
+    res["v2"] = served
+    del engine
+    gc.collect()
+    ref = greedy_generate(InferenceEngineV2(
+        model, params, RaggedInferenceEngineConfig(**ecfg), device="cuda"),
+        prompts, max_new_tokens=HF_NEW_TOKENS, sequential=False)
+    if served["streams"] != ref:
+        raise AssertionError("[hf_import] (a) v2 streams from the HF "
+                             "checkpoint differ from the in-memory tree's")
+    log(f"[hf_import] (a) v2 from checkpoint_path (built in "
+        f"{res['v2_build_s']:.2f} s): {len(prompts)} streams byte-identical "
+        f"to the in-memory engine's; {served['puts']} puts, "
+        f"{json.dumps(served['launches'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # v1, int8 weights, the model inferred from config.json
+    quant = {"enabled": True, "bits": 8}
+    reset_launches()
+    t = time.perf_counter()
+    te = init_inference(None, config={"checkpoint": st_dir, "dtype": "bf16",
+                                      "quant": quant}, device="cuda")
+    torch.cuda.synchronize()
+    res["v1_build_s"] = time.perf_counter() - t
+    build = v1_launches()
+    if build["quantize"] != V1_QUANT_LEAVES:
+        raise AssertionError(f"[hf_import] (a) v1 build launches {build}")
+    reset_launches()
+    out = te.generate(prompts, max_new_tokens=HF_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_launches = v1_launches()
+    del te
+    gc.collect()
+    ref_out = init_inference(model, config={"dtype": "bf16", "quant": quant},
+                             params=params, device="cuda").generate(
+        prompts, max_new_tokens=HF_NEW_TOKENS)
+    if not torch.equal(out, ref_out):
+        raise AssertionError("[hf_import] (a) v1 int8 generate from the HF "
+                             "checkpoint differs from the in-memory tree's")
+    for k in ("dequantize", "flash_fwd", "paged_attention"):
+        if gen_launches[k] < 1:
+            raise AssertionError(f"[hf_import] (a) v1 int8 launches "
+                                 f"{gen_launches}")
+    res["v1"] = {"build_launches": build, "launches": gen_launches}
+    log(f"[hf_import] (a) v1 int8 from config.checkpoint with no model "
+        f"(built in {res['v1_build_s']:.2f} s, {build['quantize']} quantize "
+        f"launches): generate equal to the in-memory tree's; launches "
+        f"{json.dumps(gen_launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(st_dir, ignore_errors=True)
+
+    # the same tree's first layers as pytorch_model*.bin shards
+    bin_cfg = dataclasses.replace(cfg, num_layers=HF_BIN_LAYERS)
+    bin_dir = os.path.join(root, "mistral_bin")
+    t = time.perf_counter()
+    hf_write(bin_dir, dict(hf_cfg, num_hidden_layers=HF_BIN_LAYERS),
+             mistral_hf_tensors(params, HF_BIN_LAYERS), fmt="bin", shards=2)
+    res["bin_write_s"] = time.perf_counter() - t
+    loaded, res["bin_load"] = hf_timed_load(bin_dir, CausalLM(bin_cfg),
+                                            "(a) pytorch_model.bin")
+    want_tree = {g: ({k: v[:HF_BIN_LAYERS] for k, v in sub.items()}
+                     if g == "layers" else sub) for g, sub in params.items()}
+    n = tree_equal(loaded, want_tree, "(a) pytorch_model.bin")
+    log(f"[hf_import] (a) .bin shards: {n} leaves bit-equal")
+    del loaded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hf_serve(engine, prompts, mode, label):
+    """Greedy streams of ``prompts`` through a margin-recording scheduler
+    with the kernels or the plain versions pinned (``pinned``); each put
+    timed and its paged launches' routes recorded. In "kernel" mode the
+    paged kernel must be launched once a layer and put."""
+    sched = margin_scheduler(engine)
+    log_ = PutLog()
+    log_.attach(engine)
+    routes, real_cuda = set(), pa.paged_attention_cuda
+
+    def routed(q, k_pool, *a, **kw):
+        routes.add(pa.PAGED_ROUTES[pa.paged_route(
+            q.shape[1], q.shape[2], k_pool.shape[1], q.shape[3], q.dtype)])
+        return real_cuda(q, k_pool, *a, **kw)
+
+    pa.paged_attention_cuda = routed
+    reset_launches()
+    base = 70_000
+    try:
+        with pinned(mode):
+            for i, p in enumerate(prompts):
+                sched.submit(base + i, p, max_new_tokens=HF_NEW_TOKENS)
+            sched.run_to_completion()
+            torch.cuda.synchronize()
+    finally:
+        pa.paged_attention_cuda = real_cuda
+        log_.close()
+    L = engine.model.cfg.num_layers
+    launches = pa.launches
+    if mode == "kernel" and launches != L * len(log_.puts):
+        raise AssertionError(f"[hf_import] {label}: {launches} paged "
+                             f"launches for {len(log_.puts)} puts")
+    uids = [base + i for i in range(len(prompts))]
+    pre = [s for _, is_pre, s in log_.puts if is_pre]
+    dec = [s for _, is_pre, s in log_.puts if not is_pre]
+    return {"streams": [sched.finished[u].generated for u in uids],
+            "margins": [sched.margins.get(u, {}) for u in uids],
+            "routes": routes, "launches": launches, "puts": len(log_.puts),
+            "prefill_put_ms": float(np.median(pre)) * 1e3,
+            "decode_put_ms": float(np.median(dec)) * 1e3}
+
+
+def hf_falcon(root):
+    """(b) Falcon-7B at full width, HF_FALCON_LAYERS layers: the fused MQA
+    query_key_value written by this script's inverse of the loader's
+    FusedQKVSrc, one bf16 safetensors file; config_from_hf equal to the
+    FALCON_7B preset but for depth; the v2 engine from checkpoint_path
+    (G = 71 query heads over one KV head at D = 64: every put on
+    paged_prefill_tc_kernel) held to the same engine with the plain paged
+    attention pinned by the greedy-parity rule."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import FALCON_7B, CausalLM
+    from deepspeed_tpu_torch.models.convert import config_from_hf
+
+    res = {}
+    hf_cfg = dict(HF_FALCON, num_hidden_layers=HF_FALCON_LAYERS)
+    cfg = config_from_hf(hf_cfg)
+    if dataclasses.replace(cfg, num_layers=FALCON_7B.num_layers) != FALCON_7B:
+        raise AssertionError(f"[hf_import] config_from_hf(Falcon-7B) {cfg} "
+                             f"is not FALCON_7B but for depth")
+    model = CausalLM(cfg)
+    gen = torch.Generator("cuda").manual_seed(HF_SEED + 1)
+    params = model.init(gen, device="cuda", dtype=torch.bfloat16)
+    jitter_norms_and_biases(params, gen)
+    # one shared input_layernorm feeds both parallel branches
+    params["layers"]["mlp_norm_w"].copy_(params["layers"]["attn_norm_w"])
+    params["layers"]["mlp_norm_b"].copy_(params["layers"]["attn_norm_b"])
+    d = os.path.join(root, "falcon")
+    t = time.perf_counter()
+    nbytes = hf_write(d, hf_cfg, falcon_hf_tensors(params, cfg))
+    res["write_s"] = time.perf_counter() - t
+    log(f"[hf_import] (b) Falcon-7B, {cfg.num_layers} layers: "
+        f"{nbytes / 1e9:.3f} GB of bf16 (query_key_value "
+        f"[{(cfg.num_heads + 2) * cfg.head_dim}, {cfg.hidden_size}]) in "
+        f"{res['write_s']:.2f} s")
+    engine = InferenceEngineV2(checkpoint_path=d, device="cuda",
+                               config=RaggedInferenceEngineConfig(
+                                   kv_block_size=16, max_chunk_tokens=256,
+                                   max_ragged_sequence_count=8,
+                                   kv_blocks=HF_KV_BLOCKS))
+    n = tree_equal(engine.params, params, "(b) v2 engine params")
+    del params
+    gc.collect()
+    log(f"[hf_import] (b) {n} leaves bit-equal to the drawn tree")
+    engine.put([10_000], [list(range(16))])       # warm-up
+    engine.flush(10_000)
+    rng = np.random.default_rng(HF_SEED + 1)
+    chunks = [rng.integers(0, cfg.vocab_size, 257).tolist(),
+              rng.integers(0, cfg.vocab_size, 201).tolist()]
+    steps = compare_steps(functools.partial(step_logits, engine, chunks),
+                          "hf_import (b) Falcon-7B")
+    gap = max(r["max_dlogit"] for r in steps.values())
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in HF_PROMPT_LENS]
+    on = hf_serve(engine, prompts, "kernel", "(b) kernel")
+    off = hf_serve(engine, prompts, "plain", "(b) plain")
+    want = {"paged_prefill_tc_kernel"}
+    if on["routes"] != want:
+        raise AssertionError(f"[hf_import] (b) routes {on['routes']}, want "
+                             f"{want}")
+    diverged = parity_rule(off, on, gap, "(b) Falcon-7B kernel vs plain",
+                           phase="hf_import")
+    log(f"[hf_import] (b) Falcon-7B G = {cfg.num_heads // cfg.kv_heads}: "
+        f"{on['puts']} puts, {on['launches']} paged launches on "
+        f"{sorted(on['routes'])}; median prefill put "
+        f"{on['prefill_put_ms']:.2f} ms (plain {off['prefill_put_ms']:.2f}),"
+        f" decode put {on['decode_put_ms']:.2f} ms (plain "
+        f"{off['decode_put_ms']:.2f})")
+    res.update(steps=steps, gap=gap, diverged=diverged,
+               launches=on["launches"], puts=on["puts"],
+               prefill_put_ms=on["prefill_put_ms"],
+               decode_put_ms=on["decode_put_ms"],
+               plain_prefill_put_ms=off["prefill_put_ms"],
+               plain_decode_put_ms=off["decode_put_ms"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def hf_encoder_diff(a, b, dt, label):
+    """max |card - cpu| of one output, held to HF_ENC_TOL."""
+    a, b = a.float().cpu(), b.float()
+    d = (a - b).abs().max().item()
+    if dt == "fp32":
+        atol, rtol = HF_ENC_FP32_TOL
+        ok = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+        lim = f"atol {atol} + rtol {rtol}"
+    else:
+        lim_v = HF_ENC_BF16_SHARE * b.abs().max().item()
+        ok, lim = d <= lim_v, f"{lim_v:.4g} (1/16 of max |cpu|)"
+    if not (ok and torch.isfinite(a).all()):
+        raise AssertionError(f"[hf_import] (c) {label}: max |card - cpu| "
+                             f"{d:.4g} over {lim}")
+    return d
+
+
+def hf_bert(root):
+    """(c) BERT-base (bert-base-uncased's config, 12 layers) written in the
+    HF layout as BertForMaskedLM and as BertForSequenceClassification with
+    3 labels; v1 encode, mlm and classify with the model inferred from
+    config.json, fp32 and bf16, on the card against the same engine on the
+    CPU on the same inputs."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.convert import encoder_config_from_hf
+    from deepspeed_tpu_torch.models.encoder import EncoderLM
+
+    res = {}
+    gen = torch.Generator("cuda").manual_seed(HF_SEED + 2)
+    dirs = {}
+    for arch, extra in (("BertForMaskedLM", {}),
+                        ("BertForSequenceClassification",
+                         {"id2label": {str(i): f"LABEL_{i}"
+                                       for i in range(3)}})):
+        hf_cfg = dict(HF_BERT, architectures=[arch], **extra)
+        cfg = encoder_config_from_hf(hf_cfg)
+        params = EncoderLM(cfg).init(gen, device="cuda")
+        jitter_norms_and_biases(params, gen)
+        dirs[arch] = os.path.join(root, arch)
+        hf_write(dirs[arch], hf_cfg, bert_hf_tensors(params, cfg, arch))
+        del params
+    rng = np.random.default_rng(HF_SEED + 2)
+    B, T = 4, 128
+    tokens = rng.integers(0, HF_BERT["vocab_size"], (B, T))
+    mask = np.ones((B, T), np.int64)
+    mask[1, 100:] = 0
+    mask[3, 37:] = 0
+    types = (rng.integers(0, 2, (B, T)) * mask).astype(np.int64)
+    for dt in ("fp32", "bf16"):
+        for arch, d in dirs.items():
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                eng = init_inference(None, config={"checkpoint": d,
+                                                   "dtype": dt}, device=dev)
+                o = {}
+                o["hidden"], o["pooled"] = eng.encode(tokens, mask, types)
+                if arch == "BertForMaskedLM":
+                    o["mlm"] = eng.mlm(tokens, mask, types)
+                else:
+                    o["classify"] = eng.classify(tokens, mask, types)
+                outs[dev] = o
+                del eng
+            for k, v in outs["cuda"].items():
+                if v is None:
+                    continue
+                res[f"{dt} {arch} {k}"] = hf_encoder_diff(
+                    v, outs["cpu"][k], dt, f"{dt} {arch} {k}")
+    log("[hf_import] (c) BERT-base, 12 layers, card vs CPU on 4 x 128 "
+        "tokens (padding and token types): max |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in res.items())
+        + f"; tolerance fp32 atol {HF_ENC_FP32_TOL[0]} + rtol "
+        f"{HF_ENC_FP32_TOL[1]}, bf16 1/16 of the output's max |value|")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def phase_hf_import(universal=None):
+    """The HF import at full width: (a) Mistral-7B, (b) Falcon-7B, (c)
+    BERT-base; every file under build/, removed in a ``finally``.
+    ``universal``: the features phase's checkpoint result (its reader's
+    GB/s is printed beside the HF reader's)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="hf_", dir=os.path.join(here, "build"))
+    log(f"[hf_import] free disk under build/: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+    res, secs = {}, {}
+    try:
+        for key, fn in (("a", lambda: hf_mistral(root, universal)),
+                        ("b", lambda: hf_falcon(root)),
+                        ("c", lambda: hf_bert(root))):
+            t = time.perf_counter()
+            res[key] = fn()
+            secs[key] = time.perf_counter() - t
+            log(f"[hf_import] ({key}) {secs[key]:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["secs"] = secs
     return res
 
 
@@ -4712,6 +5426,7 @@ FABRIC_WAIT_S = 600.0               # a run's requests
 FABRIC_INT8 = {"weight_quant": {"enabled": True, "dtype": "int8",
                                 "block": 128},
                "kv_quant": {"enabled": True, "dtype": "int8"}}
+FABRIC_FP8 = {"kv_quant": {"enabled": True, "dtype": "fp8_e4m3"}}
 FABRIC_DISAGG = {"enabled": True, "roles": ["prefill", "decode"],
                  "handoff": {"enabled": True,
                              "max_staged": DISAGG_REQUESTS,
@@ -4946,8 +5661,9 @@ def fabric_reference(prompts, disagg):
     starts: a bare scheduler over an engine built from the servers' own
     spec (one seed on one card gives one set of weights) — the chaos
     traffic at once and its first ``FABRIC_ALONE`` prompts one at a time,
-    the disagg traffic at bf16 and with int8 weights + KV. Each engine is
-    dropped before the next is built, the last before the servers start."""
+    the disagg traffic at bf16, with int8 weights + KV and with fp8 KV.
+    Each engine is dropped before the next is built, the last before the
+    servers start."""
     from deepspeed_tpu_torch.serving import ServingConfig
     from deepspeed_tpu_torch.serving.config import ModelSpec
     from deepspeed_tpu_torch.serving.frontend import (
@@ -4957,7 +5673,8 @@ def fabric_reference(prompts, disagg):
     mspec = ModelSpec(model=spec["model"], engine=spec["engine"],
                       seed=spec["seed"])
     ref = {}
-    for name, blocks in (("bf16", {}), ("int8", FABRIC_INT8)):
+    for name, blocks in (("bf16", {}), ("int8", FABRIC_INT8),
+                         ("fp8", FABRIC_FP8)):
         engine = engine_from_model_spec(mspec, device="cuda")
         apply_engine_serving_config(engine, ServingConfig(**blocks))
         engine.put([10_000], [list(range(16))])     # warm-up
@@ -5323,6 +6040,20 @@ def phase_fabric():
         secs["b int8"] = time.perf_counter() - t
         log(f"[fabric] (b int8) {secs['b int8']:.1f} s (the servers' stop "
             "and start included)")
+        # bf16 weights, fp8 KV: the fp8 pools' payloads cross the wire
+        t = time.perf_counter()
+        spec_f = fabric_spec(DISAGG_KV_BLOCKS, dict(
+            FABRIC_FP8, disaggregation=FABRIC_DISAGG))
+        servers_f = [FabricProc("serve_replica", spec_f, f"server-{n}f",
+                                tmp) for n in ("a", "b")]
+        for p in servers_f:
+            p.listening()
+        res["b fp8"] = fabric_disagg(ref, servers_f, disagg, "fp8")
+        for p in servers_f:
+            stopped[p.label] = p.stop()
+        secs["b fp8"] = time.perf_counter() - t
+        log(f"[fabric] (b fp8) {secs['b fp8']:.1f} s (the servers' stop "
+            "and start included)")
     finally:
         for p in FabricProc.started:
             p.kill()
@@ -5335,6 +6066,9 @@ def phase_fabric():
     res["split int8"] = handoff_split(
         res["b int8"], handoff_lines(stopped["server-a8"]),
         handoff_lines(stopped["server-b8"]), "int8")
+    res["split fp8"] = handoff_split(
+        res["b fp8"], handoff_lines(stopped["server-af"]),
+        handoff_lines(stopped["server-bf"]), "fp8")
     log("[fabric] seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in secs.items()))
     res["secs"] = secs
@@ -8595,9 +9329,10 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel phase (no result lines)")
     ap.add_argument("--only", choices=["timing", "main", "quant", "v1",
-                                       "features", "kv_tier", "serving",
-                                       "fabric", "train", "train_state",
-                                       "offload", "moe", "distributed"],
+                                       "features", "hf_import", "kv_tier",
+                                       "serving", "fabric", "train",
+                                       "train_state", "offload", "moe",
+                                       "distributed"],
                     help="after device, build and kernel run this phase "
                          "alone (no result lines)")
     ap.add_argument("--offload-result", metavar="PATH",
@@ -8648,15 +9383,16 @@ def main(argv=None):
     if args.only:
         phase = {"timing": phase_timing, "main": phase_main,
                  "quant": phase_quant, "v1": phase_v1,
-                 "features": phase_features, "kv_tier": phase_kv_tier,
+                 "features": phase_features, "hf_import": phase_hf_import,
+                 "kv_tier": phase_kv_tier,
                  "serving": phase_serving, "fabric": phase_fabric,
                  "train": phase_train,
                  "train_state": phase_train_state,
                  "offload": phase_offload, "moe": phase_moe,
                  "distributed": phase_distributed}[args.only]
-        kw = {} if args.only in ("timing", "v1", "kv_tier", "serving",
-                                 "fabric", "train_state", "offload", "moe",
-                                 "distributed") else {
+        kw = {} if args.only in ("timing", "v1", "hf_import", "kv_tier",
+                                 "serving", "fabric", "train_state",
+                                 "offload", "moe", "distributed") else {
             "profile_step" if args.only == "train" else "profile_puts":
             args.profile}
         timed(args.only, phase, **kw)
@@ -8670,6 +9406,7 @@ def main(argv=None):
     int8, fp8 = timed("quant", phase_quant, profile_puts=args.profile)
     v1 = timed("v1", phase_v1)
     features = timed("features", phase_features, profile_puts=args.profile)
+    hf = timed("hf_import", phase_hf_import, universal=features["checkpoint"])
     serving = timed("serving", phase_serving)
     fabric = timed("fabric", phase_fabric)
     train = timed("train", phase_train, profile_step=args.profile)
@@ -8717,6 +9454,16 @@ def main(argv=None):
         f"{features['kv_tier bf16']['ttft_p50_ms']['on']:.1f}, int8 "
         f"{features['kv_tier int8']['ttft_p50_ms']['off']:.1f}/"
         f"{features['kv_tier int8']['ttft_p50_ms']['on']:.1f}")
+    ha, hb, uni = hf["a"], hf["b"], features["checkpoint"]
+    log(f"[hf_import] Mistral-7B ({HF_LAYERS} layers) from HF safetensors: "
+        f"{ha['load']['gb']:.3f} GB at {ha['load']['gb_per_s']:.2f} GB/s "
+        f"(universal reader {uni['gb'] / uni['load_s']:.2f} GB/s), "
+        f"host RSS growth {ha['load']['rss_gb']:.3f} GB; .bin "
+        f"{ha['bin_load']['gb_per_s']:.2f} GB/s; Falcon-7B G = 71 median "
+        f"put ms prefill {hb['prefill_put_ms']:.2f} | decode "
+        f"{hb['decode_put_ms']:.2f} (plain {hb['plain_prefill_put_ms']:.2f} "
+        f"| {hb['plain_decode_put_ms']:.2f}); BERT-base card vs CPU max "
+        f"|diff| {max(hf['c'].values()):.3g}")
     b, c, q = serving["burst"], serving["chaos"], serving["quant"]
     log(f"[serving] MISTRAL_7B through ServingFrontend: burst shed rate "
         f"{b['shed_rate']:.4f}, p50/p95 TTFT {b['frontend']['ttft_p50_ms']:.1f}"
@@ -8745,7 +9492,8 @@ def main(argv=None):
         f"{fa_[2]['stats']['tokens_per_s']:.1f} ({fa_['two_over_one']:.2f}x; "
         f"threads 0.60-0.70x); disagg tokens/s bf16 "
         f"{fabric['b bf16']['stats']['tokens_per_s']:.1f} | int8 "
-        f"{fabric['b int8']['stats']['tokens_per_s']:.1f}, payload "
+        f"{fabric['b int8']['stats']['tokens_per_s']:.1f} | fp8 KV "
+        f"{fabric['b fp8']['stats']['tokens_per_s']:.1f}, payload "
         f"{fabric['split bf16']['payload_mb']:.1f} | "
         f"{fabric['split int8']['payload_mb']:.1f} MB; SIGKILL failover "
         f"{fc['failover_s']:.2f} s, recovery_s {fc['recovery_s']:.2f}; "
@@ -8821,8 +9569,16 @@ def main(argv=None):
                       ("flash_dkv", "dkv")):
         by_path[name]["moe"] = moe_flash[key]
         by_path[name]["moe expert-parallel"] = dist["moe"]["launches"][key]
-    by_path["paged_attention"] = {"main": launches["paged_attention"],
-                                  "moe": ma["launches"]["paged_attention"]}
+    by_path["paged_attention"] = {
+        "main": launches["paged_attention"],
+        "moe": ma["launches"]["paged_attention"],
+        "hf_import": ha["v2"]["launches"]["paged_attention"],
+        "hf_import falcon": hb["launches"]}
+    # the HF import's v1 int8 path: its build's quantize launches, then the
+    # generate's dequantize and flash forward launches, each counted from 0
+    by_path["quantize"]["hf_import"] = ha["v1"]["build_launches"]["quantize"]
+    by_path["dequantize"]["hf_import"] = ha["v1"]["launches"]["dequantize"]
+    by_path["flash_fwd"]["hf_import"] = ha["v1"]["launches"]["flash_fwd"]
     by_path["paged_attention_quant"] = {
         "quant": launches["paged_attention_quant"],
         "moe": mb["launches"]["paged_attention"]}
@@ -8842,6 +9598,10 @@ def main(argv=None):
             "shape": t["case"]})
         if name in by_path:
             kernels[-1]["launches_by_path"] = by_path[name]
+        if name == "paged_attention":
+            kernels[-1]["falcon_g71"] = [
+                times["paged_attention falcon decode"],
+                times["paged_attention falcon prefill"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

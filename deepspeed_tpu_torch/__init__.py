@@ -80,7 +80,8 @@ def initialize(args=None,
     """Create the training engine; the counterpart of
     ``deepspeed_tpu.initialize``.
 
-    ``model`` is a ``models.transformer.CausalLM`` or any object with
+    ``model`` is a ``models.transformer.CausalLM``, a registered model
+    name (``models.build_model``), or any object with
     ``init(generator, device=...) -> params`` and ``loss(params, batch, rng)
     -> scalar``. ``model_parameters`` hands over a starting param tree
     (nested dicts of numpy arrays or tensors, copied into fp32 master
@@ -122,8 +123,9 @@ def initialize(args=None,
         if cfg_obj.zero_optimization.stage < 3:
             raise ValueError("offload_param requires zero_optimization.stage=3")
         if isinstance(model, str):
-            raise not_ported("a model given by name (models.build_model)",
-                             "queue 1 item 16")
+            from .models import build_model
+
+            model = build_model(model)
         engine = ZeroInfinityEngine(model, cfg_obj, rng=rng, mesh=mesh,
                                     device=device)
         return engine, None, None, None

@@ -17,7 +17,6 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from .. import not_ported
-from ..models.convert import is_hf_checkpoint
 from ..runtime.config_utils import DSConfigModel
 
 
@@ -56,10 +55,6 @@ class InferenceConfig(DSConfigModel):
         """Raise ``NotImplementedError`` for the first key that asks for a
         feature the port does not run yet."""
         checks = [
-            (self.checkpoint is not None
-             and is_hf_checkpoint(str(self.checkpoint)),
-             "HF checkpoint loading (config.checkpoint naming an HF "
-             "directory; universal checkpoints load)", "queue 1 item 16"),
             (self.ep_size > 1, f"ep_size={self.ep_size} (expert-parallel "
              "serving; a MoE model serves whole on each rank)",
              "queue 1 item 14d-ii"),

@@ -16,13 +16,20 @@ JAX package's stream on the same weights. Sampled streams draw from a
 ``torch.Generator``, which cannot give ``jax.random``'s numbers: each token
 lies in the top-k set, and one generator seed gives one stream.
 
-``config.checkpoint`` loads a universal checkpoint
+``config.checkpoint`` loads an HF checkpoint directory
+(``models/convert.py``; with no model the model is built from its
+``config.json``), its leaves read straight onto the device at the serving
+dtype, as the JAX engine stores them; or a universal checkpoint
 (``runtime/checkpointing.py``): a tag directory (with ``manifest.json``) or
 a save directory with ``latest`` through ``load_params_for_model``, any
 other directory read as the leaves' own directory, as the JAX engine reads
 it (its ``inference/engine.py:99-104``). ``load_checkpoint(path)`` reads
 the leaves' own directory into a built engine's params, as the JAX
 engine's does.
+
+Encoder models (``models/encoder.EncoderLM``: BERT, RoBERTa, DistilBERT)
+serve through ``encode`` (``forward`` is ``encode`` for them), ``mlm`` and
+``classify`` on one device; ``generate`` refuses them.
 
 Tensor parallelism: ``tensor_parallel.tp_size`` maps onto the ``tensor``
 axis of a mesh over the process world (``data`` takes the rest), as the
@@ -36,8 +43,8 @@ prefill and decode run on its heads. The logits come out whole and equal
 on every rank, so a sampled stream draws the same tokens from one seed on
 every rank.
 
-Not ported (they raise): encoder models (``encode``/``mlm``/``classify``),
-HF checkpoints (``config.checkpoint`` naming one), ``profile_model_time``.
+Not ported (they raise): encoder serving over a tensor mesh (ROADMAP queue 1
+item 16b-ii), ``profile_model_time``.
 """
 
 from __future__ import annotations
@@ -50,13 +57,15 @@ import numpy as np
 import torch
 
 from .. import not_ported, resolve_device
+from ..models.convert import (is_hf_checkpoint, load_hf_checkpoint,
+                              model_from_checkpoint)
 from ..models.weights import params_from_numpy
 from ..parallel import topology as topo
 from ..parallel.sharding import ZeroShardingPlan, place_blocks
 from ..utils.logging import logger
 from .config import InferenceConfig
 from .quantization import (QuantTensor, _leaves, quantize_param_blocks,
-                           quantize_param_tree)
+                           quantize_param_tree, quantized_cut)
 
 _DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
            "bf16": torch.bfloat16, "float32": torch.float32,
@@ -75,11 +84,24 @@ def _on_device(tree, device):
     return params_from_numpy(tree, device)
 
 
+def _tensor_size(mesh, tp_size: int) -> int:
+    """The tensor axis a mesh argument (or, without one, ``tp_size``)
+    asks for, read before the mesh is built over the process world."""
+    if mesh is None:
+        return tp_size
+    if isinstance(mesh, topo.MeshTopology):
+        return mesh.axis_size(topo.TENSOR_AXIS)
+    if isinstance(mesh, dict):
+        return int(mesh.get(topo.TENSOR_AXIS, 1))
+    return int(getattr(mesh, topo.TENSOR_AXIS, 1) or 1)
+
+
 class InferenceEngine:
     """``deepspeed_tpu_torch.init_inference(model, config)`` product.
 
-    ``model``: a ``CausalLM`` or a registered model name
-    (``models.MODEL_CONFIGS``). ``params``: a param tree (tensors, numpy
+    ``model``: a ``CausalLM``, an ``EncoderLM``, a registered model name
+    (``models.MODEL_CONFIGS``), or None with ``config.checkpoint`` naming
+    an HF checkpoint directory. ``params``: a param tree (tensors, numpy
     arrays, or either package's QuantTensors), kept as given (the JAX
     package keeps fp32 params and casts at each use); with ``None`` the
     engine draws fp32 weights with ``model.init`` from a ``torch.Generator``
@@ -101,40 +123,51 @@ class InferenceEngine:
             else InferenceConfig(**merged)
         self.config.raise_if_not_ported()
         self.device = resolve_device(device)
+        if isinstance(model, str):
+            from ..models import build_model
+
+            model = build_model(model)
+        ckpt = self.config.checkpoint
+        hf = ckpt is not None and is_hf_checkpoint(str(ckpt))
+        if model is None:
+            # the model described by an HF checkpoint's config.json
+            if not hf:
+                raise ValueError("init_inference needs a model or an HF "
+                                 "checkpoint dir in config.checkpoint")
+            model = model_from_checkpoint(str(ckpt))
+        self._is_encoder = not hasattr(model, "decode_step_paged")
         tp_size = int(self.config.tensor_parallel.tp_size)
+        if self._is_encoder and _tensor_size(mesh, tp_size) > 1:
+            raise not_ported("encoder serving over a tensor mesh",
+                             "queue 1 item 16b-ii")
         if mesh is None and tp_size > 1:
             mesh = {"tensor": tp_size, "data": -1}
         self.topology = None if mesh is None else topo.mesh_topology(mesh)
         self.tp = 1 if self.topology is None \
             else self.topology.axis_size(topo.TENSOR_AXIS)
-
-        if isinstance(model, str):
-            from ..models import build_model
-
-            model = build_model(model)
-        if model is None:
-            raise not_ported("a model inferred from an HF checkpoint "
-                             "(models/convert.py)", "queue 1 item 16")
-        if not hasattr(model, "decode_step_paged"):
-            raise not_ported("encoder models (models/encoder.py: encode, mlm, "
-                             "classify)", "queue 1 item 16")
-        if self.topology is not None and model.cfg.moe_num_experts > 0 \
+        if self.topology is not None \
+                and getattr(model.cfg, "moe_num_experts", 0) > 0 \
                 and self.topology.axis_size(topo.EXPERT_AXIS) > 1:
             raise not_ported("expert-parallel serving (a MoE model over an "
                              "expert mesh axis)", "queue 1 item 14d-ii")
         dtype = _DTYPES.get(str(self.config.dtype), torch.bfloat16)
         if model.cfg.dtype != dtype:
+            # CausalLM and EncoderLM alike (the same constructor contract)
             model = type(model)(dataclasses.replace(model.cfg, dtype=dtype))
         if self.tp > 1:
             topo.set_topology(self.topology)
             model = model.tensor_parallel(self.tp)
         self.module = model
 
-        ckpt = self.config.checkpoint
         # under tensor parallelism the whole tree stays where it was read or
-        # drawn and each rank's blocks are cut from it
+        # drawn and each rank's blocks are cut from it; an HF checkpoint is
+        # read a rank's blocks at a time
         where = "cpu" if self.tp > 1 else self.device
-        if params is None and ckpt is not None:
+        placed = False
+        if params is None and hf:
+            params = self._load_hf(model, str(ckpt), dtype)
+            placed = self.tp > 1
+        elif params is None and ckpt is not None:
             params = self._load_universal(model, str(ckpt), where)
         elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -147,7 +180,7 @@ class InferenceEngine:
                                  "from dense whole leaves: pass a dense tree "
                                  "and set quant.enabled")
             params = params_from_numpy(params, "cpu")
-        if self.tp > 1:
+        if self.tp > 1 and not placed:
             specs = ZeroShardingPlan(self.topology, 0,
                                      model.param_specs()).params(params)
             rank = torch.distributed.get_rank()
@@ -158,11 +191,31 @@ class InferenceEngine:
             else:
                 params = place_blocks(params, specs, self.topology, rank,
                                       self.device)
-        elif self.config.quant.enabled:
+        elif self.config.quant.enabled and not placed:
             # ZeRO-Inference weight-only quantization: the quantize kernel on
             # the card, one launch a quantized leaf
             params = quantize_param_tree(params, bits=self.config.quant.bits)
         self.params = params
+
+    def _load_hf(self, model, ckpt: str, dtype):
+        """Params from an HF checkpoint directory at the serving dtype (the
+        JAX engine's ``param_dtype=dtype``), each leaf read straight onto
+        the device. Under tensor parallelism a rank reads only its blocks,
+        quantized as ``quantize_param_blocks`` cuts them when
+        ``quant.enabled``."""
+        if self.tp == 1:
+            return load_hf_checkpoint(ckpt, model=model, param_dtype=dtype,
+                                      device=self.device)[1]
+        cut = None
+        if self.config.quant.enabled:
+            bits = self.config.quant.bits
+
+            def cut(read, shape, sl):
+                return quantized_cut(read, shape, sl, bits=bits)
+        return load_hf_checkpoint(ckpt, model=model, param_dtype=dtype,
+                                  device=self.device, topology=self.topology,
+                                  rank=torch.distributed.get_rank(),
+                                  cut=cut)[1]
 
     def _load_universal(self, model, ckpt: str, device):
         """fp32 params (as the JAX engine keeps them) from a universal
@@ -178,7 +231,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------ API
     def forward(self, tokens, *args, **kwargs):
         """Plain forward: tokens [B, T] -> logits [B, T, V] in the compute
-        dtype."""
+        dtype. For an encoder this is :meth:`encode`."""
+        if self._is_encoder:
+            return self.encode(tokens, *args, **kwargs)
         tokens = (tokens.to(self.device) if torch.is_tensor(tokens)
                   else torch.as_tensor(np.asarray(tokens), device=self.device))
         with torch.no_grad():
@@ -186,11 +241,47 @@ class InferenceEngine:
 
     __call__ = forward
 
-    def encode(self, *args, **kwargs):
-        raise not_ported("encoder serving (encode/mlm/classify)",
-                         "queue 1 item 16")
+    def _ids(self, a):
+        if a is None:
+            return None
+        if torch.is_tensor(a):
+            return a.to(self.device, torch.int64)
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                               device=self.device)
 
-    mlm = classify = encode
+    def encode(self, input_ids, attention_mask=None, token_type_ids=None):
+        """Encoder forward: ``(hidden [B,T,H], pooled [B,H] | None)``, the
+        BertModel serving surface."""
+        if not self._is_encoder:
+            raise ValueError("encode() is for encoder models; use forward()")
+        with torch.no_grad():
+            return self.module.apply(self.params, self._ids(input_ids),
+                                     self._ids(attention_mask),
+                                     self._ids(token_type_ids))
+
+    def mlm(self, input_ids, attention_mask=None, token_type_ids=None):
+        """Masked-LM logits [B, T, V] (BertForMaskedLM serving surface)."""
+        if not self._is_encoder or not self.module.cfg.with_mlm_head:
+            raise ValueError("model has no MLM head (not an encoder, or "
+                             "with_mlm_head=False)")
+        hidden, _ = self.encode(input_ids, attention_mask, token_type_ids)
+        with torch.no_grad():
+            return self.module.mlm_logits(self.params, hidden)
+
+    def classify(self, input_ids, attention_mask=None, token_type_ids=None):
+        """Classification logits: sequence heads (Bert/Roberta/DistilBert
+        ForSequenceClassification) [B, num_labels]; token heads
+        (ForTokenClassification) [B, T, num_labels]; QA span heads
+        (ForQuestionAnswering) [B, T, 2] (start/end on the last dim)."""
+        if not self._is_encoder or not self.module.cfg.num_labels:
+            raise ValueError("model has no classification head (not an "
+                             "encoder, or num_labels=0)")
+        hidden, pooled = self.encode(input_ids, attention_mask,
+                                     token_type_ids)
+        if self.module.cfg.cls_head not in ("token", "qa"):
+            hidden = hidden[:, :1]      # sequence heads read [CLS] only
+        with torch.no_grad():
+            return self.module._classifier_head(self.params, hidden, pooled)
 
     @staticmethod
     def _sample(logits, generator, temperature: float, top_k: int):
@@ -222,6 +313,9 @@ class InferenceEngine:
         Returns int32 [B, T + n] on the engine's device, each sequence's new
         tokens placed right after its prompt and ``pad_token_id`` beyond
         ``prompt_len[b] + n``."""
+        if self._is_encoder:
+            raise ValueError("generate() needs a causal LM; encoder models "
+                             "serve via encode()/mlm()")
         dev = self.device
         if isinstance(input_ids, (list, tuple)) and input_ids \
                 and isinstance(input_ids[0], (list, tuple, np.ndarray)):

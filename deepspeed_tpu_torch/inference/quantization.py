@@ -29,6 +29,7 @@ of the whole leaf's dequantization.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -38,8 +39,8 @@ from ..ops.quantizer import (choose_block, dequantize_blockwise, pack_int4,
 from ..parallel.sharding import place_blocks, rank_block
 
 __all__ = ["QuantTensor", "quantize_array", "quantize_param_tree",
-           "quantize_param_blocks", "tree_nbytes", "pack_int4",
-           "unpack_int4"]
+           "quantize_param_blocks", "quantized_cut", "tree_nbytes",
+           "pack_int4", "unpack_int4"]
 
 
 class QuantTensor:
@@ -140,30 +141,40 @@ def quantize_array(x: torch.Tensor, bits: int = 8, block: Optional[int] = None,
                        out_dtype=x.dtype)
 
 
+def quantized_cut(read, shape, sl, bits: int = 8, min_dims: int = 2,
+                  min_size: int = 4096):
+    """The block ``sl`` of a whole leaf of ``shape``, quantized as
+    :func:`quantize_param_tree` quantizes the whole leaf: the same rule on
+    the whole shape, the block of the whole last dim. ``read(index)`` gives
+    the ``index`` block of the whole leaf on the device. Where the block's
+    columns do not start and end on group boundaries, the groups that cover
+    them are read and quantized and ``cols`` marks the columns; the groups
+    are independent, so the codes and scales are those of the whole leaf,
+    sliced."""
+    if len(shape) < min_dims or math.prod(shape) < min_size:
+        return read(sl)
+    # widen the column span to the whole leaf's group boundaries
+    block = choose_block(shape[-1])
+    lo, hi = sl[-1].start, sl[-1].stop
+    a, b = lo // block * block, -(-hi // block) * block
+    qt = quantize_array(read(tuple(sl[:-1]) + (slice(a, b),)), bits=bits,
+                        block=block)
+    if (a, b) != (lo, hi):
+        qt.cols = (lo - a, hi - a)
+    return qt
+
+
 def quantize_param_blocks(params, specs, topology, rank: int, device,
                           bits: int = 8, min_dims: int = 2,
                           min_size: int = 4096):
     """Rank ``rank``'s blocks of a whole param tree (laid out by the spec
     tree ``specs``, ``parallel/sharding.py``) on ``device``, quantized as
-    :func:`quantize_param_tree` quantizes the whole tree: the same leaves
-    (the rule reads the whole shape) at the whole last dim's block. Where
-    the rank's columns do not start and end on group boundaries, the
-    groups that cover them are quantized and ``cols`` marks the columns;
-    the groups are independent, so the codes and scales are those of the
-    whole leaf, sliced. Each block is made contiguous on ``device``; the
-    whole tree is never copied there."""
+    :func:`quantize_param_tree` quantizes the whole tree
+    (:func:`quantized_cut`). Each block is made contiguous on ``device``;
+    the whole tree is never copied there."""
     def cut(leaf, sl, device):
-        if leaf.dim() < min_dims or leaf.numel() < min_size:
-            return rank_block(leaf, sl, device)
-        # widen the column span to the whole leaf's group boundaries
-        block = choose_block(leaf.shape[-1])
-        lo, hi = sl[-1].start, sl[-1].stop
-        a, b = lo // block * block, -(-hi // block) * block
-        qt = quantize_array(rank_block(leaf, sl[:-1] + (slice(a, b),),
-                                       device), bits=bits, block=block)
-        if (a, b) != (lo, hi):
-            qt.cols = (lo - a, hi - a)
-        return qt
+        return quantized_cut(lambda s: rank_block(leaf, s, device),
+                             tuple(leaf.shape), sl, bits, min_dims, min_size)
 
     return place_blocks(params, specs, topology, rank, device, cut)
 

@@ -29,6 +29,12 @@ its own. ``export_sequence`` gathers the kv heads, so a payload is the
 JAX engine's whole-head payload; ``import_sequence`` keeps the rank's
 heads of one. The KV tier and the draft-model proposer are refused over
 such a mesh (ROADMAP queue 1 item 14b-ii).
+
+``checkpoint_path`` names an HF checkpoint directory (``models/
+convert.py``): with no ``params`` each leaf is read from its files straight
+onto the device at the model's compute dtype (a rank's blocks only over a
+tensor mesh), and with no ``model`` the model is built from its
+``config.json``, as the JAX ``engine_v2.py:105-111`` loads it.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import numpy as np
 import torch
 
 from ... import not_ported, resolve_device
+from ...models.convert import (load_hf_checkpoint, model_from_checkpoint,
+                               param_shapes)
 from ...models.transformer import CausalLM
 from ...parallel import topology as topo
 from ...parallel.sharding import ZeroShardingPlan, place_blocks
@@ -123,12 +131,15 @@ class InferenceEngineV2:
                  checkpoint_path: Optional[str] = None, mesh=None,
                  device=None):
         self.config = config or RaggedInferenceEngineConfig()
-        if checkpoint_path is not None:
-            raise not_ported("checkpoint loading (models/convert.py)",
-                             "queue 1 item 16")
-        if model is None:
-            raise ValueError("InferenceEngineV2 needs a model")
         self.device = resolve_device(device)
+        from_ckpt = params is None and checkpoint_path is not None
+        if from_ckpt and model is None:
+            # pretrained weights: the model from the HF directory's
+            # config.json (models/convert.py)
+            model = model_from_checkpoint(checkpoint_path)
+        if model is None:
+            raise ValueError("InferenceEngineV2 needs a model or "
+                             "checkpoint_path")
         # tensor parallelism: a mesh without a tensor axis (or with one
         # rank on it) serves unsharded, as in the JAX engine
         self.topology = None if mesh is None else topo.mesh_topology(mesh)
@@ -145,15 +156,22 @@ class InferenceEngineV2:
                 raise not_ported("the KV tier over a tensor-parallel mesh",
                                  "queue 1 item 14b-ii")
         self.model = model
-        if params is None:
+        if from_ckpt:
+            # each leaf read straight onto the device at the model's compute
+            # dtype; under tensor parallelism a rank reads only its blocks
+            tp_kw = {} if self.tp == 1 else {
+                "topology": self.topology,
+                "rank": torch.distributed.get_rank()}
+            _, params = load_hf_checkpoint(checkpoint_path, model=model,
+                                           device=self.device, **tp_kw)
+        elif params is None:
             params = model.init(
                 torch.Generator(device=self.device).manual_seed(0),
                 device=self.device)
-        self._last_dims = None
-        if self.tp > 1:
-            # the quantizer's block follows each leaf's whole last dim
-            self._last_dims = {k: int(v.shape[-1])
-                               for k, v in _dotted(params)}
+        # the quantizer's block follows each leaf's whole last dim
+        self._last_dims = None if self.tp == 1 else {
+            k: int(v.shape[-1]) for k, v in _dotted(param_shapes(model))}
+        if self.tp > 1 and not from_ckpt:
             params = place_blocks(
                 params, ZeroShardingPlan(self.topology, 0,
                                          model.param_specs()).params(params),

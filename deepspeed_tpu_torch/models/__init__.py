@@ -1,5 +1,6 @@
 """Model definitions (counterpart of ``deepspeed_tpu/models``): the causal
-transformer's presets by name, and ``build_model``."""
+transformer's presets by name, ``build_model``, the BERT-family encoder,
+and the HF checkpoint import (``convert.py``)."""
 
 import dataclasses
 
@@ -18,6 +19,22 @@ from .transformer import (  # noqa: F401
     TINY_TEST,
     CausalLM,
     TransformerConfig,
+)
+
+from .encoder import (  # noqa: F401
+    BERT_BASE,
+    BERT_LARGE,
+    EncoderConfig,
+    EncoderLM,
+)
+
+from .convert import (  # noqa: F401
+    config_from_hf,
+    encoder_config_from_hf,
+    from_pretrained,
+    is_hf_checkpoint,
+    load_hf_checkpoint,
+    model_from_checkpoint,
 )
 
 MODEL_CONFIGS = {

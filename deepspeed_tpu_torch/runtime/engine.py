@@ -338,8 +338,9 @@ class DeepSpeedTpuEngine:
         if model is None:
             raise ValueError("model is required")
         if isinstance(model, str):
-            raise not_ported("a model given by name (models.build_model)",
-                             "queue 1 item 16")
+            from ..models import build_model
+
+            model = build_model(model)
         cfg = getattr(model, "cfg", None)
         if cfg is not None and getattr(cfg, "dropout", 0.0) > 0:
             raise not_ported("training with dropout > 0 (the masks would "

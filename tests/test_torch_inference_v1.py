@@ -437,11 +437,15 @@ def test_unported_config_keys_raise(config, tmp_path):
                                                device="cpu")
         return
     if config.get("checkpoint") == "HF":
-        # an HF checkpoint directory (universal ones load: see
-        # test_torch_checkpoint.py)
+        # an HF checkpoint directory loads (tests/test_torch_convert.py);
+        # one whose config.json names no model_type raises the JAX
+        # loader's ValueError
         (tmp_path / "config.json").write_text("{}")
         (tmp_path / "model.safetensors").write_bytes(b"")
-        config = {"checkpoint": str(tmp_path)}
+        with pytest.raises(ValueError, match="pass model_type="):
+            deepspeed_tpu_torch.init_inference(
+                "tiny", config={"checkpoint": str(tmp_path)}, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference("tiny", config=config,
                                            device="cpu")
@@ -449,10 +453,15 @@ def test_unported_config_keys_raise(config, tmp_path):
 
 def test_unported_surfaces_raise(tmp_path):
     te = deepspeed_tpu_torch.init_inference("tiny", device="cpu")
-    for call in (lambda: te.encode([[1]]), lambda: te.mlm([[1]]),
-                 lambda: te.classify([[1]]), te.profile_model_time):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # encoder serving is ported (tests/test_torch_encoder.py): on a causal
+    # model encode, mlm and classify raise the JAX engine's ValueError
+    for call, msg in ((lambda: te.encode([[1]]), "encoder models"),
+                      (lambda: te.mlm([[1]]), "no MLM head"),
+                      (lambda: te.classify([[1]]), "no classification")):
+        with pytest.raises(ValueError, match=msg):
             call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te.profile_model_time()
     # load_checkpoint is ported: it reads a leaves directory into the
     # engine's params (a missing directory raises, as in the JAX engine)
     with pytest.raises(FileNotFoundError):
@@ -466,7 +475,8 @@ def test_unported_surfaces_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference("tiny", mesh=object(),
                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # no model and no HF checkpoint to infer one from: the JAX ValueError
+    with pytest.raises(ValueError, match="needs a model or an HF"):
         deepspeed_tpu_torch.init_inference(None, device="cpu")
 
 

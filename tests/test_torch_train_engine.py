@@ -511,9 +511,14 @@ def test_not_ported_engine_surfaces_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 14"):
         DeepSpeedTpuEngine(model=model, config={"train_batch_size": 2},
                            mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _ = deepspeed_tpu_torch.initialize(model="tiny", device="cpu",
-                                           config={"train_batch_size": 2})
+    # a model given by name builds through models.build_model
+    eng_named, *_ = deepspeed_tpu_torch.initialize(
+        model="tiny", device="cpu", config={"train_batch_size": 2})
+    assert dataclasses.replace(eng_named.module.cfg,
+                               dtype=ttf.TINY_TEST.dtype) == ttf.TINY_TEST
+    loss = eng_named.train_batch(iter([{"input_ids": torch.zeros(
+        (2, 5), dtype=torch.int64)}]))
+    assert bool(torch.isfinite(loss))
     # MoE trains (tests/test_torch_moe.py); MoE with the pipeline and
     # under ZeRO-Infinity streaming still raise, naming their items
     moe = ttf.CausalLM(dataclasses.replace(ttf.TINY_TEST, moe_num_experts=2))
