@@ -321,7 +321,25 @@ Phases, each of which raises on failure (nothing is caught):
              one process on the ranks' curve; (i) the moe phase's training
              model over expert = 2 (4 of the 8 experts a rank), 2 steps,
              against the same engine in one process (losses within 2e-4,
-             grad norms within 1e-2).
+             grad norms within 1e-2). Then the sequence and pipe axes in
+             the same two ranks, each held to (a) (losses, sampled params;
+             the limits SEQ_*, RING_*, PIPE_* set from readings on the
+             card): (j) Ulysses over
+             sequence = 2 (the flash kernels on a rank's 16 query and 4 KV
+             heads over the whole 4096 tokens: one forward, delta, dq and
+             dkv launch a layer a micro step, asserted with their shapes;
+             the all-to-alls in the comms logger); (k) ring attention over
+             sequence = 2 (torch ops, as the JAX ring: no flash launch,
+             asserted; the K/V permutes' bytes and seconds); (l) pipe = 2,
+             one layer a stage, pipeline.micro_batches = 2, ZeRO 1, both
+             rows as one micro batch (a rank's flash launches: 2 a step,
+             the live ticks only; half of (a)'s layer bytes held), its
+             save after step 2 resumed in one process on the ranks'
+             curve; and (m), in this process while the ranks run, the
+             host-driven PipelineEngine: two stages of width-4096 Linear
+             layers between a tied embedding and unembedding, 4
+             micro-batches, 3 SGD steps, its losses held to the same
+             layers trained sequentially on the card (EXEC_TOL).
 
 16. hf_import — the HF import (models/convert.py) at full width, after
              features, the HF files written by this script (a safetensors
@@ -8238,6 +8256,32 @@ MOE_DIST_NORM_TOL = 4.5e-4
 MOE_DIST_EXPERT_TOL = 1e-4
 MOE_DIST_LEAF_TOL = 5e-3
 MOE_EXPERT_LEAVES = ("w_in", "w_out", "w_gate")
+# (j)-(l): the sequence and pipe axes over the DIST_RANKS ranks, each held
+# to (a): the step losses' largest relative gap to (a)'s and the sampled
+# params' largest gap. From readings on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6, PR 22): (j) Ulysses read 1.17e-05 and 1.43e-04 (the
+# same kernels on a rank's heads: the loss limit about 4x its reading, the
+# params held to DIST_PARAM_TOL); (k) ring read 3.15e-04 at step 3 (it
+# scores in bf16 einsums, as the JAX ring does, where (a)'s kernel scores
+# in fp32: about 3x), its params held to the most two runs of AdamW can
+# part an element in 3 steps at the peak lr (twice DIST_PARAM_TOL); (l)
+# pipe read 5.0e-05 (the head's bf16 gradient of both rows at once: 4x)
+SEQ_LOSS_TOL = 5e-5
+SEQ_PARAM_TOL = DIST_PARAM_TOL
+RING_LOSS_TOL = 1e-3
+RING_PARAM_TOL = 2 * DIST_PARAM_TOL
+PIPE_LOSS_TOL = DIST_TOL
+PIPE_PARAM_TOL = DIST_PARAM_TOL
+PIPE_MICRO = 2              # (l)'s pipeline.micro_batches
+# (m): the host-driven PipelineEngine against sequential training, fp32
+EXEC_WIDTH = 4096
+EXEC_VOCAB = 32000
+EXEC_MICRO = 4
+EXEC_ROWS, EXEC_T = 2, 128  # a micro-batch's tokens
+EXEC_STEPS = 3
+# relative, each step's mean micro loss; read 6.89e-08 on an NVIDIA H100
+# 80GB HBM3 at 700 W (fp32, the gradients summed in another order)
+EXEC_TOL = 1e-6
 # MISTRAL_7B's leaves that stage 3 shards over fsdp: 9 a layer, and of the
 # globals wte, the final norm and lm_head; the untied wte is only indexed,
 # so nothing saves it for the backward and it is not gathered again
@@ -8246,9 +8290,10 @@ DIST_GLOBAL_LEAVES = 3
 DIST_GLOBAL_REGATHERED = 2
 
 
-def dist_config(gas, **zero):
+def dist_config(gas, extra=None, **zero):
     cfg = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
-               steps_per_print=100, comms_logger={"enabled": True})
+               steps_per_print=100, comms_logger={"enabled": True},
+               **(extra or {}))
     cfg["zero_optimization"] = dict(zero)
     return cfg
 
@@ -8260,28 +8305,30 @@ def dist_rows():
         0, MISTRAL_7B.vocab_size, (DIST_RANKS, DIST_SEQ)).astype(np.int32)
 
 
-def dist_engine(gas, mesh=None, cfg=None, **zero):
+def dist_engine(gas, mesh=None, cfg=None, extra=None, **zero):
     """A training engine over ``mesh`` (one process without one) of ``cfg``
-    (default MISTRAL_7B at DIST_LAYERS layers)."""
+    (default MISTRAL_7B at DIST_LAYERS layers); ``extra``: more config
+    blocks."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import MISTRAL_7B, CausalLM
 
     cfg = cfg or dataclasses.replace(MISTRAL_7B, num_layers=DIST_LAYERS)
     kw = {} if mesh is None else {"mesh": mesh}
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=CausalLM(cfg), config=dist_config(gas, **zero), **kw)
+        model=CausalLM(cfg), config=dist_config(gas, extra, **zero), **kw)
     return engine
 
 
-def dist_step(engine, rows, grads=None):
+def dist_step(engine, rows, grads=None, rows_per_micro=1):
     """One global step: the rows of the rank's data-parallel index on a mesh
-    (a tensor group's ranks read the same), or every row, each a micro step;
-    the loss and the synchronized seconds. ``grads``: a list that receives
-    :func:`dist_grad_sumsq` of the accumulated gradients just before the
-    update."""
+    (a tensor, sequence or pipe group's ranks read the same), or every row,
+    ``rows_per_micro`` rows a micro step; the loss and the synchronized
+    seconds. ``grads``: a list that receives :func:`dist_grad_sumsq` of the
+    accumulated gradients just before the update."""
     mine = rows[engine.dp_rank::engine.dp_world_size] if engine._mesh \
         else rows
-    batches = [{"input_ids": mine[r:r + 1]} for r in range(len(mine))]
+    batches = [{"input_ids": mine[r:r + rows_per_micro]}
+               for r in range(0, len(mine), rows_per_micro)]
     if grads is not None:
         real = engine.step
 
@@ -8365,7 +8412,7 @@ def dist_merge(samples):
     return out
 
 
-def dist_compare_samples(a, b, label):
+def dist_compare_samples(a, b, label, tol=DIST_PARAM_TOL):
     gap = 0.0
     for key, x in a.items():
         y = b[key]
@@ -8375,9 +8422,9 @@ def dist_compare_samples(a, b, label):
         if abs(x["sumsq"] - y["sumsq"]) > 1e-4 * abs(y["sumsq"]):
             raise AssertionError(f"[{label}] {key}: sum of squares "
                                  f"{x['sumsq']} vs {y['sumsq']}")
-    if gap > DIST_PARAM_TOL:
+    if gap > tol:
         raise AssertionError(f"[{label}] gathered params differ by {gap} "
-                             f"(tolerance {DIST_PARAM_TOL})")
+                             f"(tolerance {tol})")
     return gap
 
 
@@ -8405,26 +8452,57 @@ def dist_held(engine):
     return nb(engine.state.params), nb(engine.state.opt_state.moments)
 
 
+def dist_layer_bytes(engine):
+    """The bytes of the stacked layer leaves this rank holds."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(engine.state.params["layers"]))
+
+
+@contextlib.contextmanager
+def flash_shapes(record):
+    """Record (q shape, k shape) of every flash forward launch."""
+    real = fa.flash_fwd_cuda
+
+    def recording(q, k, v, *a, **kw):
+        record.add((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, *a, **kw)
+
+    fa.flash_fwd_cuda = recording
+    try:
+        yield record
+    finally:
+        fa.flash_fwd_cuda = real
+
+
 def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
-             first=0, sample=False, mesh=None, gas=1, cfg=None, grads=False):
-    """On every rank: a ZeRO engine of ``cfg`` (``dist_engine``) over
-    ``mesh`` (default fsdp = DIST_RANKS) at ``gas``, ``steps`` steps (saving
-    after 2 when ``save_dir``; loading ``load_dir`` first); the rank's
-    numbers (with ``grads``, each step's :func:`dist_grad_sumsq`)."""
+             first=0, sample=False, mesh=None, gas=1, cfg=None, grads=False,
+             extra=None, rows_per_micro=1, flash_per_micro=None):
+    """On every rank: a ZeRO engine of ``cfg`` (``dist_engine``, with the
+    config blocks ``extra``) over ``mesh`` (default fsdp = DIST_RANKS) at
+    ``gas``, ``steps`` steps of ``rows_per_micro`` rows a micro step
+    (saving after 2 when ``save_dir``; loading ``load_dir`` first); the
+    rank's numbers (with ``grads``, each step's :func:`dist_grad_sumsq`).
+    Asserts ``flash_per_micro`` (default: a layer's one) launches of each
+    flash kernel a micro step, and records their shapes."""
     from deepspeed_tpu_torch import comm
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = dist_engine(gas, mesh=mesh or {"fsdp": DIST_RANKS}, cfg=cfg,
-                         **zero)
+                         extra=extra, **zero)
     if load_dir is not None:
         engine.load_checkpoint(load_dir)
     comm.comms_logger.reset()
     reset_launches()
     losses, secs, norms, grad_sumsq = [], [], [], []
+    shapes = set()
     for s in range(first, first + steps):
-        loss, sec = dist_step(engine, rows, grad_sumsq if grads else None)
+        with flash_shapes(shapes):
+            loss, sec = dist_step(engine, rows, grad_sumsq if grads else None,
+                                  rows_per_micro=rows_per_micro)
         losses.append(loss)
         secs.append(sec)
         norms.append(engine.get_global_grad_norm())
@@ -8437,19 +8515,23 @@ def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
     staged_s = comm.comms_logger.host_staged_s
     gathers = [(t.gathers, t.regathers) for t in engine._gather_transforms]
     pbytes, mbytes = dist_held(engine)
+    lbytes = dist_layer_bytes(engine)
     peak = torch.cuda.max_memory_allocated()
     sample = dist_sample(engine) if sample else None
     r = comm.get_rank()
     log(f"[distributed r{r}] {label}: losses {[round(x, 6) for x in losses]}"
         f", step s {[round(x, 3) for x in secs]}, peak "
-        f"{peak / 1e9:.2f} GB, params held {pbytes / 1e9:.3f} GB, moments "
-        f"{mbytes / 1e9:.3f} GB, launches {json.dumps(launches)}, "
+        f"{peak / 1e9:.2f} GB, params held {pbytes / 1e9:.3f} GB (layers "
+        f"{lbytes / 1e9:.3f}), moments {mbytes / 1e9:.3f} GB, launches "
+        f"{json.dumps(launches)}, flash shapes (q, k) {sorted(shapes)}, "
         f"host_staged_bytes {staged} in {staged_s:.3f} s")
     for op, c in comms.items():
         log(f"[distributed r{r}] {label} comms {op}: {c['count']} calls, "
             f"{c['bytes'] / 1e9:.3f} GB, {c['s']:.3f} s, busbw "
             f"{c['busbw_gbs']:.3f} GB/s")
-    want = steps * gas * engine.module.cfg.num_layers
+    per_micro = (engine.module.cfg.num_layers if flash_per_micro is None
+                 else flash_per_micro)
+    want = steps * gas * per_micro
     if any(launches["flash"][k] != want for k in ("fwd", "delta", "dq",
                                                    "dkv")):
         raise AssertionError(f"[distributed r{r}] {label}: flash launches "
@@ -8459,9 +8541,10 @@ def dist_run(label, rows, steps, zero, save_dir=None, load_dir=None,
     torch.cuda.empty_cache()
     return {"losses": losses, "step_s": secs, "grad_norms": norms,
             "peak": peak, "param_bytes": pbytes, "moment_bytes": mbytes,
-            "launches": launches, "comms": comms, "staged": staged,
-            "staged_s": staged_s, "grad_sumsq": grad_sumsq,
-            "gathers": gathers, "sample": sample}
+            "layer_bytes": lbytes, "launches": launches, "comms": comms,
+            "staged": staged, "staged_s": staged_s, "grad_sumsq": grad_sumsq,
+            "gathers": gathers, "sample": sample,
+            "flash_shapes": sorted(shapes)}
 
 
 def dist_rank_main(rank, work):
@@ -8511,10 +8594,40 @@ def dist_rank_main(rank, work):
                             gas=DIST_RANKS, cfg=moe_cfg(MOE_TRAIN_LAYERS),
                             sample=True, grads=True)
         out["moe_s"] = round(time.perf_counter() - t, 1)
+        out.update(dist_seq_pipe_rank(work, rows))
     finally:
         comm.destroy_distributed()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
+
+
+def dist_seq_pipe_rank(work, rows):
+    """This rank's (j) Ulysses and (k) ring over sequence = DIST_RANKS and
+    (l) pipe = DIST_RANKS (saving after step 2), each on the two rows a
+    step, 3 steps."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    out = {}
+    t = time.perf_counter()
+    seq = {"sequence": DIST_RANKS}
+    out["j"] = dist_run("(j) Ulysses, sequence = 2", rows, DIST_STEPS,
+                        {"stage": 2}, mesh=seq, gas=DIST_RANKS, sample=True)
+    out["k"] = dist_run(
+        "(k) ring, sequence = 2", rows, DIST_STEPS, {"stage": 2}, mesh=seq,
+        gas=DIST_RANKS, sample=True, flash_per_micro=0,
+        cfg=dataclasses.replace(MISTRAL_7B, num_layers=DIST_LAYERS,
+                                attention_impl="ring"))
+    out["seq_s"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    out["l"] = dist_run(
+        "(l) pipe = 2", rows, DIST_STEPS, {"stage": 1},
+        mesh={"pipe": DIST_RANKS}, rows_per_micro=DIST_RANKS, sample=True,
+        extra={"pipeline": {"stages": DIST_RANKS,
+                            "micro_batches": PIPE_MICRO}},
+        flash_per_micro=PIPE_MICRO * DIST_LAYERS // DIST_RANKS,
+        save_dir=os.path.join(work, "pipe"))
+    out["pipe_s"] = round(time.perf_counter() - t, 1)
+    return out
 
 
 # ------------------------------------------- tensor parallelism, (f)-(h)
@@ -9041,6 +9154,7 @@ def phase_distributed():
                 ref.save_checkpoint(os.path.join(work, "ref"), tag="step2")
         ref_sample = dist_merge([dist_sample(ref)])
         ref_held = dist_held(ref)
+        ref_layers = dist_layer_bytes(ref)
         if fa.launches["fwd"] != DIST_STEPS * 2 * DIST_LAYERS:
             raise AssertionError(f"[distributed a] launches {fa.launches}")
         log(f"[distributed a] one process, gas 2 (beside the ranks): losses "
@@ -9065,6 +9179,10 @@ def phase_distributed():
         t = time.perf_counter()
         tp_ref = tp_references(work)
         secs["fg_ref"] = round(time.perf_counter() - t, 1)
+        # (m) here while the ranks run
+        t = time.perf_counter()
+        exec_summary = pipe_executor_cell()
+        secs["m"] = round(time.perf_counter() - t, 1)
         try:
             for p in procs:
                 rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -9191,6 +9309,12 @@ def phase_distributed():
         t = time.perf_counter()
         moe_summary = moe_dist_check(ranks, rows)
         secs["i"] = round(time.perf_counter() - t, 1)
+        # (j)-(l): the sequence and pipe axes against (a)
+        t = time.perf_counter()
+        seq_pipe = seq_pipe_check(ranks, ref_losses, ref_sample, ref_layers,
+                                  work, rows)
+        seq_pipe["m"] = exec_summary
+        secs["jkl"] = round(time.perf_counter() - t, 1)
         t = time.perf_counter()
         e_loss = dist_nccl_one_rank(work, rows)
         secs["e"] = round(time.perf_counter() - t, 1)
@@ -9204,7 +9328,189 @@ def phase_distributed():
     log(f"[distributed] sub-phases s: {json.dumps(secs)}")
     return {"ref_losses": ref_losses, "ref_step_s": ref_secs,
             "ranks": ranks, "e_loss": e_loss, "secs": secs,
-            "tensor": tp_summary, "moe": moe_summary}
+            "tensor": tp_summary, "moe": moe_summary, "seq_pipe": seq_pipe}
+
+
+def seq_pipe_check(ranks, ref_losses, ref_sample, ref_layers, work, rows):
+    """(j)-(l) against (a): every rank's losses within the cell's loss
+    limit of (a)'s (and equal on both ranks), the params after the steps
+    within its param limit on the strided sample; the flash launches were
+    asserted by the ranks, their shapes are checked here; (l) holds half
+    of (a)'s layer bytes, and its save after step 2 resumes in one process
+    on the ranks' curve."""
+    from deepspeed_tpu_torch.models.transformer import MISTRAL_7B
+
+    cfg = MISTRAL_7B
+    T = DIST_SEQ - 1
+    D = cfg.hidden_size // cfg.num_heads
+    want_shapes = {
+        "j": [[[1, T, cfg.num_heads // DIST_RANKS, D],
+               [1, T, cfg.num_kv_heads // DIST_RANKS, D]]],
+        "k": [],
+        "l": [[[1, T, cfg.num_heads, D], [1, T, cfg.num_kv_heads, D]]]}
+    limits = {"j": (SEQ_LOSS_TOL, SEQ_PARAM_TOL),
+              "k": (RING_LOSS_TOL, RING_PARAM_TOL),
+              "l": (PIPE_LOSS_TOL, PIPE_PARAM_TOL)}
+    names = {"j": "Ulysses, sequence = 2", "k": "ring, sequence = 2",
+             "l": "pipe = 2, ZeRO 1"}
+    out = {}
+    for cell, (loss_tol, param_tol) in limits.items():
+        gaps = []
+        for r, res in enumerate(ranks):
+            c = res[cell]
+            gaps += [abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                         ref_losses)]
+            shapes = [list(map(list, sh)) for sh in c["flash_shapes"]]
+            if c["losses"] != ranks[0][cell]["losses"] or \
+                    max(gaps) > loss_tol or shapes != want_shapes[cell]:
+                raise AssertionError(
+                    f"[distributed {cell}] rank {r}: losses {c['losses']} vs "
+                    f"{ref_losses} (tolerance {loss_tol}), flash shapes "
+                    f"{shapes} (want {want_shapes[cell]})")
+        gap = dist_compare_samples(
+            dist_merge([res[cell]["sample"] for res in ranks]), ref_sample,
+            f"distributed {cell}", tol=param_tol)
+        c = ranks[0][cell]
+        comms = {op: v for op, v in c["comms"].items()
+                 if op in ("all_to_all_single", "ppermute", "all_reduce")}
+        log(f"[distributed {cell}] {names[cell]}: losses "
+            f"{[round(x, 6) for x in c['losses']]} within {max(gaps):.3g} of "
+            f"(a)'s (limit {loss_tol}); sampled params within {gap:.3g} "
+            f"(limit {param_tol}); step s {[round(x, 2) for x in c['step_s']]}"
+            f"; flash launches {json.dumps(c['launches']['flash'])} at "
+            f"(q, k) {want_shapes[cell]}; comms {json.dumps(comms)}")
+        out[cell] = {"losses": c["losses"], "loss_gap": max(gaps),
+                     "param_gap": gap, "step_s": c["step_s"],
+                     "launches": c["launches"]["flash"], "comms": c["comms"],
+                     "param_bytes": c["param_bytes"],
+                     "moment_bytes": c["moment_bytes"],
+                     "layer_bytes": c["layer_bytes"], "peak": c["peak"]}
+    lb = ranks[0]["l"]["layer_bytes"]
+    if lb * DIST_RANKS != ref_layers:
+        raise AssertionError(f"[distributed l] a stage holds {lb} layer "
+                             f"bytes, (a) {ref_layers}")
+    one = dist_engine(2)
+    one.load_checkpoint(os.path.join(work, "pipe"))
+    l_loss, _ = dist_step(one, rows)
+    del one
+    free_engine()
+    want = ranks[0]["l"]["losses"][2]
+    if abs(l_loss - want) > PIPE_LOSS_TOL * abs(want):
+        raise AssertionError(f"[distributed l] one process resumed the "
+                             f"pipe-sharded save: {l_loss} vs {want}")
+    out["l"]["resumed"] = l_loss
+    log(f"[distributed l] a stage holds {lb / 1e9:.3f} GB of layers, half "
+        f"of (a)'s {ref_layers / 1e9:.3f} GB (params "
+        f"{ranks[0]['l']['param_bytes'] / 1e9:.3f} GB, moments "
+        f"{ranks[0]['l']['moment_bytes'] / 1e9:.3f} GB); the pipe-sharded "
+        f"save resumed in one process: step 3 loss {l_loss:.6f} vs the "
+        f"ranks' {want:.6f}; the ranks' cells took {ranks[0]['seq_s']} s "
+        f"(j, k) and {ranks[0]['pipe_s']} s (l)")
+    return out
+
+
+def pipe_executor_cell():
+    """(m): the host-driven PipelineEngine on the card: stages of width
+    EXEC_WIDTH Linear layers between a tied embedding and unembedding
+    (``tests/test_pipe_executor.py``'s model), 2 stages, EXEC_MICRO
+    micro-batches, EXEC_STEPS SGD steps, against the same layers from the
+    same params trained sequentially (the micro-batches' gradients summed,
+    each of 1/M of its loss; the tied table's two uses summed): each step's
+    mean micro loss within EXEC_TOL."""
+    from deepspeed_tpu_torch.runtime.pipe import (LayerSpec, PipelineEngine,
+                                                  PipelineModule,
+                                                  TiedLayerSpec)
+
+    class Linear:
+        def __init__(self, out_dim):
+            self.out_dim = out_dim
+
+        def init(self, rng, x):
+            n = x.shape[-1]
+            return {"w": torch.randn(n, self.out_dim, generator=rng,
+                                     device=x.device) / math.sqrt(n),
+                    "b": torch.zeros(self.out_dim, device=x.device)}
+
+        def apply(self, p, x):
+            return torch.tanh(x @ p["w"] + p["b"])
+
+    class Embed:
+        def __init__(self, vocab, dim):
+            self.vocab, self.dim = vocab, dim
+
+        def init(self, rng, x):
+            return {"e": 0.02 * torch.randn(self.vocab, self.dim,
+                                            generator=rng, device=x.device)}
+
+        def apply(self, p, x):
+            return p["e"][x.long()]
+
+    class Unembed(Embed):
+        def apply(self, p, x):
+            return x @ p["e"].t()
+
+    def ce(logits, y):
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+    V, H, M = EXEC_VOCAB, EXEC_WIDTH, EXEC_MICRO
+    specs = [TiedLayerSpec("emb", Embed, V, H), LayerSpec(Linear, H),
+             LayerSpec(Linear, H), TiedLayerSpec("emb", Unembed, V, H)]
+    module = PipelineModule(specs, num_stages=2, partition_method="uniform")
+    lr = 0.5
+    eng = PipelineEngine(module, ce, num_micro_batches=M, optimizer="sgd",
+                         optimizer_params={"lr": lr}, seed=7, device="cuda")
+    rng = np.random.default_rng(7)
+    data = [[(torch.from_numpy(rng.integers(0, V, (EXEC_ROWS, EXEC_T))).cuda(),
+              torch.from_numpy(rng.integers(0, V, (EXEC_ROWS, EXEC_T))).cuda())
+             for _ in range(M)] for _ in range(EXEC_STEPS)]
+    eng._lazy_init(data[0][0][0])
+    # the sequential reference: one copy of each distinct param
+    layers = [lyr for sl in eng._stage_layers for lyr in sl]
+    flat = [p for sp in eng.params for p in sp]
+    e = flat[0]["e"].clone()
+    mids = [{k: v.clone() for k, v in p.items()} for p in flat[1:3]]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = [eng.train_batch(iter(micros)) for micros in data]
+    torch.cuda.synchronize()
+    exec_s = time.perf_counter() - t
+    ref = []
+    for micros in data:
+        leaves = [e] + [v for p in mids for v in p.values()]
+        for v in leaves:
+            v.requires_grad_(True)
+            v.grad = None
+        total = 0.0
+        for x, y in micros:
+            h = layers[0].apply({"e": e}, x)
+            h = layers[2].apply(mids[1], layers[1].apply(mids[0], h))
+            loss = ce(layers[3].apply({"e": e}, h), y)
+            (loss / M).backward()
+            total += float(loss.detach())
+        ref.append(total / M)
+        with torch.no_grad():
+            e = (e - lr * e.grad).detach()
+            mids = [{k: (v - lr * v.grad).detach() for k, v in p.items()}
+                    for p in mids]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    got = [eng.params[0][0]["e"]] + [v for p in (eng.params[0][1],
+                                                 eng.params[1][0])
+                                     for v in p.values()]
+    pgap = max(float((a - b).abs().max()) for a, b in zip(
+        got, [e] + [v for p in mids for v in p.values()]))
+    if max(gaps) > EXEC_TOL or eng.params[0][0]["e"] is not \
+            eng.params[1][-1]["e"]:
+        raise AssertionError(f"[distributed m] PipelineEngine losses "
+                             f"{losses} vs sequential {ref} (limit "
+                             f"{EXEC_TOL})")
+    log(f"[distributed m] PipelineEngine on the card, 2 stages, width {H}, "
+        f"vocab {V}, tied embedding, {M} micro-batches, {EXEC_STEPS} SGD "
+        f"steps: losses {[round(x, 6) for x in losses]} vs sequential "
+        f"{[round(x, 6) for x in ref]} (within {max(gaps):.3g}, limit "
+        f"{EXEC_TOL}); params within {pgap:.3g}; {exec_s:.2f} s")
+    return {"losses": losses, "sequential": ref, "loss_gap": max(gaps),
+            "param_gap": pgap, "s": exec_s}
 
 
 def moe_dist_check(ranks, rows):
@@ -9532,6 +9838,14 @@ def main(argv=None):
         f"{tp['g bf16']['one_wall_s']:.2f} | {tp['g int8']['one_wall_s']:.2f}"
         f" s; training losses {[round(x, 6) for x in tp['h']['losses']]}, "
         f"step s {[round(x, 2) for x in tp['h']['step_s']]}")
+    sp = dist["seq_pipe"]
+    log(f"[distributed] sequence and pipe over the gloo ranks, losses' gap "
+        f"to (a) | step s: (j) Ulysses {sp['j']['loss_gap']:.3g} | "
+        f"{[round(x, 2) for x in sp['j']['step_s']]}, (k) ring "
+        f"{sp['k']['loss_gap']:.3g} | {[round(x, 2) for x in sp['k']['step_s']]}"
+        f", (l) pipe = 2 {sp['l']['loss_gap']:.3g} | "
+        f"{[round(x, 2) for x in sp['l']['step_s']]}; (m) PipelineEngine "
+        f"gap {sp['m']['loss_gap']:.3g} in {sp['m']['s']:.2f} s")
     ma, mb, mc = moe["a"], moe["b"], moe["c"]
     log(f"[moe] MISTRAL_7B widths, {MOE_LAYERS} layers, {MOE_EXPERTS} "
         f"experts: prefill | decode tokens/s top-2 bf16 "
@@ -9569,6 +9883,9 @@ def main(argv=None):
                       ("flash_dkv", "dkv")):
         by_path[name]["moe"] = moe_flash[key]
         by_path[name]["moe expert-parallel"] = dist["moe"]["launches"][key]
+        # a rank's (j) Ulysses and (l) pipe runs, each counted from 0
+        by_path[name]["sequence"] = r0["j"]["launches"]["flash"][key]
+        by_path[name]["pipe"] = r0["l"]["launches"]["flash"][key]
     by_path["paged_attention"] = {
         "main": launches["paged_attention"],
         "moe": ma["launches"]["paged_attention"],

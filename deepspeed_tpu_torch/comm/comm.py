@@ -563,6 +563,7 @@ def broadcast(tensor, src: int = 0, group: Group = None):
     return tensor
 
 
+@_timed("ppermute")
 def ppermute(tensor, perm, group: Group = None):
     """Each ``(src, dst)`` pair of group indices moves ``src``'s tensor to
     ``dst``; returns what this rank receives (zeros when it receives

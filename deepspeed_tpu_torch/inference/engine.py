@@ -61,7 +61,8 @@ from ..models.convert import (is_hf_checkpoint, load_hf_checkpoint,
                               model_from_checkpoint)
 from ..models.weights import params_from_numpy
 from ..parallel import topology as topo
-from ..parallel.sharding import ZeroShardingPlan, place_blocks
+from ..parallel.sharding import (SERVING_RULES, ZeroShardingPlan,
+                                 place_blocks)
 from ..utils.logging import logger
 from .config import InferenceConfig
 from .quantization import (QuantTensor, _leaves, quantize_param_blocks,
@@ -181,8 +182,8 @@ class InferenceEngine:
                                  "and set quant.enabled")
             params = params_from_numpy(params, "cpu")
         if self.tp > 1 and not placed:
-            specs = ZeroShardingPlan(self.topology, 0,
-                                     model.param_specs()).params(params)
+            specs = ZeroShardingPlan(self.topology, 0, model.param_specs(),
+                                     rules=SERVING_RULES).params(params)
             rank = torch.distributed.get_rank()
             if self.config.quant.enabled:
                 params = quantize_param_blocks(
@@ -215,7 +216,7 @@ class InferenceEngine:
         return load_hf_checkpoint(ckpt, model=model, param_dtype=dtype,
                                   device=self.device, topology=self.topology,
                                   rank=torch.distributed.get_rank(),
-                                  cut=cut)[1]
+                                  cut=cut, rules=SERVING_RULES)[1]
 
     def _load_universal(self, model, ckpt: str, device):
         """fp32 params (as the JAX engine keeps them) from a universal

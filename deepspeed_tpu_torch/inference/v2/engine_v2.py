@@ -49,7 +49,8 @@ from ...models.convert import (load_hf_checkpoint, model_from_checkpoint,
                                param_shapes)
 from ...models.transformer import CausalLM
 from ...parallel import topology as topo
-from ...parallel.sharding import ZeroShardingPlan, place_blocks
+from ...parallel.sharding import (SERVING_RULES, ZeroShardingPlan,
+                                  place_blocks)
 from .kv_quant import validate_kv_quant
 from .paged_model import PagedCausalLM
 from .ragged import DSStateManager, RaggedBatchWrapper
@@ -160,7 +161,7 @@ class InferenceEngineV2:
             # each leaf read straight onto the device at the model's compute
             # dtype; under tensor parallelism a rank reads only its blocks
             tp_kw = {} if self.tp == 1 else {
-                "topology": self.topology,
+                "topology": self.topology, "rules": SERVING_RULES,
                 "rank": torch.distributed.get_rank()}
             _, params = load_hf_checkpoint(checkpoint_path, model=model,
                                            device=self.device, **tp_kw)
@@ -174,7 +175,8 @@ class InferenceEngineV2:
         if self.tp > 1 and not from_ckpt:
             params = place_blocks(
                 params, ZeroShardingPlan(self.topology, 0,
-                                         model.param_specs()).params(params),
+                                         model.param_specs(),
+                                         rules=SERVING_RULES).params(params),
                 self.topology, torch.distributed.get_rank(), self.device)
         else:
             params = _to_device(params, self.device)

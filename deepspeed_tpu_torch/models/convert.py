@@ -1483,7 +1483,8 @@ def load_hf_checkpoint(path: str, model=None, param_dtype=None,
                        model_type: Optional[str] = None, device=None,
                        topology=None, rank: Optional[int] = None,
                        cut: Optional[Callable] = None,
-                       reader: Optional[CheckpointReader] = None):
+                       reader: Optional[CheckpointReader] = None,
+                       rules=None):
     """Load an HF-format checkpoint directory -> ``(model, params)``.
 
     - ``model`` None: built from the directory's ``config.json``.
@@ -1504,6 +1505,9 @@ def load_hf_checkpoint(path: str, model=None, param_dtype=None,
     - ``reader``: an opened :class:`CheckpointReader` of ``path`` (its
       ``bytes_read`` then tells what the load read); default
       ``open_checkpoint(path)``.
+    - ``rules``: the logical-axis rules of that layout (default
+      ``parallel/sharding.DEFAULT_RULES``; the serving engines pass
+      ``SERVING_RULES``, which keep every layer on every rank).
     """
     hf_cfg = _read_hf_config(path)
     model_type = model_type or hf_cfg.get("model_type")
@@ -1530,8 +1534,8 @@ def load_hf_checkpoint(path: str, model=None, param_dtype=None,
 
     specs = None
     if topology is not None:
-        specs = dict(_flat(ZeroShardingPlan(topology, 0, model.param_specs())
-                           .params(shapes)))
+        specs = dict(_flat(ZeroShardingPlan(topology, 0, model.param_specs(),
+                                            rules=rules).params(shapes)))
         if rank is None:
             rank = torch.distributed.get_rank()
     own_reader = reader is None

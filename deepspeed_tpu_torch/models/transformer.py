@@ -43,6 +43,13 @@ group (``data`` x ``fsdp``) of ``dp`` ranks, each holding some rows of one
 global batch, with the global batch's capacity and statistics. MoE over a
 ``tensor`` axis is refused (ROADMAP queue 1 item 14d-ii).
 
+Sequence and pipeline parallelism (``CausalLM(cfg, sp=..., pp=...)``, set
+by the training engine): over a ``sequence`` group each rank gets the
+whole rows and runs its T/sp slice, attention joining the slices through
+Ulysses' all-to-alls or ring attention (``sequence/``); over a ``pipe``
+group each rank holds its stage's L/pp layers and ``apply`` runs them as a
+GPipe pipeline (``parallel/pipeline.py``).
+
 A param leaf may be a ``inference/quantization.QuantTensor`` (ZeRO-Inference
 weight-only quantization). The model reaches one in three ways only:
 ``_weight(w, dtype)`` dequantizes a whole leaf (linear weights and biases,
@@ -68,9 +75,13 @@ from ..moe.grouped import dropless_moe_mlp, dropless_moe_mlp_ep
 from ..moe.sharded_moe import (expert_mlp, gumbel, moe_dispatch_combine,
                                top1gating, top2gating)
 from ..ops.quantizer import quantized_matmul
+from ..parallel.pipeline import spmd_pipeline, sum_over
 from ..parallel.tensor_parallel import (copy_to_tensor_region,
                                         reduce_from_tensor_region)
-from ..parallel.topology import BATCH_AXES, EXPERT_AXIS, TENSOR_AXIS
+from ..parallel.topology import (BATCH_AXES, EXPERT_AXIS, PIPE_AXIS,
+                                 SEQUENCE_AXIS, TENSOR_AXIS)
+from ..sequence.layer import ulysses_attention
+from ..sequence.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,9 +433,6 @@ def _local_attention(q, k, v, cfg: "TransformerConfig", causal=True,
     if cfg.attention_impl == "sparse":
         raise not_ported("attention_impl='sparse' (ops/sparse_attention.py)",
                          "queue 1 item 17")
-    if cfg.attention_impl == "ring":
-        raise not_ported("attention_impl='ring' (sequence/ring_attention.py)",
-                         "queue 1 item 14")
     if cfg.use_flash_attention and cfg.attention_impl != "reference" \
             and q.shape[1] == k.shape[1]:
         return flash_attention(q, k, v, causal=causal,
@@ -436,14 +444,23 @@ def _local_attention(q, k, v, cfg: "TransformerConfig", causal=True,
 
 
 def _attention(q, k, v, cfg: "TransformerConfig", causal=True, window=0,
-               slopes=None):
-    """Dispatch by configuration, as the JAX ``_attention`` (:458) on one
-    device: ALiBi models take the plain attention with the slopes·position
-    bias (no kernel takes a bias there either, and the window is not passed,
-    as at :480); everything else is ``_local_attention``. ``slopes``: the
-    ALiBi slopes of ``q``'s heads (default: every head's). The
-    sequence-mesh paths (Ulysses, ring) come with a later slice."""
+               slopes=None, sp: int = 1):
+    """Dispatch by configuration, as the JAX ``_attention`` (:458): ALiBi
+    models take the plain attention with the slopes·position bias (no
+    kernel takes a bias there either, and the window is not passed, as at
+    :480); on one rank of the ``sequence`` axis (``sp`` 1) everything else
+    is ``_local_attention``. Over ``sp`` > 1 ranks q/k/v are this rank's
+    sequence shard: ``attention_impl="ring"`` runs ring attention
+    (``sequence/ring_attention.py``), anything else Ulysses
+    (``sequence/layer.py``) around ``_local_attention``, the flash kernels
+    on the card. ``slopes``: the ALiBi slopes of ``q``'s heads (default:
+    every head's)."""
     if cfg.position == "alibi":
+        if sp > 1:
+            raise NotImplementedError(
+                "ALiBi models do not support sequence parallelism yet: the "
+                "ring/Ulysses paths carry no logit bias; run BLOOM-family "
+                "models without a sequence mesh axis")
         if cfg.attention_impl == "sparse":
             raise NotImplementedError(
                 "attention_impl='sparse' does not support ALiBi models yet "
@@ -454,7 +471,22 @@ def _attention(q, k, v, cfg: "TransformerConfig", causal=True, window=0,
         bias = slopes[:, None] * torch.arange(S, device=q.device)[None, :]
         return attention_reference(q, k, v, causal=causal, bias=bias,
                                    scale=cfg.attn_scale)
-    return _local_attention(q, k, v, cfg, causal, window=window)
+    if sp <= 1:
+        return _local_attention(q, k, v, cfg, causal, window=window)
+    if cfg.attention_impl == "sparse":
+        raise NotImplementedError(
+            "attention_impl='sparse' does not compose with the sequence "
+            "mesh axis yet: the block-sparse layout is built for full "
+            "sequences/heads, not the Ulysses/ring shards")
+    if cfg.attention_impl == "ring":
+        if cfg.attn_scale is not None:
+            raise NotImplementedError(
+                "attn_scale does not compose with ring attention yet")
+        return ring_attention(q, k, v, causal=causal,
+                              axis_name=SEQUENCE_AXIS, window=window)
+    # Ulysses: all-to-all heads <-> sequence around dense local attention
+    return ulysses_attention(_local_attention, q, k, v, cfg=cfg,
+                             causal=causal, window=window)
 
 
 _ACTIVATIONS: Dict[str, Callable] = {
@@ -478,7 +510,7 @@ class CausalLM:
     """
 
     def __init__(self, cfg: TransformerConfig, tp: int = 1, ep: int = 1,
-                 dp: int = 1):
+                 dp: int = 1, sp: int = 1, pp: int = 1):
         self.cfg = cfg
         # ZeRO-3 / ZeRO++ hooks (parallel/zeropp.py, set by the training
         # engine): the explicit gather of sharded weights. layer_ runs on
@@ -512,16 +544,48 @@ class CausalLM:
         # the batch group whose ranks hold the rows of one global batch:
         # routing statistics and capacity are the global batch's
         self.batch_group = BATCH_AXES if E > 0 and self.dp > 1 else None
+        # sequence parallelism: this rank embeds and runs its T/sp slice of
+        # every row (Ulysses or ring attention join the slices)
+        self.sp = int(sp)
+        if self.sp > 1 and E > 0:
+            raise not_ported("MoE over a sequence axis (routing statistics "
+                             "over the sequence shards)",
+                             "queue 1 item 14d-ii")
+        self.seq_rank = comm.axis_index(SEQUENCE_AXIS) if self.sp > 1 else 0
+        # pipeline parallelism: this rank holds and runs the stacked
+        # layers' contiguous L/pp block (parallel/pipeline.py)
+        self.pp = int(pp)
+        if self.pp > 1 and cfg.num_layers % self.pp:
+            raise ValueError(f"{cfg.num_layers} layers do not divide over "
+                             f"{self.pp} pipeline stages")
+        self.pipe_rank = comm.axis_index(PIPE_AXIS) if self.pp > 1 else 0
+
+    def _axes(self, **over) -> "CausalLM":
+        """This model's config over other axis sizes (a new model; hooks are
+        not carried over)."""
+        kw = dict(tp=self.tp, ep=self.moe_ep, dp=self.dp, sp=self.sp,
+                  pp=self.pp)
+        kw.update(over)
+        return type(self)(self.cfg, **kw)
 
     def tensor_parallel(self, tp: int) -> "CausalLM":
-        """This model's config over ``tp`` ranks of the ``tensor`` axis (a
-        new model; hooks are not carried over)."""
-        return type(self)(self.cfg, tp=tp, ep=self.moe_ep, dp=self.dp)
+        """This model's config over ``tp`` ranks of the ``tensor`` axis."""
+        return self._axes(tp=tp)
 
     def expert_parallel(self, ep: int, dp: int = 1) -> "CausalLM":
         """This model over an ``expert`` group of ``ep`` ranks and a batch
-        group of ``dp`` ranks (a new model; hooks are not carried over)."""
-        return type(self)(self.cfg, tp=self.tp, ep=ep, dp=dp)
+        group of ``dp`` ranks."""
+        return self._axes(ep=ep, dp=dp)
+
+    def sequence_parallel(self, sp: int) -> "CausalLM":
+        """This model over ``sp`` ranks of the ``sequence`` axis: each rank
+        gets the whole rows and runs its T/sp slice."""
+        return self._axes(sp=sp)
+
+    def pipeline_parallel(self, pp: int) -> "CausalLM":
+        """This model over ``pp`` stages of the ``pipe`` axis: each rank
+        holds its L/pp layers' blocks of the stacked leaves."""
+        return self._axes(pp=pp)
 
     def head_slopes(self, device=None) -> torch.Tensor:
         """The ALiBi slopes of this rank's query heads (the JAX
@@ -661,7 +725,7 @@ class CausalLM:
         slopes = (self.head_slopes(x.device) if cfg.position == "alibi"
                   else None)
         attn = _attention(q, k, v, cfg, causal=True, window=window,
-                          slopes=slopes)
+                          slopes=slopes, sp=self.sp)
         attn = self._row_linear(attn.reshape(B, T, -1), lp["wo"],
                                 lp.get("wo_b"), cfg.dtype, self.tp)
         x, aux = self._attn_mlp_merge(x, attn, lp, h1, noise)
@@ -680,17 +744,35 @@ class CausalLM:
         ``cfg.remat_policy``: ``None`` and ``"nothing_saveable"`` recompute
         the whole block, ``"dots_saveable"`` keeps the matrix products'
         outputs (``runtime/activation_checkpointing.py``); another name
-        raises ``ValueError``. Differentiable in the param tree's leaves."""
+        raises ``ValueError``. Differentiable in the param tree's leaves.
+
+        Over ``sp`` > 1 sequence ranks, ``tokens`` (and ``positions``) are
+        the whole rows on every rank: the rank embeds its T/sp slice at its
+        global positions and returns that slice's logits [B, T/sp, V].
+        Over ``pp`` > 1 pipeline stages, ``params["layers"]`` is this
+        stage's L/pp block; the blocks run as a GPipe pipeline of
+        ``cfg.pipeline_microbatches`` (default ``pp``) micro-batches
+        (``parallel/pipeline.py``) and every stage returns the whole
+        logits. A stage other than the last reads the final norm and the
+        unembedding without their gradient, so each pipe-replicated leaf's
+        gradient, summed over the stages, is the whole model's once."""
         cfg = self.cfg
         if cfg.dropout > 0 and not deterministic:
             raise not_ported("dropout in CausalLM.apply (the masks would "
                              "have to equal jax.random's)",
                              "queue 1 item 17")
-        if cfg.pipeline_microbatches:
-            raise not_ported("pipeline parallelism (with or without MoE)",
-                             "queue 1 item 14e")
         B, T = tokens.shape
         dev = tokens.device
+        if self.sp > 1:
+            # this rank's slice of the sequence, at its global positions
+            if T % self.sp:
+                raise ValueError(f"sequence length {T} does not divide over "
+                                 f"{self.sp} sequence ranks")
+            T //= self.sp
+            lo = self.seq_rank * T
+            tokens = tokens[:, lo:lo + T]
+            positions = (torch.arange(lo, lo + T, device=dev)
+                         if positions is None else positions[..., lo:lo + T])
         if self.global_transform is not None:
             # gather the non-stacked weights once a forward (ZeRO-3)
             flat = {f"{grp}.{k}": v
@@ -729,25 +811,39 @@ class CausalLM:
                and not cfg.moe_dropless else None)
         auxs = []
 
+        def run_block(x, lp, window):
+            """One block on ``x`` [b, t, H]: (x, its MLP's aux loss)."""
+            if self.layer_transform is not None:
+                lp = self.layer_transform(lp)
+            noise = None if gen is None else gumbel(
+                (x.shape[0] * x.shape[1], cfg.moe_num_experts), gen, dev)
+            if remat_kw is not None and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+
+                return checkpoint(self._block, x, lp, cos, sin, window,
+                                  noise, **remat_kw)
+            return self._block(x, lp, cos, sin, window, noise)
+
         def block_for(window):
             def block(x, lp, layer):
-                if self.layer_transform is not None:
-                    lp = self.layer_transform(lp)
-                noise = None if gen is None else gumbel(
-                    (B * T, cfg.moe_num_experts), gen, dev)
-                if remat_kw is not None and torch.is_grad_enabled():
-                    from torch.utils.checkpoint import checkpoint
-
-                    x, aux = checkpoint(self._block, x, lp, cos, sin,
-                                        window, noise, **remat_kw)
-                else:
-                    x, aux = self._block(x, lp, cos, sin, window, noise)
+                x, aux = run_block(x, lp, window)
                 if aux is not None:
                     auxs.append(aux)
                 return x
             return block
 
-        x = self._scan_layers(block_for, x, params["layers"])
+        if self.pp > 1:
+            x, aux = self._pipeline(run_block, x, params["layers"])
+            auxs = [aux]
+            if self.pipe_rank != self.pp - 1:
+                # the head's gradient arises on the last stage alone
+                params = {g: ({k: w.detach() for k, w in v.items()}
+                              if g in ("final_norm", "lm_head")
+                              or (g == "embed" and cfg.tie_embeddings)
+                              else v)
+                          for g, v in params.items()}
+        else:
+            x = self._scan_layers(block_for, x, params["layers"])
         x = _norm(x, params["final_norm"]["w"], params["final_norm"].get("b"),
                   cfg.norm, cfg.norm_eps)
         logits = self._unembed(params, x)
@@ -756,6 +852,39 @@ class CausalLM:
                    else torch.zeros((), dtype=torch.float32, device=dev))
             return logits, aux
         return logits
+
+    def _pipeline(self, run_block, x, layer_params):
+        """This stage's layer block as a GPipe pipeline over the ``pipe``
+        axis (the JAX ``apply``'s pipe branch, :859-887): (the last stage's
+        output on every stage, the aux losses summed over layers and stages
+        and averaged over micro-batches). One window for every layer, as
+        the JAX pipe loop compiles one body."""
+        segs = self.cfg.window_segments()
+        if len(segs) > 1:
+            raise NotImplementedError(
+                "per-layer sliding windows do not compose with "
+                "pipeline parallelism: the pipe loop runs ONE compiled "
+                "block body over the layer-sharded stack; a mixed "
+                "window schedule needs one body per window run")
+        if self.cfg.moe_dropless and self.moe_ep > 1:
+            # refused before the first tick, so that no rank waits on a
+            # permutation another rank never makes
+            raise NotImplementedError(
+                "dropless MoE + expert parallelism does not "
+                "compose with pipeline parallelism: the pipe loop "
+                "already runs inside shard_map and cannot nest "
+                "the expert-axis shard_map; use the capacity path")
+        window = segs[0][2]
+        pieces = self._layer_slicers(layer_params)
+
+        def layer_fn(carry, i, micro_idx):
+            return run_block(carry, {k: piece(i) for k, piece in
+                                     pieces.items()}, window)
+
+        n_local = self.cfg.num_layers // self.pp
+        num_micro = self.cfg.pipeline_microbatches or self.pp
+        return spmd_pipeline(layer_fn, range(n_local), x, num_micro,
+                             axis_name=PIPE_AXIS)
 
     # -- sharding specs -----------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -830,7 +959,13 @@ class CausalLM:
     def loss(self, params, batch, rng=None):
         """batch: {"input_ids": [B,T]} (labels = shifted inputs) or
         {"input_ids", "labels"(, "loss_mask")}. Returns the mean token NLL
-        (fp32 scalar)."""
+        (fp32 scalar).
+
+        Over ``sp`` > 1 sequence ranks the labels are shifted on the whole
+        row before each rank takes its slice, and the token count is the
+        whole batch's: every rank returns the global mean, and its gradient
+        is its own tokens' share (the sum over the ranks is the whole
+        gradient)."""
         tokens = batch["input_ids"]
         labels = batch.get("labels")
         if labels is None:
@@ -840,10 +975,26 @@ class CausalLM:
         logits, aux = self.apply(params, tokens, rng=rng,
                                  deterministic=rng is None, return_aux=True)
         logits = logits.float()
+        if self.sp > 1:
+            n = logits.shape[1]
+            lo = self.seq_rank * n
+            labels = labels[:, lo:lo + n]
+            if mask is not None:
+                # every rank holds the whole rows' mask
+                total = torch.sum(mask.to(logits.dtype))
+                mask = mask[:, lo:lo + n]
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = logz - gold
-        if mask is not None:
+        if self.sp > 1:
+            if mask is None:
+                total = float(nll.numel() * self.sp)
+            else:
+                nll = nll * mask.to(nll.dtype)
+            loss = sum_over(torch.sum(nll), SEQUENCE_AXIS) \
+                / torch.clamp(torch.as_tensor(total, device=nll.device),
+                              min=1)
+        elif mask is not None:
             mask = mask.to(nll.dtype)
             loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
         else:
@@ -926,6 +1077,16 @@ class CausalLM:
         ``stack`` instead of one full-size scatter per layer; inside
         :func:`layer_grads_in_place` a leaf with an accumulator is sliced
         through :class:`_GradIntoSlice` instead."""
+        layers = self._layer_slicers(layer_params)
+        for i, win in enumerate(self.cfg.layer_windows()):
+            lp = {k: piece(i) for k, piece in layers.items()}
+            carry = body_for_window(win)(carry, lp, i)
+        return carry
+
+    @staticmethod
+    def _layer_slicers(layer_params):
+        """For each stacked leaf, a function of ``i`` giving layer ``i``'s
+        piece (see :meth:`_scan_layers`)."""
         in_place = getattr(_IN_PLACE, "on", False) and torch.is_grad_enabled()
 
         def slicer(v):
@@ -941,11 +1102,7 @@ class CausalLM:
                 return lambda i: _GradIntoSlice.apply(v, i)
             return v.unbind(0).__getitem__
 
-        layers = {k: slicer(v) for k, v in layer_params.items()}
-        for i, win in enumerate(self.cfg.layer_windows()):
-            lp = {k: piece(i) for k, piece in layers.items()}
-            carry = body_for_window(win)(carry, lp, i)
-        return carry
+        return {k: slicer(v) for k, v in layer_params.items()}
 
     def _unembed(self, params, x):
         cfg = self.cfg

@@ -42,6 +42,13 @@ DEFAULT_RULES: Dict[str, Optional[str]] = {
 }
 
 
+# A serving engine runs every layer of every row on each rank of a pipe or
+# sequence axis (the JAX serving engines do nothing axis-specific there):
+# it cuts its blocks over the other axes only
+SERVING_RULES: Dict[str, Optional[str]] = dict(DEFAULT_RULES, layers=None,
+                                               seq=None)
+
+
 class ParamSpec(tuple):
     """A tuple of logical axis names (or None) — one per array dim."""
     __slots__ = ()

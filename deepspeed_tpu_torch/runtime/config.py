@@ -447,9 +447,10 @@ class DeepSpeedTpuConfig(DSConfigModel):
     def raise_if_not_ported(self, mesh: bool = False) -> None:
         """Raise ``NotImplementedError`` for the first block that is switched
         on and whose feature the port does not run yet. ZeRO stages 1-3 and
-        the offload blocks pass. With ``mesh`` (the training engine) a
-        ``data``/``fsdp``/``tensor`` mesh, MiCS, hpZ, ZeRO++ and the comms
-        logger pass too; the other engines keep refusing them."""
+        the offload blocks pass, and so does the ``pipeline`` block. With
+        ``mesh`` (the training engine) a mesh of any axes, MiCS, hpZ,
+        ZeRO++ and the comms logger pass too; the other engines keep
+        refusing them."""
         z = self.zero_optimization
         m = self.mesh
         # declared and never read by the JAX package: refused, not ignored
@@ -470,8 +471,8 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_weights or z.zero_quantized_gradients,
              "zero_optimization.zero_quantized_weights/gradients (ZeRO++)",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1
-                 for a in ("data", "fsdp", "tensor", "expert")),
+            (any(getattr(m, a) > 1 for a in ("data", "fsdp", "tensor",
+                                              "expert", "pipe", "sequence")),
              "a mesh with more than one device", "queue 1 item 14"),
             (self.comms_logger.enabled, "comms_logger", "queue 1 item 14"),
         ]
@@ -479,12 +480,6 @@ class DeepSpeedTpuConfig(DSConfigModel):
             (z.zero_quantized_nontrainable_weights,
              "zero_optimization.zero_quantized_nontrainable_weights",
              "queue 1 item 14"),
-            (any(getattr(m, a) > 1 for a in ("pipe", "sequence")),
-             "a pipe or sequence mesh axis (with or without MoE)",
-             "queue 1 item 14e"),
-            (self.pipeline.stages > 1 or bool(self.pipeline.micro_batches),
-             "pipeline parallelism (with or without MoE)",
-             "queue 1 item 14e"),
             (self.tensorboard.enabled or self.wandb.enabled
              or self.csv_monitor.enabled,
              "monitors (tensorboard, wandb, csv_monitor)", "queue 1 item 17"),

@@ -85,8 +85,19 @@ dp=...)``) sums each layer's partial MoE output over the group. Expert
 gradients reduce over the batch axes only. A MoE model over ``data`` x
 ``fsdp`` routes over the global batch, as the JAX engine does.
 
+A ``sequence`` axis (Ulysses or ring attention, ``attention_impl``):
+the ranks of one sequence group read the same rows, each runs its T/P
+slice (``CausalLM(cfg, sp=...)``), and each rank's loss is the group's
+global mean. A ``pipe`` axis: each rank holds its L/P layers (the plan
+maps the stacked ``layers`` dim to ``pipe``) and the ranks of one pipe
+group read the same micro batch, which the model runs as a GPipe pipeline
+of ``pipeline.micro_batches`` micro-batches (``CausalLM(cfg, pp=...)``,
+``parallel/pipeline.py``). Gradients of blocks not sharded over them are
+summed over both axes (``SUM_AXES``), and averaged over the data-parallel
+ranks only.
+
 ZeRO stages on a one-rank world shard nothing, as in the JAX package.
-Pipeline and sequence axes, MoE over a tensor axis, 1-bit optimizers,
+MoE over a tensor axis, 1-bit optimizers,
 offload on a mesh, curriculum, compression, elasticity, monitors and the flops profiler
 raise ``NotImplementedError`` naming their ROADMAP item.
 ZeRO-Infinity's parameter streaming is its own engine
@@ -126,6 +137,13 @@ from .zero_offload import OffloadOptimizerPlan
 # the largest piece of a leaf that the gradient norm squares at once and
 # that one offload staging buffer holds (256 MB of fp32)
 PIECE_ELEMS = 1 << 26
+
+# the axes a gradient block not sharded over them is summed over: the
+# data-parallel replicas (whose mean the update takes), the sequence ranks
+# (each holds its tokens' share of the gradient of one loss) and the pipe
+# stages (a pipe-replicated leaf's gradient arises on stage 0, the
+# embedding, or on the last stage, the head; the model sees to that)
+SUM_AXES = topo.GRAD_REDUCE_AXES + (topo.SEQUENCE_AXIS, topo.PIPE_AXIS)
 
 
 class ScaleState(NamedTuple):
@@ -306,10 +324,6 @@ class DeepSpeedTpuEngine:
         group's world (the registry is not consulted: a config's mesh is
         always its own). MiCS then reshapes it as the JAX engine does."""
         t = topo.mesh_topology(self.config.mesh if mesh is None else mesh)
-        for a in (topo.PIPE_AXIS, topo.SEQUENCE_AXIS):
-            if t.axis_size(a) > 1:
-                raise not_ported(f"a mesh with {a} > 1 (with or without "
-                                 "MoE)", "queue 1 item 14e")
         zc = self.config.zero_optimization
         if zc.mics_shard_size and zc.mics_shard_size > 0:
             k = int(zc.mics_shard_size)
@@ -352,13 +366,19 @@ class DeepSpeedTpuEngine:
             torch.cuda.synchronize(self.device)
 
     def _model_dtype_override(self):
-        """Push the engine's precision into the model config when the model
-        is a framework CausalLM."""
+        """Push the engine's precision and ``pipeline.micro_batches`` into
+        the model config when the model is a framework CausalLM."""
         if not isinstance(self.module, CausalLM):
             return
+        over = {}
         if self.module.cfg.dtype != self.compute_dtype:
-            self.module = CausalLM(dataclasses.replace(
-                self.module.cfg, dtype=self.compute_dtype))
+            over["dtype"] = self.compute_dtype
+        pmb = self.config.pipeline.micro_batches
+        if pmb and self.module.cfg.pipeline_microbatches != pmb:
+            over["pipeline_microbatches"] = pmb
+        if over:
+            self.module = CausalLM(dataclasses.replace(self.module.cfg,
+                                                       **over))
 
     def _scalar(self, value, dtype):
         return torch.tensor(value, dtype=dtype, device=self.device)
@@ -393,6 +413,17 @@ class DeepSpeedTpuEngine:
             # global batch of the data-parallel ranks
             self.module = self.module.expert_parallel(self.ep,
                                                       self.dp_world_size)
+        sp = self.topology.axis_size(topo.SEQUENCE_AXIS)
+        pp = self.topology.axis_size(topo.PIPE_AXIS)
+        if sp > 1 or pp > 1:
+            if not isinstance(self.module, CausalLM):
+                raise ValueError("a sequence or pipe axis needs a framework "
+                                 "CausalLM (its sequence slices and "
+                                 "pipeline stages)")
+            # the sequence ranks run their slices of the same rows; the
+            # pipe ranks their layer blocks of the same micro batch
+            self.module = self.module.sequence_parallel(sp) \
+                .pipeline_parallel(pp)
         self._scattered = set()
         if self._mesh:
             return self._init_mesh_state(model_parameters)
@@ -527,7 +558,7 @@ class DeepSpeedTpuEngine:
         layer_specs, l_dtypes = {}, {}
         fp32 = self.module.fp32_layer_leaves()
         for k, spec in self._p_specs["layers"].items():
-            if spec and entry_axes(spec[0]):
+            if spec and set(entry_axes(spec[0])) - {topo.PIPE_AXIS}:
                 raise not_ported(f"a stage-3 plan that shards the stacked "
                                  f"layer dim of layers.{k}", "queue 1 item 14")
             layer_specs[k] = spec[1:]
@@ -666,7 +697,7 @@ class DeepSpeedTpuEngine:
         for path, acc in _paths(state.grad_acc):
             gs = _at(self._g_specs, path)
             sharded = {a for e in gs for a in entry_axes(e)}
-            rest = tuple(a for a in topo.GRAD_REDUCE_AXES
+            rest = tuple(a for a in SUM_AXES
                          if t.axis_size(a) > 1 and a not in sharded)
             if rest:
                 dist.all_reduce(acc, dist.ReduceOp.SUM, rest)

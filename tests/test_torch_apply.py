@@ -167,10 +167,18 @@ def test_bf16_compute_gives_fp32_gradients_on_fp32_leaves():
 
 
 def test_not_ported_attention_choices_raise():
-    for impl, match in (("sparse", "sparse"), ("ring", "ring")):
-        _, _, tm, tp = _models("tiny", attention_impl=impl)
-        with pytest.raises(NotImplementedError, match=match):
-            tm.apply(tp, torch.from_numpy(_tokens()))
+    """``sparse`` raises (item 17). ``ring`` raised until the sequence axis
+    was ported (item 14e): on one device it is the dense local attention,
+    as in the JAX ``_attention``, so it gives the JAX logits (ring over a
+    sequence axis: tests/test_torch_sequence.py)."""
+    _, _, tm, tp = _models("tiny", attention_impl="sparse")
+    with pytest.raises(NotImplementedError, match="sparse"):
+        tm.apply(tp, torch.from_numpy(_tokens()))
+    jm, jp, tm, tp = _models("tiny", attention_impl="ring")
+    with torch.no_grad():
+        got = tm.apply(tp, torch.from_numpy(_tokens()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+        jp, jnp.asarray(_tokens()))), atol=1e-4, rtol=1e-4)
     _, _, tm, tp = _models("tiny", dropout=0.1)
     with pytest.raises(NotImplementedError, match="dropout"):
         tm.loss(tp, {"input_ids": torch.from_numpy(_tokens())}, rng=1)

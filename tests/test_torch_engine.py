@@ -169,8 +169,10 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngineV2(ttf.CausalLM(ttf.TINY_TEST), device="cpu",
                           mesh=object())
-    # MoE runs (tests/test_torch_moe.py); MoE over a tensor axis and the
-    # pipeline still raise, naming their items
+    # MoE runs (tests/test_torch_moe.py); MoE over a tensor axis still
+    # raises, naming its item; pipeline_microbatches, which raised naming
+    # item 14e, now runs: without a pipe axis it is ignored, as in the JAX
+    # apply (pipelined MoE: tests/test_torch_pipeline.py)
     cfg = dataclasses.replace(ttf.TINY_TEST, moe_num_experts=2)
     moe = ttf.CausalLM(cfg)
     params = moe.init(device="cpu")
@@ -179,6 +181,7 @@ def test_unported_model_paths_raise():
     assert logits.shape == (1, 2, 256) and bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="item 14d-ii"):
         ttf.CausalLM(cfg, tp=2)
-    with pytest.raises(NotImplementedError, match="item 14e"):
-        ttf.CausalLM(dataclasses.replace(cfg, pipeline_microbatches=2)).apply(
-            params, torch.zeros((1, 2), dtype=torch.int64))
+    piped = ttf.CausalLM(dataclasses.replace(cfg, pipeline_microbatches=2))
+    assert torch.equal(piped.apply(params, torch.zeros((1, 2),
+                                                       dtype=torch.int64)),
+                       logits)

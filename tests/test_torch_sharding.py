@@ -172,22 +172,44 @@ def test_shard_spec_for_fallback_and_rules():
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"pipeline": {"stages": 2}}, "item 14e"),
-    ({"mesh": {"pipe": 2}}, "item 14e"),
-    ({"mesh": {"sequence": 2}}, "item 14e"),
-    ({"pipeline": {"micro_batches": 2}}, "item 14e"),
+    ({"pipeline": {"stages": 2}}, "builds"),
+    ({"mesh": {"pipe": 2}}, "ValueError as JAX"),
+    ({"mesh": {"sequence": 2}}, "ValueError as JAX"),
+    ({"pipeline": {"micro_batches": 2}}, "builds"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 14"),
     ({"sparse_gradients": True}, "queue 3"),
     ({"communication_data_type": "fp16"}, "queue 3")])
 def test_axes_beyond_the_spine_still_raise(block, item):
-    """Pipeline parallelism, the pipe and sequence axes and the 1-bit
-    optimizers raise naming item 14 (the tensor axis runs:
+    """The 1-bit optimizers raise naming item 14 (the tensor axis runs:
     ``test_torch_tensor_parallel.py``; the expert axis:
-    ``test_torch_zero.py``'s MoE cases); the two keys the JAX package
-    declares and never reads raise naming queue 3."""
+    ``test_torch_zero.py``'s MoE cases; the pipe and sequence axes:
+    ``test_torch_pipeline.py``, ``test_torch_sequence.py``); the two keys
+    the JAX package declares and never reads raise naming queue 3. The
+    item 14e blocks, which raised until the pipe and sequence axes were
+    ported, now build in a one-process world (a ``pipeline`` block), or
+    raise the JAX topology's own ``ValueError`` (a pipe or sequence axis of
+    2 over one device: no data axis can be inferred)."""
     import deepspeed_tpu_torch
+    from deepspeed_tpu.runtime.config import MeshConfig
 
-    with pytest.raises(NotImplementedError, match=item):
-        deepspeed_tpu_torch.initialize(
+    def build():
+        return deepspeed_tpu_torch.initialize(
             model=ttf.CausalLM(ttf.TINY_TEST), device="cpu",
             config={"train_batch_size": 2, **block})
+
+    if item == "builds":
+        engine = build()[0]
+        assert engine.module.pp == 1 and engine.module.sp == 1
+        assert engine.module.cfg.pipeline_microbatches == \
+            block["pipeline"].get("micro_batches", 0)
+        return
+    if item == "ValueError as JAX":
+        with pytest.raises(ValueError) as te:
+            build()
+        with pytest.raises(ValueError) as je:
+            jtopo.MeshTopology.build(MeshConfig(**block["mesh"]),
+                                     devices=jax.devices()[:1])
+        assert str(te.value) == str(je.value)
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        build()

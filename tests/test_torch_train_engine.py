@@ -352,7 +352,6 @@ def test_config_unknown_keys_none_and_types(tmp_path):
 
 
 NOT_PORTED = {
-    "pipeline": ({"pipeline": {"stages": 2}}, "item 14"),
     "onebit": ({"optimizer": {"type": "OneBitAdam", "params": {}}},
                "item 14"),
     "curriculum": ({"curriculum_learning": {"enabled": True}}, "item 17"),
@@ -409,6 +408,9 @@ PORTED_BLOCKS = {
 # offload was ported: on one device they now build and train
 NOW_RUN = {
     "zero-stage": {"zero_optimization": {"stage": 2}},
+    # raised naming item 14 until the pipeline was ported (item 14e): the
+    # JAX engine ignores pipeline.stages without a pipe axis
+    "pipeline": {"pipeline": {"stages": 2}},
     "offload-optimizer": {"zero_optimization": {
         "offload_optimizer": {"device": "cpu"}}},
     "offload-param": {"zero_optimization": {
@@ -438,15 +440,17 @@ def _now_runs(name, block, tmp_path):
         assert not all(np.array_equal(a, b) for a, b in zip(
             jax.tree.leaves(start),
             jax.tree.leaves(params_to_numpy(eng.state.params))))
-        if name == "zero-stage":
-            # ZeRO stage 2 on one device shards nothing: stage 0's bits
+        if name in ("zero-stage", "pipeline"):
+            # ZeRO stage 2 on one device shards nothing, and a pipeline
+            # block without a pipe axis runs no pipeline: stage 0's bits
             ref = _port_engine({**BASE, "train_batch_size": 2},
                                training_data=_data())
             assert losses == [float(ref.train_batch()) for _ in range(3)]
             assert all(torch.equal(a, b) for a, b in zip(
                 jax.tree.leaves(eng.state.params),
                 jax.tree.leaves(ref.state.params)))
-            assert eng.zero_optimization_stage() == 2
+            assert eng.zero_optimization_stage() == (
+                2 if name == "zero-stage" else 0)
         else:
             assert eng._offload_plan is not None
             assert eng._offload_plan.offloaded
@@ -519,18 +523,22 @@ def test_not_ported_engine_surfaces_raise(tmp_path):
     loss = eng_named.train_batch(iter([{"input_ids": torch.zeros(
         (2, 5), dtype=torch.int64)}]))
     assert bool(torch.isfinite(loss))
-    # MoE trains (tests/test_torch_moe.py); MoE with the pipeline and
-    # under ZeRO-Infinity streaming still raise, naming their items
+    # MoE trains (tests/test_torch_moe.py), with a pipeline block too (it
+    # raised naming item 14e until the pipeline was ported; pipelined MoE
+    # over a pipe axis: tests/test_torch_pipeline.py); MoE under
+    # ZeRO-Infinity streaming still raises, naming its item
     moe = ttf.CausalLM(dataclasses.replace(ttf.TINY_TEST, moe_num_experts=2))
     eng_moe, *_ = deepspeed_tpu_torch.initialize(
         model=moe, device="cpu", config={"train_batch_size": 2})
     loss = eng_moe.train_batch(iter([{"input_ids": torch.zeros(
         (2, 5), dtype=torch.int64)}]))
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="MoE.*item 14e"):
-        deepspeed_tpu_torch.initialize(
-            model=moe, device="cpu", config={"train_batch_size": 2,
-                                             "pipeline": {"stages": 2}})
+    eng_pipe, *_ = deepspeed_tpu_torch.initialize(
+        model=moe, device="cpu", config={"train_batch_size": 2,
+                                         "pipeline": {"stages": 2}})
+    loss = eng_pipe.train_batch(iter([{"input_ids": torch.zeros(
+        (2, 5), dtype=torch.int64)}]))
+    assert bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="MoE.*item 14d-ii"):
         deepspeed_tpu_torch.initialize(
             model=moe, device="cpu", config={
